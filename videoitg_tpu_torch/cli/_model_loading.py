@@ -1,0 +1,29 @@
+"""Model/tokenizer resolution for the port's CLIs (counterpart of
+videoitg_tpu/cli/_model_loading.py)."""
+
+from __future__ import annotations
+
+import sys
+
+import torch
+
+
+def load_grounding_components(model: str | None, preset_name: str, random_init: bool,
+                              dtype: torch.dtype, device: torch.device, seed: int = 0,
+                              tool: str = "videoitg-torch"):
+    """(model, cfg, tokenizer) for a random-init preset. HF checkpoints wait
+    until released weights are in the repository (ROADMAP queue 1)."""
+    from videoitg_tpu.config import preset as get_preset
+    from videoitg_tpu.utils.common import CharTokenizer
+    from videoitg_tpu_torch.models.grounding import init_grounding
+
+    if model:
+        raise SystemExit(
+            f"error: {tool}: --model (HF weights) is not ported yet; use --random-init")
+    if not random_init:
+        raise SystemExit(f"error: {tool}: pass --random-init (HF weights are not ported yet)")
+    cfg = get_preset(preset_name)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    params = init_grounding(cfg, generator, device=device, dtype=dtype)
+    print(f"[{tool}] WARNING: random weights — scores are noise", file=sys.stderr)
+    return params, cfg, CharTokenizer(cfg.lm.vocab_size)

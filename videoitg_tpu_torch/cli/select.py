@@ -1,0 +1,90 @@
+"""Single-video Top-K frame selection on the PyTorch port.
+
+Counterpart of videoitg_tpu/cli/select.py: sample frames with the infer-path
+rounding, score them against the prompt, print the Top-K original frame
+indices in ascending order (or the full results.jsonl-style record with
+--json).
+
+Example:
+  python -m videoitg_tpu_torch.cli.select --preset tiny --random-init \\
+      --video clip.mp4 --prompt "Which scene shows the rocket launch?" --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import torch
+
+_NOT_PORTED = {
+    "model": "--model (HF weights)",
+    "quantize": "--quantize",
+    "export_serving": "--export-serving",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("videoitg-torch-select", description=__doc__)
+    p.add_argument("--model", help="HF-format checkpoint directory (not ported yet)")
+    p.add_argument("--preset", default="videoitg-8b", help="model preset name")
+    p.add_argument("--random-init", action="store_true",
+                   help="random weights from --seed (no checkpoint needed)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--video", required=True)
+    p.add_argument("--prompt", required=True)
+    p.add_argument("--topk", type=int, default=32)
+    p.add_argument("--num-frames", type=int, default=512)
+    p.add_argument("--target-fps", type=float, default=2.0)
+    p.add_argument("--sampling", choices=["infer", "eval"], default="infer")
+    p.add_argument("--json", action="store_true",
+                   help="print the full results.jsonl-style record")
+    p.add_argument("--device", default=None, choices=[None, "cuda", "cpu"],
+                   help="default: cuda when available")
+    p.add_argument("--dtype", default=None, choices=[None, "bfloat16", "float32"],
+                   help="default: bfloat16 on cuda, float32 on cpu")
+    p.add_argument("--quantize", default=None, help="not ported yet")
+    p.add_argument("--export-serving", metavar="DIR", help="not ported yet")
+    p.add_argument("--transfer", default="rgb", choices=["rgb", "yuv420"],
+                   help="yuv420 is not ported yet")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    for key, flag in _NOT_PORTED.items():
+        if getattr(args, key):
+            print(f"error: {flag} is not ported to PyTorch yet (ROADMAP queue 1)",
+                  file=sys.stderr)
+            return 2
+    if args.transfer != "rgb":
+        print("error: --transfer yuv420 is not ported to PyTorch yet (ROADMAP queue 1)",
+              file=sys.stderr)
+        return 2
+    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
+        args.dtype or ("bfloat16" if device.type == "cuda" else "float32")]
+
+    from videoitg_tpu_torch.cli._model_loading import load_grounding_components
+    from videoitg_tpu_torch.engine import SelectionEngine
+
+    try:
+        params, cfg, tokenizer = load_grounding_components(
+            args.model, args.preset, args.random_init, dtype, device, seed=args.seed,
+            tool="videoitg-torch-select")
+    except SystemExit as e:
+        print(e, file=sys.stderr)
+        return 2
+    engine = SelectionEngine(params, cfg, tokenizer, device=device, dtype=dtype,
+                             num_frames=args.num_frames, target_fps=args.target_fps)
+    result = engine.select_from_file(args.video, args.prompt, sampling=args.sampling)
+    if args.json:
+        print(json.dumps(result.to_reference_json(), ensure_ascii=False))
+    else:
+        print(result.topk(args.topk))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,275 @@
+"""SelectionEngine: videos + instruction -> ranked frame indices, in PyTorch.
+
+Counterpart of videoitg_tpu/engine.py. Decoded uint8 frames go to the device,
+are resized and normalised there, padded with black frames to a static
+frame bucket, and scored in one bidirectional prefill; the result follows
+the reference's results.jsonl contract (score-descending order, stable on
+ties, 2-dp scores). hw comes from the REAL frame count, as in the reference
+projector. Device meshes and the YUV420 transfer wait (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from videoitg_tpu.config import GroundingConfig
+from videoitg_tpu.data.sampling import FRAME_BUCKETS, frame_bucket
+from videoitg_tpu.data.tokenizer import grounding_text_ids
+from videoitg_tpu.utils.profiling import StageTimer
+from videoitg_tpu_torch.models.grounding import (
+    GroundingBatch,
+    GroundingModel,
+    grounding_logits,
+    grounding_logits_from_tokens,
+    vision_features,
+)
+from videoitg_tpu_torch.models.projector import apply_projector, frame_token_count, inference_hw
+from videoitg_tpu_torch.ops.preprocess import preprocess_frames
+
+
+@dataclasses.dataclass
+class SelectionResult:
+    """Full score-ranked frame listing for one video.
+
+    `index` holds every sampled original-frame id sorted by score descending
+    and `logits` the matching sigmoid scores rounded to 2 dp: the reference's
+    results.jsonl row. Top-K takes the first k and sorts them ascending.
+    """
+
+    index: List[int]
+    logits: List[float]
+    num_frames: int
+    contexts: str
+    video_path: str
+    doc_id: Optional[object] = None
+    sampled_frames: Optional[List[int]] = None
+    raw_scores: Optional[np.ndarray] = None
+
+    def topk(self, k: int) -> List[int]:
+        return sorted(self.index[:k])
+
+    def to_reference_json(self) -> Dict:
+        return {
+            "index": self.index,
+            "logits": self.logits,
+            "num_frames": self.num_frames,
+            "contexts": self.contexts,
+            "video_path": self.video_path,
+            "doc_id": self.doc_id,
+        }
+
+
+class PreprocessedVideo(NamedTuple):
+    """A video resized/normalised on the device and padded to its bucket."""
+
+    pix: torch.Tensor  # [t_bucket, S, S, 3], model dtype
+    t_real: int
+
+    @property
+    def shape(self):
+        return (self.t_real,) + tuple(self.pix.shape[1:])
+
+
+class EncodedVideo(NamedTuple):
+    """A video's tower features on the device, reusable across questions
+    (the tower does not see the instruction)."""
+
+    feats: torch.Tensor  # [t_bucket, P, C], model dtype
+    t_real: int
+
+    @property
+    def t_bucket(self) -> int:
+        return self.feats.shape[0]
+
+
+class SelectionEngine:
+    def __init__(
+        self,
+        params: GroundingModel,
+        cfg: GroundingConfig,
+        tokenizer,
+        device: Optional[torch.device] = None,
+        num_frames: int = 512,
+        target_fps: float = 1.0,
+        dtype: torch.dtype = torch.bfloat16,
+        use_flash: Optional[bool] = None,
+        batch_size: int = 1,
+        buckets: Sequence[int] = FRAME_BUCKETS,
+        vision_chunk: Optional[int] = None,
+        mesh=None,
+        transfer: str = "rgb",
+    ):
+        if mesh is not None:
+            raise NotImplementedError("device meshes are not ported yet (ROADMAP queue 1)")
+        if transfer != "rgb":
+            raise NotImplementedError(
+                f"transfer={transfer!r}: only 'rgb' is ported (yuv420 is ROADMAP queue 1)")
+        self.device = torch.device(device if device is not None else "cpu")
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.num_frames = num_frames
+        self.target_fps = target_fps
+        self.dtype = dtype
+        self.batch_size = batch_size
+        self.buckets = tuple(buckets)
+        self.use_flash = self.device.type == "cuda" if use_flash is None else use_flash
+        # Bound tower activations at long buckets, as the JAX engine does.
+        self.vision_chunk = 128 if vision_chunk is None else vision_chunk
+        self.model = params.to(device=self.device, dtype=dtype).eval()
+        self.timer = StageTimer()
+
+    def _tokenize(self, instructions: Sequence[str]):
+        ids = np.zeros((len(instructions), self.cfg.max_text_len), np.int64)
+        valid = np.zeros(ids.shape, dtype=bool)
+        for i, instr in enumerate(instructions):
+            tok = grounding_text_ids(instr, self.tokenizer, self.cfg.max_text_len)
+            ids[i, : len(tok)] = tok
+            valid[i, : len(tok)] = True
+        return (torch.from_numpy(ids).to(self.device),
+                torch.from_numpy(valid).to(self.device))
+
+    def _frame_valid(self, t_reals: Sequence[int], t_bucket: int) -> torch.Tensor:
+        fv = torch.zeros(len(t_reals), t_bucket, dtype=torch.bool)
+        for i, t in enumerate(t_reals):
+            fv[i, :t] = True
+        return fv.to(self.device)
+
+    @torch.inference_mode()
+    def _preprocess(self, frames_u8, t_bucket: int) -> torch.Tensor:
+        """uint8 [T, H, W, 3] (numpy or tensor) -> [t_bucket, S, S, 3] model
+        dtype on the device, padded with black frames. A PreprocessedVideo
+        passes through."""
+        if isinstance(frames_u8, PreprocessedVideo):
+            if frames_u8.pix.shape[0] != t_bucket:
+                raise ValueError(
+                    f"preprocessed input padded to {frames_u8.pix.shape[0]} frames, "
+                    f"bucket needs {t_bucket}; preprocess_ahead with the same bucket set")
+            return frames_u8.pix
+        x = torch.as_tensor(frames_u8).to(self.device)
+        t, h, w, _ = x.shape
+        if t < t_bucket:
+            x = torch.cat([x, x.new_zeros((t_bucket - t, h, w, 3))])
+        return preprocess_frames(x, out_size=self.cfg.vision.image_size, dtype=self.dtype)
+
+    # ---- public API ----
+
+    def preprocess_ahead(self, frames, t_bucket: Optional[int] = None) -> PreprocessedVideo:
+        """Resize/normalise and upload a decoded video now; feed the result
+        to select() / score_frames() in place of raw frames."""
+        t_real = frames.shape[0]
+        if t_bucket is None:
+            t_bucket = frame_bucket(t_real, self.buckets)
+        return PreprocessedVideo(self._preprocess(frames, t_bucket), t_real)
+
+    @torch.inference_mode()
+    def encode_video(self, frames, t_bucket: Optional[int] = None) -> EncodedVideo:
+        """Preprocess + vision tower once; reuse across questions."""
+        t_real = frames.t_real if isinstance(frames, PreprocessedVideo) else frames.shape[0]
+        if t_bucket is None:
+            t_bucket = frame_bucket(t_real, self.buckets)
+        with self.timer.stage("preprocess"):
+            pix = self._preprocess(frames, t_bucket)
+        with self.timer.stage("tower"):
+            feats = vision_features(self.model, pix, self.cfg, use_flash=self.use_flash,
+                                    vision_chunk=self.vision_chunk)
+        return EncodedVideo(feats, t_real)
+
+    @torch.inference_mode()
+    def score_encoded(self, enc: EncodedVideo, instructions: Sequence[str]) -> List[np.ndarray]:
+        """Score N instructions against one encoded video (tower skipped):
+        the projector runs once, then one LM pass per question."""
+        if not instructions:
+            return []
+        cfg = self.cfg
+        hw = inference_hw(cfg.projector, enc.t_real, cfg.vision.num_patches_per_side)
+        n_pf = frame_token_count(cfg.projector, hw, cfg.vision.num_patches)
+        fv = self._frame_valid([enc.t_real], enc.t_bucket)
+        ids, valid = self._tokenize(instructions)
+        with self.timer.stage("score"):
+            img = apply_projector(self.model.projector, enc.feats, cfg.projector, hw=hw)
+            img = img.reshape(1, enc.t_bucket * n_pf, -1)
+            probs = []
+            for i in range(len(instructions)):
+                logits = grounding_logits_from_tokens(
+                    self.model, img, fv, ids[i: i + 1], valid[i: i + 1], cfg,
+                    n_pf=n_pf, use_flash=self.use_flash)
+                probs.append(torch.sigmoid(logits.float())[0, : enc.t_real])
+            return [p.cpu().numpy() for p in probs]
+
+    def select_many(self, frames, sampled_frames: Sequence[int], instructions: Sequence[str],
+                    video_path: str = "",
+                    doc_ids: Optional[Sequence[object]] = None) -> List[SelectionResult]:
+        """Score many questions against ONE video, encoding it once."""
+        if doc_ids is None:
+            doc_ids = [None] * len(instructions)
+        enc = self.encode_video(frames)
+        out = []
+        for instr, doc_id, sc in zip(instructions, doc_ids, self.score_encoded(enc, instructions)):
+            index, logits = self.rank_frames(sc, sampled_frames)
+            out.append(SelectionResult(
+                index=index, logits=logits, num_frames=1, contexts=instr,
+                video_path=video_path, doc_id=doc_id,
+                sampled_frames=list(sampled_frames), raw_scores=sc))
+        return out
+
+    @torch.inference_mode()
+    def score_frames(self, videos: Sequence, instructions: Sequence[str]) -> List[np.ndarray]:
+        """Score raw decoded frames: videos are [T_i, H, W, 3] uint8 (or
+        PreprocessedVideo). All videos of one call share a bucket and hw
+        (callers group by length). Returns [T_i] fp32 sigmoid scores each."""
+        if len(videos) != len(instructions):
+            raise ValueError(f"{len(videos)} videos for {len(instructions)} instructions")
+        t_reals = [v.shape[0] for v in videos]
+        t_bucket = frame_bucket(max(t_reals), self.buckets)
+        hws = {inference_hw(self.cfg.projector, t, self.cfg.vision.num_patches_per_side)
+               for t in t_reals}
+        if len(hws) != 1:
+            raise ValueError(f"videos in one batch must share hw (got {hws}); "
+                             "group by frame count")
+        hw = hws.pop()
+        with self.timer.stage("preprocess"):
+            pix = torch.stack([self._preprocess(v, t_bucket) for v in videos])
+            ids, text_valid = self._tokenize(instructions)
+        batch = GroundingBatch(frames=pix, frame_valid=self._frame_valid(t_reals, t_bucket),
+                               text_ids=ids, text_valid=text_valid)
+        chunk = self.vision_chunk if len(videos) * t_bucket > self.vision_chunk else 0
+        with self.timer.stage("score"):
+            logits = grounding_logits(self.model, batch, self.cfg, hw=hw,
+                                      use_flash=self.use_flash, vision_chunk=chunk)
+            probs = torch.sigmoid(logits.float()).cpu().numpy()  # sigmoid(-inf) = 0
+        return [probs[i, :t] for i, t in enumerate(t_reals)]
+
+    def rank_frames(self, scores: np.ndarray,
+                    sampled_frames: Sequence[int]) -> Tuple[List[int], List[float]]:
+        """Score-descending ranking, stable on ties (torch.sort semantics)."""
+        order = np.argsort(-scores, kind="stable")
+        index = [int(sampled_frames[i]) for i in order]
+        logits = [round(float(scores[i]), 2) for i in order]
+        return index, logits
+
+    def select(self, frames, sampled_frames: Sequence[int], instruction: str,
+               video_path: str = "", doc_id: Optional[object] = None) -> SelectionResult:
+        """Score one decoded video and build the reference-contract result."""
+        scores = self.score_frames([frames], [instruction])[0]
+        index, logits = self.rank_frames(scores, sampled_frames)
+        return SelectionResult(
+            index=index, logits=logits,
+            # Reference quirk: it stores the number of video tensors (always 1).
+            num_frames=1, contexts=instruction, video_path=video_path, doc_id=doc_id,
+            sampled_frames=list(sampled_frames), raw_scores=scores)
+
+    def select_from_file(self, video_path: str, instruction: str,
+                         doc_id: Optional[object] = None,
+                         sampling: str = "eval") -> SelectionResult:
+        """Decode (in-tree libav reader) + score a video file."""
+        from videoitg_tpu.data.video import read_video_frames
+
+        with self.timer.stage("decode"):
+            frames, sampled = read_video_frames(
+                video_path, num_frames=self.num_frames, target_fps=self.target_fps,
+                sampling=sampling)
+        return self.select(frames, sampled, instruction, video_path=video_path, doc_id=doc_id)

@@ -1,0 +1,128 @@
+"""Lazy build of the port's hand-written CUDA kernels.
+
+Every `csrc/*.cu` file is compiled with nvcc for Hopper (`sm_90a`) into one
+shared library with a plain C interface, loaded with `ctypes`. Nothing is
+built when a module is imported: the first kernel launch calls `library()`.
+
+The library lands in `<repo>/build/videoitg_tpu_torch/<hash>/`, where the
+hash covers every source file and the nvcc flags, so editing a source
+rebuilds on the next launch. `VIDEOITG_TORCH_BUILD_DIR` moves the build root
+and `VIDEOITG_NVCC` names the compiler (default: `nvcc` on PATH, then
+`/usr/local/cuda/bin/nvcc`).
+
+A failed build raises; no caller falls back to the plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+_REPO_ROOT = os.path.dirname(os.path.dirname(CSRC))
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: name -> argtypes. Each returns cudaGetLastError() as int.
+SIGNATURES = {
+    # q, k, v, out, B, H, S, D, sm_scale, stream
+    "videoitg_flash_mha_short_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # q, k, v, valid (nullable uint8 [B, S]), out, B, Hq, Hkv, S, D, causal,
+    # sm_scale, stream
+    "videoitg_flash_mha_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_seconds: float | None = None  # wall time of the nvcc run, None if cached
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")) + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def nvcc_path() -> str:
+    explicit = os.environ.get("VIDEOITG_NVCC")
+    if explicit:
+        if not os.path.isfile(explicit):
+            raise RuntimeError(f"VIDEOITG_NVCC={explicit!r} does not exist")
+        return explicit
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.isfile(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels of videoitg_tpu_torch are built on "
+        "first use and need the CUDA toolkit (set VIDEOITG_NVCC)")
+
+
+def build_dir() -> str:
+    root = os.environ.get("VIDEOITG_TORCH_BUILD_DIR") or os.path.join(
+        _REPO_ROOT, "build", "videoitg_tpu_torch")
+    return os.path.join(root, source_hash())
+
+
+def build() -> str:
+    """Compile csrc/*.cu into the hashed build directory; return the .so path."""
+    global build_seconds
+    out_dir = build_dir()
+    lib_path = os.path.join(out_dir, "libvideoitg_kernels.so")
+    if os.path.exists(lib_path):
+        return lib_path
+    nvcc = nvcc_path()
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *[s for s in sources() if s.endswith(".cu")]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib_path)  # atomic: a concurrent build never sees a partial file
+    build_seconds = time.perf_counter() - t0
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.videoitg_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.videoitg_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        name = library().videoitg_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({name})")

@@ -1,0 +1,34 @@
+"""Checks shared by the kernel wrappers before a pointer reaches CUDA."""
+
+from __future__ import annotations
+
+import torch
+
+
+def check_operands(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous, 16-byte-aligned bf16 CUDA
+    tensor on one device with a head dim the kernels take (multiple of 8, at
+    most 128)."""
+    device = tensors[0].device
+    for x in tensors:
+        if x.device.type != "cuda":
+            raise ValueError(f"{name}: needs CUDA tensors (or CPU tensors for the "
+                             f"plain version), got {x.device}")
+        if x.device != device:
+            raise ValueError(f"{name}: tensors on {device} and {x.device}")
+        if x.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: the kernel takes bfloat16, got {x.dtype}")
+        if x.dim() != 4:
+            raise ValueError(f"{name}: expects [B, H, S, D], got {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be 16-byte aligned")
+    d = tensors[0].shape[-1]
+    if d % 8 or d > 128:
+        raise ValueError(f"{name}: head dim {d} must be a multiple of 8 and at most 128")
+
+
+def stream_handle(x: torch.Tensor) -> int:
+    """The raw handle of PyTorch's current stream on x's device."""
+    return torch.cuda.current_stream(x.device).cuda_stream
