@@ -1,0 +1,139 @@
+#!/usr/bin/env python3
+"""Where one selection request of the PyTorch port spends its device time.
+
+Run from the repository root on a machine with one NVIDIA GPU:
+
+    python3 scripts/torch_profile_request.py --tier act8 --kernels on
+    python3 scripts/torch_profile_request.py --tier bf16
+
+Builds VideoITG-8B (random weights from --seed) in the given tier, runs two
+untimed 512-frame `SelectionEngine.select` requests, then one under
+torch.profiler (CPU + CUDA activities). Prints the request's wall time, the
+summed device time of its kernels, the idle share (1 - device / wall), the
+device time by group (the port's own kernels by name, library GEMMs, copies,
+all other PyTorch kernels) and the largest single kernels, each line with
+the card's name and power limit. Writes the same as JSON under chiprun_out/.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+# Kernel-name fragments -> group, first match wins.
+GROUPS = (
+    ("short_attention_kernel", "kernel A flash_mha_short"),
+    ("flash_attention_kernel", "kernel B flash_mha"),
+    ("act8_gemm_kernel", "kernel F act8_gemm"),
+    ("ln_qkv_kernel", "kernel G fused_ln_qkv_int8"),
+    ("ln_mlp_kernel", "kernel H fused_ln_mlp_int8"),
+    ("proj_res_kernel", "kernel I fused_proj_residual_int8"),
+    ("Memcpy", "copies"),
+    ("Memset", "copies"),
+    ("nvjet", "library GEMMs"),
+    ("gemm", "library GEMMs"),
+    ("cutlass", "library GEMMs"),
+    ("cublas", "library GEMMs"),
+)
+# Rows of the tracer's own bookkeeping: no work of the request.
+TRACER_ROWS = ("Command Buffer Full", "Activity Buffer Request")
+
+
+def group_of(name: str) -> str:
+    for fragment, group in GROUPS:
+        if fragment in name:
+            return group
+    return "other PyTorch kernels (elementwise, reductions, casts)"
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--tier", choices=["bf16", "int8", "int4", "act8"], default="bf16")
+    p.add_argument("--kernels", choices=["on", "off"], default="on",
+                   help="act8 only: the hand-written int8 kernels (both switches) on or off")
+    p.add_argument("--frames", type=int, default=512)
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_profile_request: needs an NVIDIA GPU")
+    from videoitg_tpu_torch.cli._model_loading import load_grounding_components
+    from videoitg_tpu_torch.engine import SelectionEngine
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model, cfg, tok = load_grounding_components(
+        None, "videoitg-8b", True, torch.bfloat16, dev, seed=args.seed,
+        quantize=None if args.tier == "bf16" else args.tier)
+    on = args.kernels == "on"
+    engine = SelectionEngine(model, cfg, tok, device=dev, dtype=torch.bfloat16,
+                             qgemm=on, fused=on)
+    frames = np.random.default_rng(args.seed + 2).integers(
+        0, 256, (args.frames, 360, 640, 3), dtype=np.uint8)
+    sampled = list(range(args.frames))
+    for _ in range(2):
+        engine.select(frames, sampled, "What is the person holding?")
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.select(frames, sampled, "When does the car turn left?")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    groups: dict[str, float] = {}
+    counts: dict[str, int] = {}
+    kernels = []
+    for evt in prof.key_averages():
+        # Device-side activities only: a CPU operator's row repeats the device
+        # time of the kernels it launched.
+        if evt.device_type != DeviceType.CUDA or evt.key in TRACER_ROWS:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us <= 0:
+            continue
+        g = group_of(evt.key)
+        groups[g] = groups.get(g, 0.0) + us / 1e3
+        counts[g] = counts.get(g, 0) + evt.count
+        kernels.append((us / 1e3, evt.count, evt.key))
+    busy_ms = sum(groups.values())
+    if busy_ms <= 0:
+        raise SystemExit("torch_profile_request: the profiler recorded no device time")
+    label = args.tier + (f", int8 kernels {args.kernels}" if args.tier == "act8" else "")
+    print(f"profile [{label}] {args.frames} frames: wall {wall:.4f} s, device busy "
+          f"{busy_ms / 1e3:.4f} s, idle share {100 * (1 - busy_ms / 1e3 / wall):.2f}% [{card}]")
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  {g}: {ms:.2f} ms ({100 * ms / busy_ms:.2f}%), {counts[g]} launches [{card}]")
+    kernels.sort(reverse=True)
+    for ms, count, name in kernels[:12]:
+        print(f"    {ms:9.2f} ms  {count:5d} x  {name[:110]}")
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"profile_{args.tier}_{args.kernels}.json"), "w") as f:
+        json.dump({"card": card, "tier": args.tier, "kernels": args.kernels,
+                   "frames": args.frames, "wall_s": wall, "device_busy_ms": busy_ms,
+                   "groups_ms": groups, "launches": counts,
+                   "top_kernels": [dict(ms=m, count=c, name=n) for m, c, n in kernels[:40]]},
+                  f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

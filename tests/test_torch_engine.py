@@ -22,6 +22,7 @@ from videoitg_tpu.engine import SelectionEngine as JaxEngine
 from videoitg_tpu.models.grounding import init_grounding as jax_init_grounding
 from videoitg_tpu.utils.common import CharTokenizer
 from videoitg_tpu_torch.checkpoint import params_from_numpy
+from videoitg_tpu_torch.config import preset as port_preset
 from videoitg_tpu_torch.engine import SelectionEngine
 from videoitg_tpu_torch.models.grounding import GroundingBatch, grounding_logits
 
@@ -33,7 +34,7 @@ GOLDEN_PATH = os.path.join(os.path.dirname(__file__), "golden", "tiny_scores.jso
 def tiny():
     cfg = preset("tiny")
     params = jax_init_grounding(jax.random.PRNGKey(0), cfg, dtype=jnp.float32)
-    model = params_from_numpy(jax.tree.map(np.asarray, params), cfg)
+    model = params_from_numpy(jax.tree.map(np.asarray, params), port_preset("tiny"))
     return cfg, params, model
 
 
@@ -42,7 +43,7 @@ def _engines(tiny, use_flash, **kw):
     kw = dict(dict(buckets=(4, 8), num_frames=8), **kw)
     tok = CharTokenizer(cfg.lm.vocab_size)
     jax_engine = JaxEngine(params, cfg, tok, dtype=jnp.float32, use_flash=False, **kw)
-    port = SelectionEngine(model, cfg, tok, device="cpu", dtype=torch.float32,
+    port = SelectionEngine(model, port_preset("tiny"), tok, device="cpu", dtype=torch.float32,
                            use_flash=use_flash, **kw)
     return jax_engine, port
 
@@ -180,5 +181,7 @@ def test_cli_select_in_process(tmp_path, capsys):
     assert main(argv + ["--topk", "3"]) == 0
     top = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert top == sorted(record["index"][:3])
-    assert main(argv + ["--quantize", "int8"]) == 2
+    assert main(argv + ["--quantize", "int8"]) == 0
+    assert len(json.loads(capsys.readouterr().out.strip().splitlines()[-1])) == 8
+    assert main(argv + ["--export-serving", str(tmp_path / "out")]) == 2
     assert main(argv + ["--transfer", "yuv420"]) == 2

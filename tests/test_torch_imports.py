@@ -1,4 +1,5 @@
-"""The port imports without jax and without the CUDA toolkit.
+"""The port imports without jax, without the JAX package `videoitg_tpu` and
+without the CUDA toolkit.
 
 Runs in fresh interpreters with `cwd` the repo root and `PYTHONPATH` set to
 it, so the result does not depend on an installed package or on what the
@@ -35,15 +36,39 @@ def test_every_module_imports_without_jax(tmp_path):
         f"mods = {mods!r}\n"
         "for m in mods: importlib.import_module(m)\n"
         "from videoitg_tpu_torch.ops import _build\n"
-        "print(json.dumps({'jax': sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')),"
-        " 'built': _build._lib is not None}))\n")
+        "foreign = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'videoitg_tpu'))\n"
+        "print(json.dumps({'foreign': foreign, 'built': _build._lib is not None}))\n")
     # No compiler anywhere: the kernel modules must still import (lazy build).
     proc = _run(code, VIDEOITG_NVCC=str(tmp_path / "no-nvcc"), PATH="/usr/bin:/bin",
                 VIDEOITG_TORCH_BUILD_DIR=str(tmp_path / "build"))
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out == {"jax": [], "built": False}
+    assert out == {"foreign": [], "built": False}
     assert not (tmp_path / "build").exists()
+
+
+def test_the_guard_sees_the_jax_package():
+    """The same scan must report `videoitg_tpu` as it reports `jax`."""
+    code = ("import sys, json, videoitg_tpu.constants\n"
+            "print(json.dumps(sorted(k for k in sys.modules "
+            "if k.split('.')[0] in ('jax', 'jaxlib', 'videoitg_tpu'))))\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "videoitg_tpu" in json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_no_source_line_imports_jax_or_the_jax_package():
+    import re
+
+    pattern = re.compile(r"^\s*(from|import) +(jax|videoitg_tpu)(\.|\s|$)")
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "videoitg_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    hits = []
+    for path in paths:
+        with open(path) as f:
+            hits += [f"{path}:{i}" for i, line in enumerate(f, 1) if pattern.match(line)]
+    assert len(paths) > 20 and not hits, hits
 
 
 def test_cli_runs_as_a_module(tmp_path):

@@ -24,6 +24,7 @@ from videoitg_tpu.models.grounding import grounding_logits as jax_grounding_logi
 from videoitg_tpu.models.grounding import init_grounding as jax_init_grounding
 from videoitg_tpu.ops.preprocess import preprocess_frames as jax_preprocess_frames
 from videoitg_tpu_torch.checkpoint import params_from_numpy, params_to_numpy
+from videoitg_tpu_torch.config import preset as port_preset
 from videoitg_tpu_torch.models import common, projector, qwen2, siglip
 from videoitg_tpu_torch.models.grounding import GroundingBatch, grounding_logits, init_grounding
 from videoitg_tpu_torch.ops.preprocess import preprocess_frames
@@ -37,7 +38,7 @@ def bridged(request):
     cfg = preset(request.param)
     params = jax_init_grounding(jax.random.PRNGKey(7), cfg, dtype=jnp.float32)
     tree = jax.tree.map(np.asarray, params)
-    return cfg, params, tree, params_from_numpy(tree, cfg)
+    return cfg, params, tree, params_from_numpy(tree, port_preset(request.param))
 
 
 def _batch(rng, cfg, b, t_bucket, t_reals, l_txt):
@@ -85,15 +86,14 @@ def test_common_ops_match_jax():
 
 
 def test_linear_unported_forms_raise():
-    """The quantised and LoRA linear forms are refused by the bridge, where
-    such trees arrive; a dense Linear computes x @ w + b."""
+    """The LoRA linear form is refused by the bridge, where such trees
+    arrive (the quantised forms cross, tests/test_torch_quant.py); a dense
+    Linear computes x @ w + b."""
     cfg = preset("tiny")
     tree = jax.tree.map(np.asarray, jax_init_grounding(jax.random.PRNGKey(0), cfg))
-    for key in ("w_q", "w_q4", "lora_a"):
-        tree["out_proj"][key] = np.zeros((cfg.lm.hidden_size, 1), np.float32)
-        with pytest.raises(NotImplementedError, match=f"out_proj.{key}: .* not ported"):
-            params_from_numpy(tree, cfg)
-        del tree["out_proj"][key]
+    tree["out_proj"]["lora_a"] = np.zeros((cfg.lm.hidden_size, 1), np.float32)
+    with pytest.raises(NotImplementedError, match="out_proj.lora_a: .* not ported"):
+        params_from_numpy(tree, port_preset("tiny"))
     lin = common.Linear(4, 3)
     lin.w.data = torch.ones(4, 3)
     lin.b.data = torch.arange(3.0)
@@ -211,12 +211,23 @@ def _leaves(tree, prefix=""):
 
 
 def test_bridge_rejects_quantised_trees():
+    """... that are malformed: an int8 weight without its scale, or with a
+    key the port does not know. A well-formed quantised tree crosses."""
     from videoitg_tpu.ops.quant import quantize_grounding_int8
+    from videoitg_tpu_torch.ops.quant import QuantLinear
 
-    cfg = preset("tiny")
-    params = quantize_grounding_int8(jax_init_grounding(jax.random.PRNGKey(0), cfg))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        params_from_numpy(jax.tree.map(np.asarray, params), cfg)
+    cfg = port_preset("tiny")
+    params = quantize_grounding_int8(jax_init_grounding(jax.random.PRNGKey(0), preset("tiny")))
+    tree = jax.tree.map(np.asarray, params)
+    assert isinstance(params_from_numpy(tree, cfg).lm.layers[0].q, QuantLinear)
+    broken = dict(tree, lm=dict(tree["lm"], layers=dict(tree["lm"]["layers"])))
+    broken["lm"]["layers"]["q"] = {k: v for k, v in tree["lm"]["layers"]["q"].items()
+                                   if k != "scale"}
+    with pytest.raises(KeyError, match="quantised linear"):
+        params_from_numpy(broken, cfg)
+    broken["lm"]["layers"]["q"] = dict(tree["lm"]["layers"]["q"], zero_point=np.zeros(3))
+    with pytest.raises(KeyError, match="quantised linear"):
+        params_from_numpy(broken, cfg)
 
 
 def test_torch_init_follows_the_jax_distributions():

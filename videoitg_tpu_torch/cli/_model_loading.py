@@ -10,12 +10,14 @@ import torch
 
 def load_grounding_components(model: str | None, preset_name: str, random_init: bool,
                               dtype: torch.dtype, device: torch.device, seed: int = 0,
-                              tool: str = "videoitg-torch"):
-    """(model, cfg, tokenizer) for a random-init preset. HF checkpoints wait
-    until released weights are in the repository (ROADMAP queue 1)."""
-    from videoitg_tpu.config import preset as get_preset
-    from videoitg_tpu.utils.common import CharTokenizer
+                              quantize: str | None = None, tool: str = "videoitg-torch"):
+    """(model, cfg, tokenizer) for a random-init preset, with the optional
+    serving quantisation tier ('int8', 'int4', 'act8') applied in place. HF
+    checkpoints and pre-quantised serving checkpoints wait until released
+    weights are in the repository (ROADMAP queue 1)."""
+    from videoitg_tpu_torch.config import preset as get_preset
     from videoitg_tpu_torch.models.grounding import init_grounding
+    from videoitg_tpu_torch.utils.common import CharTokenizer
 
     if model:
         raise SystemExit(
@@ -26,4 +28,8 @@ def load_grounding_components(model: str | None, preset_name: str, random_init: 
     generator = torch.Generator(device=device).manual_seed(seed)
     params = init_grounding(cfg, generator, device=device, dtype=dtype)
     print(f"[{tool}] WARNING: random weights — scores are noise", file=sys.stderr)
+    if quantize:
+        from videoitg_tpu_torch.ops.quant import apply_quantization_tier
+
+        params = apply_quantization_tier(params, quantize)
     return params, cfg, CharTokenizer(cfg.lm.vocab_size)

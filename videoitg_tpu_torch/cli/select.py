@@ -8,6 +8,11 @@ indices in ascending order (or the full results.jsonl-style record with
 Example:
   python -m videoitg_tpu_torch.cli.select --preset tiny --random-init \\
       --video clip.mp4 --prompt "Which scene shows the rocket launch?" --device cpu
+
+--quantize int8 | int4 | act8 applies a serving tier (ops/quant.py). Under
+act8, VIDEOITG_QGEMM=1 and VIDEOITG_FUSED=1 send the int8 products of the LM
+and of the vision tower through the hand-written kernels (GPU only; both off
+by default, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -20,7 +25,6 @@ import torch
 
 _NOT_PORTED = {
     "model": "--model (HF weights)",
-    "quantize": "--quantize",
     "export_serving": "--export-serving",
 }
 
@@ -44,7 +48,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="default: cuda when available")
     p.add_argument("--dtype", default=None, choices=[None, "bfloat16", "float32"],
                    help="default: bfloat16 on cuda, float32 on cpu")
-    p.add_argument("--quantize", default=None, help="not ported yet")
+    p.add_argument("--quantize", default=None, choices=[None, "int8", "int4", "act8"],
+                   help="serving quantization of the LM: int8 / int4 weights, "
+                        "act8 = int8 weights + dynamic int8 activations (LM + vision)")
     p.add_argument("--export-serving", metavar="DIR", help="not ported yet")
     p.add_argument("--transfer", default="rgb", choices=["rgb", "yuv420"],
                    help="yuv420 is not ported yet")
@@ -72,7 +78,7 @@ def main(argv=None) -> int:
     try:
         params, cfg, tokenizer = load_grounding_components(
             args.model, args.preset, args.random_init, dtype, device, seed=args.seed,
-            tool="videoitg-torch-select")
+            quantize=args.quantize, tool="videoitg-torch-select")
     except SystemExit as e:
         print(e, file=sys.stderr)
         return 2

@@ -5,7 +5,11 @@ are resized and normalised there, padded with black frames to a static
 frame bucket, and scored in one bidirectional prefill; the result follows
 the reference's results.jsonl contract (score-descending order, stable on
 ties, 2-dp scores). hw comes from the REAL frame count, as in the reference
-projector. Device meshes and the YUV420 transfer wait (ROADMAP queue 1).
+projector. A model in a quantised serving tier (ops/quant.py) runs through
+the same entry points; `qgemm` / `fused` (default: VIDEOITG_QGEMM /
+VIDEOITG_FUSED, read once here) say which act8 products run in the
+hand-written int8 kernels. Device meshes and the YUV420 transfer wait
+(ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -16,10 +20,9 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from videoitg_tpu.config import GroundingConfig
-from videoitg_tpu.data.sampling import FRAME_BUCKETS, frame_bucket
-from videoitg_tpu.data.tokenizer import grounding_text_ids
-from videoitg_tpu.utils.profiling import StageTimer
+from videoitg_tpu_torch.config import GroundingConfig
+from videoitg_tpu_torch.data.sampling import FRAME_BUCKETS, frame_bucket
+from videoitg_tpu_torch.data.tokenizer import grounding_text_ids
 from videoitg_tpu_torch.models.grounding import (
     GroundingBatch,
     GroundingModel,
@@ -29,6 +32,8 @@ from videoitg_tpu_torch.models.grounding import (
 )
 from videoitg_tpu_torch.models.projector import apply_projector, frame_token_count, inference_hw
 from videoitg_tpu_torch.ops.preprocess import preprocess_frames
+from videoitg_tpu_torch.ops.quant import Act8Switches, cast_params
+from videoitg_tpu_torch.utils.profiling import StageTimer
 
 
 @dataclasses.dataclass
@@ -102,6 +107,8 @@ class SelectionEngine:
         vision_chunk: Optional[int] = None,
         mesh=None,
         transfer: str = "rgb",
+        qgemm: Optional[bool] = None,
+        fused: Optional[bool] = None,
     ):
         if mesh is not None:
             raise NotImplementedError("device meshes are not ported yet (ROADMAP queue 1)")
@@ -119,7 +126,8 @@ class SelectionEngine:
         self.use_flash = self.device.type == "cuda" if use_flash is None else use_flash
         # Bound tower activations at long buckets, as the JAX engine does.
         self.vision_chunk = 128 if vision_chunk is None else vision_chunk
-        self.model = params.to(device=self.device, dtype=dtype).eval()
+        self.act8 = Act8Switches.from_env(qgemm=qgemm, fused=fused)
+        self.model = cast_params(params, dtype, device=self.device).eval()
         self.timer = StageTimer()
 
     def _tokenize(self, instructions: Sequence[str]):
@@ -175,7 +183,7 @@ class SelectionEngine:
             pix = self._preprocess(frames, t_bucket)
         with self.timer.stage("tower"):
             feats = vision_features(self.model, pix, self.cfg, use_flash=self.use_flash,
-                                    vision_chunk=self.vision_chunk)
+                                    vision_chunk=self.vision_chunk, act8=self.act8)
         return EncodedVideo(feats, t_real)
 
     @torch.inference_mode()
@@ -196,7 +204,7 @@ class SelectionEngine:
             for i in range(len(instructions)):
                 logits = grounding_logits_from_tokens(
                     self.model, img, fv, ids[i: i + 1], valid[i: i + 1], cfg,
-                    n_pf=n_pf, use_flash=self.use_flash)
+                    n_pf=n_pf, use_flash=self.use_flash, act8=self.act8)
                 probs.append(torch.sigmoid(logits.float())[0, : enc.t_real])
             return [p.cpu().numpy() for p in probs]
 
@@ -239,7 +247,8 @@ class SelectionEngine:
         chunk = self.vision_chunk if len(videos) * t_bucket > self.vision_chunk else 0
         with self.timer.stage("score"):
             logits = grounding_logits(self.model, batch, self.cfg, hw=hw,
-                                      use_flash=self.use_flash, vision_chunk=chunk)
+                                      use_flash=self.use_flash, vision_chunk=chunk,
+                                      act8=self.act8)
             probs = torch.sigmoid(logits.float()).cpu().numpy()  # sigmoid(-inf) = 0
         return [probs[i, :t] for i, t in enumerate(t_reals)]
 
@@ -266,7 +275,7 @@ class SelectionEngine:
                          doc_id: Optional[object] = None,
                          sampling: str = "eval") -> SelectionResult:
         """Decode (in-tree libav reader) + score a video file."""
-        from videoitg_tpu.data.video import read_video_frames
+        from videoitg_tpu_torch.data.video import read_video_frames
 
         with self.timer.stage("decode"):
             frames, sampled = read_video_frames(

@@ -1,8 +1,9 @@
 """Shared building blocks of the model stack.
 
-Counterpart of videoitg_tpu/models/common.py. Linear weights keep the JAX
-package's [in, out] layout (`x @ w`), so the weight bridge (checkpoint.py)
-copies every tensor without a transpose and the tests compare like with like.
+Counterpart of videoitg_tpu/models/common.py. Dense linear weights keep the
+JAX package's [in, out] layout (`x @ w`), so the weight bridge (checkpoint.py)
+copies them without a transpose and the tests compare like with like; the
+quantised forms live in ops/quant.py and `linear` dispatches on the form.
 Norm statistics and RoPE angles are fp32 whatever the compute dtype.
 """
 
@@ -39,8 +40,13 @@ class Linear(nn.Module):
                                requires_grad=False) if bias else None)
 
 
-def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
-    """x @ w (+ b)."""
+def linear(p, x: torch.Tensor, act8=None) -> torch.Tensor:
+    """x @ w (+ b) for a dense `Linear`; an int8 / int4 `QuantLinear`
+    (ops/quant.py) goes to `quantized_linear`, with the act8 kernel switches."""
+    if not isinstance(p, Linear):
+        from videoitg_tpu_torch.ops.quant import Act8Switches, quantized_linear
+
+        return quantized_linear(p, x, act8 if act8 is not None else Act8Switches())
     y = x @ p.w
     if p.b is not None:
         y = y + p.b
@@ -106,9 +112,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
-def fused_qkv(p_q, p_k, p_v, x: torch.Tensor):
+def fused_qkv(p_q, p_k, p_v, x: torch.Tensor, act8=None):
     """q/k/v projections as one GEMM over concatenated weight columns
-    (exact: concatenation commutes with the matmul)."""
+    (exact: concatenation commutes with the matmul). Three separate linears
+    when any of them is quantised."""
+    if not all(isinstance(p, Linear) for p in (p_q, p_k, p_v)):
+        return linear(p_q, x, act8), linear(p_k, x, act8), linear(p_v, x, act8)
     dq, dk = p_q.w.shape[-1], p_k.w.shape[-1]
     w = torch.cat([p_q.w, p_k.w, p_v.w], dim=-1)
     y = x @ w

@@ -19,11 +19,12 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from videoitg_tpu.config import GroundingConfig
+from videoitg_tpu_torch.config import GroundingConfig
 from videoitg_tpu_torch.models import qwen2 as qwen2_mod
 from videoitg_tpu_torch.models import siglip as siglip_mod
 from videoitg_tpu_torch.models.common import Linear
 from videoitg_tpu_torch.models.projector import Projector, apply_projector, frame_token_count
+from videoitg_tpu_torch.ops.quant import Act8Switches
 
 
 class GroundingModel(nn.Module):
@@ -70,20 +71,23 @@ class GroundingBatch(NamedTuple):
 
 
 def vision_features(model: GroundingModel, frames: torch.Tensor, cfg: GroundingConfig,
-                    use_flash: bool = False, vision_chunk: int = 0) -> torch.Tensor:
+                    use_flash: bool = False, vision_chunk: int = 0,
+                    act8: Act8Switches = Act8Switches()) -> torch.Tensor:
     """[N, H, W, 3] preprocessed frames -> [N, P, C] tower features. With
     vision_chunk > 0 the tower runs over chunks of that many frames when N is
     a larger multiple of it, bounding its activations."""
     n = frames.shape[0]
     if vision_chunk and n > vision_chunk and n % vision_chunk == 0:
         return torch.cat([siglip_mod.siglip_features(model.vision, chunk, cfg.vision,
-                                                     use_flash=use_flash)
+                                                     use_flash=use_flash, act8=act8)
                           for chunk in frames.split(vision_chunk)])
-    return siglip_mod.siglip_features(model.vision, frames, cfg.vision, use_flash=use_flash)
+    return siglip_mod.siglip_features(model.vision, frames, cfg.vision, use_flash=use_flash,
+                                      act8=act8)
 
 
 def grounding_logits(model: GroundingModel, batch: GroundingBatch, cfg: GroundingConfig,
-                     hw: int, use_flash: bool = False, vision_chunk: int = 0) -> torch.Tensor:
+                     hw: int, use_flash: bool = False, vision_chunk: int = 0,
+                     act8: Act8Switches = Act8Switches()) -> torch.Tensor:
     """Per-frame relevance logits [B, T] (invalid frames -> -inf);
     vision_chunk as in `vision_features`."""
     b, t = batch.frame_valid.shape
@@ -93,17 +97,19 @@ def grounding_logits(model: GroundingModel, batch: GroundingBatch, cfg: Groundin
         feats = frames_flat  # [B*T, P, C]
     else:
         feats = vision_features(model, frames_flat, cfg, use_flash=use_flash,
-                                vision_chunk=vision_chunk)
+                                vision_chunk=vision_chunk, act8=act8)
     img_tokens = apply_projector(model.projector, feats, cfg.projector, hw=hw)
     img_tokens = img_tokens.reshape(b, t * n_pf, -1)
     return grounding_logits_from_tokens(model, img_tokens, batch.frame_valid, batch.text_ids,
-                                        batch.text_valid, cfg, n_pf=n_pf, use_flash=use_flash)
+                                        batch.text_valid, cfg, n_pf=n_pf, use_flash=use_flash,
+                                        act8=act8)
 
 
 def grounding_logits_from_tokens(model: GroundingModel, img_tokens: torch.Tensor,
                                  frame_valid: torch.Tensor, text_ids: torch.Tensor,
                                  text_valid: torch.Tensor, cfg: GroundingConfig, n_pf: int,
-                                 use_flash: bool = False) -> torch.Tensor:
+                                 use_flash: bool = False,
+                                 act8: Act8Switches = Act8Switches()) -> torch.Tensor:
     """LM + head over already-projected image tokens [B, T*n_pf, D]."""
     b, t = frame_valid.shape
     l_txt = text_ids.shape[1]
@@ -124,7 +130,7 @@ def grounding_logits_from_tokens(model: GroundingModel, img_tokens: torch.Tensor
     positions = torch.cat([img_pos, txt_pos], dim=1)
 
     hidden = qwen2_mod.qwen2_hidden_states(model.lm, x, positions, valid, cfg.lm,
-                                           use_flash=use_flash)
+                                           use_flash=use_flash, act8=act8)
     # Per-frame fp32 mean pool of the image slots (reference grounding_qwen2.py:148-156).
     frame_hidden = hidden[:, :n_img].reshape(b, t, n_pf, -1).float().mean(dim=2)
     logits = (frame_hidden @ model.out_proj.w.float() + model.out_proj.b.float())[..., 0]

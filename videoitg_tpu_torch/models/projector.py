@@ -2,8 +2,8 @@
 
 Counterpart of videoitg_tpu/models/projector.py. [T, P, C] tower features
 are viewed as T grids of sqrt(P)^2, resized to hw x hw exactly like torch
-`F.interpolate(mode="bilinear", align_corners=False)` through the shared
-numpy matrix `bilinear_resize_matrix`, in fp32, then Linear / GELU(erf) /
+`F.interpolate(mode="bilinear", align_corners=False)` through the numpy
+matrix `bilinear_resize_matrix` (ops/resize.py), in fp32, then Linear / GELU(erf) /
 Linear. Only the seq_mlp family is on the selection path; the linear,
 mlpNx_gelu and identity families wait for the causal VLM (ROADMAP queue 1).
 """
@@ -16,9 +16,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from videoitg_tpu.config import ProjectorConfig
-from videoitg_tpu.ops.resize import bilinear_resize_matrix
+from videoitg_tpu_torch.config import ProjectorConfig
 from videoitg_tpu_torch.models.common import Linear, gelu_exact, linear
+from videoitg_tpu_torch.ops.resize import bilinear_resize_matrix
 
 
 class Projector(nn.Module):

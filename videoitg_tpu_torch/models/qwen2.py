@@ -16,7 +16,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from videoitg_tpu.config import LMConfig
+from videoitg_tpu_torch.config import LMConfig
 from videoitg_tpu_torch.models.common import (
     Linear,
     Norm,
@@ -27,6 +27,7 @@ from videoitg_tpu_torch.models.common import (
     rms_norm,
 )
 from videoitg_tpu_torch.ops.attention import mha
+from videoitg_tpu_torch.ops.quant import Act8Switches
 
 
 class Embed(nn.Module):
@@ -37,14 +38,20 @@ class Embed(nn.Module):
 
 
 class Qwen2Layer(nn.Module):
+    """Norms and the seven linears of a decoder layer. `dense_linears=False`
+    leaves the linears out, for a caller that sets them in another form
+    (ops/quant.init_qwen2_int8)."""
+
     def __init__(self, cfg: LMConfig, *, device=None, dtype=torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dense_linears: bool = True):
         super().__init__()
         h, m = cfg.hidden_size, cfg.intermediate_size
         kw = dict(device=device, dtype=dtype)
         lin = dict(kw, generator=generator)
         self.input_norm = Norm(h, bias=False, **kw)
         self.post_attn_norm = Norm(h, bias=False, **kw)
+        if not dense_linears:
+            return
         self.q = Linear(h, cfg.q_dim, bias=cfg.qkv_bias, **lin)
         self.k = Linear(h, cfg.kv_dim, bias=cfg.qkv_bias, **lin)
         self.v = Linear(h, cfg.kv_dim, bias=cfg.qkv_bias, **lin)
@@ -58,12 +65,13 @@ class Qwen2(nn.Module):
     """Parameters of the LM; `qwen2_hidden_states` runs it."""
 
     def __init__(self, cfg: LMConfig, *, device=None, dtype=torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dense_linears: bool = True):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.embed = Embed(cfg.vocab_size, cfg.hidden_size, generator=generator, **kw)
         self.layers = nn.ModuleList(
-            Qwen2Layer(cfg, generator=generator, **kw) for _ in range(cfg.num_layers))
+            Qwen2Layer(cfg, generator=generator, dense_linears=dense_linears, **kw)
+            for _ in range(cfg.num_layers))
         self.final_norm = Norm(cfg.hidden_size, bias=False, **kw)
 
 
@@ -73,28 +81,30 @@ def embed_tokens(lm: Qwen2, ids: torch.Tensor) -> torch.Tensor:
 
 
 def _decoder_layer(p: Qwen2Layer, x: torch.Tensor, positions: torch.Tensor,
-                   valid: Optional[torch.Tensor], cfg: LMConfig, use_flash: bool) -> torch.Tensor:
+                   valid: Optional[torch.Tensor], cfg: LMConfig, use_flash: bool,
+                   act8: Act8Switches) -> torch.Tensor:
     b, s, _ = x.shape
     y = rms_norm(p.input_norm, x, cfg.rms_norm_eps)
-    q, k, v = fused_qkv(p.q, p.k, p.v, y)
+    q, k, v = fused_qkv(p.q, p.k, p.v, y, act8)
     q = q.reshape(b, s, cfg.num_heads, cfg.head_dim).transpose(1, 2)
     k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2).contiguous()
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     attn = mha(q, k, v, valid=valid, causal=cfg.causal, use_flash=use_flash)
-    x = x + linear(p.o, attn.transpose(1, 2).reshape(b, s, cfg.q_dim))
+    x = x + linear(p.o, attn.transpose(1, 2).reshape(b, s, cfg.q_dim), act8)
     y = rms_norm(p.post_attn_norm, x, cfg.rms_norm_eps)
-    return x + linear(p.down, F.silu(linear(p.gate, y)) * linear(p.up, y))
+    return x + linear(p.down, F.silu(linear(p.gate, y, act8)) * linear(p.up, y, act8), act8)
 
 
 def qwen2_hidden_states(lm: Qwen2, inputs_embeds: torch.Tensor, positions: torch.Tensor,
                         valid: Optional[torch.Tensor], cfg: LMConfig,
-                        use_flash: bool = False) -> torch.Tensor:
+                        use_flash: bool = False,
+                        act8: Act8Switches = Act8Switches()) -> torch.Tensor:
     """Run the decoder stack; returns final-norm hidden states [B, S, H]."""
     x = inputs_embeds
     for layer in lm.layers[: cfg.num_layers]:
-        x = _decoder_layer(layer, x, positions, valid, cfg, use_flash)
+        x = _decoder_layer(layer, x, positions, valid, cfg, use_flash, act8)
     return rms_norm(lm.final_norm, x, cfg.rms_norm_eps)
 
 

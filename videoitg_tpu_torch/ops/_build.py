@@ -1,8 +1,10 @@
 """Lazy build of the port's hand-written CUDA kernels.
 
-Every `csrc/*.cu` file is compiled with nvcc for Hopper (`sm_90a`) into one
-shared library with a plain C interface, loaded with `ctypes`. Nothing is
-built when a module is imported: the first kernel launch calls `library()`.
+Every `csrc/*.cu` file is compiled with nvcc for Hopper (`sm_90a`), one nvcc
+process per source and all of them started together, and the objects are
+linked into one shared library with a plain C interface, loaded with
+`ctypes`. Nothing is built when a module is imported: the first kernel
+launch calls `library()`.
 
 The library lands in `<repo>/build/videoitg_tpu_torch/<hash>/`, where the
 hash covers every source file and the nvcc flags, so editing a source
@@ -28,7 +30,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 _REPO_ROOT = os.path.dirname(os.path.dirname(CSRC))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -41,11 +43,24 @@ SIGNATURES = {
     # q, k, v, valid (nullable uint8 [B, S]), out, B, Hq, Hkv, S, D, causal,
     # sm_scale, stream
     "videoitg_flash_mha_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # x, x_scale, w_qt, w_scale, out, M, K, N, stream
+    "videoitg_act8_gemm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, ln scale, ln bias, packed w_qt, scale, bias, q, k, v, rows, H, dq, dk,
+    # dv, eps, stream
+    "videoitg_fused_ln_qkv_int8_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _I, _I, _I, _I, _I, _F, _P),
+    # x, ln scale, ln bias, fc1 w_qt, scale, bias, fc2 w_qt, scale, bias, out,
+    # rows, H, M, eps, activation, stream
+    "videoitg_fused_ln_mlp_int8_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _I, _I, _I, _F, _I, _P),
+    # attn, residual, o w_qt, scale, bias, out, rows, D, H, stream
+    "videoitg_fused_proj_residual_int8_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-build_seconds: float | None = None  # wall time of the nvcc run, None if cached
+build_seconds: float | None = None  # wall time of the nvcc runs, None if cached
+build_log = ""  # what nvcc printed (ptxas -v: registers, shared memory, spills)
 
 
 def sources() -> list[str]:
@@ -86,22 +101,46 @@ def build_dir() -> str:
 
 def build() -> str:
     """Compile csrc/*.cu into the hashed build directory; return the .so path."""
-    global build_seconds
+    global build_seconds, build_log
     out_dir = build_dir()
     lib_path = os.path.join(out_dir, "libvideoitg_kernels.so")
     if os.path.exists(lib_path):
         return lib_path
     nvcc = nvcc_path()
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *[s for s in sources() if s.endswith(".cu")]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib_path)  # atomic: a concurrent build never sees a partial file
+    # One nvcc per source, all started together; then one link.
+    jobs = []
+    for src in sources():
+        if src.endswith(".cu"):
+            obj = os.path.join(out_dir, f"{os.path.basename(src)}.{os.getpid()}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.PIPE, text=True)))
+    failures, logs = [], []
+    for cmd, _, proc in jobs:
+        stdout, stderr = proc.communicate()
+        logs.append(stdout + stderr)
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                            f"{stdout}\n{stderr}")
+    objects = [obj for _, obj, _ in jobs]
+    try:
+        if failures:
+            raise RuntimeError("\n".join(failures))
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        cmd = [nvcc, "-shared", "-o", tmp, *objects]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib_path)  # atomic: a concurrent build never sees a partial file
+    finally:
+        for obj in objects:
+            if os.path.exists(obj):
+                os.remove(obj)
     build_seconds = time.perf_counter() - t0
+    build_log = "".join(logs)
     return lib_path
 
 

@@ -32,3 +32,19 @@ def check_operands(name: str, *tensors: torch.Tensor) -> None:
 def stream_handle(x: torch.Tensor) -> int:
     """The raw handle of PyTorch's current stream on x's device."""
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def check_matrix(name: str, what: str, x: torch.Tensor, dtype: torch.dtype, shape,
+                 device: torch.device) -> None:
+    """Raise unless x is a contiguous, 16-byte-aligned CUDA tensor of the
+    given dtype and shape on `device`."""
+    if x.device != device or x.device.type != "cuda":
+        raise ValueError(f"{name}: {what} must lie on {device} (a CUDA device), got {x.device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name}: {what} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: {what} must have shape {tuple(shape)}, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: {what} must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: {what} must be 16-byte aligned")

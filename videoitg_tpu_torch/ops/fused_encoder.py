@@ -1,0 +1,220 @@
+"""Fused encoder-layer kernels for the full-int8 (act8) serving tier.
+
+Counterpart of videoitg_tpu/ops/fused_encoder.py. Each function keeps a whole
+non-attention sub-block of a vision encoder layer inside one kernel
+(csrc/fused_encoder.cu, hand-written for Hopper), so the LayerNorm output,
+the int8 activation copies and the [rows, intermediate] MLP tensor never go
+to device memory:
+
+  * fused_ln_qkv_int8:        LN -> per-row int8 quant -> one packed
+                              [H, dq+dk+dv] int8 product -> scale + bias ->
+                              three dense outputs q, k, v.
+  * fused_ln_mlp_int8:        LN -> quant -> fc1 -> GELU -> quant of the
+                              whole intermediate row -> fc2 -> + residual.
+  * fused_proj_residual_int8: quant -> o_proj -> + residual.
+
+All work is row-local (LN statistics, per-row scales), so a ragged last row
+tile is masked in the kernels. Numerics: fp32 LN (two-pass) and scales,
+exact int32 sums, activations quantised from the fp32 LN / GELU values,
+`acc * (row_scale * w_scale) + b` in fp32 before the cast.
+
+Beside each kernel its plain PyTorch version (`*_reference`) repeats the
+arithmetic with an exact integer product; the CPU tests use them. Served
+behind `Act8Switches.fused` (VIDEOITG_FUSED=1) in models/siglip.py.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.nn import functional as F
+
+from videoitg_tpu_torch.models.common import Norm
+from videoitg_tpu_torch.ops import _build
+from videoitg_tpu_torch.ops._kernel_args import check_matrix, stream_handle
+from videoitg_tpu_torch.ops.quant import QuantLinear, int8_matmul, row_quant
+
+ACTIVATIONS = ("gelu_tanh", "quick_gelu")
+MAX_ROW_WIDTH = 2048  # widest row the kernels quantise (a warp holds it in registers)
+
+
+def _layer_norm_f32(x: torch.Tensor, ln: Norm, eps: float) -> torch.Tensor:
+    mean = x.mean(dim=-1, keepdim=True)
+    var = ((x - mean) * (x - mean)).mean(dim=-1, keepdim=True)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    return y * ln.scale.float() + ln.bias.float()
+
+
+def _activation_f32(h: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "gelu_tanh":
+        return F.gelu(h, approximate="tanh")
+    if act == "quick_gelu":
+        return h * torch.sigmoid(1.702 * h)
+    raise ValueError(f"unknown activation {act!r} (one of {ACTIVATIONS})")
+
+
+def _vec(a, n: int, device) -> torch.Tensor:
+    """A bias as an fp32 [n] vector (zeros when absent)."""
+    if a is None:
+        return torch.zeros(n, device=device, dtype=torch.float32)
+    return a.detach().float().contiguous()
+
+
+def _scaled(acc: torch.Tensor, row_scale: torch.Tensor, lin_scale: torch.Tensor,
+            bias: torch.Tensor) -> torch.Tensor:
+    return acc.float() * (row_scale * lin_scale) + bias
+
+
+def _check_int8(name: str, *lins) -> None:
+    for lin in lins:
+        if not isinstance(lin, QuantLinear) or lin.bits != 8:
+            raise ValueError(f"{name}: every linear must be an int8 QuantLinear")
+
+
+def fused_ln_qkv_int8_reference(x, ln: Norm, q_lin, k_lin, v_lin, eps: float):
+    """Plain version of `fused_ln_qkv_int8`."""
+    yq, ys = row_quant(_layer_norm_f32(x.float(), ln, eps))
+    out = []
+    for lin in (q_lin, k_lin, v_lin):
+        h = _scaled(int8_matmul(yq, lin.w_qt), ys, lin.scale,
+                    _vec(lin.b, lin.out_features, x.device))
+        out.append(h.to(x.dtype))
+    return tuple(out)
+
+
+def fused_ln_qkv_int8(x: torch.Tensor, ln: Norm, q_lin: QuantLinear, k_lin: QuantLinear,
+                      v_lin: QuantLinear, eps: float):
+    """LN + dynamic int8 quant + packed QKV product. x: [N, H]. Returns
+    (q [N, dq], k [N, dk], v [N, dv]) in x.dtype. The three int8 weights are
+    packed along the output axis on every call (4 MB at the SigLIP shape).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel (bf16,
+    H a multiple of 16 up to 2048, dq, dk, dv multiples of 8) or raise.
+    """
+    _check_int8("fused_ln_qkv_int8", q_lin, k_lin, v_lin)
+    if x.device.type == "cpu":
+        return fused_ln_qkv_int8_reference(x, ln, q_lin, k_lin, v_lin, eps)
+    n, h = x.shape
+    dev = x.device
+    dq, dk, dv = q_lin.out_features, k_lin.out_features, v_lin.out_features
+    check_matrix("fused_ln_qkv_int8", "x", x, torch.bfloat16, (n, h), dev)
+    if n <= 0 or h % 16 or h > MAX_ROW_WIDTH or dq % 8 or dk % 8 or dv % 8:
+        raise ValueError(f"fused_ln_qkv_int8: H={h} must be a multiple of 16, at most "
+                         f"{MAX_ROW_WIDTH}, and dq, dk, dv = {dq}, {dk}, {dv} multiples of 8")
+    w = torch.cat([q_lin.w_qt, k_lin.w_qt, v_lin.w_qt], dim=0)
+    s = torch.cat([q_lin.scale, k_lin.scale, v_lin.scale])
+    b = torch.cat([_vec(q_lin.b, dq, dev), _vec(k_lin.b, dk, dev), _vec(v_lin.b, dv, dev)])
+    check_matrix("fused_ln_qkv_int8", "packed weight", w, torch.int8, (dq + dk + dv, h), dev)
+    lns, lnb = _vec(ln.scale, h, dev), _vec(ln.bias, h, dev)
+    q = torch.empty((n, dq), device=dev, dtype=torch.bfloat16)
+    k = torch.empty((n, dk), device=dev, dtype=torch.bfloat16)
+    v = torch.empty((n, dv), device=dev, dtype=torch.bfloat16)
+    err = _build.library().videoitg_fused_ln_qkv_int8_bf16(
+        x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w.data_ptr(), s.data_ptr(),
+        b.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), n, h, dq, dk, dv,
+        float(eps), stream_handle(x))
+    _build.check(err, "fused_ln_qkv_int8")
+    fused_ln_qkv_int8.launches += 1
+    return q, k, v
+
+
+fused_ln_qkv_int8.launches = 0
+
+
+def fused_ln_mlp_int8_reference(x, ln: Norm, fc1, fc2, eps: float, act: str = "gelu_tanh"):
+    """Plain version of `fused_ln_mlp_int8`."""
+    xf = x.float()
+    yq, ys = row_quant(_layer_norm_f32(xf, ln, eps))
+    h = _scaled(int8_matmul(yq, fc1.w_qt), ys, fc1.scale,
+                _vec(fc1.b, fc1.out_features, x.device))
+    gq, gs = row_quant(_activation_f32(h, act))
+    o = _scaled(int8_matmul(gq, fc2.w_qt), gs, fc2.scale,
+                _vec(fc2.b, fc2.out_features, x.device))
+    return (xf + o).to(x.dtype)
+
+
+def fused_ln_mlp_int8(x: torch.Tensor, ln: Norm, fc1: QuantLinear, fc2: QuantLinear,
+                      eps: float, act: str = "gelu_tanh") -> torch.Tensor:
+    """x + fc2(act(fc1(quant(LN(x))))) with the [N, M] intermediate kept out
+    of device memory. x: [N, H]. Returns [N, H] in x.dtype.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel (bf16,
+    H a multiple of 16, M a multiple of 16) or raise.
+    """
+    _check_int8("fused_ln_mlp_int8", fc1, fc2)
+    if act not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {act!r} (one of {ACTIVATIONS})")
+    if x.device.type == "cpu":
+        return fused_ln_mlp_int8_reference(x, ln, fc1, fc2, eps, act)
+    n, h = x.shape
+    m = fc1.out_features
+    dev = x.device
+    check_matrix("fused_ln_mlp_int8", "x", x, torch.bfloat16, (n, h), dev)
+    check_matrix("fused_ln_mlp_int8", "fc1 weight", fc1.w_qt, torch.int8, (m, h), dev)
+    check_matrix("fused_ln_mlp_int8", "fc2 weight", fc2.w_qt, torch.int8, (h, m), dev)
+    if n <= 0 or h % 16 or h > MAX_ROW_WIDTH or m % 16:
+        raise ValueError(f"fused_ln_mlp_int8: H={h} (at most {MAX_ROW_WIDTH}) and M={m} must "
+                         "be multiples of 16")
+    lns, lnb = _vec(ln.scale, h, dev), _vec(ln.bias, h, dev)
+    b1, b2 = _vec(fc1.b, m, dev), _vec(fc2.b, h, dev)
+    out = torch.empty_like(x)
+    err = _build.library().videoitg_fused_ln_mlp_int8_bf16(
+        x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), fc1.w_qt.data_ptr(),
+        fc1.scale.data_ptr(), b1.data_ptr(), fc2.w_qt.data_ptr(), fc2.scale.data_ptr(),
+        b2.data_ptr(), out.data_ptr(), n, h, m, float(eps), ACTIVATIONS.index(act),
+        stream_handle(x))
+    _build.check(err, "fused_ln_mlp_int8")
+    fused_ln_mlp_int8.launches += 1
+    return out
+
+
+fused_ln_mlp_int8.launches = 0
+
+
+def fused_proj_residual_int8_reference(attn, residual, o_lin):
+    """Plain version of `fused_proj_residual_int8`."""
+    aq, a_scale = row_quant(attn.float())
+    o = _scaled(int8_matmul(aq, o_lin.w_qt), a_scale, o_lin.scale,
+                _vec(o_lin.b, o_lin.out_features, attn.device))
+    return (residual.float() + o).to(residual.dtype)
+
+
+def fused_proj_residual_int8(attn: torch.Tensor, residual: torch.Tensor,
+                             o_lin: QuantLinear) -> torch.Tensor:
+    """residual + o_proj(quant(attn)). attn: [N, D], residual: [N, H].
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel (bf16,
+    D a multiple of 16, H a multiple of 8) or raise.
+    """
+    _check_int8("fused_proj_residual_int8", o_lin)
+    if attn.device.type == "cpu":
+        return fused_proj_residual_int8_reference(attn, residual, o_lin)
+    n, d = attn.shape
+    h = o_lin.out_features
+    dev = attn.device
+    check_matrix("fused_proj_residual_int8", "attn", attn, torch.bfloat16, (n, d), dev)
+    check_matrix("fused_proj_residual_int8", "residual", residual, torch.bfloat16, (n, h), dev)
+    check_matrix("fused_proj_residual_int8", "o weight", o_lin.w_qt, torch.int8, (h, d), dev)
+    if n <= 0 or d % 16 or d > MAX_ROW_WIDTH or h % 8:
+        raise ValueError(f"fused_proj_residual_int8: D={d} must be a multiple of 16, at most "
+                         f"{MAX_ROW_WIDTH}, and H={h} a multiple of 8")
+    b = _vec(o_lin.b, h, dev)
+    out = torch.empty_like(residual)
+    err = _build.library().videoitg_fused_proj_residual_int8_bf16(
+        attn.data_ptr(), residual.data_ptr(), o_lin.w_qt.data_ptr(), o_lin.scale.data_ptr(),
+        b.data_ptr(), out.data_ptr(), n, d, h, stream_handle(attn))
+    _build.check(err, "fused_proj_residual_int8")
+    fused_proj_residual_int8.launches += 1
+    return out
+
+
+fused_proj_residual_int8.launches = 0
+
+
+def can_fuse_encoder_layer(layer) -> bool:
+    """True when every encoder-layer linear is int8 with act_q: the exact
+    configuration the act8 serving tier produces. (LoRA adapters, which the
+    JAX package also excludes, are not ported.)"""
+    def ok(lin):
+        return isinstance(lin, QuantLinear) and lin.bits == 8 and lin.act_q
+
+    return all(ok(getattr(layer, k, None)) for k in ("q", "k", "v", "o", "fc1", "fc2"))
