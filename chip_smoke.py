@@ -18,6 +18,18 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    version, its bound (the larger of operations / peak rate and bytes /
    memory rate) and, for the attention kernels, one library call
    (scaled_dot_product_attention; timed here, never used by the port).
+   * C, D, E (trainable attention: forward + lse, dQ, dK/dV) at the LM's
+     training shape [1, 28/4, 16640, 128] with a 16,500-token valid prefix
+     (plain versions run whole, one query head of each group at a time), a
+     ragged S = 4,101, a causal two-row case with dead rows, two rows of
+     different valid lengths, D = 72 with GQA, seven more head dims from 8
+     to 120 (every instantiation runs), and the tower's shape
+     [32, 16, 729, 72] (forward only). The backward is compared like with
+     like: both sides get the kernel's own o and lse. Tolerance: 4 bf16
+     half-ulps of each output's max|reference|, lse 1e-3 absolute. Invalid
+     rows of o and dq and invalid keys of dk, dv must be exactly 0, and two
+     runs of dK/dV bit-equal. Library call: scaled_dot_product_attention
+     forward for C, its autograd backward for D and E together.
    * A, B (attention, bf16): plus a long case whose length is not a multiple
      of the 64-key tile, a small causal case and a fully-masked-row case.
      Tolerance: 4 bf16 half-ulps of the case's max|reference| (see
@@ -46,9 +58,23 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    and read right after it; every kernel of the path must have launched.
    Scores must be finite in [0, 1], and each `index` a permutation of the
    sampled frames.
+6. Training: VideoITG-8B bf16 with LoRA r16 adapters (random weights and
+   adapters from seeded generators), `make_lora_optimizer`, `make_train_step(
+   use_flash=True, remat=True)`, through `run_step`. Three steps on a
+   1024-frame feature batch [1, 1024, 729, 1152] made on the device (hw 4,
+   16,640 LM tokens), then two steps on 32 uint8 frames through
+   `collate_grounding` (the frozen tower in the step). At every step the
+   loss is finite and the launch counts are exact: C twice a layer (forward
+   and recompute) plus once per tower layer when frames come in, D and E
+   once a layer. The frozen leaves must be bit-identical afterwards, lora_b
+   and out_proj changed. Then, on videoitg-8b-shallow at 8 frames: the loss
+   and LoRA gradients of the kernel path against the plain path (loss 2e-2
+   relative; gradients 5e-2 of each leaf's largest entry), and two QLoRA
+   steps each over an int8 and an int4 base (integer bytes unchanged).
 
-`--only int8-kernels` stops after building and checking kernels F-I (a
-short first run for a new kernel); it prints no result line.
+`--only int8-kernels` stops after building and checking kernels F-I,
+`--only train-kernels` after C, D, E (a short first run for a new kernel);
+`--only train` runs phase 6 alone. None of them prints a result line.
 
 The last two lines are the per-kernel JSON record and
 {"ok": true, "device": {...}}.
@@ -511,6 +537,213 @@ def check_int8_kernels(dev) -> dict:
     return records
 
 
+def check_train_kernels(dev) -> dict:
+    """Kernels C, D, E (trainable attention: forward + lse, dQ, dK/dV) vs
+    their plain versions; returns name -> record. The backward is compared
+    like with like: both sides get the kernel's own saved forward (o, lse)."""
+    import torch
+    from torch.nn import functional as F
+
+    from videoitg_tpu_torch.ops import flash_attention_train as fat
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def run_case(label, q, k, v, valid, causal, backward=True):
+        """Forward and backward against the plain versions; returns the
+        tensors, the errors and the tolerances for the caller's extra checks."""
+        o, lse = fat.flash_train_fwd(q, k, v, valid, causal)
+        ref_o, ref_lse = fat.flash_mha_train_reference(q, k, v, valid, causal)
+        live = torch.isfinite(ref_lse)
+        if not torch.equal(live, torch.isfinite(lse)):
+            fail(f"{label}: dead rows of lse differ from the plain version")
+        c = dict(o=o, lse=lse, err_o=max_err(o, ref_o.float()), tol_o=bf16_tol(ref_o.float()),
+                 err_lse=(lse[live] - ref_lse[live]).abs().max().item())
+        msg = (f"kernel flash_train {label}: fwd max_abs_err {c['err_o']:.6g} (tol "
+               f"{c['tol_o']:.6g}), lse {c['err_lse']:.6g} (tol 0.001)")
+        if not (c["err_o"] <= c["tol_o"] and c["err_lse"] <= 1e-3):
+            fail(msg)
+        if valid is not None and o.transpose(1, 2)[~valid].abs().sum().item() != 0.0:
+            fail(f"{label}: invalid query rows of o are not exactly 0")
+        del ref_o, ref_lse
+        if backward:
+            do = randn(*q.shape)
+            c["do"] = do
+            dq, dk, dv = fat.flash_train_bwd(q, k, v, valid, o, lse, do, causal)
+            refs = fat.flash_mha_train_backward_reference(q, k, v, valid, o, lse, do, causal)
+            for name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+                c[name], c["ref_" + name] = out, ref
+                c["err_" + name] = max_err(out, ref.float())
+                c["tol_" + name] = bf16_tol(ref.float())
+                msg += f"; {name} {c['err_' + name]:.6g} (tol {c['tol_' + name]:.6g})"
+                if not c["err_" + name] <= c["tol_" + name]:
+                    fail(msg)
+            if valid is not None:
+                if dq.transpose(1, 2)[~valid].abs().sum().item() != 0.0:
+                    fail(f"{label}: invalid query rows of dq are not exactly 0")
+                if (dk.transpose(1, 2)[~valid].abs().sum().item() != 0.0
+                        or dv.transpose(1, 2)[~valid].abs().sum().item() != 0.0):
+                    fail(f"{label}: invalid keys of dk / dv are not exactly 0")
+        print(msg, flush=True)
+        return c
+
+    # The training shape of the LM: 1024 frames x 16 slots + 256 text slots,
+    # a 16,500-token valid prefix (the plain versions run whole, one query
+    # head of each group at a time).
+    s, n_valid = 1024 * 16 + 256, 16500
+    q, k, v = randn(1, 28, s, 128), randn(1, 4, s, 128), randn(1, 4, s, 128)
+    valid = torch.arange(s, device=dev)[None] < n_valid
+    c = run_case(f"[1, 28/4, {s}, 128] bf16, {n_valid} valid", q, k, v, valid, False)
+    o, lse, do = c["o"], c["lse"], c["do"]
+    do0, delta = fat.prepare_backward(valid, o, do)
+    dk2, dv2 = fat.flash_train_dkv(q, k, v, valid, do0, lse, delta)
+    if not (torch.equal(dk2, c["dk"]) and torch.equal(dv2, c["dv"])):
+        fail("flash_train_dkv: two runs differ")
+    del dk2, dv2
+
+    # Deliberately broken uses, through the kernels themselves.
+    def worst(outs, names):
+        return max(max_err(out, c["ref_" + n].float()) / c["tol_" + n]
+                   for out, n in zip(outs, names))
+
+    broken = {}
+    broken["key mask ignored in dK/dV"] = worst(
+        fat.flash_train_dkv(q, k, v, None, do0, lse, delta), ("dk", "dv"))
+    raw_delta = (do.float() * o.float()).sum(dim=-1)
+    broken["dO of invalid rows not zeroed"] = worst(
+        (fat.flash_train_dq(q, k, v, valid, do, lse, raw_delta),
+         *fat.flash_train_dkv(q, k, v, valid, do, lse, raw_delta)), ("dq", "dk", "dv"))
+    zero = torch.zeros_like(delta)
+    broken["delta dropped"] = worst(
+        (fat.flash_train_dq(q, k, v, valid, do0, lse, zero),
+         *fat.flash_train_dkv(q, k, v, valid, do0, lse, zero)), ("dq", "dk", "dv"))
+    # A head whose dO and delta are zero adds nothing: the same as skipping it.
+    do_skip, delta_skip = do0.clone(), delta.clone()
+    do_skip[:, 6], delta_skip[:, 6] = 0, 0
+    broken["one query head of the group skipped in dK/dV"] = worst(
+        fat.flash_train_dkv(q, k, v, valid, do_skip, lse, delta_skip), ("dk", "dv"))
+    fewer = valid.clone()
+    fewer[:, 6400:6464] = False
+    broken["one key tile skipped in dQ"] = worst(
+        (fat.flash_train_dq(q, k, v, fewer, do0, lse, delta),), ("dq",))
+    del do_skip, delta_skip, zero, raw_delta
+    print("kernel flash_train broken uses, worst error over its tolerance: "
+          + "; ".join(f"{name} {ratio:.3g}x" for name, ratio in broken.items()), flush=True)
+    for name, ratio in broken.items():
+        if not ratio > 1.0:
+            fail(f"flash_train tolerance does not catch: {name} ({ratio}x)")
+
+    # Times at the training shape, beside the plain versions, the bounds (the
+    # work this run's valid prefix needs) and the library call.
+    ms = dict(fwd=cuda_ms(lambda: fat.flash_train_fwd(q, k, v, valid), 5),
+              dq=cuda_ms(lambda: fat.flash_train_dq(q, k, v, valid, do0, lse, delta), 3),
+              dkv=cuda_ms(lambda: fat.flash_train_dkv(q, k, v, valid, do0, lse, delta), 3))
+    plain_fwd = cuda_ms(lambda: fat.flash_mha_train_reference(q, k, v, valid), 1)
+    plain_bwd = cuda_ms(lambda: fat.backward_on_kernel_inputs(q, k, v, valid, do0, lse, delta,
+                                                              False), 1)
+    k28 = k.repeat_interleave(7, dim=1).requires_grad_()
+    v28 = v.repeat_interleave(7, dim=1).requires_grad_()
+    qg = q.clone().requires_grad_()
+    attn_mask = valid[:, None, None, :]
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k28.detach(), v28.detach(),
+                                                             attn_mask=attn_mask), 3)
+    lib_out = F.scaled_dot_product_attention(qg, k28, v28, attn_mask=attn_mask)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, (qg, k28, v28), do0,
+                                                  retain_graph=True), 3)
+    del k28, v28, qg, lib_out
+    unit = n_valid * n_valid * 128 * 28  # one S x S x D product over the q heads, in MACs
+    big, small, stat = q.numel() * 2, k.numel() * 2, lse.numel() * 4
+    bounds = dict(fwd=bound(4 * unit, PEAK_BF16, 2 * big + 2 * small + stat),
+                  dq=bound(6 * unit, PEAK_BF16, 3 * big + 2 * small + 2 * stat),
+                  dkv=bound(8 * unit, PEAK_BF16, 2 * big + 4 * small + 2 * stat))
+    print(f"kernel flash_train [1, 28/4, {s}, 128]: fwd {ms['fwd']:.4f} ms, dq {ms['dq']:.4f} ms, "
+          f"dkv {ms['dkv']:.4f} ms; plain fwd {plain_fwd:.4f} ms, plain backward (dq, dk, dv "
+          f"together) {plain_bwd:.4f} ms; library (sdpa, kv heads expanded, key mask as "
+          f"attn_mask) fwd {lib_fwd:.4f} ms, its autograd backward (dq, dk, dv together) "
+          f"{lib_bwd:.4f} ms; bounds fwd {bounds['fwd']['bound_ms']:.4f}, dq "
+          f"{bounds['dq']['bound_ms']:.4f}, dkv {bounds['dkv']['bound_ms']:.4f} ms by "
+          f"{bounds['dkv']['bound_by']}", flush=True)
+    src = "videoitg_tpu_torch/csrc/flash_attention_train.cu"
+    tpu = "videoitg_tpu/ops/flash_attention_train.py"
+    records = {
+        "flash_train_fwd": dict(name="flash_train_fwd", route="cuda", source=src,
+                                replaces=f"{tpu}:41", max_abs_err=c["err_o"], ms=ms["fwd"],
+                                plain_ms=plain_fwd, library_ms=lib_fwd, **bounds["fwd"]),
+        "flash_train_dq": dict(name="flash_train_dq", route="cuda", source=src,
+                               replaces=f"{tpu}:106", max_abs_err=c["err_dq"], ms=ms["dq"],
+                               plain_ms=plain_bwd, library_ms=lib_bwd,
+                               note="plain_ms and library_ms are the whole backward "
+                                    "(dq, dk, dv), one number for both backward kernels",
+                               **bounds["dq"]),
+        "flash_train_dkv": dict(name="flash_train_dkv", route="cuda", source=src,
+                                replaces=f"{tpu}:153",
+                                max_abs_err=max(c["err_dk"], c["err_dv"]), ms=ms["dkv"],
+                                plain_ms=plain_bwd, library_ms=lib_bwd,
+                                note="plain_ms and library_ms are the whole backward "
+                                     "(dq, dk, dv), one number for both backward kernels",
+                                **bounds["dkv"]),
+    }
+    del q, k, v, c, o, lse, do, do0, delta
+    torch.cuda.empty_cache()
+
+    def widen(case):
+        records["flash_train_fwd"]["max_abs_err"] = max(
+            records["flash_train_fwd"]["max_abs_err"], case["err_o"])
+        if "err_dq" in case:
+            records["flash_train_dq"]["max_abs_err"] = max(
+                records["flash_train_dq"]["max_abs_err"], case["err_dq"])
+            records["flash_train_dkv"]["max_abs_err"] = max(
+                records["flash_train_dkv"]["max_abs_err"], case["err_dk"], case["err_dv"])
+
+    # A length that is not a multiple of the 64-row tile (4,101 = 64 x 64 + 5),
+    # with scattered invalid tokens.
+    s = 4101
+    q, k, v = randn(1, 28, s, 128), randn(1, 4, s, 128), randn(1, 4, s, 128)
+    valid = torch.rand(1, s, generator=gen, device=dev) > 0.02
+    widen(run_case(f"ragged [1, 28/4, {s}, 128]", q, k, v, valid, False))
+
+    # Causal, two batch rows; rows 0..4 of the first see no valid key.
+    b, s = 2, 1000
+    q, k, v = randn(b, 28, s, 128), randn(b, 4, s, 128), randn(b, 4, s, 128)
+    valid = torch.rand(b, s, generator=gen, device=dev) > 0.1
+    valid[0, :5] = False
+    case = run_case(f"causal [2, 28/4, {s}, 128]", q, k, v, valid, True)
+    if torch.isfinite(case["lse"][0, :, :5]).any() or case["dq"][0, :, :5].abs().max() != 0:
+        fail("causal rows with no visible valid key: lse not dead or dq not 0")
+    widen(case)
+
+    # Two batch rows with different valid lengths, and a narrow ragged head
+    # dim (72, padded to 80 in shared memory only) with GQA.
+    b, s = 2, 2000
+    q, k, v = randn(b, 28, s, 128), randn(b, 4, s, 128), randn(b, 4, s, 128)
+    valid = torch.arange(s, device=dev)[None] < torch.tensor([[1990], [1203]], device=dev)
+    widen(run_case(f"[2, 28/4, {s}, 128], valid lengths 1990 and 1203", q, k, v, valid, False))
+    q, k, v = randn(2, 6, 300, 72), randn(2, 2, 300, 72), randn(2, 2, 300, 72)
+    widen(run_case("[2, 6/2, 300, 72], valid lengths 300 and 170", q, k, v,
+                   torch.arange(300, device=dev)[None] < torch.tensor([[300], [170]], device=dev),
+                   False))
+
+    # The other head dims the wrappers take (each its own instantiation,
+    # padded to a multiple of 16 in shared memory), at a small ragged length.
+    for d in (8, 24, 40, 56, 88, 104, 120):
+        q, k, v = randn(1, 4, 130, d), randn(1, 2, 130, d), randn(1, 2, 130, d)
+        widen(run_case(f"[1, 4/2, 130, {d}], 100 valid", q, k, v,
+                       torch.arange(130, device=dev)[None] < 100, causal=d % 32 == 24))
+
+    # The vision tower's shape under training (frozen: forward only).
+    q, k, v = (randn(32, 16, 729, 72) for _ in range(3))
+    case = run_case("tower [32, 16, 729, 72], no mask, forward only", q, k, v, None, False,
+                    backward=False)
+    widen(case)
+    tower_ms = cuda_ms(lambda: fat.flash_train_fwd(q, k, v), 10)
+    print(f"kernel flash_train_fwd tower [32, 16, 729, 72]: {tower_ms:.4f} ms", flush=True)
+    records["flash_train_fwd"]["tower_ms"] = tower_ms
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return records
+
 
 def frames_u8(rng, t: int):
     import numpy as np
@@ -572,6 +805,7 @@ QUESTIONS = ["What is the person holding?", "When does the car turn left?",
 
 def wrappers() -> dict:
     """name -> kernel wrapper (each carries a `launches` count)."""
+    from videoitg_tpu_torch.ops import flash_attention_train as fat
     from videoitg_tpu_torch.ops import fused_encoder as fe
     from videoitg_tpu_torch.ops.flash_attention import flash_mha
     from videoitg_tpu_torch.ops.flash_attention_short import flash_mha_short
@@ -579,7 +813,14 @@ def wrappers() -> dict:
 
     return {"flash_mha_short": flash_mha_short, "flash_mha": flash_mha, "act8_gemm": act8_gemm,
             "fused_ln_qkv_int8": fe.fused_ln_qkv_int8, "fused_ln_mlp_int8": fe.fused_ln_mlp_int8,
-            "fused_proj_residual_int8": fe.fused_proj_residual_int8}
+            "fused_proj_residual_int8": fe.fused_proj_residual_int8,
+            "flash_train_fwd": fat.flash_train_fwd, "flash_train_dq": fat.flash_train_dq,
+            "flash_train_dkv": fat.flash_train_dkv}
+
+
+SERVING_KERNELS = ("flash_mha_short", "flash_mha", "act8_gemm", "fused_ln_qkv_int8",
+                   "fused_ln_mlp_int8", "fused_proj_residual_int8")
+TRAIN_KERNELS = ("flash_train_fwd", "flash_train_dq", "flash_train_dkv")
 
 
 def run_requests(tier: str, requests, expect_launches, card: str) -> dict:
@@ -673,7 +914,7 @@ def run_slices(dev, card: str) -> dict:
         ("select 512 frames (warm)", 512, select512(engine, 1), sampled512),
         ("select_many 512 frames x 3 questions", 512,
          lambda: engine.select_many(video512, sampled512, QUESTIONS), sampled512),
-    ], tuple(wrappers()), card)
+    ], SERVING_KERNELS, card)
     print(f"[act8, int8 kernels on] stages {json.dumps(engine.timer.summary())}", flush=True)
     kernels_on = engine.select(video512, sampled512, QUESTIONS[1]).raw_scores
     engine_off = SelectionEngine(model, cfg, tok, device=dev, dtype=torch.bfloat16,
@@ -691,10 +932,215 @@ def run_slices(dev, card: str) -> dict:
     return {**launches, **{k: launches[k] + v for k, v in bf16_launches.items()}}
 
 
+def bit_checksums(tensors) -> list:
+    """One exact integer per tensor over its bit pattern: equal lists mean
+    bit-identical tensors (up to a collision no update would produce)."""
+    import torch
+
+    sums = []
+    for t in tensors:
+        bits = t.detach().reshape(-1).view(torch.int8 if t.element_size() == 1 else torch.int16)
+        sums.append(int(bits.to(torch.int64).sum().item()))
+    return sums
+
+
+def train_steps(tag, state, step_fn, batch, n_steps, expect, card):
+    """`n_steps` calls of run_step on `batch`, each with the launch counts set
+    to 0 just before and read just after; `expect` (kernel -> launches per
+    step) must hold at every step and the loss must be finite. Returns the
+    counts summed over the steps."""
+    import torch
+
+    from videoitg_tpu_torch.train.train_step import run_step
+
+    counted = wrappers()
+    total = {name: 0 for name in counted}
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(n_steps):
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = run_step(step_fn, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counted.items()}
+        m = {k: float(v) for k, v in metrics.items()}
+        print(f"train [{tag}] step {state.step}: {wall:.4f} s, loss {m['loss']:.6f}, grad_norm "
+              f"{m['grad_norm']:.6f}, pos_weight {m['pos_weight']:.4f}, launches "
+              f"{ {k: launches[k] for k in TRAIN_KERNELS} } [{card}]", flush=True)
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            fail(f"[{tag}] loss or grad_norm not finite at step {state.step}")
+        for name, n in expect.items():
+            if launches[name] != n:
+                fail(f"[{tag}] kernel {name} launched {launches[name]} times in a step, "
+                     f"expected {n}")
+        if any(launches[name] for name in SERVING_KERNELS):
+            fail(f"[{tag}] an inference kernel launched in a training step")
+        for name, n in launches.items():
+            total[name] += n
+    print(f"train [{tag}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+          f"over {n_steps} steps [{card}]", flush=True)
+    return state, total
+
+
+def run_training(dev, card: str) -> dict:
+    """The training path: LoRA steps of VideoITG-8B at full width (features
+    in, then frames in), the kernel path against the plain path on
+    videoitg-8b-shallow, and QLoRA steps over int8 and int4 bases. Returns the
+    launch counts of the full-width feature-batch steps."""
+    import numpy as np
+    import torch
+
+    from videoitg_tpu_torch.cli._model_loading import load_grounding_components
+    from videoitg_tpu_torch.models.grounding import GroundingBatch, grounding_loss
+    from videoitg_tpu_torch.ops.quant import quantize_grounding_int8, quantize_qwen2_int4
+    from videoitg_tpu_torch.train.collate import collate_grounding
+    from videoitg_tpu_torch.train.dataset import GroundingSample
+    from videoitg_tpu_torch.train.lora import add_lora, make_lora_optimizer
+    from videoitg_tpu_torch.train.train_step import create_train_state, make_train_step
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    rng = np.random.default_rng(SEED + 31)
+
+    def frame_samples(cfg, t, tok):
+        labels = (rng.random(t) < 0.2).astype(np.float32)
+        labels[0] = 1.0
+        from videoitg_tpu_torch.data.tokenizer import grounding_text_ids
+
+        ids = grounding_text_ids(QUESTIONS[0], tok, cfg.max_text_len)
+        return [GroundingSample(frames_u8(rng, t), ids, labels, "synthetic")]
+
+    # ---- full width: VideoITG-8B, LoRA r16, 1024 frames of features ----
+    t0 = time.perf_counter()
+    model, cfg, tok = load_grounding_components(None, "videoitg-8b", True, torch.bfloat16, dev,
+                                                seed=SEED)
+    add_lora(model, gen, rank=16)
+    tx = make_lora_optimizer(model, learning_rate=2e-4, out_proj_lr=2e-4, total_steps=10)
+    state = create_train_state(model, tx)
+    trainable = set(tx.trainable_names())
+    base = [p for n, p in model.named_parameters() if n not in trainable]
+    n_train = sum(p.numel() for p in tx.params)
+    torch.cuda.synchronize()
+    print(f"videoitg-8b bf16 + LoRA r16: {sum(p.numel() for p in base) / 1e9:.3f} B frozen, "
+          f"{n_train / 1e6:.3f} M trainable parameters, "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB on the card, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    before = bit_checksums(base)
+    lora_b0 = model.lm.layers[0].q.lora_b.detach().clone()
+    out_w0 = model.out_proj.w.detach().clone()
+
+    t_frames, hw = 1024, 4
+    n_layers = cfg.lm.num_layers
+    feats = torch.randn(1, t_frames, cfg.vision.num_patches, cfg.vision.hidden_size,
+                        generator=gen, device=dev, dtype=torch.bfloat16)
+    text_valid = torch.arange(cfg.max_text_len, device=dev)[None] < 40
+    batch = GroundingBatch(
+        frames=feats,
+        frame_valid=torch.ones(1, t_frames, dtype=torch.bool, device=dev),
+        text_ids=torch.randint(0, cfg.lm.vocab_size, (1, cfg.max_text_len), generator=gen,
+                               device=dev),
+        text_valid=text_valid,
+        labels=(torch.rand(1, t_frames, generator=gen, device=dev) < 0.1).float())
+    tokens = t_frames * hw * hw + cfg.max_text_len
+    print(f"train [8b lora, features] batch {list(feats.shape)} bf16 "
+          f"({feats.numel() * 2 / 1e9:.2f} GB), hw {hw}, {tokens} LM tokens", flush=True)
+    step_fn = make_train_step(cfg, tx, hw=hw, use_flash=True, remat=True)
+    expect = {"flash_train_fwd": 2 * n_layers, "flash_train_dq": n_layers,
+              "flash_train_dkv": n_layers}
+    state, launches = train_steps("8b lora, features", state, step_fn, batch, 3, expect, card)
+    if bit_checksums(base) != before:
+        fail("a frozen base weight changed during the LoRA steps")
+    if torch.equal(model.lm.layers[0].q.lora_b, lora_b0) or torch.equal(model.out_proj.w, out_w0):
+        fail("lora_b or out_proj did not change over the LoRA steps")
+    print("train [8b lora, features] frozen leaves bit-identical; lora_b and out_proj changed",
+          flush=True)
+    del feats, batch
+
+    # ---- the tower in the step: 32 uint8 frames through collate_grounding ----
+    t_frames = 32
+    hw = cfg.projector.tokens_hw(t_frames, cfg.vision.num_patches_per_side)
+    batch = collate_grounding(frame_samples(cfg, t_frames, tok), t_frames, cfg,
+                              dtype=torch.bfloat16, device=dev)
+    print(f"train [8b lora, frames] batch {list(batch.frames.shape)}, hw {hw}, "
+          f"{t_frames * hw * hw + cfg.max_text_len} LM tokens", flush=True)
+    step_fn = make_train_step(cfg, tx, hw=hw, use_flash=True, remat=True)
+    expect = {"flash_train_fwd": cfg.vision.num_effective_layers + 2 * n_layers,
+              "flash_train_dq": n_layers, "flash_train_dkv": n_layers}
+    state, _ = train_steps("8b lora, frames", state, step_fn, batch, 2, expect, card)
+    if bit_checksums(base) != before:
+        fail("a frozen base weight changed during the LoRA steps with the tower")
+    del model, tx, state, base, batch, step_fn
+    torch.cuda.empty_cache()
+
+    # ---- kernel path vs plain path, one LoRA loss and its gradients ----
+    model, cfg, tok = load_grounding_components(None, "videoitg-8b-shallow", True,
+                                                torch.bfloat16, dev, seed=SEED)
+    add_lora(model, gen, rank=16)
+    for layer in model.lm.layers:  # B = 0 would leave A without gradient
+        for name in ("q", "k", "v", "o", "gate", "up", "down"):
+            getattr(layer, name).lora_b.data.normal_(0.0, 0.02, generator=gen)
+    tx = make_lora_optimizer(model, out_proj_lr=2e-4, total_steps=10)
+    batch = collate_grounding(frame_samples(cfg, 8, tok), 8, cfg, dtype=torch.bfloat16,
+                              device=dev)
+    hw = cfg.projector.tokens_hw(8, cfg.vision.num_patches_per_side)
+    results = {}
+    for use_flash in (True, False):
+        loss, _ = grounding_loss(model, batch, cfg, hw, use_flash=use_flash, remat=True)
+        results[use_flash] = (loss.item(), torch.autograd.grad(loss, tx.params))
+    (loss_k, grads_k), (loss_p, grads_p) = results[True], results[False]
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    # Relative to each leaf's own largest gradient; both paths round to bf16
+    # at different points (the plain path normalises p before rounding it,
+    # and keeps no fp32 lse), a few bf16 ulps per layer.
+    grad_tol = 5e-2
+    rel_grad = max((gk.float() - gp.float()).abs().max().item() / gp.float().abs().max().item()
+                   for gk, gp in zip(grads_k, grads_p) if gp.abs().max().item() > 0)
+    print(f"agreement videoitg-8b-shallow, 8 frames, one LoRA step's loss and gradients, kernel "
+          f"vs plain path: loss {loss_k:.6f} vs {loss_p:.6f} (relative {rel_loss:.3g}, tol 2e-2); "
+          f"gradients of {len(grads_k)} leaves, worst max|diff| / max|plain| {rel_grad:.3g} "
+          f"(tol {grad_tol})", flush=True)
+    if not (rel_loss <= 2e-2 and rel_grad <= grad_tol):
+        fail("training: kernel path and plain path disagree")
+    del model, tx, results, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    # ---- QLoRA: int8 then int4 base, two steps each (the first has lr 0) ----
+    for bits in (8, 4):
+        model, cfg, tok = load_grounding_components(None, "videoitg-8b-shallow", True,
+                                                    torch.bfloat16, dev, seed=SEED)
+        if bits == 8:
+            quantize_grounding_int8(model)
+        else:
+            quantize_qwen2_int4(model.lm)
+        add_lora(model, gen, rank=16)
+        tx = make_lora_optimizer(model, out_proj_lr=2e-4, total_steps=10)
+        ints = [b for b in model.buffers() if b.dtype == torch.int8]
+        before = bit_checksums(ints)
+        lora_b0 = model.lm.layers[0].q.lora_b.detach().clone()
+        state = create_train_state(model, tx)
+        step_fn = make_train_step(cfg, tx, hw=hw, use_flash=True, remat=True)
+        n_layers = cfg.lm.num_layers
+        expect = {"flash_train_fwd": cfg.vision.num_effective_layers + 2 * n_layers,
+                  "flash_train_dq": n_layers, "flash_train_dkv": n_layers}
+        train_steps(f"shallow qlora int{bits}", state, step_fn, batch, 2, expect, card)
+        if bit_checksums(ints) != before or not ints:
+            fail(f"int{bits} base bytes changed during QLoRA steps")
+        if torch.equal(model.lm.layers[0].q.lora_b, lora_b0):
+            fail(f"lora_b did not change over the int{bits} QLoRA steps")
+        print(f"train [shallow qlora int{bits}] {len(ints)} integer tensors bit-identical; "
+              f"lora_b changed", flush=True)
+        del model, tx, state, step_fn, ints
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=["int8-kernels"], default=None,
-                        help="build, check kernels F-I against their plain versions, stop")
+    parser.add_argument("--only", choices=["int8-kernels", "train-kernels", "train"],
+                        default=None,
+                        help="build, check kernels F-I (int8-kernels) or C, D, E "
+                             "(train-kernels) against their plain versions, stop")
     args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "videoitg_tpu_torch")):
         fail("run from a checkout of the repository (videoitg_tpu_torch/ not found)")
@@ -727,10 +1173,22 @@ def main(argv=None) -> int:
         check_int8_kernels(dev)
         print("int8 kernels agree with their plain versions", flush=True)
         return 0
+    if args.only == "train-kernels":
+        check_train_kernels(dev)
+        print("training attention kernels agree with their plain versions", flush=True)
+        return 0
+    if args.only == "train":
+        run_training(dev, card)
+        print("training phases passed", flush=True)
+        return 0
     records = check_kernels(dev)
+    records.update(check_train_kernels(dev))
     records.update(check_int8_kernels(dev))
     check_agreement(dev)
     launches = run_slices(dev, card)
+    torch.cuda.empty_cache()
+    train_launches = run_training(dev, card)
+    launches.update({name: train_launches[name] for name in TRAIN_KERNELS})
     for name, rec in records.items():
         rec["launches"] = launches[name]
     loaded = sorted(m for m in sys.modules

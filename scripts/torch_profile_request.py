@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Where one selection request of the PyTorch port spends its device time.
+"""Where one selection request, or one training step, of the PyTorch port
+spends its device time.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 scripts/torch_profile_request.py --tier act8 --kernels on
     python3 scripts/torch_profile_request.py --tier bf16
+    python3 scripts/torch_profile_request.py --train
 
 Builds VideoITG-8B (random weights from --seed) in the given tier, runs two
 untimed 512-frame `SelectionEngine.select` requests, then one under
-torch.profiler (CPU + CUDA activities). Prints the request's wall time, the
+torch.profiler (CPU + CUDA activities). With `--train` the profiled unit is
+one LoRA r16 training step (bf16 base, remat, the differentiable attention
+kernels) on a feature batch of `--frames` frames (default 1024, hw 4,
+16,640 tokens), after two untimed steps. Prints the unit's wall time, the
 summed device time of its kernels, the idle share (1 - device / wall), the
 device time by group (the port's own kernels by name, library GEMMs, copies,
 all other PyTorch kernels) and the largest single kernels, each line with
@@ -35,6 +40,9 @@ GROUPS = (
     ("ln_qkv_kernel", "kernel G fused_ln_qkv_int8"),
     ("ln_mlp_kernel", "kernel H fused_ln_mlp_int8"),
     ("proj_res_kernel", "kernel I fused_proj_residual_int8"),
+    ("flash_train_fwd_kernel", "kernel C flash_train_fwd"),
+    ("flash_train_dq_kernel", "kernel D flash_train_dq"),
+    ("flash_train_dkv_kernel", "kernel E flash_train_dkv"),
     ("Memcpy", "copies"),
     ("Memset", "copies"),
     ("nvjet", "library GEMMs"),
@@ -53,14 +61,53 @@ def group_of(name: str) -> str:
     return "other PyTorch kernels (elementwise, reductions, casts)"
 
 
+def make_train_unit(model, cfg, dev, frames: int, seed: int):
+    """A closure that takes one LoRA r16 training step on a synthetic feature
+    batch of `frames` frames (hw = the inference hw of that many frames)."""
+    import torch
+
+    from videoitg_tpu_torch.models.grounding import GroundingBatch
+    from videoitg_tpu_torch.train.lora import add_lora, make_lora_optimizer
+    from videoitg_tpu_torch.train.train_step import (
+        create_train_state,
+        make_train_step,
+        run_step,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 30)
+    add_lora(model, gen, rank=16)
+    tx = make_lora_optimizer(model, learning_rate=2e-4, out_proj_lr=2e-4, total_steps=10)
+    hw = cfg.projector.tokens_hw(frames, cfg.vision.num_patches_per_side)
+    batch = GroundingBatch(
+        frames=torch.randn(1, frames, cfg.vision.num_patches, cfg.vision.hidden_size,
+                           generator=gen, device=dev, dtype=torch.bfloat16),
+        frame_valid=torch.ones(1, frames, dtype=torch.bool, device=dev),
+        text_ids=torch.randint(0, cfg.lm.vocab_size, (1, cfg.max_text_len), generator=gen,
+                               device=dev),
+        text_valid=torch.arange(cfg.max_text_len, device=dev)[None] < 40,
+        labels=(torch.rand(1, frames, generator=gen, device=dev) < 0.1).float())
+    step_fn = make_train_step(cfg, tx, hw=hw, use_flash=True, remat=True)
+    holder = [create_train_state(model, tx)]
+
+    def unit():
+        holder[0], _ = run_step(step_fn, holder[0], batch)
+
+    return unit
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--tier", choices=["bf16", "int8", "int4", "act8"], default="bf16")
     p.add_argument("--kernels", choices=["on", "off"], default="on",
                    help="act8 only: the hand-written int8 kernels (both switches) on or off")
-    p.add_argument("--frames", type=int, default=512)
+    p.add_argument("--train", action="store_true",
+                   help="profile one LoRA training step instead of a request")
+    p.add_argument("--frames", type=int, default=None,
+                   help="default: 512 for a request, 1024 for a training step")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
+    if args.frames is None:
+        args.frames = 1024 if args.train else 512
 
     import numpy as np
     import torch
@@ -79,20 +126,27 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     model, cfg, tok = load_grounding_components(
         None, "videoitg-8b", True, torch.bfloat16, dev, seed=args.seed,
-        quantize=None if args.tier == "bf16" else args.tier)
-    on = args.kernels == "on"
-    engine = SelectionEngine(model, cfg, tok, device=dev, dtype=torch.bfloat16,
-                             qgemm=on, fused=on)
-    frames = np.random.default_rng(args.seed + 2).integers(
-        0, 256, (args.frames, 360, 640, 3), dtype=np.uint8)
-    sampled = list(range(args.frames))
+        quantize=None if args.tier == "bf16" or args.train else args.tier)
+    if args.train:
+        unit = make_train_unit(model, cfg, dev, args.frames, args.seed)
+    else:
+        on = args.kernels == "on"
+        engine = SelectionEngine(model, cfg, tok, device=dev, dtype=torch.bfloat16,
+                                 qgemm=on, fused=on)
+        frames = np.random.default_rng(args.seed + 2).integers(
+            0, 256, (args.frames, 360, 640, 3), dtype=np.uint8)
+        sampled = list(range(args.frames))
+
+        def unit():
+            engine.select(frames, sampled, "What is the person holding?")
+
     for _ in range(2):
-        engine.select(frames, sampled, "What is the person holding?")
+        unit()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.select(frames, sampled, "When does the car turn left?")
+        unit()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -116,7 +170,11 @@ def main(argv=None) -> int:
     busy_ms = sum(groups.values())
     if busy_ms <= 0:
         raise SystemExit("torch_profile_request: the profiler recorded no device time")
-    label = args.tier + (f", int8 kernels {args.kernels}" if args.tier == "act8" else "")
+    if args.train:
+        label, out_name = "train, LoRA r16", "profile_train_lora.json"
+    else:
+        label = args.tier + (f", int8 kernels {args.kernels}" if args.tier == "act8" else "")
+        out_name = f"profile_{args.tier}_{args.kernels}.json"
     print(f"profile [{label}] {args.frames} frames: wall {wall:.4f} s, device busy "
           f"{busy_ms / 1e3:.4f} s, idle share {100 * (1 - busy_ms / 1e3 / wall):.2f}% [{card}]")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
@@ -126,8 +184,8 @@ def main(argv=None) -> int:
         print(f"    {ms:9.2f} ms  {count:5d} x  {name[:110]}")
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"profile_{args.tier}_{args.kernels}.json"), "w") as f:
-        json.dump({"card": card, "tier": args.tier, "kernels": args.kernels,
+    with open(os.path.join(out_dir, out_name), "w") as f:
+        json.dump({"card": card, "unit": label, "tier": args.tier, "kernels": args.kernels,
                    "frames": args.frames, "wall_s": wall, "device_busy_ms": busy_ms,
                    "groups_ms": groups, "launches": counts,
                    "top_kernels": [dict(ms=m, count=c, name=n) for m, c, n in kernels[:40]]},

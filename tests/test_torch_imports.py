@@ -47,6 +47,32 @@ def test_every_module_imports_without_jax(tmp_path):
     assert not (tmp_path / "build").exists()
 
 
+def test_training_modules_load_no_jax_optax_orbax(tmp_path):
+    """The training slice's modules, imported alone in a fresh interpreter
+    with no compiler on the path: no jax, optax, orbax or `videoitg_tpu`
+    comes with them, and nothing is built."""
+    mods = [m for m in _modules() if ".train" in m or m.endswith(
+        ("ops.flash_attention_train", "utils.metrics_logger", "checkpoint"))]
+    assert {"videoitg_tpu_torch.train.lora", "videoitg_tpu_torch.train.optimizer",
+            "videoitg_tpu_torch.train.train_step", "videoitg_tpu_torch.train.collate",
+            "videoitg_tpu_torch.train.dataset", "videoitg_tpu_torch.train.feature_cache",
+            "videoitg_tpu_torch.train.checkpointing", "videoitg_tpu_torch.cli.train",
+            "videoitg_tpu_torch.ops.flash_attention_train"} <= set(mods)
+    code = (
+        "import importlib, json, sys\n"
+        f"mods = {mods!r}\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "from videoitg_tpu_torch.ops import _build\n"
+        "bad = ('jax', 'jaxlib', 'optax', 'orbax', 'flax', 'videoitg_tpu')\n"
+        "foreign = sorted(k for k in sys.modules if k.split('.')[0] in bad)\n"
+        "print(json.dumps({'foreign': foreign, 'built': _build._lib is not None}))\n")
+    proc = _run(code, VIDEOITG_NVCC=str(tmp_path / "no-nvcc"), PATH="/usr/bin:/bin",
+                VIDEOITG_TORCH_BUILD_DIR=str(tmp_path / "build"))
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"foreign": [], "built": False}
+
+
 def test_the_guard_sees_the_jax_package():
     """The same scan must report `videoitg_tpu` as it reports `jax`."""
     code = ("import sys, json, videoitg_tpu.constants\n"

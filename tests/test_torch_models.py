@@ -86,14 +86,27 @@ def test_common_ops_match_jax():
 
 
 def test_linear_unported_forms_raise():
-    """The LoRA linear form is refused by the bridge, where such trees
-    arrive (the quantised forms cross, tests/test_torch_quant.py); a dense
-    Linear computes x @ w + b."""
+    """No linear form of the JAX package is refused by the bridge any more:
+    a LoRA tree crosses and comes back bit for bit (the quantised forms
+    too, tests/test_torch_quant.py, tests/test_torch_lora.py); only an
+    adapter with a leaf missing raises. A dense Linear computes x @ w + b,
+    plus the adapter's delta when it carries one."""
     cfg = preset("tiny")
+    rng = np.random.default_rng(0)
     tree = jax.tree.map(np.asarray, jax_init_grounding(jax.random.PRNGKey(0), cfg))
-    tree["out_proj"]["lora_a"] = np.zeros((cfg.lm.hidden_size, 1), np.float32)
-    with pytest.raises(NotImplementedError, match="out_proj.lora_a: .* not ported"):
+    tree["out_proj"]["lora_a"] = rng.standard_normal((cfg.lm.hidden_size, 2)).astype(np.float32)
+    with pytest.raises(KeyError, match="out_proj: a LoRA adapter holds"):
         params_from_numpy(tree, port_preset("tiny"))
+    tree["out_proj"]["lora_b"] = rng.standard_normal((2, 1)).astype(np.float32)
+    tree["out_proj"]["lora_scale"] = np.float32(0.5)
+    model = params_from_numpy(tree, port_preset("tiny"))
+    back = params_to_numpy(model)["out_proj"]
+    for key in ("w", "b", "lora_a", "lora_b", "lora_scale"):
+        assert np.array_equal(back[key], tree["out_proj"][key]), key
+    x = rng.standard_normal((3, cfg.lm.hidden_size)).astype(np.float32)
+    np.testing.assert_allclose(
+        common.linear(model.out_proj, torch.from_numpy(x)).detach().numpy(),
+        np.asarray(jax_common.linear(tree["out_proj"], jnp.asarray(x))), **TOL)
     lin = common.Linear(4, 3)
     lin.w.data = torch.ones(4, 3)
     lin.b.data = torch.arange(3.0)

@@ -284,9 +284,11 @@ def test_unknown_tier_and_lora_are_refused(tiny):
     model = params_from_numpy(jax.tree.map(np.asarray, params), cfg)
     with pytest.raises(ValueError, match="unknown quantization tier"):
         quant.apply_quantization_tier(model, "int2")
+    # A LoRA tree crosses the bridge (tests/test_torch_lora.py); an adapter
+    # with a leaf missing is refused.
     tree = jax.tree.map(np.asarray, params)
     tree["lm"]["layers"]["q"] = dict(tree["lm"]["layers"]["q"], lora_a=np.zeros((2, 4, 2)))
-    with pytest.raises(NotImplementedError, match="LoRA"):
+    with pytest.raises(KeyError, match="LoRA adapter holds"):
         params_from_numpy(tree, cfg)
 
 

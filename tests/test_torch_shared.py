@@ -18,12 +18,13 @@ from videoitg_tpu.data import tokenizer as jax_tokenizer
 from videoitg_tpu.data import video as jax_video
 from videoitg_tpu.ops import resize as jax_resize
 from videoitg_tpu.utils import common as jax_utils
+from videoitg_tpu.utils import metrics_logger as jax_metrics_logger
 from videoitg_tpu.utils import profiling as jax_profiling
 from videoitg_tpu_torch import config, constants
 from videoitg_tpu_torch.data import sampling, tokenizer, video
 from videoitg_tpu_torch.ops import resize
 from videoitg_tpu_torch.utils import common as utils
-from videoitg_tpu_torch.utils import profiling
+from videoitg_tpu_torch.utils import metrics_logger, profiling
 
 PRESETS = sorted(jax_config.PRESETS) if hasattr(jax_config, "PRESETS") else [
     "videoitg-8b", "videoitg-8b-shallow", "tiny", "dryrun-serve"]
@@ -148,3 +149,23 @@ def test_video_reader_copy_decodes_like_the_original(tmp_path):
     assert video.expected_fixture_color(7) == jax_video.expected_fixture_color(7)
     with pytest.raises(FileNotFoundError):
         video.VideoReader(str(tmp_path / "missing.mp4"))
+
+
+def test_metrics_logger_copy_is_the_original(tmp_path):
+    """The copy is the original's source, line for line, and writes the same
+    rows (apart from the clock)."""
+    import inspect
+    import json
+
+    assert inspect.getsource(metrics_logger) == inspect.getsource(jax_metrics_logger)
+    rows = {}
+    for name, mod in (("port", metrics_logger), ("jax", jax_metrics_logger)):
+        log = mod.MetricsLogger(str(tmp_path / name), report_to="jsonl", config={"a": 1})
+        log.log(1, {"loss": 0.5, "grad_norm": np.float32(2.0)})
+        log.log(2, {"loss": 0.25})
+        log.close()
+        rows[name] = [json.loads(line) for line in open(tmp_path / name / "metrics.jsonl")]
+    strip = lambda rs: [{k: v for k, v in r.items() if k != "time"} for r in rs]  # noqa: E731
+    assert strip(rows["port"]) == strip(rows["jax"]) == [
+        {"step": 1, "loss": 0.5, "grad_norm": 2.0}, {"step": 2, "loss": 0.25}]
+    assert all("time" in r for r in rows["port"])

@@ -14,10 +14,13 @@ structural `act_q` marker (a key whose value is None), becomes a
 int8. The port stores `w_q` transposed ([out, in]); the bridge transposes it
 both ways, which moves bytes and changes none.
 
+LoRA leaves (`lora_a`, `lora_b`, `lora_scale`, train/lora.py) cross both
+ways on dense, `w_q` and `w_q4` linears, in their own dtype, bit for bit.
+
 The tree's leaves must already be numpy arrays (`jax.tree.map(np.asarray,
-params)` on the JAX side); this module imports no jax. LoRA trees raise
-NotImplementedError. Loading HF safetensors waits until released weights are
-in the repository (ROADMAP queue 1).
+params)` on the JAX side); this module imports no jax. Loading HF
+safetensors waits until released weights are in the repository (ROADMAP
+queue 1).
 """
 
 from __future__ import annotations
@@ -29,15 +32,11 @@ import numpy as np
 import torch
 
 from videoitg_tpu_torch.config import GroundingConfig
+from videoitg_tpu_torch.models.common import LORA_KEYS, set_lora
 from videoitg_tpu_torch.models.grounding import GroundingModel
 from videoitg_tpu_torch.ops.quant import QuantLinear
 
 _LAYER_KEY = re.compile(r"^(.*\.layers)\.(\d+)\.(.*)$")
-
-# Linear forms of the JAX package that the port does not run yet.
-UNPORTED_LINEAR_KEYS = {
-    "lora_a": "LoRA adapters (ROADMAP queue 1, training)",
-}
 
 
 def _flatten(tree, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
@@ -91,11 +90,14 @@ def params_from_numpy(tree: dict, cfg: GroundingConfig, device=None,
                       dtype: torch.dtype = torch.float32) -> GroundingModel:
     """The JAX params pytree (numpy leaves) -> the port's GroundingModel."""
     flat = list(_flatten(tree))
-    for path, _ in flat:
-        leaf = path.rpartition(".")[2]
-        if leaf in UNPORTED_LINEAR_KEYS:
-            raise NotImplementedError(
-                f"{path}: {UNPORTED_LINEAR_KEYS[leaf]} is not ported yet")
+    # LoRA leaves are attached after the model is built (they are not part
+    # of a fresh model's state dict): parent path -> {leaf: array}.
+    adapters: Dict[str, dict] = {}
+    for path, arr in flat:
+        parent, _, leaf = path.rpartition(".")
+        if leaf in LORA_KEYS:
+            adapters.setdefault(parent, {})[leaf] = arr
+    flat = [(path, arr) for path, arr in flat if path.rpartition(".")[2] not in LORA_KEYS]
     quant_parents = {path.rpartition(".")[0] for path, _ in flat
                      if path.rpartition(".")[2] in ("w_q", "w_q4")}
     state: Dict[str, torch.Tensor] = {}
@@ -128,6 +130,17 @@ def params_from_numpy(tree: dict, cfg: GroundingConfig, device=None,
         raise KeyError(f"params tree does not match the model: missing "
                        f"{sorted(dense - set(state))}, unexpected {sorted(set(state) - dense)}")
     model.load_state_dict(state, strict=False)
+    for parent, leaves in adapters.items():
+        if set(leaves) != set(LORA_KEYS):
+            raise KeyError(f"{parent}: a LoRA adapter holds {LORA_KEYS}, got {sorted(leaves)}")
+        a, b, scale = (_to_tensor(leaves[key]) for key in LORA_KEYS)
+        head, sep, rest = parent.partition(".layers.")
+        targets = ([(f"{head}.layers.{i}.{rest}", i) for i in range(a.shape[0])]
+                   if sep else [(parent, None)])
+        for lin_path, layer in targets:
+            lin = model.get_submodule(lin_path)
+            set_lora(lin, *((t if layer is None else t[layer]).clone().to(device)
+                            for t in (a, b, scale)))
     return model
 
 

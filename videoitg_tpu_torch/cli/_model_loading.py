@@ -8,6 +8,19 @@ import sys
 import torch
 
 
+def resolve_device(cpu_requested: bool, tool: str, cpu_flag: str) -> torch.device:
+    """The card, unless the caller asked for the CPU. With no CUDA device and
+    no such request this raises SystemExit with a message: an entry point
+    never carries on on the CPU by itself."""
+    if cpu_requested:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise SystemExit(
+            f"error: {tool}: no CUDA device found (torch.cuda.is_available() is False); "
+            f"pass {cpu_flag} to run on the CPU")
+    return torch.device("cuda")
+
+
 def load_grounding_components(model: str | None, preset_name: str, random_init: bool,
                               dtype: torch.dtype, device: torch.device, seed: int = 0,
                               quantize: str | None = None, tool: str = "videoitg-torch"):

@@ -45,7 +45,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--json", action="store_true",
                    help="print the full results.jsonl-style record")
     p.add_argument("--device", default=None, choices=[None, "cuda", "cpu"],
-                   help="default: cuda when available")
+                   help="default: cuda; without a CUDA device this is an error "
+                        "unless --device cpu is given")
     p.add_argument("--dtype", default=None, choices=[None, "bfloat16", "float32"],
                    help="default: bfloat16 on cuda, float32 on cpu")
     p.add_argument("--quantize", default=None, choices=[None, "int8", "int4", "act8"],
@@ -68,13 +69,16 @@ def main(argv=None) -> int:
         print("error: --transfer yuv420 is not ported to PyTorch yet (ROADMAP queue 1)",
               file=sys.stderr)
         return 2
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
-    dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
-        args.dtype or ("bfloat16" if device.type == "cuda" else "float32")]
-
-    from videoitg_tpu_torch.cli._model_loading import load_grounding_components
+    from videoitg_tpu_torch.cli._model_loading import load_grounding_components, resolve_device
     from videoitg_tpu_torch.engine import SelectionEngine
 
+    try:
+        device = resolve_device(args.device == "cpu", "videoitg-torch-select", "--device cpu")
+    except SystemExit as e:
+        print(e, file=sys.stderr)
+        return 2
+    dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
+        args.dtype or ("bfloat16" if device.type == "cuda" else "float32")]
     try:
         params, cfg, tokenizer = load_grounding_components(
             args.model, args.preset, args.random_init, dtype, device, seed=args.seed,

@@ -5,6 +5,12 @@ JAX package's [in, out] layout (`x @ w`), so the weight bridge (checkpoint.py)
 copies them without a transpose and the tests compare like with like; the
 quantised forms live in ops/quant.py and `linear` dispatches on the form.
 Norm statistics and RoPE angles are fp32 whatever the compute dtype.
+
+Every parameter is built with `requires_grad=False` (the serving state); the
+optimizer factories of train/ turn gradients on for the leaves that train.
+A dense `Linear` or a `QuantLinear` may carry a LoRA adapter (`lora_a`
+[in, r], `lora_b` [r, out], `lora_scale` [], set by train/lora.add_lora):
+`linear` then adds `((x @ a) @ b) * scale`.
 """
 
 from __future__ import annotations
@@ -38,16 +44,59 @@ class Linear(nn.Module):
         self.w = new_param((d_in, d_out), device, dtype, generator, d_in ** -0.5)
         self.b = (nn.Parameter(torch.zeros(d_out, device=device, dtype=dtype),
                                requires_grad=False) if bias else None)
+        init_lora_slots(self)
+
+
+LORA_KEYS = ("lora_a", "lora_b", "lora_scale")
+
+
+def init_lora_slots(lin: nn.Module) -> None:
+    """Empty adapter slots on a linear (absent from its state dict until set)."""
+    for key in LORA_KEYS:
+        lin.register_parameter(key, None)
+
+
+def set_lora(lin: nn.Module, lora_a: torch.Tensor, lora_b: torch.Tensor,
+             lora_scale: torch.Tensor) -> None:
+    """Attach a LoRA adapter to a dense or quantised linear. All three leaves
+    are parameters, `lora_scale` too: the JAX package trains every `lora_*`
+    leaf, and the training trajectories are held to it."""
+    for key, value in zip(LORA_KEYS, (lora_a, lora_b, lora_scale)):
+        setattr(lin, key, nn.Parameter(value, requires_grad=False))
+
+
+def clear_lora(lin: nn.Module) -> None:
+    for key in LORA_KEYS:
+        setattr(lin, key, None)
+
+
+def has_lora(lin: nn.Module) -> bool:
+    return lin.lora_a is not None
+
+
+def _lora_delta(p, x: torch.Tensor) -> torch.Tensor:
+    """((x @ a) @ b) * scale in the adapter's dtype: a bf16 x is cast up to
+    fp32 adapters (the promotion the JAX package gets implicitly); the caller
+    casts the delta back to the output's dtype."""
+    delta = (x.to(p.lora_a.dtype) @ p.lora_a) @ p.lora_b
+    return delta * p.lora_scale.to(delta.dtype)
 
 
 def linear(p, x: torch.Tensor, act8=None) -> torch.Tensor:
     """x @ w (+ b) for a dense `Linear`; an int8 / int4 `QuantLinear`
-    (ops/quant.py) goes to `quantized_linear`, with the act8 kernel switches."""
+    (ops/quant.py) goes to `quantized_linear`, with the act8 kernel switches.
+    A LoRA delta is added before the bias of a dense linear and after the
+    quantised product (QLoRA)."""
     if not isinstance(p, Linear):
         from videoitg_tpu_torch.ops.quant import Act8Switches, quantized_linear
 
-        return quantized_linear(p, x, act8 if act8 is not None else Act8Switches())
+        y = quantized_linear(p, x, act8 if act8 is not None else Act8Switches())
+        if p.lora_a is not None:
+            y = y + _lora_delta(p, x).to(y.dtype)
+        return y
     y = x @ p.w
+    if p.lora_a is not None:
+        y = y + _lora_delta(p, x).to(y.dtype)
     if p.b is not None:
         y = y + p.b
     return y
@@ -115,8 +164,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 def fused_qkv(p_q, p_k, p_v, x: torch.Tensor, act8=None):
     """q/k/v projections as one GEMM over concatenated weight columns
     (exact: concatenation commutes with the matmul). Three separate linears
-    when any of them is quantised."""
-    if not all(isinstance(p, Linear) for p in (p_q, p_k, p_v)):
+    when any of them is quantised or carries a LoRA adapter."""
+    if not all(isinstance(p, Linear) and p.lora_a is None for p in (p_q, p_k, p_v)):
         return linear(p_q, x, act8), linear(p_k, x, act8), linear(p_v, x, act8)
     dq, dk = p_q.w.shape[-1], p_k.w.shape[-1]
     w = torch.cat([p_q.w, p_k.w, p_v.w], dim=-1)

@@ -8,8 +8,10 @@ seq_mlp projector -> the static packed layout
 with validity masks and packed positions (image slot i -> i, text slot j ->
 number of valid image tokens + j) -> bidirectional Qwen2 -> fp32 per-frame
 mean pool of the image slots -> Linear(hidden, 1) -> [B, T] logits, -inf on
-bucket-padding frames. `grounding_loss` waits for the training work
-(ROADMAP queue 1).
+bucket-padding frames. `grounding_loss` is the training objective: masked
+BCE-with-logits with pos_weight = min(cap, sqrt(neg / pos)) over the batch.
+The causal VLM variant (models/vlm.py of the JAX package) waits (ROADMAP
+queue 1).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from videoitg_tpu_torch.config import GroundingConfig
 from videoitg_tpu_torch.models import qwen2 as qwen2_mod
@@ -71,45 +74,58 @@ class GroundingBatch(NamedTuple):
 
 
 def vision_features(model: GroundingModel, frames: torch.Tensor, cfg: GroundingConfig,
-                    use_flash: bool = False, vision_chunk: int = 0,
-                    act8: Act8Switches = Act8Switches()) -> torch.Tensor:
+                    use_flash=False, vision_chunk: int = 0,
+                    act8: Act8Switches = Act8Switches(), remat: bool = False) -> torch.Tensor:
     """[N, H, W, 3] preprocessed frames -> [N, P, C] tower features. With
     vision_chunk > 0 the tower runs over chunks of that many frames when N is
     a larger multiple of it, bounding its activations."""
     n = frames.shape[0]
     if vision_chunk and n > vision_chunk and n % vision_chunk == 0:
         return torch.cat([siglip_mod.siglip_features(model.vision, chunk, cfg.vision,
-                                                     use_flash=use_flash, act8=act8)
+                                                     use_flash=use_flash, act8=act8,
+                                                     remat=remat)
                           for chunk in frames.split(vision_chunk)])
     return siglip_mod.siglip_features(model.vision, frames, cfg.vision, use_flash=use_flash,
-                                      act8=act8)
+                                      act8=act8, remat=remat)
 
 
 def grounding_logits(model: GroundingModel, batch: GroundingBatch, cfg: GroundingConfig,
-                     hw: int, use_flash: bool = False, vision_chunk: int = 0,
-                     act8: Act8Switches = Act8Switches()) -> torch.Tensor:
+                     hw: int, use_flash=False, vision_chunk: int = 0,
+                     act8: Act8Switches = Act8Switches(), remat: bool = False,
+                     freeze_vision: bool = False) -> torch.Tensor:
     """Per-frame relevance logits [B, T] (invalid frames -> -inf);
-    vision_chunk as in `vision_features`."""
+    vision_chunk as in `vision_features`. A 4-d `batch.frames` holds tower
+    features [B, T, P, C] and skips the tower. `freeze_vision` runs the tower
+    without gradients and detaches its output, so its backward never runs;
+    `remat` recomputes each layer of the tower and of the LM in the backward
+    pass."""
     b, t = batch.frame_valid.shape
     n_pf = frame_token_count(cfg.projector, hw, cfg.vision.num_patches)
     frames_flat = batch.frames.reshape((b * t,) + tuple(batch.frames.shape[2:]))
     if batch.frames.dim() == 4:
         feats = frames_flat  # [B*T, P, C]
+    elif freeze_vision:
+        with torch.no_grad():
+            feats = vision_features(model, frames_flat, cfg, use_flash=use_flash,
+                                    vision_chunk=vision_chunk, act8=act8)
     else:
         feats = vision_features(model, frames_flat, cfg, use_flash=use_flash,
-                                vision_chunk=vision_chunk, act8=act8)
+                                vision_chunk=vision_chunk, act8=act8, remat=remat)
+    if freeze_vision:
+        feats = feats.detach()
     img_tokens = apply_projector(model.projector, feats, cfg.projector, hw=hw)
     img_tokens = img_tokens.reshape(b, t * n_pf, -1)
     return grounding_logits_from_tokens(model, img_tokens, batch.frame_valid, batch.text_ids,
                                         batch.text_valid, cfg, n_pf=n_pf, use_flash=use_flash,
-                                        act8=act8)
+                                        act8=act8, remat=remat)
 
 
 def grounding_logits_from_tokens(model: GroundingModel, img_tokens: torch.Tensor,
                                  frame_valid: torch.Tensor, text_ids: torch.Tensor,
                                  text_valid: torch.Tensor, cfg: GroundingConfig, n_pf: int,
-                                 use_flash: bool = False,
-                                 act8: Act8Switches = Act8Switches()) -> torch.Tensor:
+                                 use_flash=False,
+                                 act8: Act8Switches = Act8Switches(),
+                                 remat: bool = False) -> torch.Tensor:
     """LM + head over already-projected image tokens [B, T*n_pf, D]."""
     b, t = frame_valid.shape
     l_txt = text_ids.shape[1]
@@ -130,8 +146,38 @@ def grounding_logits_from_tokens(model: GroundingModel, img_tokens: torch.Tensor
     positions = torch.cat([img_pos, txt_pos], dim=1)
 
     hidden = qwen2_mod.qwen2_hidden_states(model.lm, x, positions, valid, cfg.lm,
-                                           use_flash=use_flash, act8=act8)
+                                           use_flash=use_flash, act8=act8, remat=remat)
     # Per-frame fp32 mean pool of the image slots (reference grounding_qwen2.py:148-156).
     frame_hidden = hidden[:, :n_img].reshape(b, t, n_pf, -1).float().mean(dim=2)
     logits = (frame_hidden @ model.out_proj.w.float() + model.out_proj.b.float())[..., 0]
     return logits.masked_fill(~frame_valid, float("-inf"))
+
+
+def grounding_loss(model: GroundingModel, batch: GroundingBatch, cfg: GroundingConfig, hw: int,
+                   use_flash=False, remat: bool = True, freeze_vision: bool = True):
+    """Masked BCE-with-logits in fp32 with pos_weight = min(cfg.max_pos_weight,
+    sqrt(neg / max(1, pos))), the weight from the whole batch's labels and the
+    mean over all valid frames. `use_flash=True` means the differentiable
+    kernels ("train"), in the tower as well. Returns (loss, metrics) with
+    metrics `loss`, `pos_weight`, `pos_frac` (detached 0-d tensors)."""
+    if batch.labels is None:
+        raise ValueError("grounding_loss needs batch.labels")
+    if use_flash is True:
+        use_flash = "train"
+    logits = grounding_logits(model, batch, cfg, hw, use_flash=use_flash, remat=remat,
+                              freeze_vision=freeze_vision)
+    mask = batch.frame_valid.float()
+    labels = batch.labels.float() * mask
+    logits = logits.masked_fill(~batch.frame_valid, 0.0).float()
+
+    pos = labels.sum()
+    total = mask.sum()
+    neg = total - pos
+    pos_weight = torch.sqrt(neg / pos.clamp(min=1.0)).clamp(max=float(cfg.max_pos_weight))
+
+    per_elem = -(pos_weight * labels * F.logsigmoid(logits)
+                 + (1.0 - labels) * F.logsigmoid(-logits))
+    loss = (per_elem * mask).sum() / total.clamp(min=1.0)
+    metrics = {"loss": loss.detach(), "pos_weight": pos_weight,
+               "pos_frac": pos / total.clamp(min=1.0)}
+    return loss, metrics

@@ -74,6 +74,15 @@ def inference_hw(cfg: ProjectorConfig, num_frames: int, ori_hw: int = 27) -> int
     return cfg.tokens_hw(num_frames, ori_hw)
 
 
+def training_hw(cfg: ProjectorConfig, num_frames: int, ori_hw: int, rng) -> int:
+    """Random per-batch hw for training: uniform on [vision_min_num,
+    floor(sqrt(budget / T))] (both ends included), clamped to the grid. `rng`
+    is a `random.Random`; the draw happens on the host."""
+    hw_max = math.floor(math.sqrt(cfg.vision_token_num / num_frames))
+    hw = rng.randint(cfg.vision_min_num, hw_max)
+    return min(hw, ori_hw)
+
+
 def init_projector(cfg: ProjectorConfig, generator: torch.Generator, *, device=None,
                    dtype=torch.float32) -> Projector:
     return Projector(cfg, device=device, dtype=dtype, generator=generator)

@@ -4,8 +4,10 @@ Counterpart of videoitg_tpu/models/qwen2.py: Qwen2-7B (hidden 3584, 28 layers,
 28 q / 4 kv heads, SwiGLU 18944, RMSNorm eps 1e-6, RoPE theta 1e6, q/k/v
 bias). The grounding LM runs every layer bidirectionally (cfg.causal is
 False) with no KV cache, over pre-computed input embeddings and explicit
-position ids. The pipeline-parallel branch and the VLM head wait (ROADMAP
-queue 1).
+position ids. `remat=True` recomputes each layer in the backward pass
+(`torch.utils.checkpoint`, the counterpart of `jax.checkpoint` with nothing
+saved). The pipeline-parallel branch and the LM head of the causal VLM wait
+(ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Optional
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from videoitg_tpu_torch.config import LMConfig
 from videoitg_tpu_torch.models.common import (
@@ -81,7 +84,7 @@ def embed_tokens(lm: Qwen2, ids: torch.Tensor) -> torch.Tensor:
 
 
 def _decoder_layer(p: Qwen2Layer, x: torch.Tensor, positions: torch.Tensor,
-                   valid: Optional[torch.Tensor], cfg: LMConfig, use_flash: bool,
+                   valid: Optional[torch.Tensor], cfg: LMConfig, use_flash,
                    act8: Act8Switches) -> torch.Tensor:
     b, s, _ = x.shape
     y = rms_norm(p.input_norm, x, cfg.rms_norm_eps)
@@ -99,12 +102,20 @@ def _decoder_layer(p: Qwen2Layer, x: torch.Tensor, positions: torch.Tensor,
 
 def qwen2_hidden_states(lm: Qwen2, inputs_embeds: torch.Tensor, positions: torch.Tensor,
                         valid: Optional[torch.Tensor], cfg: LMConfig,
-                        use_flash: bool = False,
-                        act8: Act8Switches = Act8Switches()) -> torch.Tensor:
-    """Run the decoder stack; returns final-norm hidden states [B, S, H]."""
+                        use_flash=False,
+                        act8: Act8Switches = Act8Switches(),
+                        remat: bool = False) -> torch.Tensor:
+    """Run the decoder stack; returns final-norm hidden states [B, S, H].
+    With `remat` (and gradients on) each layer keeps only its input and is
+    run again in the backward pass."""
     x = inputs_embeds
+    remat = remat and torch.is_grad_enabled()
     for layer in lm.layers[: cfg.num_layers]:
-        x = _decoder_layer(layer, x, positions, valid, cfg, use_flash, act8)
+        if remat:
+            x = checkpoint(_decoder_layer, layer, x, positions, valid, cfg, use_flash, act8,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _decoder_layer(layer, x, positions, valid, cfg, use_flash, act8)
     return rms_norm(lm.final_norm, x, cfg.rms_norm_eps)
 
 

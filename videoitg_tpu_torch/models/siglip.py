@@ -6,8 +6,9 @@ second-to-last encoder layer (select_layer = -2): 26 of 27 layers run and
 the post-layernorm never does. The patch embedding is an unfold + matmul with
 the (kh, kw, c) patch order of the JAX package. Under the act8 tier
 (ops/quant.py) with the `fused` switch on, the non-attention part of each
-layer runs as three fused int8 kernels (ops/fused_encoder.py). Only
-arch="siglip" is ported; "clip" waits (ROADMAP queue 1).
+layer runs as three fused int8 kernels (ops/fused_encoder.py). `remat=True`
+recomputes each layer in the backward pass. Only arch="siglip" is ported;
+"clip" waits (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from videoitg_tpu_torch.config import VisionConfig
 from videoitg_tpu_torch.models.common import Linear, Norm, fused_qkv, gelu_tanh, layer_norm, linear
@@ -100,10 +102,11 @@ def _encoder_layer_fused(p: SiglipLayer, x: torch.Tensor, cfg: VisionConfig) -> 
 
 
 def _encoder_layer(p: SiglipLayer, x: torch.Tensor, cfg: VisionConfig,
-                   use_flash: bool, act8: Act8Switches) -> torch.Tensor:
-    # The gate of the JAX package: the kernel attention asked for, the switch
-    # on, every linear int8 + act_q, and a q projection that is not padded.
-    if (use_flash and act8.fused and can_fuse_encoder_layer(p)
+                   use_flash, act8: Act8Switches) -> torch.Tensor:
+    # The gate of the JAX package: the inference kernel attention asked for
+    # (not the training arm), the switch on, every linear int8 + act_q, and a
+    # q projection that is not padded.
+    if (use_flash is True and act8.fused and can_fuse_encoder_layer(p)
             and p.q.out_features == x.shape[-1]):
         return _encoder_layer_fused(p, x, cfg)
     t, n, h = x.shape
@@ -121,15 +124,22 @@ def _encoder_layer(p: SiglipLayer, x: torch.Tensor, cfg: VisionConfig,
 
 
 def siglip_features(tower: SiglipTower, images: torch.Tensor, cfg: VisionConfig,
-                    use_flash: bool = False,
-                    act8: Act8Switches = Act8Switches()) -> torch.Tensor:
+                    use_flash=False,
+                    act8: Act8Switches = Act8Switches(),
+                    remat: bool = False) -> torch.Tensor:
     """[T, H, W, 3] preprocessed frames -> [T, tokens, hidden] features from
     cfg.num_effective_layers encoder layers, no post-layernorm. `act8` says
-    which act8 products run in the hand-written int8 kernels."""
+    which act8 products run in the hand-written int8 kernels; `remat` (with
+    gradients on) recomputes each layer in the backward pass."""
     x = linear(tower.patch_embed, _patchify(images, cfg.patch_size))
     x = x + tower.pos_embed.to(x.dtype)[None]
+    remat = remat and torch.is_grad_enabled()
     for layer in tower.layers[: cfg.num_effective_layers]:
-        x = _encoder_layer(layer, x, cfg, use_flash, act8)
+        if remat:
+            x = checkpoint(_encoder_layer, layer, x, cfg, use_flash, act8,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _encoder_layer(layer, x, cfg, use_flash, act8)
     return x
 
 

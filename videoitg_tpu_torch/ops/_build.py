@@ -55,6 +55,16 @@ SIGNATURES = {
                                         _I, _I, _I, _F, _I, _P),
     # attn, residual, o w_qt, scale, bias, out, rows, D, H, stream
     "videoitg_fused_proj_residual_int8_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # q, k, v, valid (nullable), out, lse, B, Hq, Hkv, S, D, causal, sm_scale, stream
+    "videoitg_flash_train_fwd_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, valid (nullable), dout, lse, delta, dq, B, Hq, Hkv, S, D, causal,
+    # sm_scale, stream
+    "videoitg_flash_train_dq_bf16": (_P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, valid (nullable), dout, lse, delta, dk, dv, B, Hq, Hkv, S, D,
+    # causal, sm_scale, stream
+    "videoitg_flash_train_dkv_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()

@@ -7,9 +7,15 @@ the input dtype.
 
 * `mha_reference` — plain PyTorch, O(S^2) memory. The numerics oracle.
 * `mha` — dispatch: `use_flash=False` runs the oracle; `use_flash=True`
-  runs the hand-written kernels (`flash_mha_short` for the vision tower's
-  short unmasked MHA, `flash_mha` otherwise). Each kernel wrapper runs its
-  own plain version when the tensors lie on the CPU.
+  runs the hand-written inference kernels (`flash_mha_short` for the vision
+  tower's short unmasked MHA, `flash_mha` otherwise), which have no
+  backward; `use_flash="train"` runs the differentiable kernels
+  (`ops/flash_attention_train.flash_mha_train`). Each kernel wrapper runs
+  its own plain version when the tensors lie on the CPU.
+
+What still raises: `use_flash="train-jax"` (the A/B arm over a library
+kernel with repeated KV heads, kernel J of PERF.md) and the mesh / ring arms
+of the JAX dispatch, which need more than one device (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -66,22 +72,32 @@ def mha(
     v: torch.Tensor,
     valid: Optional[torch.Tensor] = None,
     causal: bool = False,
-    use_flash: bool = False,
+    use_flash=False,
     sm_scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Dispatch between the oracle and the kernels.
 
-    The rule is the JAX package's: unmasked, non-causal MHA with S <= 1024
-    and Hq == Hkv (the vision tower) takes the short kernel; everything else
-    streams. The training, splash, ring and mesh arms of the JAX dispatch
-    are not ported (ROADMAP queue 1).
+    use_flash: False -> the plain oracle; True -> the inference kernels (no
+    backward): unmasked, non-causal MHA with S <= 1024 and Hq == Hkv (the
+    vision tower) takes the short kernel, everything else streams; "train"
+    -> the differentiable native-GQA kernels, which take no `sm_scale`
+    override (a serving-path knob, as in the JAX package).
     """
-    if use_flash not in (False, True):
-        raise NotImplementedError(
-            f"use_flash={use_flash!r}: only the inference kernels are ported "
-            "(training attention is in ROADMAP queue 1)")
     if sm_scale is not None and sm_scale == q.shape[-1] ** -0.5:
         sm_scale = None
+    if use_flash == "train-jax":
+        raise NotImplementedError(
+            "use_flash='train-jax' (kernel J: the library flash kernel with repeated "
+            "KV heads, an A/B arm) is not ported; use 'train' (ROADMAP queue 2)")
+    if isinstance(use_flash, str):
+        if use_flash != "train":
+            raise ValueError(f"unknown use_flash {use_flash!r}")
+        if sm_scale is not None:
+            raise ValueError("sm_scale override is a serving-path knob; the training "
+                             "kernels use head_dim ** -0.5")
+        from videoitg_tpu_torch.ops.flash_attention_train import flash_mha_train
+
+        return flash_mha_train(q, k, v, valid=valid, causal=causal)
     if not use_flash:
         return mha_reference(q, k, v, valid=valid, causal=causal, sm_scale=sm_scale)
     from videoitg_tpu_torch.ops.flash_attention import flash_mha

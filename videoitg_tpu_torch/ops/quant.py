@@ -38,7 +38,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from videoitg_tpu_torch.models.common import Linear
+from videoitg_tpu_torch.models.common import Linear, init_lora_slots
 
 QWEN2_LINEAR_KEYS = ("q", "k", "v", "o", "gate", "up", "down")
 SIGLIP_LINEAR_KEYS = ("q", "k", "v", "o", "fc1", "fc2")
@@ -127,8 +127,9 @@ class QuantLinear(nn.Module):
     """An int8 (`w_qt` [out, in] + `scale`) or packed-int4 (`w_q4` [in/2, out]
     + `scale4`) linear with an optional bias and the `act_q` flag.
 
-    `.to(dtype)` / `.bfloat16()` cast the bias only: integer weights stay
-    integer and the scales stay fp32 (see `_apply`).
+    `.to(dtype)` / `.bfloat16()` cast the bias (and a LoRA adapter, if one is
+    attached) only: integer weights stay integer and the scales stay fp32
+    (see `_apply`).
     """
 
     def __init__(self, *, w_qt: Optional[torch.Tensor] = None,
@@ -152,6 +153,7 @@ class QuantLinear(nn.Module):
             self.register_buffer("scale4", scale.contiguous())
         self.b = None if b is None else nn.Parameter(b, requires_grad=False)
         self.act_q = bool(act_q)
+        init_lora_slots(self)  # QLoRA: train/lora.add_lora fills them
 
     @property
     def w_q(self) -> torch.Tensor:
