@@ -34,6 +34,17 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      of the 64-key tile, a small causal case and a fully-masked-row case.
      Tolerance: 4 bf16 half-ulps of the case's max|reference| (see
      bf16_tol). Masked rows must be exactly 0.
+   * K (splash MQA with segment ids, the LM's A/B arm) at the LM's serving
+     shape [1, 28/4, 13056, 128] with a 12,840-token valid prefix, through
+     `splash_lm` against its plain form; a ragged S = 13,001; two rows of
+     different valid lengths; D = 72 with GQA; three segments with ids other
+     than 0 / 1 (in runs and scattered); a group of 8 heads (split over two
+     blocks); a group of 1 at eight more head dims. Tolerance: 4 bf16
+     half-ulps of max|reference|; invalid rows exactly 0. Timed beside kernel
+     B on the same inputs and the same library call as B.
+   * L (`double_literal`, `double_no_literal`) on [8, 128] fp32: bit-equal to
+     each other and to their plain versions (8 KiB moved: the launch is the
+     floor).
    * F (act8 GEMM) at the LM's four shapes, M = 13,056, plus a ragged M with
      a zero row. The integer sums are exact and the epilogue has the plain
      version's operation order: tolerance 1 bf16 ulp of max|reference|.
@@ -42,9 +53,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      flips a few int8 roundings: tolerance 4 max|ref| / 127 + 1e-5, the JAX
      package's own bound for these kernels.
    At each main-path shape, deliberately broken uses (keys dropped, the key
-   mask ignored, a bias, the LN bias or the residual dropped, the last k
-   tile of fc2 dropped) must exceed the tolerance, which shows that it
-   discriminates.
+   mask or the segment ids ignored, q not pre-scaled, a head of the group
+   left out, a bias, the LN bias or the residual dropped, the last k tile of
+   fc2 dropped) must exceed the tolerance, which shows that it discriminates.
 4. Agreement: the engine's kernel path against its plain path on a small
    input at the full widths of VideoITG-8B (videoitg-8b-shallow: 3 vision,
    2 LM layers), in bf16, and under the act8 tier with both int8 switches
@@ -58,7 +69,22 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    and read right after it; every kernel of the path must have launched.
    Scores must be finite in [0, 1], and each `index` a permutation of the
    sampled frames.
-6. Training: VideoITG-8B bf16 with LoRA r16 adapters (random weights and
+6. Serving daemon: VideoITG-8B bf16 behind `cli/serve.SelectionServer` and
+   a `ThreadingHTTPServer` on port 0 in this process, 512-frame 640x360
+   requests sent over HTTP. The machine has no libav, so the port's file
+   reader is swapped for one that hands out frames made from a seed;
+   everything after the reader is the daemon's own code (decode-ahead with
+   `preprocess_ahead` on worker threads, the encoded-video LRU, the response
+   contract). Two videos with two prompts each, with the LM's splash arm off
+   and again with it on, then a yuv420 daemon against the RGB daemon on
+   frames made from the same planes by the plain `yuv420_to_rgb`. Per
+   request the launch counts are exact: a miss A 104, a hit A 0; B 28 and K 0
+   per LM pass with the arm off, K 28 and B 0 with it on. `/healthz` counts
+   (`served`, `encode_cache_hits`), scores in [0, 1] and descending, `index`
+   a permutation, `selected` the sorted first 32, a bad path answered with an
+   error; splash against flash arm and yuv420 against rgb within E2E_ATOL.
+   Then scripts/torch_repro_kernels.py's `main`, the path of kernels L.
+7. Training: VideoITG-8B bf16 with LoRA r16 adapters (random weights and
    adapters from seeded generators), `make_lora_optimizer`, `make_train_step(
    use_flash=True, remat=True)`, through `run_step`. Three steps on a
    1024-frame feature batch [1, 1024, 729, 1152] made on the device (hw 4,
@@ -73,8 +99,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    steps each over an int8 and an int4 base (integer bytes unchanged).
 
 `--only int8-kernels` stops after building and checking kernels F-I,
-`--only train-kernels` after C, D, E (a short first run for a new kernel);
-`--only train` runs phase 6 alone. None of them prints a result line.
+`--only train-kernels` after C, D, E, `--only splash-kernels` after K and L
+(a short first run for a new kernel); `--only serve` runs phase 6 alone,
+`--only train` phase 7. None of them prints a result line.
 
 The last two lines are the per-kernel JSON record and
 {"ok": true, "device": {...}}.
@@ -745,6 +772,194 @@ def check_train_kernels(dev) -> dict:
     return records
 
 
+def check_splash_kernels(dev) -> dict:
+    """Kernel K (splash MQA with segment ids) and the two kernels L against
+    their plain versions; returns name -> record. K is timed beside kernel B
+    on the same inputs in the same run."""
+    import torch
+    from torch.nn import functional as F
+
+    from videoitg_tpu_torch.ops import repro_kernels as rk
+    from videoitg_tpu_torch.ops import splash_attention as sa
+    from videoitg_tpu_torch.ops.flash_attention import flash_mha
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def mqa_reference(qs, k, v, q_seg, kv_seg):
+        """splash_mqa_reference in fp32, one query head at a time."""
+        group = qs.shape[1] // k.shape[1]
+        return torch.cat([sa.splash_mqa_reference(
+            qs[:, h:h + 1].float(), k[:, h // group:h // group + 1].float(),
+            v[:, h // group:h // group + 1].float(), q_seg, kv_seg)
+            for h in range(qs.shape[1])], dim=1)
+
+    def lm_case(label, q, k, v, valid):
+        """splash_lm against its plain form; invalid rows must be exactly 0."""
+        seg = valid.to(torch.int32)
+        ref = mqa_reference(sa.prescale(q), k, v, seg, seg) * valid[:, None, :, None]
+        out = sa.splash_lm(q, k, v, valid)
+        err, tol = max_err(out, ref), bf16_tol(ref)
+        masked = out.transpose(1, 2)[~valid].abs().sum().item()
+        print(f"kernel splash_mqa {label}: max_abs_err {err:.6g} (tol {tol:.6g}, max|ref| "
+              f"{ref.abs().max().item():.6g}); invalid rows sum {masked}", flush=True)
+        if not err <= tol:
+            fail(f"splash_mqa {label}: error {err} > {tol}")
+        if masked != 0.0:
+            fail(f"splash_mqa {label}: invalid query rows are not exactly 0")
+        return out, ref, err, tol
+
+    # The LM's serving shape: 512 frames x 25 slots + 256 text slots, of which
+    # the 40 first are valid (a valid prefix of 12,840 tokens).
+    s, n_valid = 512 * 25 + 256, 512 * 25 + 40
+    q, k, v = randn(1, 28, s, 128), randn(1, 4, s, 128), randn(1, 4, s, 128)
+    valid = torch.arange(s, device=dev)[None] < n_valid
+    out, ref, err, tol = lm_case(f"[1, 28/4, {s}, 128] bf16, {n_valid} valid", q, k, v, valid)
+    # Broken uses, on the valid rows: every key given the queries' segment,
+    # q not pre-scaled, and one head of the group left out (its output zero).
+    seg = valid.to(torch.int32)
+    qs = sa.prescale(q)
+    rows = valid[0]
+    ones = torch.ones_like(seg)
+    broken = {
+        "segment ids ignored": max_err(sa.splash_mqa(qs, k, v, ones, ones)[:, :, rows],
+                                       ref[:, :, rows]),
+        "q not pre-scaled": max_err(sa.splash_mqa(q, k, v, seg, seg)[:, :, rows],
+                                    ref[:, :, rows]),
+    }
+    skipped = out.clone()
+    skipped[:, 6] = 0
+    broken["one head of the group skipped"] = max_err(skipped, ref)
+    del skipped
+    print("kernel splash_mqa broken uses: "
+          + "; ".join(f"{name} {e:.6g}" for name, e in broken.items()) + f" (tol {tol:.6g})",
+          flush=True)
+    for name, e in broken.items():
+        if not e > tol:
+            fail(f"splash_mqa tolerance {tol} does not catch: {name} ({e})")
+
+    ms = cuda_ms(lambda: sa.splash_mqa(qs, k, v, seg, seg), 10)
+    arm_ms = cuda_ms(lambda: sa.splash_lm(q, k, v, valid), 10)
+    flash_ms = cuda_ms(lambda: flash_mha(q, k, v, valid=valid), 10)
+    ms2 = cuda_ms(lambda: sa.splash_mqa(qs, k, v, seg, seg), 10)
+    plain_ms = cuda_ms(lambda: [sa.splash_mqa_reference(qs[:, h:h + 1], k[:, h // 7:h // 7 + 1],
+                                                        v[:, h // 7:h // 7 + 1], seg, seg)
+                                for h in range(28)], 2)
+    k28, v28 = k.repeat_interleave(7, dim=1), v.repeat_interleave(7, dim=1)
+    attn_mask = valid[:, None, None, :]
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k28, v28,
+                                                                attn_mask=attn_mask), 5)
+    del k28, v28
+    # This run's data: a valid query attends the n_valid valid keys, an
+    # invalid one the others; q and o (28 heads), k and v (4 heads), the ids.
+    pairs = n_valid * n_valid + (s - n_valid) * (s - n_valid)
+    bnd = bound(4 * pairs * 128 * 28, PEAK_BF16,
+                (2 * q.numel() + 2 * k.numel()) * 2 + 2 * seg.numel() * 4)
+    print(f"kernel splash_mqa [1, 28/4, {s}, 128] bf16: {ms:.4f} ms (again after the others "
+          f"{ms2:.4f} ms), the arm with its pre-scale and final multiply {arm_ms:.4f} ms; "
+          f"kernel B (flash_mha) on the same inputs {flash_ms:.4f} ms; plain {plain_ms:.4f} ms "
+          f"(head by head); library (sdpa, kv heads expanded, key mask as attn_mask) "
+          f"{library_ms:.4f} ms; bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}",
+          flush=True)
+    records = {"splash_mqa": dict(
+        name="splash_mqa", route="cuda", source="videoitg_tpu_torch/csrc/splash_attention.cu",
+        replaces="videoitg_tpu/ops/attention.py:154", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        library_ms=library_ms, arm_ms=arm_ms, flash_mha_ms_same_inputs=flash_ms, **bnd)}
+    del q, k, v, qs, out, ref
+
+    def widen(e):
+        records["splash_mqa"]["max_abs_err"] = max(records["splash_mqa"]["max_abs_err"], e)
+
+    # A length that is not a multiple of any tile (13,001), scattered invalid
+    # tokens; two batch rows of different valid lengths; D = 72 with GQA.
+    s = 13001
+    q, k, v = randn(1, 28, s, 128), randn(1, 4, s, 128), randn(1, 4, s, 128)
+    widen(lm_case(f"ragged [1, 28/4, {s}, 128]", q, k, v,
+                  torch.rand(1, s, generator=gen, device=dev) > 0.01)[2])
+    s = 2000
+    q, k, v = randn(2, 28, s, 128), randn(2, 4, s, 128), randn(2, 4, s, 128)
+    widen(lm_case(f"[2, 28/4, {s}, 128], valid lengths 1990 and 1203", q, k, v,
+                  torch.arange(s, device=dev)[None] < torch.tensor([[1990], [1203]],
+                                                                   device=dev))[2])
+    q, k, v = randn(2, 6, 300, 72), randn(2, 2, 300, 72), randn(2, 2, 300, 72)
+    widen(lm_case("[2, 6/2, 300, 72], valid lengths 300 and 170", q, k, v,
+                  torch.arange(300, device=dev)[None] < torch.tensor([[300], [170]],
+                                                                     device=dev))[2])
+
+    def mqa_case(label, q, k, v, q_seg, kv_seg):
+        ref = mqa_reference(q, k, v, q_seg, kv_seg)
+        e, t = max_err(sa.splash_mqa(q, k, v, q_seg, kv_seg), ref), bf16_tol(ref)
+        print(f"kernel splash_mqa {label}: max_abs_err {e:.6g} (tol {t:.6g})", flush=True)
+        if not e <= t:
+            fail(f"splash_mqa {label}: error {e} > {t}")
+        widen(e)
+
+    # Three segments with ids other than 0 / 1, in runs and scattered; then a
+    # group above 7 heads (split over two blocks), a group of one, and the
+    # other head dims (each its own instantiation).
+    s = 1500
+    q, k, v = randn(2, 28, s, 128) * 0.3, randn(2, 4, s, 128), randn(2, 4, s, 128)
+    ids = torch.tensor([-3, 5, 1000], dtype=torch.int32, device=dev)
+    runs = ids[(torch.arange(s, device=dev) * 3 // s)][None].expand(2, s).contiguous()
+    mqa_case(f"three segments in runs [2, 28/4, {s}, 128]", q, k, v, runs, runs)
+    scattered = ids[torch.randint(0, 3, (2, s), generator=gen, device=dev)]
+    mqa_case(f"three segments scattered [2, 28/4, {s}, 128]", q, k, v, scattered, scattered)
+    q, k, v = randn(1, 16, 333, 64) * 0.3, randn(1, 2, 333, 64), randn(1, 2, 333, 64)
+    two = (torch.arange(333, device=dev)[None] < 200).to(torch.int32)
+    mqa_case("group of 8 [1, 16/2, 333, 64]", q, k, v, two, two)
+    for d in (8, 16, 24, 40, 56, 88, 104, 120):
+        q, k, v = randn(1, 3, 130, d) * 0.3, randn(1, 3, 130, d), randn(1, 3, 130, d)
+        two = (torch.arange(130, device=dev)[None] < 100).to(torch.int32)
+        mqa_case(f"group of 1 [1, 3/3, 130, {d}]", q, k, v, two, two)
+
+    # Kernels L on the original's [8, 128] fp32 shape: bit-equal to each other
+    # and to their plain versions. 8 KiB moved: the launch is the floor.
+    x = torch.randn(8, 128, generator=gen, device=dev)
+    lit, no_lit = rk.double_literal(x), rk.double_no_literal(x)
+    if not (torch.equal(lit, no_lit) and torch.equal(lit, rk.double_literal_reference(x))
+            and torch.equal(no_lit, rk.double_no_literal_reference(x))):
+        fail("double_literal / double_no_literal are not bit-equal to their plain versions")
+    bnd = bound(x.numel(), 67e12, 2 * x.numel() * 4)
+    for name, fn, plain, line in (
+            ("double_literal", rk.double_literal, rk.double_literal_reference, 51),
+            ("double_no_literal", rk.double_no_literal, rk.double_no_literal_reference, 55)):
+        ms = cuda_ms(lambda: fn(x), 200)
+        plain_ms = cuda_ms(lambda: plain(x), 200)
+        print(f"kernel {name} [8, 128] fp32: bit-equal; {ms:.5f} ms, plain (one PyTorch call, "
+              f"also the library call) {plain_ms:.5f} ms, bound {bnd['bound_ms']:.3g} ms by "
+              f"{bnd['bound_by']}: the launch is the floor", flush=True)
+        records[name] = dict(
+            name=name, route="cuda", source="videoitg_tpu_torch/csrc/repro_kernels.cu",
+            replaces=f"scripts/repro_pallas_interpret_vma.py:{line}", max_abs_err=0.0, ms=ms,
+            plain_ms=plain_ms, library_ms=plain_ms, **bnd)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return records
+
+
+def print_bound_of_kernel_j() -> None:
+    """Kernel J is still to port (the `use_flash="train-jax"` arm: jax's
+    library flash forward / dq / dkv behind videoitg_tpu/ops/attention.py:90
+    `mha_trainable`). Its bounds at the training shape, from that function's
+    code: KV repeated to the 28 query heads, S = 16,640 padded to a multiple
+    of 512 (16,896), segment 1 for the 16,500 valid tokens and 0 for the
+    rest, which attend each other. Nothing is timed."""
+    s, n_valid, heads, d = 1024 * 16 + 256, 16500, 28, 128
+    s_pad = -(-s // 512) * 512
+    unit = (n_valid * n_valid + (s_pad - n_valid) ** 2) * d * heads  # MACs of one product
+    big, stat = heads * s_pad * d * 2, heads * s_pad * 4
+    bounds = dict(fwd=bound(4 * unit, PEAK_BF16, 4 * big + 2 * stat),
+                  dq=bound(6 * unit, PEAK_BF16, 6 * big + 3 * stat),
+                  dkv=bound(8 * unit, PEAK_BF16, 7 * big + 3 * stat))
+    print(f"kernel J (to port) at [1, 28 after KV repeat, {s_pad} padded from {s}, {d}] bf16, "
+          f"{n_valid} valid: bounds fwd {bounds['fwd']['bound_ms']:.4f} ms, dq "
+          f"{bounds['dq']['bound_ms']:.4f} ms, dkv {bounds['dkv']['bound_ms']:.4f} ms, each by "
+          f"{bounds['dkv']['bound_by']}; launches a LoRA step with remat over 28 layers: fwd 56, "
+          f"dq 28, dkv 28; times not measured", flush=True)
+
+
 def frames_u8(rng, t: int):
     import numpy as np
 
@@ -810,8 +1025,12 @@ def wrappers() -> dict:
     from videoitg_tpu_torch.ops.flash_attention import flash_mha
     from videoitg_tpu_torch.ops.flash_attention_short import flash_mha_short
     from videoitg_tpu_torch.ops.quant_gemm import act8_gemm
+    from videoitg_tpu_torch.ops.repro_kernels import double_literal, double_no_literal
+    from videoitg_tpu_torch.ops.splash_attention import splash_mqa
 
-    return {"flash_mha_short": flash_mha_short, "flash_mha": flash_mha, "act8_gemm": act8_gemm,
+    return {"flash_mha_short": flash_mha_short, "flash_mha": flash_mha, "splash_mqa": splash_mqa,
+            "double_literal": double_literal, "double_no_literal": double_no_literal,
+            "act8_gemm": act8_gemm,
             "fused_ln_qkv_int8": fe.fused_ln_qkv_int8, "fused_ln_mlp_int8": fe.fused_ln_mlp_int8,
             "fused_proj_residual_int8": fe.fused_proj_residual_int8,
             "flash_train_fwd": fat.flash_train_fwd, "flash_train_dq": fat.flash_train_dq,
@@ -930,6 +1149,239 @@ def run_slices(dev, card: str) -> dict:
     print(f"[act8] 512 frames, full depth, int8 kernels on vs off: max |score diff| "
           f"{float(np.abs(kernels_on - kernels_off).max()):.6g}", flush=True)
     return {**launches, **{k: launches[k] + v for k, v in bf16_launches.items()}}
+
+
+def run_serving(dev, card: str) -> dict:
+    """The serving daemon at full width: VideoITG-8B bf16 behind
+    `SelectionServer` and `ThreadingHTTPServer` on port 0 in this process,
+    requests sent over HTTP. Two 512-frame videos with two prompts each (two
+    misses, two LRU hits) with the LM's splash arm off, the same with it on,
+    then a third video through a `transfer="yuv420"` daemon and, as RGB frames
+    made from the same planes by the plain `yuv420_to_rgb`, through the RGB
+    daemon (and a fourth through the yuv420 daemon, for a warm time). The
+    machine has no libav, so the file reader is swapped for one that hands
+    out frames made from a seed; everything after the reader is
+    the daemon's own code. Launch counts are set to 0 right before each
+    request and read right after it. Returns the counts summed over the
+    requests of the splash-on daemon (kernels A and K) and, for B, of the
+    splash-off daemon."""
+    import urllib.error
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+
+    from videoitg_tpu_torch.cli import serve
+    from videoitg_tpu_torch.cli._model_loading import load_grounding_components
+    from videoitg_tpu_torch.data import video as video_mod
+    from videoitg_tpu_torch.engine import SelectionEngine
+    from videoitg_tpu_torch.ops.preprocess import yuv420_to_rgb
+
+    t_frames, (h, w) = 512, FRAME_HW
+    rng = np.random.default_rng(SEED + 50)
+    sampled = [3 * i for i in range(t_frames)]
+    planes = video_mod.YUVFrames(
+        rng.integers(16, 236, (t_frames, h, w), dtype=np.uint8),
+        rng.integers(16, 241, (t_frames, h // 2, w // 2), dtype=np.uint8),
+        rng.integers(16, 241, (t_frames, h // 2, w // 2), dtype=np.uint8))
+    with torch.inference_mode():
+        rgb_of_planes = yuv420_to_rgb(*(torch.from_numpy(p).to(dev) for p in planes)
+                                      ).to(torch.uint8).cpu().numpy()
+    torch.cuda.empty_cache()
+    clips = {"/videos/a.mp4": {"rgb": frames_u8(rng, t_frames)},
+             "/videos/b.mp4": {"rgb": frames_u8(rng, t_frames)},
+             "/videos/c.mp4": {"rgb": rgb_of_planes, "yuv420": planes},
+             "/videos/d.mp4": {"yuv420": video_mod.YUVFrames(
+                 *(np.ascontiguousarray(p[::-1]) for p in planes))}}
+    handed_out = []  # (path, pix_fmt, bytes) per read: what goes host to device
+
+    def synthetic_reader(path, num_frames=512, target_fps=1.0, sampling="eval", multiple=1,
+                         pix_fmt="rgb"):
+        if path not in clips:
+            raise FileNotFoundError(path)
+        frames = clips[path][pix_fmt]
+        handed_out.append((path, pix_fmt, frames.nbytes))
+        return frames, list(sampled)
+
+    def post(base, payload):
+        req = urllib.request.Request(f"{base}/select", data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def get(base, path):
+        with urllib.request.urlopen(f"{base}{path}", timeout=60) as r:
+            return json.loads(r.read())
+
+    t0 = time.perf_counter()
+    model, cfg, tok = load_grounding_components(None, "videoitg-8b", True, torch.bfloat16, dev,
+                                                seed=SEED)
+    torch.cuda.synchronize()
+    weights_gib = torch.cuda.memory_allocated() / 2**30
+    print(f"serve: videoitg-8b bf16 random init, {weights_gib:.3f} GiB on the card, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    counted = wrappers()
+    n_layers, tower_launches = cfg.lm.num_layers, 4 * cfg.vision.num_effective_layers
+
+    def daemon(tag, requests, **engine_kw):
+        """One engine + server + HTTP listener; drives `requests` ((path,
+        prompt, expect) with expect 'miss' or 'hit'), checks every response
+        and its launch counts, returns (server, raw scores by request)."""
+        engine = SelectionEngine(model, cfg, tok, device=dev, dtype=torch.bfloat16,
+                                 num_frames=t_frames, target_fps=1.0, **engine_kw)
+        server = serve.SelectionServer(engine, decode_workers=2, decode_ahead=4, encode_cache=2)
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(server))
+        import threading
+
+        listener = threading.Thread(target=httpd.serve_forever, daemon=True)
+        listener.start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        total = {name: 0 for name in counted}
+        attention = "splash_mqa" if engine.lm_splash else "flash_mha"
+        other = "flash_mha" if engine.lm_splash else "splash_mqa"
+        raw = {}
+        try:
+            hits = 0
+            for i, (path, prompt, expect) in enumerate(requests):
+                for fn in counted.values():
+                    fn.launches = 0
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                status, out = post(base, {"video_path": path, "prompt": prompt, "topk": 32,
+                                          "doc_id": i})
+                wall = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                launches = {name: fn.launches for name, fn in counted.items() if fn.launches}
+                if status != 200:
+                    fail(f"serve [{tag}] request {i}: HTTP {status} {out}")
+                hits += expect == "hit"
+                health = get(base, "/healthz")
+                if (health["served"], health["encode_cache_hits"], health["pending"]) != \
+                        (i + 1, hits, 0):
+                    fail(f"serve [{tag}] request {i}: /healthz says {health}")
+                if sorted(out["index"]) != sampled or out["doc_id"] != i:
+                    fail(f"serve [{tag}] request {i}: index is not a permutation of the "
+                         f"sampled frames")
+                if out["selected"] != sorted(out["index"][:32]):
+                    fail(f"serve [{tag}] request {i}: selected is not the sorted first 32")
+                sc = np.asarray(out["logits"], dtype=np.float64)
+                if sc.shape != (t_frames,) or not np.all(np.isfinite(sc)) or sc.min() < 0 \
+                        or sc.max() > 1 or np.any(np.diff(sc) > 0):
+                    fail(f"serve [{tag}] request {i}: scores not finite, outside [0, 1] or "
+                         f"not descending")
+                want = {attention: n_layers,
+                        "flash_mha_short": tower_launches if expect == "miss" else 0}
+                got = {name: launches.get(name, 0) for name in (*want, other)}
+                if got != {**want, other: 0}:
+                    fail(f"serve [{tag}] request {i} ({expect}): launches {launches}, expected "
+                         f"{want} and {other} 0")
+                grown = (torch.cuda.memory_allocated() - before) / 2**30
+                print(f"serve [{tag}] request {i} {os.path.basename(path)} ({expect}): "
+                      f"{wall:.4f} s over HTTP, {t_frames / wall:.2f} frames/s, launches "
+                      f"{launches}, peak device memory "
+                      f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, held after the "
+                      f"request +{grown:.3f} GiB, top8 {sorted(out['index'][:8])} [{card}]",
+                      flush=True)
+                for name, n in launches.items():
+                    total[name] += n
+                # The unrounded scores behind the response (it carries them
+                # to 2 decimals), from the slot the request left in the LRU;
+                # this extra LM pass is outside the counted window.
+                enc, _ = server._cache[server._encode_key(path, "eval")]
+                raw[(path, prompt)] = engine.score_encoded(enc, [prompt])[0]
+            print(f"serve [{tag}] /healthz {json.dumps(get(base, '/healthz'))}; /stats "
+                  f"{json.dumps(get(base, '/stats'))}", flush=True)
+            status, out = post(base, {"video_path": "/videos/none.mp4", "prompt": "x"})
+            if status != 500 or "FileNotFoundError" not in out.get("error", ""):
+                fail(f"serve [{tag}]: a bad path answered {status} {out}")
+            slot = next(iter(server._cache.values()))[0].feats
+            print(f"serve [{tag}] one LRU slot: {list(slot.shape)} {slot.dtype}, "
+                  f"{slot.numel() * slot.element_size() / 2**30:.3f} GiB on the card",
+                  flush=True)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            listener.join(timeout=60)
+            server.close()  # stops the worker, drops the engine and the LRU's slots
+        del server, engine
+        torch.cuda.empty_cache()
+        return total, raw
+
+    four = [("/videos/a.mp4", QUESTIONS[0], "miss"), ("/videos/a.mp4", QUESTIONS[1], "hit"),
+            ("/videos/b.mp4", QUESTIONS[0], "miss"), ("/videos/b.mp4", QUESTIONS[2], "hit")]
+    real_reader = video_mod.read_video_frames
+    video_mod.read_video_frames = synthetic_reader
+    try:
+        off_total, off_raw = daemon("rgb, splash off", four + [("/videos/c.mp4", QUESTIONS[0],
+                                                               "miss")], lm_splash=False)
+        on_total, on_raw = daemon("rgb, splash on", four, lm_splash=True)
+        yuv_total, yuv_raw = daemon(
+            "yuv420, splash off",
+            [("/videos/c.mp4", QUESTIONS[0], "miss"), ("/videos/d.mp4", QUESTIONS[0], "miss")],
+            lm_splash=False, transfer="yuv420")
+    finally:
+        video_mod.read_video_frames = real_reader
+
+    # Splash arm against flash arm, request by request. The arms differ by the
+    # bf16 rounding of q * D^-0.5 (a relative 2^-9 on every q entry, where the
+    # flash arm scales the fp32 scores) and by the order of the fp32 sums:
+    # bf16 noise of the size the kernel path has against the plain path, so
+    # the same tolerance, E2E_ATOL on the sigmoid scores.
+    worst = 0.0
+    for key, on in on_raw.items():
+        off = off_raw[key]
+        diff = float(np.abs(on - off).max())
+        overlap = len(set(np.argsort(-on, kind="stable")[:32])
+                      & set(np.argsort(-off, kind="stable")[:32]))
+        print(f"serve splash vs flash arm, {os.path.basename(key[0])} {key[1]!r}: max |score "
+              f"diff| {diff:.6g} (atol {E2E_ATOL}), Top-32 overlap {overlap}/32 (random weights "
+              f"make near ties; not asserted), score range [{off.min():.4f}, {off.max():.4f}]",
+              flush=True)
+        worst = max(worst, diff)
+    if not worst <= E2E_ATOL:
+        fail(f"splash arm and flash arm disagree: {worst} > {E2E_ATOL}")
+    key = ("/videos/c.mp4", QUESTIONS[0])
+    diff = float(np.abs(yuv_raw[key] - off_raw[key]).max())
+    by_fmt = {fmt: n for _, fmt, n in handed_out}
+    print(f"serve yuv420 daemon vs rgb daemon on frames made from the same planes by the plain "
+          f"yuv420_to_rgb: max |score diff| {diff:.6g} (atol {E2E_ATOL}); host-to-device bytes "
+          f"a 512-frame {w}x{h} video: rgb {by_fmt['rgb']}, yuv420 {by_fmt['yuv420']}",
+          flush=True)
+    if not diff <= E2E_ATOL:
+        fail(f"yuv420 daemon and rgb daemon disagree: {diff} > {E2E_ATOL}")
+    if by_fmt["yuv420"] * 2 != by_fmt["rgb"]:
+        fail("yuv420 is not half the bytes of rgb")
+    del model
+    torch.cuda.empty_cache()
+    return {"splash_mqa": on_total["splash_mqa"], "flash_mha": off_total["flash_mha"],
+            "flash_mha_short": on_total["flash_mha_short"]}
+
+
+def run_repro_script() -> dict:
+    """The path of kernels L is their own script: run its `main` with the two
+    launch counts set to 0 just before and read just after."""
+    import importlib.util
+
+    from videoitg_tpu_torch.ops import repro_kernels as rk
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_repro_kernels", os.path.join(HERE, "scripts", "torch_repro_kernels.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    rk.double_literal.launches = rk.double_no_literal.launches = 0
+    if script.main() != 0:
+        fail("scripts/torch_repro_kernels.py failed")
+    launches = {"double_literal": rk.double_literal.launches,
+                "double_no_literal": rk.double_no_literal.launches}
+    if min(launches.values()) <= 0:
+        fail(f"scripts/torch_repro_kernels.py launched {launches}")
+    return launches
 
 
 def bit_checksums(tensors) -> list:
@@ -1137,10 +1589,13 @@ def run_training(dev, card: str) -> dict:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=["int8-kernels", "train-kernels", "train"],
+    parser.add_argument("--only", choices=["int8-kernels", "train-kernels", "splash-kernels",
+                                          "serve", "train"],
                         default=None,
-                        help="build, check kernels F-I (int8-kernels) or C, D, E "
-                             "(train-kernels) against their plain versions, stop")
+                        help="build, then only: check kernels F-I (int8-kernels), C, D, E "
+                             "(train-kernels) or K, L (splash-kernels) against their plain "
+                             "versions; or run the daemon phase (serve) or the training "
+                             "phases (train)")
     args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "videoitg_tpu_torch")):
         fail("run from a checkout of the repository (videoitg_tpu_torch/ not found)")
@@ -1177,6 +1632,14 @@ def main(argv=None) -> int:
         check_train_kernels(dev)
         print("training attention kernels agree with their plain versions", flush=True)
         return 0
+    if args.only == "splash-kernels":
+        check_splash_kernels(dev)
+        print("splash and repro kernels agree with their plain versions", flush=True)
+        return 0
+    if args.only == "serve":
+        run_serving(dev, card)
+        print("serving phase passed", flush=True)
+        return 0
     if args.only == "train":
         run_training(dev, card)
         print("training phases passed", flush=True)
@@ -1184,9 +1647,14 @@ def main(argv=None) -> int:
     records = check_kernels(dev)
     records.update(check_train_kernels(dev))
     records.update(check_int8_kernels(dev))
+    records.update(check_splash_kernels(dev))
+    print_bound_of_kernel_j()
     check_agreement(dev)
     launches = run_slices(dev, card)
     torch.cuda.empty_cache()
+    for name, n in run_serving(dev, card).items():
+        launches[name] = launches.get(name, 0) + n
+    launches.update(run_repro_script())
     train_launches = run_training(dev, card)
     launches.update({name: train_launches[name] for name in TRAIN_KERNELS})
     for name, rec in records.items():

@@ -6,11 +6,16 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 scripts/torch_profile_request.py --tier act8 --kernels on
     python3 scripts/torch_profile_request.py --tier bf16
+    python3 scripts/torch_profile_request.py --hit --splash on
     python3 scripts/torch_profile_request.py --train
 
 Builds VideoITG-8B (random weights from --seed) in the given tier, runs two
 untimed 512-frame `SelectionEngine.select` requests, then one under
-torch.profiler (CPU + CUDA activities). With `--train` the profiled unit is
+torch.profiler (CPU + CUDA activities). With `--hit` the profiled unit is
+what the serving daemon does on an encoded-video cache hit:
+`score_encoded` of one prompt on tower features encoded beforehand
+(projector + LM + head; `--splash on` sends the LM's attention through the
+splash arm). With `--train` the profiled unit is
 one LoRA r16 training step (bf16 base, remat, the differentiable attention
 kernels) on a feature batch of `--frames` frames (default 1024, hw 4,
 16,640 tokens), after two untimed steps. Prints the unit's wall time, the
@@ -36,6 +41,7 @@ sys.path.insert(0, REPO)
 GROUPS = (
     ("short_attention_kernel", "kernel A flash_mha_short"),
     ("flash_attention_kernel", "kernel B flash_mha"),
+    ("splash_mqa_kernel", "kernel K splash_mqa"),
     ("act8_gemm_kernel", "kernel F act8_gemm"),
     ("ln_qkv_kernel", "kernel G fused_ln_qkv_int8"),
     ("ln_mlp_kernel", "kernel H fused_ln_mlp_int8"),
@@ -100,6 +106,11 @@ def main(argv=None) -> int:
     p.add_argument("--tier", choices=["bf16", "int8", "int4", "act8"], default="bf16")
     p.add_argument("--kernels", choices=["on", "off"], default="on",
                    help="act8 only: the hand-written int8 kernels (both switches) on or off")
+    p.add_argument("--hit", action="store_true",
+                   help="profile the daemon's cache-hit path (score_encoded) instead of "
+                        "a whole request")
+    p.add_argument("--splash", choices=["on", "off"], default="off",
+                   help="the LM's splash attention arm (kernel K) instead of kernel B")
     p.add_argument("--train", action="store_true",
                    help="profile one LoRA training step instead of a request")
     p.add_argument("--frames", type=int, default=None,
@@ -132,13 +143,19 @@ def main(argv=None) -> int:
     else:
         on = args.kernels == "on"
         engine = SelectionEngine(model, cfg, tok, device=dev, dtype=torch.bfloat16,
-                                 qgemm=on, fused=on)
+                                 qgemm=on, fused=on, lm_splash=args.splash == "on")
         frames = np.random.default_rng(args.seed + 2).integers(
             0, 256, (args.frames, 360, 640, 3), dtype=np.uint8)
         sampled = list(range(args.frames))
 
-        def unit():
-            engine.select(frames, sampled, "What is the person holding?")
+        if args.hit:
+            enc = engine.encode_video(frames)
+
+            def unit():
+                engine.score_encoded(enc, ["What is the person holding?"])
+        else:
+            def unit():
+                engine.select(frames, sampled, "What is the person holding?")
 
     for _ in range(2):
         unit()
@@ -175,6 +192,10 @@ def main(argv=None) -> int:
     else:
         label = args.tier + (f", int8 kernels {args.kernels}" if args.tier == "act8" else "")
         out_name = f"profile_{args.tier}_{args.kernels}.json"
+        if args.hit or args.splash == "on":
+            label += f", {'cache hit' if args.hit else 'request'}, splash {args.splash}"
+            out_name = (f"profile_{args.tier}_{args.kernels}_{'hit' if args.hit else 'request'}"
+                        f"_splash_{args.splash}.json")
     print(f"profile [{label}] {args.frames} frames: wall {wall:.4f} s, device busy "
           f"{busy_ms / 1e3:.4f} s, idle share {100 * (1 - busy_ms / 1e3 / wall):.2f}% [{card}]")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):

@@ -157,8 +157,9 @@ def test_preprocess_ahead_matches_inline(tiny):
 def test_engine_rejects_what_is_not_ported(tiny):
     cfg, _, model = tiny
     tok = CharTokenizer(cfg.lm.vocab_size)
-    with pytest.raises(NotImplementedError):
-        SelectionEngine(model, cfg, tok, transfer="yuv420")
+    assert SelectionEngine(model, cfg, tok, transfer="yuv420").transfer == "yuv420"
+    with pytest.raises(ValueError, match="transfer"):  # as the JAX engine refuses it
+        SelectionEngine(model, cfg, tok, transfer="nv12")
     with pytest.raises(NotImplementedError):
         SelectionEngine(model, cfg, tok, mesh=object())
     port = SelectionEngine(model, cfg, tok, dtype=torch.float32, buckets=(32, 64))
@@ -184,4 +185,24 @@ def test_cli_select_in_process(tmp_path, capsys):
     assert main(argv + ["--quantize", "int8"]) == 0
     assert len(json.loads(capsys.readouterr().out.strip().splitlines()[-1])) == 8
     assert main(argv + ["--export-serving", str(tmp_path / "out")]) == 2
-    assert main(argv + ["--transfer", "yuv420"]) == 2
+    assert main(argv + ["--json", "--transfer", "yuv420"]) == 0
+    yuv = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert sorted(yuv["index"]) == sorted(record["index"])
+
+
+def test_engine_stays_on_the_models_device_unless_told(tiny):
+    """No `device` argument means the device the caller put the model on, never
+    a silent move to the CPU (a model on the card must be served on the card).
+    The `meta` device stands in for a card here."""
+    import copy
+
+    cfg, _, model = tiny
+    tok = CharTokenizer(cfg.lm.vocab_size)
+    elsewhere = copy.deepcopy(model).to("meta")
+    engine = SelectionEngine(elsewhere, cfg, tok, dtype=torch.float32)
+    assert engine.device.type == "meta"
+    assert next(engine.model.parameters()).device.type == "meta" and engine.use_flash is False
+    assert SelectionEngine(model, cfg, tok, dtype=torch.float32).device.type == "cpu"
+    moved = SelectionEngine(copy.deepcopy(model).to("meta"), cfg, tok, device="meta",
+                            dtype=torch.float32)
+    assert moved.device.type == "meta"

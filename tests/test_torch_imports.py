@@ -73,6 +73,32 @@ def test_training_modules_load_no_jax_optax_orbax(tmp_path):
     assert out == {"foreign": [], "built": False}
 
 
+def test_serving_modules_load_no_jax(tmp_path):
+    """The serving slice's modules (daemon, decode-ahead, frame cache, the
+    splash arm, the repro kernels), imported alone in a fresh interpreter with
+    no compiler on the path: neither jax nor `videoitg_tpu` comes with them,
+    and nothing is built."""
+    mods = ["videoitg_tpu_torch.cli.serve", "videoitg_tpu_torch.data.prefetch",
+            "videoitg_tpu_torch.data.frame_cache", "videoitg_tpu_torch.ops.splash_attention",
+            "videoitg_tpu_torch.ops.repro_kernels", "videoitg_tpu_torch.ops.preprocess"]
+    assert set(mods) <= set(_modules())
+    code = (
+        "import importlib, json, sys\n"
+        f"mods = {mods!r}\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "from videoitg_tpu_torch.cli.serve import build_parser, SelectionServer, make_handler\n"
+        "build_parser().parse_args(['--cpu', '--transfer', 'yuv420'])\n"
+        "from videoitg_tpu_torch.ops import _build\n"
+        "foreign = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'videoitg_tpu'))\n"
+        "print(json.dumps({'foreign': foreign, 'built': _build._lib is not None}))\n")
+    proc = _run(code, VIDEOITG_NVCC=str(tmp_path / "no-nvcc"), PATH="/usr/bin:/bin",
+                VIDEOITG_TORCH_BUILD_DIR=str(tmp_path / "build"))
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"foreign": [], "built": False}
+    assert not (tmp_path / "build").exists()
+
+
 def test_the_guard_sees_the_jax_package():
     """The same scan must report `videoitg_tpu` as it reports `jax`."""
     code = ("import sys, json, videoitg_tpu.constants\n"
@@ -87,7 +113,9 @@ def test_no_source_line_imports_jax_or_the_jax_package():
     import re
 
     pattern = re.compile(r"^\s*(from|import) +(jax|videoitg_tpu)(\.|\s|$)")
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "scripts", "torch_repro_kernels.py"),
+             os.path.join(REPO, "scripts", "torch_profile_request.py")]
     for root, _, files in os.walk(os.path.join(REPO, "videoitg_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     hits = []

@@ -1,8 +1,8 @@
 """The port's own copies of the framework-free modules against their originals.
 
 `videoitg_tpu_torch` imports nothing of `videoitg_tpu`; it keeps a copy of
-the config, constants, sampling, tokenizer, video reader, stage timer, char
-tokenizer and resize matrices. Each copy must behave exactly like the
+the config, constants, sampling, tokenizer, video reader, frame cache,
+decode-ahead pipeline, stage timer, char tokenizer and resize matrices. Each copy must behave exactly like the
 original: every comparison here is for equality, not within a tolerance.
 """
 
@@ -13,6 +13,8 @@ import pytest
 
 from videoitg_tpu import config as jax_config
 from videoitg_tpu import constants as jax_constants
+from videoitg_tpu.data import frame_cache as jax_frame_cache
+from videoitg_tpu.data import prefetch as jax_prefetch
 from videoitg_tpu.data import sampling as jax_sampling
 from videoitg_tpu.data import tokenizer as jax_tokenizer
 from videoitg_tpu.data import video as jax_video
@@ -21,7 +23,7 @@ from videoitg_tpu.utils import common as jax_utils
 from videoitg_tpu.utils import metrics_logger as jax_metrics_logger
 from videoitg_tpu.utils import profiling as jax_profiling
 from videoitg_tpu_torch import config, constants
-from videoitg_tpu_torch.data import sampling, tokenizer, video
+from videoitg_tpu_torch.data import frame_cache, prefetch, sampling, tokenizer, video
 from videoitg_tpu_torch.ops import resize
 from videoitg_tpu_torch.utils import common as utils
 from videoitg_tpu_torch.utils import metrics_logger, profiling
@@ -169,3 +171,67 @@ def test_metrics_logger_copy_is_the_original(tmp_path):
     assert strip(rows["port"]) == strip(rows["jax"]) == [
         {"step": 1, "loss": 0.5, "grad_norm": 2.0}, {"step": 2, "loss": 0.25}]
     assert all("time" in r for r in rows["port"])
+
+
+def _code_lines(module):
+    """The module's source without its docstrings' prose and with imports of
+    either package under one name: what must be equal between the copies."""
+    import ast
+    import inspect
+
+    tree = ast.parse(inspect.getsource(module).replace("videoitg_tpu_torch", "videoitg_tpu"))
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef)) and \
+                ast.get_docstring(node) is not None:
+            node.body = node.body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("pair", [(frame_cache, jax_frame_cache), (prefetch, jax_prefetch)],
+                         ids=["frame_cache", "prefetch"])
+def test_data_path_copies_have_the_originals_code(pair):
+    """Apart from docstrings and the package name in their imports, the copies
+    of data/frame_cache.py and data/prefetch.py are the originals' code."""
+    got, want = pair
+    assert got.__name__.startswith("videoitg_tpu_torch.")
+    assert _code_lines(got) == _code_lines(want)
+
+
+@pytest.mark.parametrize("pix_fmt", ["rgb", "yuv420"])
+def test_frame_cache_entries_are_shared_between_the_packages(tmp_path, pix_fmt):
+    """Same key, same payload: an entry written by either package is a hit for
+    the other, and both read back what the reader decoded."""
+    path = video.write_test_video(str(tmp_path / "v.mp4"), 100, 76, 30, 10, 8)
+    kw = dict(num_frames=8, target_fps=10.0, sampling="eval", pix_fmt=pix_fmt)
+    assert frame_cache._key(path, 8, 10.0, "eval", 1, pix_fmt) == \
+        jax_frame_cache._key(path, 8, 10.0, "eval", 1, pix_fmt)
+    ours, theirs = frame_cache.FrameCache(str(tmp_path / "a")), \
+        jax_frame_cache.FrameCache(str(tmp_path / "b"))
+    frames, sampled = frame_cache.read_video_frames_cached(path, cache=ours, **kw)
+    jframes, jsampled = jax_frame_cache.read_video_frames_cached(path, cache=theirs, **kw)
+    assert sampled == jsampled
+    hit = jax_frame_cache.FrameCache(str(tmp_path / "a")).get(path, 8, 10.0, pix_fmt=pix_fmt)
+    back = frame_cache.FrameCache(str(tmp_path / "b")).get(path, 8, 10.0, pix_fmt=pix_fmt)
+    assert hit is not None and back is not None and hit[1] == back[1] == sampled
+    if pix_fmt == "yuv420":
+        assert isinstance(back[0], video.YUVFrames) and isinstance(hit[0], jax_video.YUVFrames)
+        for a, b, c in zip(frames, hit[0], back[0]):
+            assert np.array_equal(a, b) and np.array_equal(a, c)
+    else:
+        assert np.array_equal(frames, hit[0]) and np.array_equal(jframes, back[0])
+    assert ours.get(path, 4, 10.0, pix_fmt=pix_fmt) is None  # another config: a miss
+
+
+def test_decode_ahead_copy_behaves_like_the_original(tmp_path):
+    paths = [video.write_test_video(str(tmp_path / f"v{i}.mp4"), 64, 48, 12 + i, 10, 8)
+             for i in range(3)]
+    items = [(i, p, {"n": i}) for i, p in enumerate(paths)] + [(9, str(tmp_path / "no.mp4"), None)]
+    kw = dict(num_frames=4, target_fps=10.0, sampling="infer", workers=2, ahead=2)
+    got = list(prefetch.decode_ahead(items, post=lambda fr: fr[::-1], **kw))
+    want = list(jax_prefetch.decode_ahead(items, post=lambda fr: fr[::-1], **kw))
+    assert [d.key for d in got] == [d.key for d in want] == [0, 1, 2, 9]
+    for g, w in zip(got[:3], want[:3]):
+        assert g.error is None and g.sampled == w.sampled and g.meta == w.meta
+        assert np.array_equal(g.frames, w.frames)
+    assert isinstance(got[3].error, FileNotFoundError) and type(want[3].error) is type(got[3].error)
+    assert type(got[0]).__module__ == "videoitg_tpu_torch.data.prefetch"

@@ -126,6 +126,7 @@ def _rows(workdir, out):
     ("projector", ("--tune-projector-only", "--mm-projector-lr", "1e-3",
                    "--gradient-accumulation-steps", "2", "--lr-scheduler-type", "constant",
                    "--vision-token-num", "36", "--vision-min-num", "2")),
+    ("yuv420", ("--pix-fmt", "yuv420")),
 ])
 def test_cli_takes_three_steps(workdir, name, flags):
     proc = _train(workdir, "--total-steps", "3", "--output-dir", name, *flags)
@@ -170,7 +171,7 @@ def test_cli_resumes_without_a_kill(workdir):
 REFUSED = [
     (("--model", "/no/such/dir"), "--model"),
     (("--objective", "vlm"), "--objective vlm"),
-    (("--pix-fmt", "yuv420"), "--pix-fmt yuv420"),
+    (("--tp", "2"), "--dp / --tp / --sp / --pp"),
     (("--dp", "2"), "--dp / --tp / --sp / --pp"),
     (("--sp", "4"), "--dp / --tp / --sp / --pp"),
     (("--pp", "2"), "--dp / --tp / --sp / --pp"),

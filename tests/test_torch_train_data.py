@@ -64,16 +64,24 @@ def test_collate_matches_jax(form):
 
 
 def test_collate_casts_and_refuses_yuv():
+    """The default dtype is bf16 and padding is zeros; YUVFrames samples, once
+    refused, are now collated (held to the JAX collate in
+    tests/test_torch_yuv.py): black planes (y 16, chroma 128) and the padding
+    (y 0, chroma 128) both come out as the normalised black of the RGB path."""
     from videoitg_tpu_torch.data.video import YUVFrames
 
     rng = np.random.default_rng(1)
     batch = collate.collate_grounding(_samples(rng, "features", (2,), dataset.GroundingSample),
                                       4, CFG)
     assert batch.frames.dtype == torch.bfloat16 and not batch.frames[0, 2:].any()
-    yuv = YUVFrames(np.zeros((2, 8, 8), np.uint8), np.zeros((2, 4, 4), np.uint8),
-                    np.zeros((2, 4, 4), np.uint8))
-    with pytest.raises(NotImplementedError, match="yuv420"):
-        collate.collate_grounding([dataset.GroundingSample(yuv, [1], np.zeros(2), "v")], 4, CFG)
+    yuv = YUVFrames(np.full((2, 8, 8), 16, np.uint8), np.full((2, 4, 4), 128, np.uint8),
+                    np.full((2, 4, 4), 128, np.uint8))
+    got = collate.collate_grounding([dataset.GroundingSample(yuv, [1], np.zeros(2), "v")], 4, CFG,
+                                    dtype=torch.float32)
+    size = CFG.vision.image_size
+    assert got.frames.shape == (1, 4, size, size, 3)
+    assert torch.equal(got.frames, torch.full_like(got.frames, -1.0))
+    assert got.frame_valid.tolist() == [[True, True, False, False]]
 
 
 @pytest.mark.parametrize("seed", range(4))

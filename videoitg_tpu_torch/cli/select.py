@@ -54,7 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "act8 = int8 weights + dynamic int8 activations (LM + vision)")
     p.add_argument("--export-serving", metavar="DIR", help="not ported yet")
     p.add_argument("--transfer", default="rgb", choices=["rgb", "yuv420"],
-                   help="yuv420 is not ported yet")
+                   help="yuv420: ship the decoder's native YUV planes (half the "
+                        "host-to-device bytes) and convert on the device")
     return p
 
 
@@ -65,10 +66,6 @@ def main(argv=None) -> int:
             print(f"error: {flag} is not ported to PyTorch yet (ROADMAP queue 1)",
                   file=sys.stderr)
             return 2
-    if args.transfer != "rgb":
-        print("error: --transfer yuv420 is not ported to PyTorch yet (ROADMAP queue 1)",
-              file=sys.stderr)
-        return 2
     from videoitg_tpu_torch.cli._model_loading import load_grounding_components, resolve_device
     from videoitg_tpu_torch.engine import SelectionEngine
 
@@ -87,7 +84,8 @@ def main(argv=None) -> int:
         print(e, file=sys.stderr)
         return 2
     engine = SelectionEngine(params, cfg, tokenizer, device=device, dtype=dtype,
-                             num_frames=args.num_frames, target_fps=args.target_fps)
+                             num_frames=args.num_frames, target_fps=args.target_fps,
+                             transfer=args.transfer)
     result = engine.select_from_file(args.video, args.prompt, sampling=args.sampling)
     if args.json:
         print(json.dumps(result.to_reference_json(), ensure_ascii=False))

@@ -15,8 +15,8 @@ Smoke run (random weights, synthetic-capable):
 
 Flags of the JAX CLI that are refused here, each with the ROADMAP item that
 covers it: `--model` (HF weights are not in the repository), `--objective
-vlm` (the causal VLM), `--pix-fmt yuv420`, `--dp/--tp/--sp/--pp` above 1
-(multi-device) and `--offload-optimizer`.
+vlm` (the causal VLM), `--dp/--tp/--sp/--pp` above 1 (multi-device) and
+`--offload-optimizer`.
 """
 
 from __future__ import annotations
@@ -43,7 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--video-frames", type=int, default=1024)
     p.add_argument("--fps", type=float, default=1.0)
     p.add_argument("--pix-fmt", default="rgb", choices=["rgb", "yuv420"],
-                   help="yuv420 is not ported yet")
+                   help="yuv420: decode to native YUV planes (half the host "
+                        "bytes) and convert on the device")
     p.add_argument("--feature-cache", default=None, metavar="DIR",
                    help="cache frozen-tower features here; cache hits skip "
                         "decode + preprocess + tower (the tower is frozen in "
@@ -108,8 +109,6 @@ def _refusal(args) -> str | None:
                 "queue 1, item 3): use --random-init")
     if args.objective == "vlm":
         return "--objective vlm (the causal VLM and its SFT; ROADMAP queue 1, item 6)"
-    if args.pix_fmt != "rgb":
-        return "--pix-fmt yuv420 (the yuv420 transfer; ROADMAP queue 1, item 2)"
     if any(n is not None and n > 1 for n in (args.dp, args.tp, args.sp, args.pp)):
         return "--dp / --tp / --sp / --pp above 1 (multi-device; ROADMAP queue 1, item 8)"
     if args.offload_optimizer:

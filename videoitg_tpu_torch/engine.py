@@ -8,8 +8,12 @@ ties, 2-dp scores). hw comes from the REAL frame count, as in the reference
 projector. A model in a quantised serving tier (ops/quant.py) runs through
 the same entry points; `qgemm` / `fused` (default: VIDEOITG_QGEMM /
 VIDEOITG_FUSED, read once here) say which act8 products run in the
-hand-written int8 kernels. Device meshes and the YUV420 transfer wait
-(ROADMAP queue 1).
+hand-written int8 kernels, and `lm_splash` (default: VIDEOITG_LM_SPLASH, read
+once here) sends the LM's attention through the splash MQA kernel instead of
+the flash kernel (the JAX package's A/B arm). `transfer="yuv420"` takes the
+decoder's native planes (data.video.YUVFrames, half the host-to-device
+bytes) and converts them to RGB on the device. Device meshes wait (ROADMAP
+queue 1).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from videoitg_tpu_torch.config import GroundingConfig
 from videoitg_tpu_torch.data.sampling import FRAME_BUCKETS, frame_bucket
 from videoitg_tpu_torch.data.tokenizer import grounding_text_ids
+from videoitg_tpu_torch.data.video import YUVFrames
 from videoitg_tpu_torch.models.grounding import (
     GroundingBatch,
     GroundingModel,
@@ -31,7 +36,8 @@ from videoitg_tpu_torch.models.grounding import (
     vision_features,
 )
 from videoitg_tpu_torch.models.projector import apply_projector, frame_token_count, inference_hw
-from videoitg_tpu_torch.ops.preprocess import preprocess_frames
+from videoitg_tpu_torch.ops.attention import resolve_lm_splash
+from videoitg_tpu_torch.ops.preprocess import preprocess_frames, preprocess_frames_yuv
 from videoitg_tpu_torch.ops.quant import Act8Switches, cast_params
 from videoitg_tpu_torch.utils.profiling import StageTimer
 
@@ -69,10 +75,13 @@ class SelectionResult:
 
 
 class PreprocessedVideo(NamedTuple):
-    """A video resized/normalised on the device and padded to its bucket."""
+    """A video resized/normalised on the device and padded to its bucket.
+    `ready` marks, on a CUDA device, the point of the producing stream after
+    which `pix` is complete; the consumer's stream waits for it."""
 
     pix: torch.Tensor  # [t_bucket, S, S, 3], model dtype
     t_real: int
+    ready: Optional["torch.cuda.Event"] = None
 
     @property
     def shape(self):
@@ -109,13 +118,20 @@ class SelectionEngine:
         transfer: str = "rgb",
         qgemm: Optional[bool] = None,
         fused: Optional[bool] = None,
+        lm_splash: Optional[bool] = None,
     ):
         if mesh is not None:
             raise NotImplementedError("device meshes are not ported yet (ROADMAP queue 1)")
-        if transfer != "rgb":
-            raise NotImplementedError(
-                f"transfer={transfer!r}: only 'rgb' is ported (yuv420 is ROADMAP queue 1)")
-        self.device = torch.device(device if device is not None else "cpu")
+        if transfer not in ("rgb", "yuv420"):
+            raise ValueError(f"transfer must be 'rgb' or 'yuv420', got {transfer!r}")
+        # "yuv420": the decoder ships its native planes and the BT.601 -> RGB
+        # conversion runs on the device. Scores match the RGB path within
+        # colourspace rounding; "rgb" stays the default.
+        self.transfer = transfer
+        # No `device` means where the caller put the model: a model on the card
+        # is served on the card, never moved to the CPU unasked.
+        self.device = torch.device(device if device is not None
+                                   else next(params.parameters()).device)
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.num_frames = num_frames
@@ -127,6 +143,7 @@ class SelectionEngine:
         # Bound tower activations at long buckets, as the JAX engine does.
         self.vision_chunk = 128 if vision_chunk is None else vision_chunk
         self.act8 = Act8Switches.from_env(qgemm=qgemm, fused=fused)
+        self.lm_splash = resolve_lm_splash(lm_splash)
         self.model = cast_params(params, dtype, device=self.device).eval()
         self.timer = StageTimer()
 
@@ -148,30 +165,62 @@ class SelectionEngine:
 
     @torch.inference_mode()
     def _preprocess(self, frames_u8, t_bucket: int) -> torch.Tensor:
-        """uint8 [T, H, W, 3] (numpy or tensor) -> [t_bucket, S, S, 3] model
-        dtype on the device, padded with black frames. A PreprocessedVideo
-        passes through."""
+        """uint8 frames (RGB [T, H, W, 3], numpy or tensor, or YUVFrames) ->
+        [t_bucket, S, S, 3] model dtype on the device, padded with black
+        frames. A PreprocessedVideo passes through, after the current stream
+        has been made to wait for it."""
         if isinstance(frames_u8, PreprocessedVideo):
             if frames_u8.pix.shape[0] != t_bucket:
                 raise ValueError(
                     f"preprocessed input padded to {frames_u8.pix.shape[0]} frames, "
                     f"bucket needs {t_bucket}; preprocess_ahead with the same bucket set")
+            if frames_u8.ready is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(frames_u8.ready)
+                frames_u8.pix.record_stream(stream)
             return frames_u8.pix
+        out_size = self.cfg.vision.image_size
+        if isinstance(frames_u8, YUVFrames):
+            t = frames_u8.shape[0]
+            planes = list(frames_u8)
+            if t < t_bucket:
+                # Black in YUV is y = 0 (it clips to 0 after the -16 offset)
+                # with NEUTRAL chroma 128: zero chroma would come out green.
+                planes = [np.concatenate([p, np.full((t_bucket - t,) + p.shape[1:], fill,
+                                                     np.uint8)])
+                          for p, fill in zip(planes, (0, 128, 128))]
+            y, u, v = (torch.as_tensor(p).to(self.device) for p in planes)
+            return preprocess_frames_yuv(y, u, v, out_size=out_size, dtype=self.dtype)
         x = torch.as_tensor(frames_u8).to(self.device)
         t, h, w, _ = x.shape
         if t < t_bucket:
             x = torch.cat([x, x.new_zeros((t_bucket - t, h, w, 3))])
-        return preprocess_frames(x, out_size=self.cfg.vision.image_size, dtype=self.dtype)
+        return preprocess_frames(x, out_size=out_size, dtype=self.dtype)
 
     # ---- public API ----
 
     def preprocess_ahead(self, frames, t_bucket: Optional[int] = None) -> PreprocessedVideo:
         """Resize/normalise and upload a decoded video now; feed the result
-        to select() / score_frames() in place of raw frames."""
+        to select() / score_frames() / encode_video() in place of raw frames.
+
+        Safe to call from a decode worker thread (data/prefetch.decode_ahead
+        `post=`). The upload is a plain copy from pageable memory on the
+        calling thread's current stream; with PyTorch's defaults that is the
+        device's one default stream, so the copy and the resize queue behind
+        whatever the scoring thread has already enqueued, and the worker
+        thread blocks on the copy, not the scoring thread. The result carries
+        an event recorded after the last preprocessing kernel; the consumer's
+        stream waits for it before it reads `pix`, which also holds when a
+        caller has put either thread on a stream of its own."""
         t_real = frames.shape[0]
         if t_bucket is None:
             t_bucket = frame_bucket(t_real, self.buckets)
-        return PreprocessedVideo(self._preprocess(frames, t_bucket), t_real)
+        pix = self._preprocess(frames, t_bucket)
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        return PreprocessedVideo(pix, t_real, ready)
 
     @torch.inference_mode()
     def encode_video(self, frames, t_bucket: Optional[int] = None) -> EncodedVideo:
@@ -204,7 +253,8 @@ class SelectionEngine:
             for i in range(len(instructions)):
                 logits = grounding_logits_from_tokens(
                     self.model, img, fv, ids[i: i + 1], valid[i: i + 1], cfg,
-                    n_pf=n_pf, use_flash=self.use_flash, act8=self.act8)
+                    n_pf=n_pf, use_flash=self.use_flash, act8=self.act8,
+                    lm_splash=self.lm_splash)
                 probs.append(torch.sigmoid(logits.float())[0, : enc.t_real])
             return [p.cpu().numpy() for p in probs]
 
@@ -226,8 +276,8 @@ class SelectionEngine:
 
     @torch.inference_mode()
     def score_frames(self, videos: Sequence, instructions: Sequence[str]) -> List[np.ndarray]:
-        """Score raw decoded frames: videos are [T_i, H, W, 3] uint8 (or
-        PreprocessedVideo). All videos of one call share a bucket and hw
+        """Score raw decoded frames: videos are [T_i, H, W, 3] uint8, YUVFrames
+        or PreprocessedVideo. All videos of one call share a bucket and hw
         (callers group by length). Returns [T_i] fp32 sigmoid scores each."""
         if len(videos) != len(instructions):
             raise ValueError(f"{len(videos)} videos for {len(instructions)} instructions")
@@ -248,7 +298,7 @@ class SelectionEngine:
         with self.timer.stage("score"):
             logits = grounding_logits(self.model, batch, self.cfg, hw=hw,
                                       use_flash=self.use_flash, vision_chunk=chunk,
-                                      act8=self.act8)
+                                      act8=self.act8, lm_splash=self.lm_splash)
             probs = torch.sigmoid(logits.float()).cpu().numpy()  # sigmoid(-inf) = 0
         return [probs[i, :t] for i, t in enumerate(t_reals)]
 
@@ -280,5 +330,5 @@ class SelectionEngine:
         with self.timer.stage("decode"):
             frames, sampled = read_video_frames(
                 video_path, num_frames=self.num_frames, target_fps=self.target_fps,
-                sampling=sampling)
+                sampling=sampling, pix_fmt="yuv420" if self.transfer == "yuv420" else "rgb")
         return self.select(frames, sampled, instruction, video_path=video_path, doc_id=doc_id)

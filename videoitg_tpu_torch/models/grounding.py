@@ -92,13 +92,14 @@ def vision_features(model: GroundingModel, frames: torch.Tensor, cfg: GroundingC
 def grounding_logits(model: GroundingModel, batch: GroundingBatch, cfg: GroundingConfig,
                      hw: int, use_flash=False, vision_chunk: int = 0,
                      act8: Act8Switches = Act8Switches(), remat: bool = False,
-                     freeze_vision: bool = False) -> torch.Tensor:
+                     freeze_vision: bool = False,
+                     lm_splash: Optional[bool] = None) -> torch.Tensor:
     """Per-frame relevance logits [B, T] (invalid frames -> -inf);
     vision_chunk as in `vision_features`. A 4-d `batch.frames` holds tower
     features [B, T, P, C] and skips the tower. `freeze_vision` runs the tower
     without gradients and detaches its output, so its backward never runs;
     `remat` recomputes each layer of the tower and of the LM in the backward
-    pass."""
+    pass. `lm_splash` is the LM's serving A/B switch (`ops/attention.mha`)."""
     b, t = batch.frame_valid.shape
     n_pf = frame_token_count(cfg.projector, hw, cfg.vision.num_patches)
     frames_flat = batch.frames.reshape((b * t,) + tuple(batch.frames.shape[2:]))
@@ -117,7 +118,7 @@ def grounding_logits(model: GroundingModel, batch: GroundingBatch, cfg: Groundin
     img_tokens = img_tokens.reshape(b, t * n_pf, -1)
     return grounding_logits_from_tokens(model, img_tokens, batch.frame_valid, batch.text_ids,
                                         batch.text_valid, cfg, n_pf=n_pf, use_flash=use_flash,
-                                        act8=act8, remat=remat)
+                                        act8=act8, remat=remat, lm_splash=lm_splash)
 
 
 def grounding_logits_from_tokens(model: GroundingModel, img_tokens: torch.Tensor,
@@ -125,7 +126,8 @@ def grounding_logits_from_tokens(model: GroundingModel, img_tokens: torch.Tensor
                                  text_valid: torch.Tensor, cfg: GroundingConfig, n_pf: int,
                                  use_flash=False,
                                  act8: Act8Switches = Act8Switches(),
-                                 remat: bool = False) -> torch.Tensor:
+                                 remat: bool = False,
+                                 lm_splash: Optional[bool] = None) -> torch.Tensor:
     """LM + head over already-projected image tokens [B, T*n_pf, D]."""
     b, t = frame_valid.shape
     l_txt = text_ids.shape[1]
@@ -146,7 +148,8 @@ def grounding_logits_from_tokens(model: GroundingModel, img_tokens: torch.Tensor
     positions = torch.cat([img_pos, txt_pos], dim=1)
 
     hidden = qwen2_mod.qwen2_hidden_states(model.lm, x, positions, valid, cfg.lm,
-                                           use_flash=use_flash, act8=act8, remat=remat)
+                                           use_flash=use_flash, act8=act8, remat=remat,
+                                           lm_splash=lm_splash)
     # Per-frame fp32 mean pool of the image slots (reference grounding_qwen2.py:148-156).
     frame_hidden = hidden[:, :n_img].reshape(b, t, n_pf, -1).float().mean(dim=2)
     logits = (frame_hidden @ model.out_proj.w.float() + model.out_proj.b.float())[..., 0]

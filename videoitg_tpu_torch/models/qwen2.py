@@ -85,7 +85,7 @@ def embed_tokens(lm: Qwen2, ids: torch.Tensor) -> torch.Tensor:
 
 def _decoder_layer(p: Qwen2Layer, x: torch.Tensor, positions: torch.Tensor,
                    valid: Optional[torch.Tensor], cfg: LMConfig, use_flash,
-                   act8: Act8Switches) -> torch.Tensor:
+                   act8: Act8Switches, lm_splash: Optional[bool] = None) -> torch.Tensor:
     b, s, _ = x.shape
     y = rms_norm(p.input_norm, x, cfg.rms_norm_eps)
     q, k, v = fused_qkv(p.q, p.k, p.v, y, act8)
@@ -94,7 +94,8 @@ def _decoder_layer(p: Qwen2Layer, x: torch.Tensor, positions: torch.Tensor,
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2).contiguous()
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    attn = mha(q, k, v, valid=valid, causal=cfg.causal, use_flash=use_flash)
+    attn = mha(q, k, v, valid=valid, causal=cfg.causal, use_flash=use_flash,
+               lm_splash=lm_splash)
     x = x + linear(p.o, attn.transpose(1, 2).reshape(b, s, cfg.q_dim), act8)
     y = rms_norm(p.post_attn_norm, x, cfg.rms_norm_eps)
     return x + linear(p.down, F.silu(linear(p.gate, y, act8)) * linear(p.up, y, act8), act8)
@@ -104,18 +105,20 @@ def qwen2_hidden_states(lm: Qwen2, inputs_embeds: torch.Tensor, positions: torch
                         valid: Optional[torch.Tensor], cfg: LMConfig,
                         use_flash=False,
                         act8: Act8Switches = Act8Switches(),
-                        remat: bool = False) -> torch.Tensor:
+                        remat: bool = False,
+                        lm_splash: Optional[bool] = None) -> torch.Tensor:
     """Run the decoder stack; returns final-norm hidden states [B, S, H].
     With `remat` (and gradients on) each layer keeps only its input and is
-    run again in the backward pass."""
+    run again in the backward pass. `lm_splash` is the serving A/B switch of
+    `ops/attention.mha` (None reads VIDEOITG_LM_SPLASH)."""
     x = inputs_embeds
     remat = remat and torch.is_grad_enabled()
     for layer in lm.layers[: cfg.num_layers]:
         if remat:
             x = checkpoint(_decoder_layer, layer, x, positions, valid, cfg, use_flash, act8,
-                           use_reentrant=False, preserve_rng_state=False)
+                           lm_splash, use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _decoder_layer(layer, x, positions, valid, cfg, use_flash, act8)
+            x = _decoder_layer(layer, x, positions, valid, cfg, use_flash, act8, lm_splash)
     return rms_norm(lm.final_norm, x, cfg.rms_norm_eps)
 
 

@@ -7,24 +7,41 @@ the input dtype.
 
 * `mha_reference` — plain PyTorch, O(S^2) memory. The numerics oracle.
 * `mha` — dispatch: `use_flash=False` runs the oracle; `use_flash=True`
-  runs the hand-written inference kernels (`flash_mha_short` for the vision
-  tower's short unmasked MHA, `flash_mha` otherwise), which have no
-  backward; `use_flash="train"` runs the differentiable kernels
+  runs the hand-written inference kernels, which have no backward:
+  `flash_mha_short` for the vision tower's short unmasked MHA, `flash_mha`
+  otherwise, or, with the LM splash switch on, `splash_lm`
+  (`ops/splash_attention.py`) for non-causal attention with a key mask, the
+  LM's serving prefill; `use_flash="train"` runs the differentiable kernels
   (`ops/flash_attention_train.flash_mha_train`). Each kernel wrapper runs
   its own plain version when the tensors lie on the CPU.
 
-What still raises: `use_flash="train-jax"` (the A/B arm over a library
-kernel with repeated KV heads, kernel J of PERF.md) and the mesh / ring arms
-of the JAX dispatch, which need more than one device (ROADMAP queue 1).
+The LM splash switch is the JAX package's A/B arm: `lm_splash=True / False`
+decides it, `None` reads `VIDEOITG_LM_SPLASH` (`1` is on; off by default), so
+one process can run both arms.
+
+`use_flash="train-jax"` is the one arm of the single-device dispatch that
+still raises (the A/B arm over a library kernel with repeated KV heads,
+kernel J of PERF.md). The mesh / ring arms of the JAX dispatch need more than
+one device (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import os
+
 import torch
 
 SHORT_MAX_SEQ = 1024  # longest sequence the dispatch sends to the short kernel
+
+
+def resolve_lm_splash(lm_splash: Optional[bool] = None) -> bool:
+    """The LM splash switch: an explicit value wins, None reads
+    VIDEOITG_LM_SPLASH (`1` is on)."""
+    if lm_splash is None:
+        return os.environ.get("VIDEOITG_LM_SPLASH") == "1"
+    return bool(lm_splash)
 
 
 def mha_reference(
@@ -74,14 +91,17 @@ def mha(
     causal: bool = False,
     use_flash=False,
     sm_scale: Optional[float] = None,
+    lm_splash: Optional[bool] = None,
 ) -> torch.Tensor:
     """Dispatch between the oracle and the kernels.
 
     use_flash: False -> the plain oracle; True -> the inference kernels (no
     backward): unmasked, non-causal MHA with S <= 1024 and Hq == Hkv (the
-    vision tower) takes the short kernel, everything else streams; "train"
-    -> the differentiable native-GQA kernels, which take no `sm_scale`
-    override (a serving-path knob, as in the JAX package).
+    vision tower) takes the short kernel; non-causal attention with a key
+    mask takes the splash arm when `lm_splash` is on (None reads
+    VIDEOITG_LM_SPLASH); everything else streams; "train" -> the
+    differentiable native-GQA kernels, which take no `sm_scale` override (a
+    serving-path knob, as in the JAX package).
     """
     if sm_scale is not None and sm_scale == q.shape[-1] ** -0.5:
         sm_scale = None
@@ -108,4 +128,8 @@ def mha(
         return flash_mha_short(q, k, v, sm_scale=sm_scale)
     if sm_scale is not None:
         raise ValueError("sm_scale override is for the short (vision) kernel only")
+    if not causal and valid is not None and resolve_lm_splash(lm_splash):
+        from videoitg_tpu_torch.ops.splash_attention import splash_lm
+
+        return splash_lm(q, k, v, valid)
     return flash_mha(q, k, v, valid=valid, causal=causal)

@@ -3,8 +3,9 @@
 Counterpart of videoitg_tpu/train/collate.py. A sample's `frames` are uint8
 pixels [T, H, W, 3], which are preprocessed here (on `device`, where the
 fp32 resize runs), or precomputed tower features [T, P, C]
-(train/feature_cache.py), which are only padded and cast. Planar YUV420
-frames are not ported (ROADMAP queue 1).
+(train/feature_cache.py), which are only padded and cast, or planar YUV420
+frames (data.video.YUVFrames, half the host bytes), which are converted and
+resized on `device`.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import torch
 
 from videoitg_tpu_torch.config import GroundingConfig
 from videoitg_tpu_torch.models.grounding import GroundingBatch
-from videoitg_tpu_torch.ops.preprocess import preprocess_frames
+from videoitg_tpu_torch.data.video import YUVFrames
+from videoitg_tpu_torch.ops.preprocess import preprocess_frames, preprocess_frames_yuv
 from videoitg_tpu_torch.train.dataset import GroundingSample
 
 
@@ -25,8 +27,6 @@ def collate_grounding(samples: Sequence[GroundingSample], t_bucket: int, cfg: Gr
     """Pad or truncate every sample to `t_bucket` frames and stack. Frames
     beyond a sample's own are zeros (black before normalisation) and marked
     invalid; text is right-padded to cfg.max_text_len."""
-    from videoitg_tpu_torch.data.video import YUVFrames
-
     b = len(samples)
     pix_list = []
     frame_valid = np.zeros((b, t_bucket), dtype=bool)
@@ -34,22 +34,27 @@ def collate_grounding(samples: Sequence[GroundingSample], t_bucket: int, cfg: Gr
     ids = np.zeros((b, cfg.max_text_len), dtype=np.int32)
     text_valid = np.zeros((b, cfg.max_text_len), dtype=bool)
 
+    def on_device(arr: np.ndarray, fill: int = 0) -> torch.Tensor:
+        """Pad with `fill` frames, or truncate, to t_bucket and upload."""
+        if arr.shape[0] < t_bucket:
+            pad = np.full((t_bucket - arr.shape[0],) + arr.shape[1:], fill, dtype=arr.dtype)
+            arr = np.concatenate([arr, pad], axis=0)
+        return torch.from_numpy(np.ascontiguousarray(arr[:t_bucket])).to(device)
+
     for i, s in enumerate(samples):
         fr = s.frames
+        t = min(fr.shape[0], t_bucket)
         if isinstance(fr, YUVFrames):
-            raise NotImplementedError(
-                "collate_grounding: yuv420 frames are not ported yet (ROADMAP queue 1)")
-        t = fr.shape[0]
-        if t < t_bucket:
-            fr = np.concatenate(
-                [fr, np.zeros((t_bucket - t,) + fr.shape[1:], dtype=fr.dtype)], axis=0)
-        elif t > t_bucket:
-            fr, t = fr[:t_bucket], t_bucket
-        x = torch.from_numpy(np.ascontiguousarray(fr)).to(device)
-        if x.dim() == 3:  # tower features [T, P, C]: no preprocessing
-            pix_list.append(x.to(dtype))
+            # Black padding is y = 0 with NEUTRAL chroma 128 (zero chroma
+            # would come out green).
+            y, u, v = (on_device(p, fill) for p, fill in zip(fr, (0, 128, 128)))
+            pix_list.append(preprocess_frames_yuv(y, u, v, out_size=cfg.vision.image_size,
+                                                  dtype=dtype))
+        elif fr.ndim == 3:  # tower features [T, P, C]: no preprocessing
+            pix_list.append(on_device(fr).to(dtype))
         else:
-            pix_list.append(preprocess_frames(x, out_size=cfg.vision.image_size, dtype=dtype))
+            pix_list.append(preprocess_frames(on_device(fr), out_size=cfg.vision.image_size,
+                                              dtype=dtype))
         frame_valid[i, :t] = True
         labels[i, :t] = s.labels[:t]
         n = len(s.text_ids)
