@@ -30,6 +30,22 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      rows of o and dq and invalid keys of dk, dv must be exactly 0, and two
      runs of dK/dV bit-equal. Library call: scaled_dot_product_attention
      forward for C, its autograd backward for D and E together.
+   * J (trainable MHA with segment ids: forward + lse, dQ, dK/dV; the
+     `use_flash="train-jax"` arm) at the shapes `mha_trainable` hands it: the
+     grounding LM's [1, 28 heads after the KV repeat, 16,640 padded to 16,896,
+     128] with 16,500 valid (id 1; the 140 invalid tokens and the 256 of zero
+     padding share id 0 and attend each other), non-causal; causal at the VLM
+     SFT step's [1, 28, 16,960 padded to 17,408, 128] with the [pre | image |
+     post] layout's holes mid-sequence; the tower's [32, 16, 729 padded to
+     1024, 72]; a ragged S = 4,101 with scattered ids; a causal hole over two
+     batch rows; three ids other than 0 / 1; ids for q and kv apart with
+     queries that match no key (o exactly 0, lse +inf, dq exactly 0); nine
+     more head dims. Every row is compared, the id-0 rows included. The
+     backward like with like, as C, D, E; the same tolerances; two runs of
+     dK/dV bit-equal. Broken uses: ids ignored (forward, dQ, dK/dV), the pad
+     keys left out of the invalid rows, delta dropped, causal dropped. Timed
+     beside C, D, E on the same inputs and the library call with the same
+     boolean mask; bounds from the pairs this run's ids admit.
    * A, B (attention, bf16): plus a long case whose length is not a multiple
      of the 64-key tile, a small causal case and a fully-masked-row case.
      Tolerance: 4 bf16 half-ulps of the case's max|reference| (see
@@ -92,16 +108,36 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    `collate_grounding` (the frozen tower in the step). At every step the
    loss is finite and the launch counts are exact: C twice a layer (forward
    and recompute) plus once per tower layer when frames come in, D and E
-   once a layer. The frozen leaves must be bit-identical afterwards, lora_b
+   once a layer, J never. Two more steps of the feature batch go through
+   `use_flash="train-jax"`: J 56 / 28 / 28 a step, C, D, E never (the A/B the
+   arm exists for). The frozen leaves must be bit-identical afterwards, lora_b
    and out_proj changed. Then, on videoitg-8b-shallow at 8 frames: the loss
    and LoRA gradients of the kernel path against the plain path (loss 2e-2
    relative; gradients 5e-2 of each leaf's largest entry), and two QLoRA
    steps each over an int8 and an int4 base (integer bytes unchanged).
 
+8. Causal VLM: VideoITG-8B in its causal, tied variant, bf16, LoRA r16.
+   Three SFT steps (`collate_vlm`, `make_vlm_train_step`, `run_step`) on one
+   256-frame video sample (hw 8, 64 + 16,384 + 512 = 16,960 LM tokens, 150
+   label tokens, the frozen tower in the step, remat) with `use_flash=True`
+   (C, D, E causal: 82 / 28 / 28 launches a step), two with
+   `use_flash="train-jax"` (J: the same counts), frozen leaves bit-identical,
+   the two arms' losses on the same parameters within 1e-3 relative. Greedy
+   `vlm_generate` at 32 frames (hw 22, 15,584 prompt slots), 16 new tokens,
+   `use_flash=True`: kernel A in the tower, kernel B causal 28 times at
+   prefill and nothing else; prefill seconds and ms per decoded token. On
+   videoitg-8b-shallow at 8 frames: each arm's loss and LoRA gradients
+   against the plain path (loss 2e-2 relative; gradients 5e-2 of each leaf's
+   largest entry, the 0-d leaves taken together), the kernel path's
+   first-token logits and cache against the plain path's (2e-2 of the largest
+   entry), and three offloaded steps (`train/offload.py`: Adam's moments in
+   pinned host memory between steps) bit-equal to three plain steps.
+
 `--only int8-kernels` stops after building and checking kernels F-I,
 `--only train-kernels` after C, D, E, `--only splash-kernels` after K and L
-(a short first run for a new kernel); `--only serve` runs phase 6 alone,
-`--only train` phase 7. None of them prints a result line.
+`--only segment-kernels` after J (a short first run for a new kernel);
+`--only serve` runs phase 6 alone, `--only train` phase 7, `--only vlm` phase
+8. None of them prints a result line.
 
 The last two lines are the per-kernel JSON record and
 {"ok": true, "device": {...}}.
@@ -939,25 +975,298 @@ def check_splash_kernels(dev) -> dict:
     return records
 
 
-def print_bound_of_kernel_j() -> None:
-    """Kernel J is still to port (the `use_flash="train-jax"` arm: jax's
-    library flash forward / dq / dkv behind videoitg_tpu/ops/attention.py:90
-    `mha_trainable`). Its bounds at the training shape, from that function's
-    code: KV repeated to the 28 query heads, S = 16,640 padded to a multiple
-    of 512 (16,896), segment 1 for the 16,500 valid tokens and 0 for the
-    rest, which attend each other. Nothing is timed."""
-    s, n_valid, heads, d = 1024 * 16 + 256, 16500, 28, 128
+def check_segment_kernels(dev) -> dict:
+    """Kernel J (trainable MHA with segment ids: forward + lse, dQ, dK/dV)
+    against its plain versions; returns name -> record. The backward is
+    compared like with like: both sides get the kernel's own o and lse.
+    Every row is compared, the id-0 ("invalid") rows included. Kernels C, D,
+    E are timed beside J on the same inputs (KV heads not repeated, the ids
+    as their key mask)."""
+    import torch
+    from torch.nn import functional as F
+
+    from videoitg_tpu_torch.ops import flash_attention_segment as fas
+    from videoitg_tpu_torch.ops import flash_attention_train as fat
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def run_case(label, q, k, v, q_ids, kv_ids, causal, backward=True):
+        o, lse = fas.flash_segment_fwd(q, k, v, q_ids, kv_ids, causal)
+        ref_o, ref_lse = fas.flash_segment_fwd_reference(q, k, v, q_ids, kv_ids, causal)
+        live = torch.isfinite(ref_lse)
+        if not torch.equal(live, torch.isfinite(lse)):
+            fail(f"{label}: rows that see no key differ from the plain version")
+        c = dict(o=o, lse=lse, ref_o=ref_o.float(), err_o=max_err(o, ref_o.float()),
+                 tol_o=bf16_tol(ref_o.float()),
+                 err_lse=(lse[live] - ref_lse[live]).abs().max().item(),
+                 empty=int((~live).sum().item()))
+        msg = (f"kernel flash_segment {label}: fwd max_abs_err {c['err_o']:.6g} (tol "
+               f"{c['tol_o']:.6g}), lse {c['err_lse']:.6g} (tol 0.001), rows that see no key "
+               f"{c['empty']}")
+        if not (c["err_o"] <= c["tol_o"] and c["err_lse"] <= 1e-3):
+            fail(msg)
+        if c["empty"] and o.transpose(1, 2)[~live.transpose(1, 2)].abs().sum().item() != 0.0:
+            fail(f"{label}: a row that sees no key is not exactly 0")
+        del ref_o, ref_lse
+        if backward:
+            do = randn(*q.shape)
+            c["do"] = do
+            dq, dk, dv = fas.flash_segment_bwd(q, k, v, q_ids, kv_ids, o, lse, do, causal)
+            refs = fas.flash_mha_segment_backward_reference(q, k, v, q_ids, kv_ids, o, lse, do,
+                                                            causal)
+            for name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+                c[name], c["ref_" + name] = out, ref
+                c["err_" + name] = max_err(out, ref.float())
+                c["tol_" + name] = bf16_tol(ref.float())
+                msg += f"; {name} {c['err_' + name]:.6g} (tol {c['tol_' + name]:.6g})"
+                if not c["err_" + name] <= c["tol_" + name]:
+                    fail(msg)
+            if c["empty"] and dq.transpose(1, 2)[~live.transpose(1, 2)].abs().sum().item() != 0.0:
+                fail(f"{label}: dq of a row that sees no key is not exactly 0")
+        print(msg, flush=True)
+        return c
+
+    def admitted_pairs(q_ids, kv_ids, causal) -> int:
+        """(query, key) pairs the mask admits in this run's ids, per head."""
+        total = 0
+        for u in torch.unique(torch.cat([q_ids.flatten(), kv_ids.flatten()])).tolist():
+            qm, km = (q_ids == u), (kv_ids == u)
+            if causal:
+                total += int((km.cumsum(dim=1) * qm).sum().item())
+            else:
+                total += int((qm.sum(dim=1) * km.sum(dim=1)).sum().item())
+        return total
+
+    def timed(label, q, k, v, ids, causal, c, valid_for_cde):
+        """J's three kernels, their plain versions, the library call and C, D, E
+        on the same inputs; returns (ms, plain, library, bounds, cde)."""
+        o, lse, do = c["o"], c["lse"], c["do"]
+        delta = fas.segment_delta(o, do)
+        ms = dict(
+            fwd=cuda_ms(lambda: fas.flash_segment_fwd(q, k, v, ids, ids, causal), 3),
+            dq=cuda_ms(lambda: fas.flash_segment_dq(q, k, v, ids, ids, do, lse, delta, causal), 2),
+            dkv=cuda_ms(lambda: fas.flash_segment_dkv(q, k, v, ids, ids, do, lse, delta, causal),
+                        2))
+        plain_fwd = cuda_ms(lambda: fas.flash_segment_fwd_reference(q, k, v, ids, ids, causal), 1)
+        plain_bwd = cuda_ms(lambda: fas.backward_on_kernel_inputs(q, k, v, ids, ids, do, lse,
+                                                                  delta, causal), 1)
+        group = 7
+        kg, vg = k[:, ::group].contiguous(), v[:, ::group].contiguous()
+        o2, lse2 = fat.flash_train_fwd(q, kg, vg, valid_for_cde, causal)
+        do2, delta2 = fat.prepare_backward(valid_for_cde, o2, do)
+        cde = dict(
+            fwd=cuda_ms(lambda: fat.flash_train_fwd(q, kg, vg, valid_for_cde, causal), 3),
+            dq=cuda_ms(lambda: fat.flash_train_dq(q, kg, vg, valid_for_cde, do2, lse2, delta2,
+                                                  causal), 2),
+            dkv=cuda_ms(lambda: fat.flash_train_dkv(q, kg, vg, valid_for_cde, do2, lse2, delta2,
+                                                    causal), 2))
+        del kg, vg, o2, lse2, do2, delta2
+        attn_mask = fas.segment_visible(ids, ids, causal)
+        qg, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+        lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask), 2)
+        lib_out = F.scaled_dot_product_attention(qg, kk, vv, attn_mask=attn_mask)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, (qg, kk, vv), do,
+                                                      retain_graph=True), 2)
+        del qg, kk, vv, lib_out, attn_mask
+        unit = admitted_pairs(ids, ids, causal) * q.shape[-1] * q.shape[1]  # MACs of a product
+        big, stat, idb = q.numel() * 2, lse.numel() * 4, 2 * ids.numel() * 4
+        bounds = dict(fwd=bound(4 * unit, PEAK_BF16, 4 * big + stat + idb),
+                      dq=bound(6 * unit, PEAK_BF16, 5 * big + 2 * stat + idb),
+                      dkv=bound(8 * unit, PEAK_BF16, 6 * big + 2 * stat + idb))
+        print(f"kernel flash_segment {label}: fwd {ms['fwd']:.4f} ms, dq {ms['dq']:.4f} ms, dkv "
+              f"{ms['dkv']:.4f} ms; plain fwd {plain_fwd:.4f} ms, plain backward (dq, dk, dv "
+              f"together) {plain_bwd:.4f} ms; library (sdpa, the same boolean mask) fwd "
+              f"{lib_fwd:.4f} ms, its autograd backward (dq, dk, dv together) {lib_bwd:.4f} ms; "
+              f"bounds fwd {bounds['fwd']['bound_ms']:.4f}, dq {bounds['dq']['bound_ms']:.4f}, dkv "
+              f"{bounds['dkv']['bound_ms']:.4f} ms by {bounds['dkv']['bound_by']}; kernels C, D, E "
+              f"on the same inputs (4 KV heads, ids as key mask) fwd {cde['fwd']:.4f}, dq "
+              f"{cde['dq']:.4f}, dkv {cde['dkv']:.4f} ms", flush=True)
+        return ms, dict(fwd=plain_fwd, bwd=plain_bwd), dict(fwd=lib_fwd, bwd=lib_bwd), bounds, cde
+
+    def worst(c, outs, names):
+        return max(max_err(out, c["ref_" + n].float()) / c["tol_" + n]
+                   for out, n in zip(outs, names))
+
+    def repeated_kv(s_pad, s):
+        """k, v of 4 KV heads repeated to 28, zero beyond s: what the arm hands
+        the kernel."""
+        k, v = randn(1, 4, s_pad, 128), randn(1, 4, s_pad, 128)
+        k[:, :, s:], v[:, :, s:] = 0, 0
+        return k.repeat_interleave(7, dim=1), v.repeat_interleave(7, dim=1)
+
+    # ---- the grounding LM's training shape as `mha_trainable` hands it over:
+    # 28 heads after the KV repeat, S = 16,640 padded to 16,896, id 1 for the
+    # 16,500 valid tokens, id 0 for the 140 invalid ones and the 256 of padding.
+    s, n_valid = 1024 * 16 + 256, 16500
     s_pad = -(-s // 512) * 512
-    unit = (n_valid * n_valid + (s_pad - n_valid) ** 2) * d * heads  # MACs of one product
-    big, stat = heads * s_pad * d * 2, heads * s_pad * 4
-    bounds = dict(fwd=bound(4 * unit, PEAK_BF16, 4 * big + 2 * stat),
-                  dq=bound(6 * unit, PEAK_BF16, 6 * big + 3 * stat),
-                  dkv=bound(8 * unit, PEAK_BF16, 7 * big + 3 * stat))
-    print(f"kernel J (to port) at [1, 28 after KV repeat, {s_pad} padded from {s}, {d}] bf16, "
-          f"{n_valid} valid: bounds fwd {bounds['fwd']['bound_ms']:.4f} ms, dq "
-          f"{bounds['dq']['bound_ms']:.4f} ms, dkv {bounds['dkv']['bound_ms']:.4f} ms, each by "
-          f"{bounds['dkv']['bound_by']}; launches a LoRA step with remat over 28 layers: fwd 56, "
-          f"dq 28, dkv 28; times not measured", flush=True)
+    q = randn(1, 28, s_pad, 128)
+    q[:, :, s:] = 0
+    k, v = repeated_kv(s_pad, s)
+    ids = (torch.arange(s_pad, device=dev)[None] < n_valid).to(torch.int32)
+    label = f"[1, 28, {s_pad} padded from {s}, 128] bf16, {n_valid} valid"
+    c = run_case(label, q, k, v, ids, ids, False)
+    delta = fas.segment_delta(c["o"], c["do"])
+    dk2, dv2 = fas.flash_segment_dkv(q, k, v, ids, ids, c["do"], c["lse"], delta)
+    if not (torch.equal(dk2, c["dk"]) and torch.equal(dv2, c["dv"])):
+        fail("flash_segment_dkv: two runs differ")
+    del dk2, dv2
+    invalid_rows = slice(n_valid, s)
+    inv_max = c["o"][:, :, invalid_rows].float().abs().max().item()
+    ones = torch.ones_like(ids)
+    broken = {
+        "ids ignored in the forward": max_err(
+            fas.flash_segment_fwd(q, k, v, ones, ones)[0], c["ref_o"]) / c["tol_o"],
+        "ids ignored in dK/dV": worst(c, fas.flash_segment_dkv(
+            q, k, v, ones, ones, c["do"], c["lse"], delta), ("dk", "dv")),
+        "ids ignored in dQ": worst(c, (fas.flash_segment_dq(
+            q, k, v, ones, ones, c["do"], c["lse"], delta),), ("dq",)),
+        # The same call without the padding: an invalid row then misses the 256
+        # zero keys it has to see.
+        "pad keys left out of the invalid rows": max_err(
+            fas.flash_segment_fwd(q[:, :, :s].contiguous(), k[:, :, :s].contiguous(),
+                                  v[:, :, :s].contiguous(), ids[:, :s].contiguous(),
+                                  ids[:, :s].contiguous())[0][:, :, invalid_rows],
+            c["ref_o"][:, :, invalid_rows]) / c["tol_o"],
+        "delta dropped": worst(c, (
+            fas.flash_segment_dq(q, k, v, ids, ids, c["do"], c["lse"], torch.zeros_like(delta)),
+            *fas.flash_segment_dkv(q, k, v, ids, ids, c["do"], c["lse"],
+                                   torch.zeros_like(delta))), ("dq", "dk", "dv")),
+    }
+    print(f"kernel flash_segment {label}: invalid rows max |o| {inv_max:.4g} (computed, not "
+          "zeroed); broken uses, worst error over its tolerance: "
+          + "; ".join(f"{name} {ratio:.3g}x" for name, ratio in broken.items()), flush=True)
+    if not inv_max > 0.0:
+        fail("flash_segment: invalid rows came out zero")
+    for name, ratio in broken.items():
+        if not ratio > 1.0:
+            fail(f"flash_segment tolerance does not catch: {name} ({ratio}x)")
+    ms, plain, lib, bounds, cde = timed(label, q, k, v, ids, False, c, ids.bool())
+    src = "videoitg_tpu_torch/csrc/flash_attention_segment.cu"
+    note = ("plain_ms and library_ms are the whole backward (dq, dk, dv), one number for both "
+            "backward kernels")
+    records = {
+        "flash_segment_fwd": dict(
+            name="flash_segment_fwd", route="cuda", source=src,
+            replaces="videoitg_tpu/ops/attention.py:90", max_abs_err=c["err_o"], ms=ms["fwd"],
+            plain_ms=plain["fwd"], library_ms=lib["fwd"], flash_train_ms_same_inputs=cde["fwd"],
+            **bounds["fwd"]),
+        "flash_segment_dq": dict(
+            name="flash_segment_dq", route="cuda", source=src,
+            replaces="videoitg_tpu/ops/attention.py:90", max_abs_err=c["err_dq"], ms=ms["dq"],
+            plain_ms=plain["bwd"], library_ms=lib["bwd"], note=note,
+            flash_train_ms_same_inputs=cde["dq"], **bounds["dq"]),
+        "flash_segment_dkv": dict(
+            name="flash_segment_dkv", route="cuda", source=src,
+            replaces="videoitg_tpu/ops/attention.py:90",
+            max_abs_err=max(c["err_dk"], c["err_dv"]), ms=ms["dkv"], plain_ms=plain["bwd"],
+            library_ms=lib["bwd"], note=note, flash_train_ms_same_inputs=cde["dkv"],
+            **bounds["dkv"]),
+    }
+    del q, k, v, c, delta
+    torch.cuda.empty_cache()
+
+    def widen(case):
+        records["flash_segment_fwd"]["max_abs_err"] = max(
+            records["flash_segment_fwd"]["max_abs_err"], case["err_o"])
+        if "err_dq" in case:
+            records["flash_segment_dq"]["max_abs_err"] = max(
+                records["flash_segment_dq"]["max_abs_err"], case["err_dq"])
+            records["flash_segment_dkv"]["max_abs_err"] = max(
+                records["flash_segment_dkv"]["max_abs_err"], case["err_dk"], case["err_dv"])
+
+    # ---- causal, at the VLM SFT step's shape: [pre 64 | image 16,384 | post
+    # 512] = 16,960 padded to 17,408, each text segment a valid prefix, so the
+    # ids have holes mid-sequence.
+    s = 64 + 16384 + 512
+    s_pad = -(-s // 512) * 512
+    pos = torch.arange(s_pad, device=dev)
+    ids = ((pos < 30) | ((pos >= 64) & (pos < 64 + 16384 + 200))).to(torch.int32)[None]
+    ids = ids.contiguous()
+    q = randn(1, 28, s_pad, 128)
+    q[:, :, s:] = 0
+    k, v = repeated_kv(s_pad, s)
+    label = f"causal [1, 28, {s_pad} padded from {s}, 128] bf16, VLM layout with holes"
+    c = run_case(label, q, k, v, ids, ids, True)
+    delta = fas.segment_delta(c["o"], c["do"])
+    broken = {
+        "causal dropped in the forward": max_err(
+            fas.flash_segment_fwd(q, k, v, ids, ids, False)[0], c["ref_o"]) / c["tol_o"],
+        "causal dropped in dQ": worst(c, (fas.flash_segment_dq(
+            q, k, v, ids, ids, c["do"], c["lse"], delta, False),), ("dq",)),
+        "causal dropped in dK/dV": worst(c, fas.flash_segment_dkv(
+            q, k, v, ids, ids, c["do"], c["lse"], delta, False), ("dk", "dv")),
+    }
+    print(f"kernel flash_segment {label}: broken uses, worst error over its tolerance: "
+          + "; ".join(f"{name} {ratio:.3g}x" for name, ratio in broken.items()), flush=True)
+    for name, ratio in broken.items():
+        if not ratio > 1.0:
+            fail(f"flash_segment tolerance does not catch: {name} ({ratio}x)")
+    cms, cplain, clib, cbounds, ccde = timed(label, q, k, v, ids, True, c, ids.bool())
+    for part, rec in (("fwd", "flash_segment_fwd"), ("dq", "flash_segment_dq"),
+                      ("dkv", "flash_segment_dkv")):
+        records[rec]["causal"] = dict(
+            shape=[1, 28, s_pad, 128], ms=cms[part],
+            plain_ms=cplain["fwd" if part == "fwd" else "bwd"],
+            library_ms=clib["fwd" if part == "fwd" else "bwd"],
+            flash_train_ms_same_inputs=ccde[part], **cbounds[part])
+    widen(c)
+    del q, k, v, c, delta
+    torch.cuda.empty_cache()
+
+    # ---- the tower's shape under the arm: 729 patches padded to 1024, id 1
+    # for the patches and 0 for the padding, D = 72.
+    q, k, v = (randn(32, 16, 1024, 72) for _ in range(3))
+    for x in (q, k, v):
+        x[:, :, 729:] = 0
+    ids = (torch.arange(1024, device=dev)[None] < 729).to(torch.int32).expand(32, 1024)
+    ids = ids.contiguous()
+    c = run_case("tower [32, 16, 1024 padded from 729, 72]", q, k, v, ids, ids, False)
+    widen(c)
+    tower_ms = cuda_ms(lambda: fas.flash_segment_fwd(q, k, v, ids, ids), 10)
+    print(f"kernel flash_segment_fwd tower [32, 16, 1024 padded from 729, 72]: {tower_ms:.4f} ms",
+          flush=True)
+    records["flash_segment_fwd"]["tower_ms"] = tower_ms
+    del q, k, v, c
+
+    # ---- small cases: a ragged length (4,101 = 64 x 64 + 5) with scattered
+    # ids; a causal hole mid-sequence over two batch rows; three ids other
+    # than 0 / 1; ids for q and kv apart, with queries whose id no key has.
+    s = 4101
+    q, k, v = (randn(1, 28, s, 128) for _ in range(3))
+    ids = (torch.rand(1, s, generator=gen, device=dev) > 0.02).to(torch.int32)
+    widen(run_case(f"ragged [1, 28, {s}, 128], scattered ids", q, k, v, ids, ids, False))
+    b, s = 2, 1000
+    q, k, v = (randn(b, 8, s, 128) for _ in range(3))
+    pos = torch.arange(s, device=dev)[None]
+    ids = ((pos < torch.tensor([[300], [120]], device=dev))
+           | (pos >= torch.tensor([[420], [600]], device=dev))).to(torch.int32).contiguous()
+    widen(run_case(f"causal [2, 8, {s}, 128], a hole mid-sequence", q, k, v, ids, ids, True))
+    three = torch.tensor([-3, 5, 1000], dtype=torch.int32, device=dev)
+    ids = three[torch.randint(0, 3, (b, s), generator=gen, device=dev)]
+    for causal in (False, True):
+        widen(run_case(f"three ids scattered [2, 8, {s}, 128] causal={causal}", q, k, v, ids, ids,
+                       causal))
+    q_ids = ids.clone()
+    q_ids[:, 100:140] = 77  # no key has id 77: these rows see nothing
+    case = run_case(f"q ids and kv ids apart [2, 8, {s}, 128]", q, k, v, q_ids, ids, False)
+    if case["empty"] != 2 * 8 * 40:
+        fail(f"expected {2 * 8 * 40} rows that see no key, got {case['empty']}")
+    widen(case)
+
+    # ---- the other head dims (each its own instantiation, padded to a
+    # multiple of 16 in shared memory only), at a small ragged length.
+    for d in (8, 16, 24, 40, 56, 72, 88, 104, 120):
+        q, k, v = (randn(2, 3, 130, d) for _ in range(3))
+        ids = (torch.arange(130, device=dev)[None] < torch.tensor([[100], [130]], device=dev)
+               ).to(torch.int32).contiguous()
+        widen(run_case(f"[2, 3, 130, {d}], 100 and 130 valid", q, k, v, ids, ids,
+                       causal=d % 32 == 24))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return records
 
 
 def frames_u8(rng, t: int):
@@ -1020,6 +1329,7 @@ QUESTIONS = ["What is the person holding?", "When does the car turn left?",
 
 def wrappers() -> dict:
     """name -> kernel wrapper (each carries a `launches` count)."""
+    from videoitg_tpu_torch.ops import flash_attention_segment as fas
     from videoitg_tpu_torch.ops import flash_attention_train as fat
     from videoitg_tpu_torch.ops import fused_encoder as fe
     from videoitg_tpu_torch.ops.flash_attention import flash_mha
@@ -1034,12 +1344,27 @@ def wrappers() -> dict:
             "fused_ln_qkv_int8": fe.fused_ln_qkv_int8, "fused_ln_mlp_int8": fe.fused_ln_mlp_int8,
             "fused_proj_residual_int8": fe.fused_proj_residual_int8,
             "flash_train_fwd": fat.flash_train_fwd, "flash_train_dq": fat.flash_train_dq,
-            "flash_train_dkv": fat.flash_train_dkv}
+            "flash_train_dkv": fat.flash_train_dkv,
+            "flash_segment_fwd": fas.flash_segment_fwd, "flash_segment_dq": fas.flash_segment_dq,
+            "flash_segment_dkv": fas.flash_segment_dkv}
 
 
 SERVING_KERNELS = ("flash_mha_short", "flash_mha", "act8_gemm", "fused_ln_qkv_int8",
                    "fused_ln_mlp_int8", "fused_proj_residual_int8")
 TRAIN_KERNELS = ("flash_train_fwd", "flash_train_dq", "flash_train_dkv")
+SEGMENT_KERNELS = ("flash_segment_fwd", "flash_segment_dq", "flash_segment_dkv")
+
+
+def expect_launches(arm, n_layers: int, tower_layers: int = 0) -> dict:
+    """Launches of one training step with remat over `n_layers` decoder layers
+    (forward and recompute, dQ, dK/dV), plus one forward per tower layer when
+    frames come in: the kernels of `arm` ("train": C, D, E; "train-jax": J)
+    launch so often, the other arm's not at all."""
+    mine, other = ((TRAIN_KERNELS, SEGMENT_KERNELS) if arm == "train"
+                   else (SEGMENT_KERNELS, TRAIN_KERNELS))
+    counts = dict(zip(mine, (tower_layers + 2 * n_layers, n_layers, n_layers)))
+    counts.update({name: 0 for name in other})
+    return counts
 
 
 def run_requests(tier: str, requests, expect_launches, card: str) -> dict:
@@ -1418,9 +1743,11 @@ def train_steps(tag, state, step_fn, batch, n_steps, expect, card):
         wall = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in counted.items()}
         m = {k: float(v) for k, v in metrics.items()}
+        others = ", ".join(f"{k} {v:.4f}" for k, v in m.items() if k not in ("loss", "grad_norm"))
         print(f"train [{tag}] step {state.step}: {wall:.4f} s, loss {m['loss']:.6f}, grad_norm "
-              f"{m['grad_norm']:.6f}, pos_weight {m['pos_weight']:.4f}, launches "
-              f"{ {k: launches[k] for k in TRAIN_KERNELS} } [{card}]", flush=True)
+              f"{m['grad_norm']:.6f}, {others}, launches "
+              f"{ {k: launches[k] for k in TRAIN_KERNELS + SEGMENT_KERNELS if launches[k]} } "
+              f"[{card}]", flush=True)
         if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
             fail(f"[{tag}] loss or grad_norm not finite at step {state.step}")
         for name, n in expect.items():
@@ -1498,9 +1825,12 @@ def run_training(dev, card: str) -> dict:
     print(f"train [8b lora, features] batch {list(feats.shape)} bf16 "
           f"({feats.numel() * 2 / 1e9:.2f} GB), hw {hw}, {tokens} LM tokens", flush=True)
     step_fn = make_train_step(cfg, tx, hw=hw, use_flash=True, remat=True)
-    expect = {"flash_train_fwd": 2 * n_layers, "flash_train_dq": n_layers,
-              "flash_train_dkv": n_layers}
-    state, launches = train_steps("8b lora, features", state, step_fn, batch, 3, expect, card)
+    state, launches = train_steps("8b lora, features", state, step_fn, batch, 3,
+                                  expect_launches("train", n_layers), card)
+    # The A/B the "train-jax" arm exists for: the same cell through kernel J.
+    step_fn = make_train_step(cfg, tx, hw=hw, use_flash="train-jax", remat=True)
+    state, _ = train_steps("8b lora, features, train-jax arm", state, step_fn, batch, 2,
+                           expect_launches("train-jax", n_layers), card)
     if bit_checksums(base) != before:
         fail("a frozen base weight changed during the LoRA steps")
     if torch.equal(model.lm.layers[0].q.lora_b, lora_b0) or torch.equal(model.out_proj.w, out_w0):
@@ -1517,8 +1847,7 @@ def run_training(dev, card: str) -> dict:
     print(f"train [8b lora, frames] batch {list(batch.frames.shape)}, hw {hw}, "
           f"{t_frames * hw * hw + cfg.max_text_len} LM tokens", flush=True)
     step_fn = make_train_step(cfg, tx, hw=hw, use_flash=True, remat=True)
-    expect = {"flash_train_fwd": cfg.vision.num_effective_layers + 2 * n_layers,
-              "flash_train_dq": n_layers, "flash_train_dkv": n_layers}
+    expect = expect_launches("train", n_layers, cfg.vision.num_effective_layers)
     state, _ = train_steps("8b lora, frames", state, step_fn, batch, 2, expect, card)
     if bit_checksums(base) != before:
         fail("a frozen base weight changed during the LoRA steps with the tower")
@@ -1572,9 +1901,7 @@ def run_training(dev, card: str) -> dict:
         lora_b0 = model.lm.layers[0].q.lora_b.detach().clone()
         state = create_train_state(model, tx)
         step_fn = make_train_step(cfg, tx, hw=hw, use_flash=True, remat=True)
-        n_layers = cfg.lm.num_layers
-        expect = {"flash_train_fwd": cfg.vision.num_effective_layers + 2 * n_layers,
-                  "flash_train_dq": n_layers, "flash_train_dkv": n_layers}
+        expect = expect_launches("train", cfg.lm.num_layers, cfg.vision.num_effective_layers)
         train_steps(f"shallow qlora int{bits}", state, step_fn, batch, 2, expect, card)
         if bit_checksums(ints) != before or not ints:
             fail(f"int{bits} base bytes changed during QLoRA steps")
@@ -1587,15 +1914,263 @@ def run_training(dev, card: str) -> dict:
     return launches
 
 
+def causal_tied(cfg):
+    """The preset's causal variant with tied embeddings: what `cli/train.py
+    --objective vlm --random-init` trains."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, causal=True,
+                                                           tie_word_embeddings=True))
+
+
+def run_vlm(dev, card: str) -> dict:
+    """The causal-VLM path at full width: LoRA SFT steps of VideoITG-8B on a
+    256-frame video sample through `collate_vlm` and `make_vlm_train_step`
+    (hw 8, 16,960 LM tokens, tower frozen in the step, remat), three with
+    `use_flash=True` (kernels C, D, E, causal) and two with
+    `use_flash="train-jax"` (kernel J); the two arms' losses on the same
+    parameters; greedy generation at 32 frames, 16 new tokens, through
+    kernels A (tower) and B (causal prefill). Then, on videoitg-8b-shallow:
+    each kernel arm's loss and LoRA gradients against the plain path, the
+    kernel path's prefill logits and cache against the plain path's, and the
+    optimizer offload against the plain step. Returns the launch counts of
+    the "train-jax" steps (kernel J) and of the generation (A, B)."""
+    import numpy as np
+    import torch
+
+    from videoitg_tpu_torch.cli._model_loading import load_grounding_components
+    from videoitg_tpu_torch.models import qwen2 as qwen2_mod
+    from videoitg_tpu_torch.models import vlm
+    from videoitg_tpu_torch.train import offload
+    from videoitg_tpu_torch.train.lora import add_lora, make_lora_optimizer
+    from videoitg_tpu_torch.train.train_step import create_train_state, run_step
+    from videoitg_tpu_torch.train.vlm_sft import VLMSample, collate_vlm, make_vlm_train_step
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+    rng = np.random.default_rng(SEED + 71)
+    counted = wrappers()
+
+    def sample(cfg, t, n_pre=30, n_post=200, n_labels=150):
+        post = rng.integers(1, cfg.lm.vocab_size, n_post).tolist()
+        labels = [-100] * (n_post - n_labels) + post[n_post - n_labels:]
+        return VLMSample(frames_u8(rng, t), rng.integers(1, cfg.lm.vocab_size, n_pre).tolist(),
+                         post, labels)
+
+    # ---- full width: VideoITG-8B causal, LoRA r16, a 256-frame video sample ----
+    t0 = time.perf_counter()
+    model, cfg, _ = load_grounding_components(None, "videoitg-8b", True, torch.bfloat16, dev,
+                                              seed=SEED)
+    cfg = causal_tied(cfg)
+    add_lora(model, gen, rank=16)
+    tx = make_lora_optimizer(model, learning_rate=2e-4, total_steps=10)
+    state = create_train_state(model, tx)
+    trainable = set(tx.trainable_names())
+    base = [p for n, p in model.named_parameters() if n not in trainable]
+    torch.cuda.synchronize()
+    print(f"vlm: videoitg-8b causal bf16 + LoRA r16: {sum(p.numel() for p in base) / 1e9:.3f} B "
+          f"frozen, {sum(p.numel() for p in tx.params) / 1e6:.3f} M trainable parameters, "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB on the card, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    before = bit_checksums(base)
+    lora_b0 = model.lm.layers[0].q.lora_b.detach().clone()
+
+    t_frames, hw = 256, 8
+    n_layers, tower_layers = cfg.lm.num_layers, cfg.vision.num_effective_layers
+    batch = collate_vlm([sample(cfg, t_frames)], t_frames, cfg, dtype=torch.bfloat16, device=dev)
+    tokens = batch.pre_ids.shape[1] + t_frames * hw * hw + batch.post_ids.shape[1]
+    print(f"train [8b vlm lora] batch frames {list(batch.frames.shape)} bf16, hw {hw}, pre "
+          f"{batch.pre_ids.shape[1]} / post {batch.post_ids.shape[1]} slots, {tokens} LM tokens, "
+          f"{int(batch.post_labels.ne(-100).sum())} label tokens", flush=True)
+    step_fn = make_vlm_train_step(cfg, tx, hw=hw, use_flash=True, remat=True)
+    state, _ = train_steps("8b vlm lora, train arm", state, step_fn, batch, 3,
+                           expect_launches("train", n_layers, tower_layers), card)
+    step_fn = make_vlm_train_step(cfg, tx, hw=hw, use_flash="train-jax", remat=True)
+    state, launches = train_steps("8b vlm lora, train-jax arm", state, step_fn, batch, 2,
+                                  expect_launches("train-jax", n_layers, tower_layers), card)
+    if bit_checksums(base) != before:
+        fail("a frozen base weight changed during the VLM LoRA steps")
+    if torch.equal(model.lm.layers[0].q.lora_b, lora_b0):
+        fail("lora_b did not change over the VLM LoRA steps")
+    # The two arms on the same parameters: they differ on invalid rows only,
+    # which reach neither the loss nor a valid row.
+    with torch.no_grad():
+        arm_loss = {arm: vlm.vlm_loss(model, batch, cfg, hw=hw, use_flash=arm)[0].item()
+                    for arm in ("train", "train-jax")}
+    rel = abs(arm_loss["train"] - arm_loss["train-jax"]) / abs(arm_loss["train"])
+    print(f"train [8b vlm lora] frozen leaves bit-identical, lora_b changed; loss on the same "
+          f"parameters: train arm {arm_loss['train']:.6f}, train-jax arm "
+          f"{arm_loss['train-jax']:.6f} (relative {rel:.3g}, tol 1e-3)", flush=True)
+    if not rel <= 1e-3:
+        fail(f"the two training arms disagree: {arm_loss}")
+    del state, tx, step_fn, batch, base
+    torch.cuda.empty_cache()
+
+    # ---- generation at full width: 32 frames (hw 22, 15,488 image tokens) ----
+    t_frames = 32
+    hw = cfg.projector.tokens_hw(t_frames, cfg.vision.num_patches_per_side)
+    s = sample(cfg, t_frames, n_pre=30, n_post=40)
+    prompt = collate_vlm([s], t_frames, cfg, max_pre=32, max_post=64, dtype=torch.bfloat16,
+                         device=dev)._replace(post_labels=None)
+
+    def generate(n_new):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = vlm.vlm_generate(model, prompt, cfg, hw=hw, max_new_tokens=n_new, use_flash=True)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    generate(2)  # warm-up
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    _, prefill_s = generate(1)  # tower, packing, prefill and the first token: no decode step
+    first = {name: fn.launches for name, fn in counted.items() if fn.launches}
+    for fn in counted.values():
+        fn.launches = 0
+    n_new = 16
+    out, total_s = generate(n_new)
+    gen_launches = {name: fn.launches for name, fn in counted.items() if fn.launches}
+    ms_per_token = 1e3 * (total_s - prefill_s) / (n_new - 1)
+    toks = out[0].tolist()
+    print(f"generate [8b vlm] {t_frames} frames, hw {hw}, prompt of "
+          f"{32 + t_frames * hw * hw + 64} slots, {n_new} new tokens: prefill (tower + packing + "
+          f"causal prefill + first token) {prefill_s:.4f} s, {ms_per_token:.3f} ms per decoded "
+          f"token, total {total_s:.4f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches {gen_launches}, tokens "
+          f"{toks} [{card}]", flush=True)
+    if tuple(out.shape) != (1, n_new) or out.dtype != torch.int32 or \
+            not all(0 <= tok < cfg.lm.vocab_size for tok in toks):
+        fail(f"generation returned {out}")
+    if gen_launches != first or gen_launches.get("flash_mha") != n_layers or \
+            gen_launches.get("flash_mha_short", 0) <= 0 or len(gen_launches) != 2:
+        fail(f"generation launched {gen_launches} (first token alone {first}): expected kernel "
+             f"B {n_layers} times, kernel A, and nothing else")
+    del model, prompt
+    torch.cuda.empty_cache()
+
+    # ---- kernel arms vs plain path on videoitg-8b-shallow, 8 frames ----
+    model, cfg, _ = load_grounding_components(None, "videoitg-8b-shallow", True, torch.bfloat16,
+                                              dev, seed=SEED)
+    cfg = causal_tied(cfg)
+    add_lora(model, gen, rank=16)
+    for layer in model.lm.layers:  # B = 0 would leave A without gradient
+        for name in ("q", "k", "v", "o", "gate", "up", "down"):
+            getattr(layer, name).lora_b.data.normal_(0.0, 0.02, generator=gen)
+    tx = make_lora_optimizer(model, total_steps=10)
+    hw = 8
+    batch = collate_vlm([sample(cfg, 8, n_pre=20, n_post=60, n_labels=40)], 8, cfg, max_pre=32,
+                        max_post=64, dtype=torch.bfloat16, device=dev)
+    results = {}
+    for arm in (False, True, "train-jax"):
+        loss, _ = vlm.vlm_loss(model, batch, cfg, hw, use_flash=arm, remat=True)
+        results[arm] = (loss.item(), torch.autograd.grad(loss, tx.params, allow_unused=True))
+    loss_p, grads_p = results[False]
+    for arm in (True, "train-jax"):
+        loss_k, grads_k = results[arm]
+        rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+        # Relative to each leaf's own largest gradient. A 0-d leaf (`lora_scale`)
+        # has no other entry to be measured against and its gradient is one sum
+        # with cancellation (1e-4 here, where its neighbours' are 1e-2), so the
+        # 0-d leaves are taken together as one vector.
+        named = [(n, gk.float(), gp.float())
+                 for n, gk, gp in zip(tx.trainable_names(), grads_k, grads_p) if gp is not None]
+        scalars = [(gk, gp) for _, gk, gp in named if gp.dim() == 0]
+        named = [x for x in named if x[2].dim() > 0]
+        named.append(("all 0-d leaves (lora_scale)", torch.stack([gk for gk, _ in scalars]),
+                      torch.stack([gp for _, gp in scalars])))
+        per_leaf = sorted(((gk - gp).abs().max().item() / gp.abs().max().item(), name,
+                           gp.abs().max().item())
+                          for name, gk, gp in named if gp.abs().max().item() > 0)
+        rel_grad = per_leaf[-1][0]
+        print(f"agreement videoitg-8b-shallow causal, 8 frames, VLM loss and LoRA gradients, "
+              f"use_flash={arm!r} vs plain path: loss {loss_k:.6f} vs {loss_p:.6f} (relative "
+              f"{rel_loss:.3g}, tol 2e-2); worst max|diff| / max|plain| over the leaves "
+              f"{rel_grad:.3g} (tol 5e-2); the three worst (leaf, ratio, max|plain|) "
+              f"{[(n, round(r, 4), float(f'{m:.3g}')) for r, n, m in per_leaf[-3:]]}", flush=True)
+        if not (rel_loss <= 2e-2 and rel_grad <= 5e-2):
+            fail(f"VLM training: use_flash={arm!r} and the plain path disagree")
+    del results, grads_p
+
+    # Generation: kernel path (A, B causal) vs plain path. The decode steps
+    # run the same code on both; what can differ is the prefill.
+    prompt = batch._replace(post_labels=None)
+    with torch.no_grad():
+        packed = {}
+        for use_flash in (True, False):
+            x, valid, positions, _ = vlm._pack_embeds(model, prompt, cfg, hw, use_flash, False,
+                                                      True)
+            last, cache = vlm.vlm_prefill(model.lm, x, valid, positions, cfg.lm,
+                                          x.shape[1] + 4, use_flash=use_flash)
+            logits = qwen2_mod.lm_logits(model.lm, last[:, None], cfg.lm)[0, 0]
+            packed[use_flash] = (logits, cache, valid)
+        (lk, ck, valid), (lp, cp, _) = packed[True], packed[False]
+        diff = (lk - lp).abs().max().item()
+        top2 = lp.topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        tol = 2e-2 * lp.abs().max().item()
+        s0 = valid.shape[1]
+        keys = valid[0].nonzero()[:, 0]
+        cache_diff = max((ck.k[:, 0, :, keys] .float() - cp.k[:, 0, :, keys].float()).abs().max(),
+                         (ck.v[:, 0, :, keys].float() - cp.v[:, 0, :, keys].float()).abs().max()
+                         ).item()
+        cache_tol = 2e-2 * max(cp.k[:, :, :, :s0].abs().max().item(),
+                               cp.v[:, :, :, :s0].abs().max().item())
+        tok_k = vlm.vlm_generate(model, prompt, cfg, hw=hw, max_new_tokens=8, use_flash=True)
+        tok_p = vlm.vlm_generate(model, prompt, cfg, hw=hw, max_new_tokens=8, use_flash=False)
+    same = int((tok_k == tok_p)[0].to(torch.int32).cumprod(dim=0).sum().item())
+    print(f"agreement videoitg-8b-shallow causal, 8 frames, generation, kernel vs plain path: "
+          f"first-token logits max |diff| {diff:.6g} (tol {tol:.6g} = 2e-2 max|logit|; plain "
+          f"top-1 margin {margin:.6g}), cache at valid slots max |diff| {cache_diff:.6g} (tol "
+          f"{cache_tol:.6g}); tokens kernel {tok_k[0].tolist()} plain {tok_p[0].tolist()} "
+          f"({same} of 8 leading tokens equal)", flush=True)
+    if not (diff <= tol and cache_diff <= cache_tol):
+        fail("VLM prefill: kernel path and plain path disagree")
+    if margin > 2 * diff and tok_k[0, 0] != tok_p[0, 0]:
+        fail("VLM generation: first token differs although the logits agree")
+
+    # ---- optimizer offload: the same steps, Adam's moments on the host between them ----
+    ends = []
+    for wrap in (False, True):
+        for p, p0 in zip(tx.params, ends[0]["start"] if ends else ()):
+            p.data.copy_(p0)
+        tx = make_lora_optimizer(model, learning_rate=2e-4, total_steps=10)
+        state = create_train_state(model, tx)
+        start = [p.detach().clone() for p in tx.params]
+        step_fn = make_vlm_train_step(cfg, tx, hw=hw, use_flash=True, remat=True)
+        if wrap:
+            step_fn = offload.make_offloaded_train_step(step_fn)
+        for _ in range(3):
+            state, _ = run_step(step_fn, state, batch)
+        ends.append(dict(start=start, end=[p.detach().clone() for p in tx.params]))
+        if wrap:
+            moments = [s[k] for s in tx.optimizer.state.values() for k in ("exp_avg", "exp_avg_sq")]
+            parked = sum(m.numel() * m.element_size() for m in moments)
+            if not moments or not all(m.device.type == "cpu" and m.is_pinned() for m in moments):
+                fail("offload: Adam's moments are not in pinned host memory between steps")
+    if not all(torch.equal(a, b) for a, b in zip(ends[0]["end"], ends[1]["end"])):
+        fail("offload: the offloaded steps differ from the plain steps")
+    if all(torch.equal(a, b) for a, b in zip(ends[0]["start"], ends[0]["end"])):
+        fail("offload: nothing trained")
+    print(f"offload videoitg-8b-shallow causal LoRA: 3 steps with Adam's moments parked in pinned "
+          f"host memory between steps ({parked / 2**20:.2f} MiB) equal the plain steps bit for "
+          f"bit", flush=True)
+    del model, tx, state, batch
+    torch.cuda.empty_cache()
+    return {**{name: launches[name] for name in SEGMENT_KERNELS},
+            "flash_mha": gen_launches["flash_mha"],
+            "flash_mha_short": gen_launches["flash_mha_short"]}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["int8-kernels", "train-kernels", "splash-kernels",
+                                          "segment-kernels", "vlm",
                                           "serve", "train"],
                         default=None,
                         help="build, then only: check kernels F-I (int8-kernels), C, D, E "
-                             "(train-kernels) or K, L (splash-kernels) against their plain "
-                             "versions; or run the daemon phase (serve) or the training "
-                             "phases (train)")
+                             "(train-kernels), K, L (splash-kernels) or J (segment-kernels) "
+                             "against their plain versions; or run the daemon phase (serve), "
+                             "the training phases (train) or the causal-VLM phases (vlm)")
     args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "videoitg_tpu_torch")):
         fail("run from a checkout of the repository (videoitg_tpu_torch/ not found)")
@@ -1636,6 +2211,10 @@ def main(argv=None) -> int:
         check_splash_kernels(dev)
         print("splash and repro kernels agree with their plain versions", flush=True)
         return 0
+    if args.only == "segment-kernels":
+        check_segment_kernels(dev)
+        print("segment-id attention kernels agree with their plain versions", flush=True)
+        return 0
     if args.only == "serve":
         run_serving(dev, card)
         print("serving phase passed", flush=True)
@@ -1644,11 +2223,15 @@ def main(argv=None) -> int:
         run_training(dev, card)
         print("training phases passed", flush=True)
         return 0
+    if args.only == "vlm":
+        run_vlm(dev, card)
+        print("causal-VLM phases passed", flush=True)
+        return 0
     records = check_kernels(dev)
     records.update(check_train_kernels(dev))
     records.update(check_int8_kernels(dev))
     records.update(check_splash_kernels(dev))
-    print_bound_of_kernel_j()
+    records.update(check_segment_kernels(dev))
     check_agreement(dev)
     launches = run_slices(dev, card)
     torch.cuda.empty_cache()
@@ -1657,6 +2240,8 @@ def main(argv=None) -> int:
     launches.update(run_repro_script())
     train_launches = run_training(dev, card)
     launches.update({name: train_launches[name] for name in TRAIN_KERNELS})
+    for name, n in run_vlm(dev, card).items():
+        launches[name] = launches.get(name, 0) + n
     for name, rec in records.items():
         rec["launches"] = launches[name]
     loaded = sorted(m for m in sys.modules

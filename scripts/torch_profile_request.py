@@ -8,6 +8,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 scripts/torch_profile_request.py --tier bf16
     python3 scripts/torch_profile_request.py --hit --splash on
     python3 scripts/torch_profile_request.py --train
+    python3 scripts/torch_profile_request.py --train --objective vlm --arm train-jax
 
 Builds VideoITG-8B (random weights from --seed) in the given tier, runs two
 untimed 512-frame `SelectionEngine.select` requests, then one under
@@ -18,7 +19,11 @@ what the serving daemon does on an encoded-video cache hit:
 splash arm). With `--train` the profiled unit is
 one LoRA r16 training step (bf16 base, remat, the differentiable attention
 kernels) on a feature batch of `--frames` frames (default 1024, hw 4,
-16,640 tokens), after two untimed steps. Prints the unit's wall time, the
+16,640 tokens), after two untimed steps; `--objective vlm` makes it a VLM
+SFT step of the causal, tied variant on a video sample of `--frames` uint8
+frames (default 256, hw 8, 16,960 tokens, the frozen tower in the step), and
+`--arm train-jax` sends either objective's attention through the segment-id
+kernels (kernel J) instead of the native-GQA ones (C, D, E). Prints the unit's wall time, the
 summed device time of its kernels, the idle share (1 - device / wall), the
 device time by group (the port's own kernels by name, library GEMMs, copies,
 all other PyTorch kernels) and the largest single kernels, each line with
@@ -49,6 +54,9 @@ GROUPS = (
     ("flash_train_fwd_kernel", "kernel C flash_train_fwd"),
     ("flash_train_dq_kernel", "kernel D flash_train_dq"),
     ("flash_train_dkv_kernel", "kernel E flash_train_dkv"),
+    ("flash_segment_fwd_kernel", "kernel J flash_segment_fwd"),
+    ("flash_segment_dq_kernel", "kernel J flash_segment_dq"),
+    ("flash_segment_dkv_kernel", "kernel J flash_segment_dkv"),
     ("Memcpy", "copies"),
     ("Memset", "copies"),
     ("nvjet", "library GEMMs"),
@@ -67,7 +75,40 @@ def group_of(name: str) -> str:
     return "other PyTorch kernels (elementwise, reductions, casts)"
 
 
-def make_train_unit(model, cfg, dev, frames: int, seed: int):
+def make_vlm_train_unit(model, cfg, dev, frames: int, seed: int, use_flash):
+    """A closure that takes one LoRA r16 VLM SFT step of the causal, tied
+    variant on one synthetic video sample of `frames` uint8 frames (hw = the
+    inference hw of that many frames, 30 + 200 text tokens, 150 labels)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from videoitg_tpu_torch.train.lora import add_lora, make_lora_optimizer
+    from videoitg_tpu_torch.train.train_step import create_train_state, run_step
+    from videoitg_tpu_torch.train.vlm_sft import VLMSample, collate_vlm, make_vlm_train_step
+
+    cfg = dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, causal=True,
+                                                           tie_word_embeddings=True))
+    add_lora(model, torch.Generator(device=dev).manual_seed(seed + 30), rank=16)
+    tx = make_lora_optimizer(model, learning_rate=2e-4, total_steps=10)
+    rng = np.random.default_rng(seed + 31)
+    post = rng.integers(1, cfg.lm.vocab_size, 200).tolist()
+    sample = VLMSample(rng.integers(0, 256, (frames, 360, 640, 3), dtype=np.uint8),
+                       rng.integers(1, cfg.lm.vocab_size, 30).tolist(), post,
+                       [-100] * 50 + post[50:])
+    batch = collate_vlm([sample], frames, cfg, dtype=torch.bfloat16, device=dev)
+    hw = cfg.projector.tokens_hw(frames, cfg.vision.num_patches_per_side)
+    step_fn = make_vlm_train_step(cfg, tx, hw=hw, use_flash=use_flash, remat=True)
+    holder = [create_train_state(model, tx)]
+
+    def unit():
+        holder[0], _ = run_step(step_fn, holder[0], batch)
+
+    return unit
+
+
+def make_train_unit(model, cfg, dev, frames: int, seed: int, use_flash=True):
     """A closure that takes one LoRA r16 training step on a synthetic feature
     batch of `frames` frames (hw = the inference hw of that many frames)."""
     import torch
@@ -92,7 +133,7 @@ def make_train_unit(model, cfg, dev, frames: int, seed: int):
                                device=dev),
         text_valid=torch.arange(cfg.max_text_len, device=dev)[None] < 40,
         labels=(torch.rand(1, frames, generator=gen, device=dev) < 0.1).float())
-    step_fn = make_train_step(cfg, tx, hw=hw, use_flash=True, remat=True)
+    step_fn = make_train_step(cfg, tx, hw=hw, use_flash=use_flash, remat=True)
     holder = [create_train_state(model, tx)]
 
     def unit():
@@ -113,12 +154,19 @@ def main(argv=None) -> int:
                    help="the LM's splash attention arm (kernel K) instead of kernel B")
     p.add_argument("--train", action="store_true",
                    help="profile one LoRA training step instead of a request")
+    p.add_argument("--objective", choices=["grounding", "vlm"], default="grounding",
+                   help="with --train: the grounding step on a feature batch, or a VLM SFT "
+                        "step on a video sample")
+    p.add_argument("--arm", choices=["train", "train-jax"], default="train",
+                   help="with --train: the native-GQA attention kernels (C, D, E) or the "
+                        "segment-id ones (J)")
     p.add_argument("--frames", type=int, default=None,
-                   help="default: 512 for a request, 1024 for a training step")
+                   help="default: 512 for a request, 1024 for a grounding step, 256 for a "
+                        "VLM step")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
     if args.frames is None:
-        args.frames = 1024 if args.train else 512
+        args.frames = 512 if not args.train else (256 if args.objective == "vlm" else 1024)
 
     import numpy as np
     import torch
@@ -139,7 +187,9 @@ def main(argv=None) -> int:
         None, "videoitg-8b", True, torch.bfloat16, dev, seed=args.seed,
         quantize=None if args.tier == "bf16" or args.train else args.tier)
     if args.train:
-        unit = make_train_unit(model, cfg, dev, args.frames, args.seed)
+        make_unit = make_vlm_train_unit if args.objective == "vlm" else make_train_unit
+        unit = make_unit(model, cfg, dev, args.frames, args.seed,
+                         use_flash=True if args.arm == "train" else "train-jax")
     else:
         on = args.kernels == "on"
         engine = SelectionEngine(model, cfg, tok, device=dev, dtype=torch.bfloat16,
@@ -189,6 +239,9 @@ def main(argv=None) -> int:
         raise SystemExit("torch_profile_request: the profiler recorded no device time")
     if args.train:
         label, out_name = "train, LoRA r16", "profile_train_lora.json"
+        if args.objective == "vlm" or args.arm != "train":
+            label = f"train {args.objective}, LoRA r16, arm {args.arm}"
+            out_name = f"profile_train_{args.objective}_{args.arm}.json"
     else:
         label = args.tier + (f", int8 kernels {args.kernels}" if args.tier == "act8" else "")
         out_name = f"profile_{args.tier}_{args.kernels}.json"

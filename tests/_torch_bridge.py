@@ -1,4 +1,5 @@
-"""Helpers shared by tests/test_torch_train*.py and tests/test_torch_lora.py:
+"""Helpers shared by tests/test_torch_train*.py, tests/test_torch_lora.py and
+tests/test_torch_vlm*.py:
 models on bridged weights, batches from numpy seeds in both packages' forms,
 and JAX trees (parameters, gradients) flattened to the port's parameter names."""
 
@@ -18,6 +19,22 @@ from videoitg_tpu_torch.models.grounding import GroundingBatch
 
 def to_numpy_tree(params):
     return jax.tree.map(np.asarray, params)
+
+
+def causal_cfgs(tie=True):
+    """(jax cfg, port cfg) of the causal VLM at test size: tiny, `causal=True`,
+    embeddings tied or not."""
+    from videoitg_tpu import config as jax_config
+    from videoitg_tpu_torch import config as port_config
+
+    out = []
+    for mod in (jax_config, port_config):
+        base = mod.GroundingConfig.tiny()
+        out.append(mod.GroundingConfig(
+            vision=base.vision, projector=base.projector,
+            lm=mod.LMConfig(**{**base.lm.__dict__, "causal": True, "tie_word_embeddings": tie}),
+            max_text_len=base.max_text_len))
+    return out
 
 
 def bridged_pair(params, name="tiny"):

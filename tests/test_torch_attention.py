@@ -147,14 +147,17 @@ def test_mha_dispatch_rule(monkeypatch, case, want):
 
 
 def test_mha_unported_arms_raise():
-    """The training arm is ported (tests/test_torch_train_attention.py) and
-    takes no scale override; the A/B arm over the library kernel is not."""
+    """Both training arms are ported (tests/test_torch_train_attention.py,
+    tests/test_torch_segment_attention.py) and take no scale override; a
+    string that names no arm is refused."""
     q = torch.zeros(1, 2, 8, 8)
     assert mha(q, q, q, use_flash="train").shape == q.shape
-    with pytest.raises(NotImplementedError, match="train-jax"):
-        mha(q, q, q, use_flash="train-jax")
-    with pytest.raises(ValueError):
-        mha(q, q, q, use_flash="train", sm_scale=0.1)
+    assert mha(q, q, q, use_flash="train-jax").shape == q.shape
+    for arm in ("train", "train-jax"):
+        with pytest.raises(ValueError):
+            mha(q, q, q, use_flash=arm, sm_scale=0.1)
+    with pytest.raises(ValueError, match="unknown use_flash"):
+        mha(q, q, q, use_flash="train-ring")
     with pytest.raises(ValueError):
         mha(q, q, q, valid=torch.ones(1, 8, dtype=torch.bool), use_flash=True, sm_scale=0.1)
 

@@ -99,6 +99,36 @@ def test_serving_modules_load_no_jax(tmp_path):
     assert not (tmp_path / "build").exists()
 
 
+def test_vlm_modules_load_no_jax(tmp_path):
+    """The causal-VLM slice's modules (the model, its SFT pipeline, the
+    optimizer offload, the conversation templates, the segment-id attention
+    kernels' wrapper), imported alone in a fresh interpreter with no compiler
+    on the path: no jax, optax, orbax or `videoitg_tpu` comes with them, the
+    train CLI parses the VLM flags, and nothing is built."""
+    mods = ["videoitg_tpu_torch.models.vlm", "videoitg_tpu_torch.train.vlm_sft",
+            "videoitg_tpu_torch.train.offload", "videoitg_tpu_torch.data.conversation",
+            "videoitg_tpu_torch.ops.flash_attention_segment", "videoitg_tpu_torch.cli.train"]
+    assert set(mods) <= set(_modules())
+    code = (
+        "import importlib, json, sys\n"
+        f"mods = {mods!r}\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "from videoitg_tpu_torch.cli.train import build_parser, _refusal\n"
+        "args = build_parser().parse_args(['--data-path', 'x', '--image-folder', '.', "
+        "'--objective', 'vlm', '--conv-template', 'chatml', '--offload-optimizer', '--cpu'])\n"
+        "assert _refusal(args) is None\n"
+        "from videoitg_tpu_torch.ops import _build\n"
+        "bad = ('jax', 'jaxlib', 'optax', 'orbax', 'flax', 'videoitg_tpu')\n"
+        "foreign = sorted(k for k in sys.modules if k.split('.')[0] in bad)\n"
+        "print(json.dumps({'foreign': foreign, 'built': _build._lib is not None}))\n")
+    proc = _run(code, VIDEOITG_NVCC=str(tmp_path / "no-nvcc"), PATH="/usr/bin:/bin",
+                VIDEOITG_TORCH_BUILD_DIR=str(tmp_path / "build"))
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"foreign": [], "built": False}
+    assert not (tmp_path / "build").exists()
+
+
 def test_the_guard_sees_the_jax_package():
     """The same scan must report `videoitg_tpu` as it reports `jax`."""
     code = ("import sys, json, videoitg_tpu.constants\n"

@@ -1,8 +1,9 @@
 """The port's own copies of the framework-free modules against their originals.
 
 `videoitg_tpu_torch` imports nothing of `videoitg_tpu`; it keeps a copy of
-the config, constants, sampling, tokenizer, video reader, frame cache,
-decode-ahead pipeline, stage timer, char tokenizer and resize matrices. Each copy must behave exactly like the
+the config, constants, sampling, tokenizer, conversation templates, video
+reader, frame cache, decode-ahead pipeline, stage timer, char tokenizer and
+resize matrices. Each copy must behave exactly like the
 original: every comparison here is for equality, not within a tolerance.
 """
 
@@ -13,6 +14,7 @@ import pytest
 
 from videoitg_tpu import config as jax_config
 from videoitg_tpu import constants as jax_constants
+from videoitg_tpu.data import conversation as jax_conversation
 from videoitg_tpu.data import frame_cache as jax_frame_cache
 from videoitg_tpu.data import prefetch as jax_prefetch
 from videoitg_tpu.data import sampling as jax_sampling
@@ -23,7 +25,7 @@ from videoitg_tpu.utils import common as jax_utils
 from videoitg_tpu.utils import metrics_logger as jax_metrics_logger
 from videoitg_tpu.utils import profiling as jax_profiling
 from videoitg_tpu_torch import config, constants
-from videoitg_tpu_torch.data import frame_cache, prefetch, sampling, tokenizer, video
+from videoitg_tpu_torch.data import conversation, frame_cache, prefetch, sampling, tokenizer, video
 from videoitg_tpu_torch.ops import resize
 from videoitg_tpu_torch.utils import common as utils
 from videoitg_tpu_torch.utils import metrics_logger, profiling
@@ -187,11 +189,13 @@ def _code_lines(module):
     return ast.dump(tree)
 
 
-@pytest.mark.parametrize("pair", [(frame_cache, jax_frame_cache), (prefetch, jax_prefetch)],
-                         ids=["frame_cache", "prefetch"])
+@pytest.mark.parametrize("pair", [(frame_cache, jax_frame_cache), (prefetch, jax_prefetch),
+                                  (conversation, jax_conversation)],
+                         ids=["frame_cache", "prefetch", "conversation"])
 def test_data_path_copies_have_the_originals_code(pair):
     """Apart from docstrings and the package name in their imports, the copies
-    of data/frame_cache.py and data/prefetch.py are the originals' code."""
+    of data/frame_cache.py, data/prefetch.py and data/conversation.py are the
+    originals' code."""
     got, want = pair
     assert got.__name__.startswith("videoitg_tpu_torch.")
     assert _code_lines(got) == _code_lines(want)
@@ -235,3 +239,49 @@ def test_decode_ahead_copy_behaves_like_the_original(tmp_path):
         assert np.array_equal(g.frames, w.frames)
     assert isinstance(got[3].error, FileNotFoundError) and type(want[3].error) is type(got[3].error)
     assert type(got[0]).__module__ == "videoitg_tpu_torch.data.prefetch"
+
+
+CONVERSATIONS = {
+    "two turns": [{"from": "human", "value": "<image>\nwhat is shown?"},
+                  {"from": "gpt", "value": "a red square"}],
+    "four turns, image in the first": [
+        {"from": "human", "value": "look: <image> what moves?"},
+        {"from": "gpt", "value": "the car"},
+        {"from": "human", "value": "and then?"},
+        {"from": "gpt", "value": "it turns left\nand stops"}],
+    "role / content keys, a leading system turn": [
+        {"role": "system", "content": "ignored"},
+        {"role": "human", "content": "<image>"},
+        {"role": "gpt", "content": "ünïcödé"}],
+}
+
+
+@pytest.mark.parametrize("name", CONVERSATIONS)
+def test_chatml_preprocessing_and_the_split_equal(name):
+    convs = CONVERSATIONS[name]
+    got = conversation.preprocess_chatml(convs, utils.CharTokenizer(512))
+    want = jax_conversation.preprocess_chatml(convs, jax_utils.CharTokenizer(512))
+    assert got == want and len(got[0]) == len(got[1])
+    assert got[0].count(constants.IMAGE_TOKEN_INDEX) == 1
+    a, b = conversation.split_around_image(*got), jax_conversation.split_around_image(*want)
+    assert (a.pre_ids, a.post_ids, a.post_labels) == (b.pre_ids, b.post_ids, b.post_labels)
+    assert len(a.post_ids) == len(a.post_labels) and a.pre_ids  # the system turn comes first
+    assert type(a).__module__ == "videoitg_tpu_torch.data.conversation"
+    assert conversation.CHATML_SYSTEM == jax_conversation.CHATML_SYSTEM
+
+
+def test_plain_preprocessing_equal_and_refusals_alike():
+    convs = CONVERSATIONS["two turns"]
+    got = conversation.preprocess_plain(convs, utils.CharTokenizer(512))
+    assert got == jax_conversation.preprocess_plain(convs, jax_utils.CharTokenizer(512))
+    assert got[1][0] == constants.IGNORE_INDEX and got[1][1:] == got[0][1:]
+    packed = conversation.split_around_image(*got)
+    assert packed.pre_ids == [] and packed.post_labels == got[1][1:]
+    for mod, tok in ((conversation, utils.CharTokenizer(512)),
+                     (jax_conversation, jax_utils.CharTokenizer(512))):
+        with pytest.raises(AssertionError):
+            mod.preprocess_plain(convs[:1], tok)  # needs exactly two turns
+        with pytest.raises(AssertionError):
+            mod.preprocess_plain([convs[1], convs[1]], tok)  # no <image> in the first
+        with pytest.raises(AssertionError, match="exactly one <image>"):
+            mod.split_around_image([1, 2, 3], [1, 2, 3])

@@ -188,15 +188,14 @@ def test_mha_takes_the_splash_arm_where_the_jax_dispatch_does(
 
 
 def test_the_switch_off_the_kernel_path_changes_nothing(which_ran, monkeypatch):
-    """`use_flash=False` (the oracle) and `use_flash="train"` never read the switch."""
+    """`use_flash=False` (the oracle) and the training arms never read the switch."""
     monkeypatch.setenv("VIDEOITG_LM_SPLASH", "1")
     q, k, v = (torch.from_numpy(x) for x in _qkv(10, 1, 4, 2, 24, 8))
     valid = torch.from_numpy(_valid(1, 24, (20,)))
     attention.mha(q, k, v, valid=valid, use_flash=False, lm_splash=True)
     attention.mha(q, k, v, valid=valid, use_flash="train", lm_splash=True)
+    attention.mha(q, k, v, valid=valid, use_flash="train-jax", lm_splash=True)
     assert which_ran == []
-    with pytest.raises(NotImplementedError, match="train-jax"):
-        attention.mha(q, k, v, valid=valid, use_flash="train-jax")
 
 
 def test_jax_dispatch_takes_its_arm_under_the_same_switch(monkeypatch):

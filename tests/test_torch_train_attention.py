@@ -209,8 +209,14 @@ def test_mha_dispatch_train_arm():
     assert torch.equal(mha(tq, tk, tv, valid=tvalid, use_flash="train", sm_scale=16 ** -0.5), got)
     with pytest.raises(ValueError, match="serving-path knob"):
         mha(tq, tk, tv, valid=tvalid, use_flash="train", sm_scale=0.3)
-    with pytest.raises(NotImplementedError, match="kernel J"):
-        mha(tq, tk, tv, valid=tvalid, use_flash="train-jax")
+    # The A/B arm is another function of the invalid rows only: the valid
+    # rows of the two training arms agree.
+    ab = mha(tq, tk, tv, valid=tvalid, use_flash="train-jax")
+    rows = tvalid[0]
+    torch.testing.assert_close(ab[:, :, rows], got[:, :, rows], atol=2e-5, rtol=1e-4)
+    assert ab[:, :, ~rows].abs().max() > 0 and got[:, :, ~rows].abs().max() == 0
+    with pytest.raises(ValueError, match="serving-path knob"):
+        mha(tq, tk, tv, valid=tvalid, use_flash="train-jax", sm_scale=0.3)
     with pytest.raises(ValueError, match="unknown use_flash"):
         mha(tq, tk, tv, use_flash="ring")
 

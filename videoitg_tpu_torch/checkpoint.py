@@ -14,6 +14,10 @@ structural `act_q` marker (a key whose value is None), becomes a
 int8. The port stores `w_q` transposed ([out, in]); the bridge transposes it
 both ways, which moves bytes and changes none.
 
+A causal-VLM tree crosses too: an untied `lm.lm_head` ([hidden, vocab]) both
+ways, and the scoring head `out_proj` only when the tree (or the model) has
+one.
+
 LoRA leaves (`lora_a`, `lora_b`, `lora_scale`, train/lora.py) cross both
 ways on dense, `w_q` and `w_q4` linears, in their own dtype, bit for bit.
 
@@ -114,7 +118,11 @@ def params_from_numpy(tree: dict, cfg: GroundingConfig, device=None,
                 state[f"{head}.layers.{i}.{rest}"] = t[i]
         else:
             state[path] = t
-    model = GroundingModel(cfg, device=device, dtype=dtype)
+    # A causal-VLM tree may carry an untied `lm.lm_head` and may lack the
+    # scoring head; the model is built to the tree.
+    model = GroundingModel(cfg, device=device, dtype=dtype,
+                           with_lm_head="lm_head" in tree.get("lm", {}),
+                           with_out_proj="out_proj" in tree)
     replaced = []
     for parent, leaves in quantised.items():
         head, sep, rest = parent.partition(".layers.")

@@ -1,10 +1,16 @@
-"""Grounding finetune on VideoITG-format data, on the PyTorch port.
+"""Grounding finetune / VLM SFT on VideoITG-format data, on the PyTorch port.
 
-Counterpart of videoitg_tpu/cli/train.py for `--objective grounding`: BCE
-frame-relevance loss on {"video", "question", "clip_num"} records, AdamW with
-per-group learning rates (out_proj 10x), cosine + warmup, a frozen vision
-tower, rematerialised decoder layers, checkpoints with auto-resume. Full
-finetune, `--lora RANK` and QLoRA (`--lora RANK --quantize-base int8|int4`).
+Counterpart of videoitg_tpu/cli/train.py: AdamW with per-group learning rates
+(out_proj 10x), cosine + warmup, a frozen vision tower, rematerialised decoder
+layers, checkpoints with auto-resume. Full finetune, `--lora RANK` and QLoRA
+(`--lora RANK --quantize-base int8|int4`).
+
+--objective grounding (default): BCE frame-relevance loss on
+  {"video", "question", "clip_num"} records.
+--objective vlm: next-token CE over assistant spans on
+  {"video" | "image", "conversations"} records, plain or ChatML template
+  (`--conv-template`; `--fps -1` draws the rate per video). With
+  `--random-init` the LM is the preset's causal variant with tied embeddings.
 
 It runs on the card; `--cpu` asks for the CPU. With neither a CUDA device
 nor `--cpu` it stops with an error.
@@ -14,9 +20,8 @@ Smoke run (random weights, synthetic-capable):
       --data-path data.json --image-folder vids/ --total-steps 20 --cpu
 
 Flags of the JAX CLI that are refused here, each with the ROADMAP item that
-covers it: `--model` (HF weights are not in the repository), `--objective
-vlm` (the causal VLM), `--dp/--tp/--sp/--pp` above 1 (multi-device) and
-`--offload-optimizer`.
+covers it: `--model` (HF weights are not in the repository) and
+`--dp/--tp/--sp/--pp` above 1 (multi-device).
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tokenizer", help="tokenizer path (with --model; not ported yet)")
     p.add_argument("--objective", default="grounding", choices=["grounding", "vlm"])
     p.add_argument("--conv-template", default="plain", choices=["plain", "chatml"],
-                   help="vlm objective only (not ported yet)")
+                   help="vlm objective: conversation template")
     # data (reference flag names)
     p.add_argument("--data-path", required=True)
     p.add_argument("--image-folder", required=True)
@@ -94,7 +99,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sp", type=int, default=1, help="above 1: not ported yet")
     p.add_argument("--pp", type=int, default=1, help="above 1: not ported yet")
     p.add_argument("--pp-microbatches", type=int, default=None)
-    p.add_argument("--offload-optimizer", action="store_true", help="not ported yet")
+    p.add_argument("--offload-optimizer", action="store_true",
+                   help="park optimizer state in pinned host memory between "
+                        "steps (on a CUDA device; ignored on the CPU)")
     p.add_argument("--dtype", default=None, choices=[None, "bfloat16", "float32"],
                    help="default: bfloat16 on the card, float32 on the CPU")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
@@ -107,12 +114,8 @@ def _refusal(args) -> str | None:
     if args.model or args.tokenizer:
         return ("--model / --tokenizer (HF weights are not in the repository; ROADMAP "
                 "queue 1, item 3): use --random-init")
-    if args.objective == "vlm":
-        return "--objective vlm (the causal VLM and its SFT; ROADMAP queue 1, item 6)"
     if any(n is not None and n > 1 for n in (args.dp, args.tp, args.sp, args.pp)):
         return "--dp / --tp / --sp / --pp above 1 (multi-device; ROADMAP queue 1, item 8)"
-    if args.offload_optimizer:
-        return "--offload-optimizer (host offload of the optimizer state; ROADMAP queue 1, item 7)"
     return None
 
 
@@ -151,6 +154,11 @@ def main(argv=None) -> int:
         print("error: pass --random-init (--model is not ported yet)", file=sys.stderr)
         return 2
     cfg = preset(args.preset)
+    if args.objective == "vlm":
+        # Random init has no lm_head to load, so the embeddings are tied (a
+        # pretrained Qwen2-7B is untied and would keep its own head).
+        cfg = dataclasses.replace(cfg, lm=dataclasses.replace(
+            cfg.lm, causal=True, tie_word_embeddings=True))
     model = init_grounding(cfg, torch.Generator(device=device).manual_seed(args.seed),
                            device=device, dtype=dtype)
     tokenizer = CharTokenizer(cfg.lm.vocab_size)
@@ -166,9 +174,17 @@ def main(argv=None) -> int:
         cfg = dataclasses.replace(cfg, projector=proj)
 
     # ---- data ----
-    dataset = GroundingDataset(
-        args.data_path, args.image_folder, tokenizer, cfg,
-        video_frames=args.video_frames, fps=args.fps, seed=args.seed, pix_fmt=args.pix_fmt)
+    if args.objective == "vlm":
+        from videoitg_tpu_torch.train.vlm_sft import (VLMDataset, collate_vlm,
+                                                      make_vlm_train_step)
+
+        dataset = VLMDataset(
+            args.data_path, args.image_folder, tokenizer, cfg, template=args.conv_template,
+            video_frames=args.video_frames, fps=args.fps, seed=args.seed)
+    else:
+        dataset = GroundingDataset(
+            args.data_path, args.image_folder, tokenizer, cfg,
+            video_frames=args.video_frames, fps=args.fps, seed=args.seed, pix_fmt=args.pix_fmt)
     if args.quantize_base and not args.lora:
         print("error: --quantize-base requires --lora (a quantized base "
               "cannot be trained directly; QLoRA trains adapters over it)", file=sys.stderr)
@@ -190,6 +206,10 @@ def main(argv=None) -> int:
                  rank=args.lora, alpha=args.lora_alpha)
 
     if args.feature_cache:
+        if args.objective != "grounding":
+            print("error: --feature-cache supports the grounding objective "
+                  "only (the VLM SFT tower also trains on image samples)", file=sys.stderr)
+            return 2
         from videoitg_tpu_torch.train.feature_cache import CachedFeatureDataset, FeatureCache
 
         cache = FeatureCache(args.feature_cache, store_dtype=args.feature_cache_dtype)
@@ -239,6 +259,15 @@ def main(argv=None) -> int:
         )
     state = create_train_state(model, tx)
 
+    offload = False
+    if args.offload_optimizer:
+        from videoitg_tpu_torch.train.offload import (make_offloaded_train_step,
+                                                      supports_host_offload)
+
+        offload = supports_host_offload(device)
+        if not offload:
+            print("[train] host offload unsupported on this backend; ignoring")
+
     mlog = MetricsLogger(args.output_dir, report_to=args.report_to,
                          run_name=args.run_name, config=vars(args))
     ckpt = TrainCheckpointer(args.output_dir, max_to_keep=args.save_total_limit,
@@ -259,10 +288,12 @@ def main(argv=None) -> int:
                          seed=args.seed)):
         if step >= total_steps:
             break
-        batch = collate_grounding(samples, t_bucket, cfg, dtype=dtype, device=device)
+        collate, make_step = ((collate_vlm, make_vlm_train_step) if args.objective == "vlm"
+                              else (collate_grounding, make_train_step))
+        batch = collate(samples, t_bucket, cfg, dtype=dtype, device=device)
         if hw not in step_fns:  # eager PyTorch: only hw is baked into a step function
-            step_fns[hw] = make_train_step(cfg, tx, hw=hw, use_flash=not on_cpu, remat=True,
-                                           donate=True)
+            fn = make_step(cfg, tx, hw=hw, use_flash=not on_cpu, remat=True, donate=True)
+            step_fns[hw] = make_offloaded_train_step(fn) if offload else fn
         state, metrics = run_step(step_fns[hw], state, batch)
         step = int(state.step)
         if step % args.logging_steps == 0:

@@ -1,8 +1,10 @@
-// Shared pieces of the two attention kernels (flash_attention.cu,
-// flash_attention_short.cu): the bf16 tensor-core MMA, bf16 packing, and the
-// global -> shared tile loaders.
+// Shared pieces of the attention kernels (flash_attention.cu,
+// flash_attention_short.cu, splash_attention.cu, flash_attention_train.cu,
+// flash_attention_segment.cu): the bf16 tensor-core MMA, bf16 packing, the
+// global -> shared tile loaders, and the fragment products of the two
+// backward kernels.
 //
-// Both kernels give each warp 16 query rows and use mma.sync m16n8k16
+// The kernels give each warp 16 query rows and use mma.sync m16n8k16
 // (bf16 operands, fp32 accumulation). Fragment ownership, with
 // g = lane / 4 and t = lane % 4:
 //   A (16x16, row-major): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
@@ -23,6 +25,7 @@ constexpr int kBlockQ = 64;   // query rows per block: 4 warps x 16 rows
 constexpr int kBlockK = 64;   // keys per shared-memory tile
 constexpr int kThreads = 128;
 constexpr int kPad = 8;       // bf16 elements of row padding in shared memory
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
                                           uint32_t b0, uint32_t b1) {
@@ -173,5 +176,125 @@ constexpr int smem_bytes() {
   return static_cast<int>(sizeof(__nv_bfloat16)) *
          ((kBlockQ + kBlockK) * (DP + kPad) + DP * (kBlockK + kPad));
 }
+
+// ------------------------------------------------- pieces of the backward --
+
+// c[nb] = A B^T for one warp: A is 16 x DP as fragments, B the NB * 8 rows of
+// a row-major [.][DP + kPad] tile that start at `rows`.
+template <int DP, int NB>
+__device__ __forceinline__ void fragments_times_rows(float c[NB][4], const uint32_t a[DP / 16][4],
+                                                     const __nv_bfloat16* rows, int g, int t) {
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+    c[nb][0] = c[nb][1] = c[nb][2] = c[nb][3] = 0.f;
+    const __nv_bfloat16* row = rows + (nb * 8 + g) * (DP + kPad);
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      mma_16816(c[nb], a[kk], ld_pair(row + kk * 16 + 2 * t), ld_pair(row + kk * 16 + 8 + 2 * t));
+    }
+  }
+}
+
+// acc += A B for one warp: A is one 16 x 16 fragment, B[k][n] = tt[n][k], with
+// `tt` pointing at column k = 0 of a transposed tile [DP][kBlockK + kPad].
+template <int DP>
+__device__ __forceinline__ void fragment_times_transposed(float acc[DP / 8][4],
+                                                          const uint32_t a[4],
+                                                          const __nv_bfloat16* tt, int g, int t) {
+#pragma unroll
+  for (int nb = 0; nb < DP / 8; ++nb) {
+    const __nv_bfloat16* row = tt + (nb * 8 + g) * (kBlockK + kPad);
+    mma_16816(acc[nb], a, ld_pair(row + 2 * t), ld_pair(row + 8 + 2 * t));
+  }
+}
+
+// The A fragment (16 rows from `row_base`, columns kk * 16 ..) of a row-major
+// [.][DP + kPad] tile.
+template <int DP>
+__device__ __forceinline__ void load_a_fragment(uint32_t a[4], const __nv_bfloat16* tile,
+                                                int row_base, int kk, int g, int t) {
+  const __nv_bfloat16* r0 = tile + (row_base + g) * (DP + kPad) + kk * 16;
+  const __nv_bfloat16* r1 = r0 + 8 * (DP + kPad);
+  a[0] = ld_pair(r0 + 2 * t);
+  a[1] = ld_pair(r1 + 2 * t);
+  a[2] = ld_pair(r0 + 8 + 2 * t);
+  a[3] = ld_pair(r1 + 8 + 2 * t);
+}
+
+// rows [row0, row0 + ROWS) of a [S, D] matrix into both layouts at once:
+// `dst` [ROWS][DP + kPad] and `dst_t` [DP][ROWS + kPad], zero-filled beyond S
+// and D like load_rows.
+template <int ROWS, int DP>
+__device__ __forceinline__ void load_rows_both(__nv_bfloat16* dst, __nv_bfloat16* dst_t,
+                                               const __nv_bfloat16* src, int row0, int S,
+                                               int D) {
+  constexpr int kChunks = DP / 8;
+  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += blockDim.x) {
+    const int r = idx % ROWS;  // neighbouring threads take neighbouring rows
+    const int c = (idx / ROWS) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < S && c < D) {
+      val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * D + c);
+    }
+    *reinterpret_cast<uint4*>(dst + r * (DP + kPad) + c) = val;
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dst_t[(c + i) * (ROWS + kPad) + r] = e[i];
+  }
+}
+
+// out rows = acc * scale as bf16; rows >= S and columns >= D are not stored.
+template <int DP>
+__device__ __forceinline__ void store_scaled_rows(__nv_bfloat16* out, const float acc[DP / 8][4],
+                                                  float scale, int row_g, int row_g8, int S,
+                                                  int D, int t) {
+#pragma unroll
+  for (int nb = 0; nb < DP / 8; ++nb) {
+    const int col = nb * 8 + 2 * t;
+    if (col >= D) continue;
+    if (row_g < S) {
+      *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row_g) * D + col) =
+          pack_bf16(acc[nb][0] * scale, acc[nb][1] * scale);
+    }
+    if (row_g8 < S) {
+      *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row_g8) * D + col) =
+          pack_bf16(acc[nb][2] * scale, acc[nb][3] * scale);
+    }
+  }
+}
+
+// Shared memory of the dQ kernels and of the dK/dV kernels.
+template <int DP>
+constexpr int dq_smem_bytes() {
+  // Q / dO staging tile, K, V (row-major), K transposed.
+  return static_cast<int>(sizeof(__nv_bfloat16)) *
+         (3 * kBlockK * (DP + kPad) + DP * (kBlockK + kPad));
+}
+
+template <int DP>
+constexpr int dkv_smem_bytes() {
+  // K, V, Q, dO (row-major), Q and dO transposed.
+  return static_cast<int>(sizeof(__nv_bfloat16)) *
+         (4 * kBlockK * (DP + kPad) + 2 * DP * (kBlockQ + kPad));
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// One instantiation per head dim padded to a multiple of 16.
+#define VIDEOITG_DISPATCH_DP(launch, args)                     \
+  switch (((args).D + 15) / 16) {                              \
+    case 1: return static_cast<int>(launch<16>(args));         \
+    case 2: return static_cast<int>(launch<32>(args));         \
+    case 3: return static_cast<int>(launch<48>(args));         \
+    case 4: return static_cast<int>(launch<64>(args));         \
+    case 5: return static_cast<int>(launch<80>(args));         \
+    case 6: return static_cast<int>(launch<96>(args));         \
+    case 7: return static_cast<int>(launch<112>(args));        \
+    default: return static_cast<int>(launch<128>(args));       \
+  }
 
 }  // namespace videoitg

@@ -48,7 +48,6 @@ namespace videoitg {
 constexpr int kSplashMaxHeads = 7;   // query heads per block, one warp per 16 rows each
 constexpr int kSplashRowGroups = 2;  // 16-row groups per query head in a block
 constexpr int kSplashSub = 32;        // keys per online-softmax step
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Four 8x8 bf16 matrices, transposed on the way: lanes 8i..8i+7 give the row
 // addresses of matrix i; thread (g, t) receives M_i[2t..2t+1][g] in r[i].

@@ -10,8 +10,7 @@ number of valid image tokens + j) -> bidirectional Qwen2 -> fp32 per-frame
 mean pool of the image slots -> Linear(hidden, 1) -> [B, T] logits, -inf on
 bucket-padding frames. `grounding_loss` is the training objective: masked
 BCE-with-logits with pos_weight = min(cap, sqrt(neg / pos)) over the batch.
-The causal VLM variant (models/vlm.py of the JAX package) waits (ROADMAP
-queue 1).
+The causal VLM variant (models/vlm.py) runs on the same `GroundingModel`.
 """
 
 from __future__ import annotations
@@ -31,15 +30,22 @@ from videoitg_tpu_torch.ops.quant import Act8Switches
 
 
 class GroundingModel(nn.Module):
-    """vision / projector / lm / out_proj, named as in the JAX params tree."""
+    """vision / projector / lm / out_proj, named as in the JAX params tree.
+    The causal VLM is the same module: `with_lm_head` gives an untied LM its
+    output head, and `with_out_proj=False` leaves the scoring head out, as a
+    converted VLM checkpoint's tree does (a random-init VLM keeps it, unused,
+    exactly as the JAX package's `init_grounding` does)."""
 
     def __init__(self, cfg: GroundingConfig, *, device=None, dtype=torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, with_lm_head: bool = False,
+                 with_out_proj: bool = True):
         super().__init__()
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.vision = siglip_mod.SiglipTower(cfg.vision, **kw)
         self.projector = Projector(cfg.projector, **kw)
-        self.lm = qwen2_mod.Qwen2(cfg.lm, **kw)
+        self.lm = qwen2_mod.Qwen2(cfg.lm, with_lm_head=with_lm_head, **kw)
+        if not with_out_proj:
+            return
         self.out_proj = Linear(cfg.lm.hidden_size, 1, device=device, dtype=dtype)
         if generator is not None:
             # Xavier-uniform head (reference grounding_qwen2.py:79-80).

@@ -6,8 +6,10 @@ bias). The grounding LM runs every layer bidirectionally (cfg.causal is
 False) with no KV cache, over pre-computed input embeddings and explicit
 position ids. `remat=True` recomputes each layer in the backward pass
 (`torch.utils.checkpoint`, the counterpart of `jax.checkpoint` with nothing
-saved). The pipeline-parallel branch and the LM head of the causal VLM wait
-(ROADMAP queue 1).
+saved). The causal VLM (models/vlm.py) runs the same stack with cfg.causal
+True and reads next-token logits through `lm_logits`: the tied embedding, or
+an `lm_head` of its own when the config is untied and a head was asked for.
+The pipeline-parallel branch waits (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -65,10 +67,13 @@ class Qwen2Layer(nn.Module):
 
 
 class Qwen2(nn.Module):
-    """Parameters of the LM; `qwen2_hidden_states` runs it."""
+    """Parameters of the LM; `qwen2_hidden_states` runs it. `with_lm_head`
+    adds the untied output head of the causal VLM (`lm_head`, [hidden, vocab],
+    no bias); a config with tied embeddings never has one."""
 
     def __init__(self, cfg: LMConfig, *, device=None, dtype=torch.float32,
-                 generator: Optional[torch.Generator] = None, dense_linears: bool = True):
+                 generator: Optional[torch.Generator] = None, dense_linears: bool = True,
+                 with_lm_head: bool = False):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.embed = Embed(cfg.vocab_size, cfg.hidden_size, generator=generator, **kw)
@@ -76,6 +81,9 @@ class Qwen2(nn.Module):
             Qwen2Layer(cfg, generator=generator, dense_linears=dense_linears, **kw)
             for _ in range(cfg.num_layers))
         self.final_norm = Norm(cfg.hidden_size, bias=False, **kw)
+        if with_lm_head and not cfg.tie_word_embeddings:
+            self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
+                                  generator=generator, **kw)
 
 
 def embed_tokens(lm: Qwen2, ids: torch.Tensor) -> torch.Tensor:
@@ -122,7 +130,19 @@ def qwen2_hidden_states(lm: Qwen2, inputs_embeds: torch.Tensor, positions: torch
     return rms_norm(lm.final_norm, x, cfg.rms_norm_eps)
 
 
+def lm_logits(lm: Qwen2, hidden: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """LM head of the causal VLM: hidden [B, S, H] -> fp32 logits [B, S, V],
+    through the transposed embedding when `cfg.tie_word_embeddings`, else
+    through `lm_head`. Operands are raised to fp32 before the product (bf16
+    products are exact in fp32, so this is the JAX package's bf16 operands
+    with fp32 accumulation), which costs one fp32 copy of the weight."""
+    if cfg.tie_word_embeddings:
+        return hidden.float() @ lm.embed.w.float().t()
+    return hidden.float() @ lm.lm_head.w.float()
+
+
 def init_qwen2(cfg: LMConfig, generator: torch.Generator, *, device=None,
-               dtype=torch.float32) -> Qwen2:
+               dtype=torch.float32, with_lm_head: bool = False) -> Qwen2:
     """Random LM with the JAX package's distributions (not its bits)."""
-    return Qwen2(cfg, device=device, dtype=dtype, generator=generator)
+    return Qwen2(cfg, device=device, dtype=dtype, generator=generator,
+                 with_lm_head=with_lm_head)

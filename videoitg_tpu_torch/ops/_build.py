@@ -65,6 +65,14 @@ SIGNATURES = {
     # causal, sm_scale, stream
     "videoitg_flash_train_dkv_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, q_ids, kv_ids (int32 [B, S]), out, lse, B, H, S, D, causal, sm_scale, stream
+    "videoitg_flash_segment_fwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, q_ids, kv_ids, dout, lse, delta, dq, B, H, S, D, causal, sm_scale, stream
+    "videoitg_flash_segment_dq_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, q_ids, kv_ids, dout, lse, delta, dk, dv, B, H, S, D, causal, sm_scale, stream
+    "videoitg_flash_segment_dkv_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _I, _I, _I, _I, _I, _F, _P),
     # q (scaled), k, v, q_seg, kv_seg (int32 [B, S]), out, B, Hq, Hkv, S, D, stream
     "videoitg_splash_mqa_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, out, n, stream

@@ -11,18 +11,21 @@ the input dtype.
   `flash_mha_short` for the vision tower's short unmasked MHA, `flash_mha`
   otherwise, or, with the LM splash switch on, `splash_lm`
   (`ops/splash_attention.py`) for non-causal attention with a key mask, the
-  LM's serving prefill; `use_flash="train"` runs the differentiable kernels
-  (`ops/flash_attention_train.flash_mha_train`). Each kernel wrapper runs
-  its own plain version when the tensors lie on the CPU.
+  LM's serving prefill; `use_flash="train"` runs the differentiable
+  native-GQA kernels (`ops/flash_attention_train.flash_mha_train`);
+  `use_flash="train-jax"` runs `mha_trainable`. Each kernel wrapper runs its
+  own plain version when the tensors lie on the CPU.
+* `mha_trainable` — the JAX package's A/B arm over a library kernel, under
+  its JAX name: repeated KV heads, padding to a multiple of 512, segment
+  ids, the differentiable segment-id kernels
+  (`ops/flash_attention_segment.flash_mha_segment`).
 
 The LM splash switch is the JAX package's A/B arm: `lm_splash=True / False`
 decides it, `None` reads `VIDEOITG_LM_SPLASH` (`1` is on; off by default), so
 one process can run both arms.
 
-`use_flash="train-jax"` is the one arm of the single-device dispatch that
-still raises (the A/B arm over a library kernel with repeated KV heads,
-kernel J of PERF.md). The mesh / ring arms of the JAX dispatch need more than
-one device (ROADMAP queue 1).
+The mesh / ring arms of the JAX dispatch need more than one device (ROADMAP
+queue 1).
 """
 
 from __future__ import annotations
@@ -32,8 +35,10 @@ from typing import Optional
 import os
 
 import torch
+from torch.nn import functional as F
 
 SHORT_MAX_SEQ = 1024  # longest sequence the dispatch sends to the short kernel
+TRAINABLE_BLOCK = 512  # `mha_trainable` pads the sequence to a multiple of this
 
 
 def resolve_lm_splash(lm_splash: Optional[bool] = None) -> bool:
@@ -83,6 +88,44 @@ def mha_reference(
     return out.reshape(b, hq, s, d).to(q.dtype)
 
 
+def mha_trainable(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+    causal: bool = False,
+) -> torch.Tensor:
+    """Differentiable attention as the JAX package's `mha_trainable` computes
+    it (the `"train-jax"` A/B arm), invalid rows and padding included.
+
+    KV heads are repeated to the query heads (autograd sums their gradient
+    back over the group); q, k, v are zero-padded to the next multiple of
+    512; segment ids are `valid` as int32 (all ones without it) with the
+    padding in segment 0; a query attends the keys of its own segment. So an
+    invalid query row is NOT zero: it attends the other invalid keys and,
+    when not causal, the zero padding. The output is cut back to S.
+    """
+    from videoitg_tpu_torch.ops.flash_attention_segment import flash_mha_segment
+
+    b, hq, s, _ = q.shape
+    hkv = k.shape[1]
+    if hkv != hq:
+        if hq % hkv:
+            raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+        k = k.repeat_interleave(hq // hkv, dim=1)
+        v = v.repeat_interleave(hq // hkv, dim=1)
+    pad = -(-s // TRAINABLE_BLOCK) * TRAINABLE_BLOCK - s
+    if valid is None:
+        seg = torch.ones((b, s), dtype=torch.int32, device=q.device)
+    else:
+        seg = valid.to(torch.int32)
+    if pad:
+        q, k, v = (F.pad(x, (0, 0, 0, pad)) for x in (q, k, v))
+        seg = F.pad(seg, (0, pad))  # padding -> segment 0
+    out = flash_mha_segment(q, k, v, seg, seg, causal=causal)
+    return out[:, :, :s]
+
+
 def mha(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -100,21 +143,20 @@ def mha(
     vision tower) takes the short kernel; non-causal attention with a key
     mask takes the splash arm when `lm_splash` is on (None reads
     VIDEOITG_LM_SPLASH); everything else streams; "train" -> the
-    differentiable native-GQA kernels, which take no `sm_scale` override (a
+    differentiable native-GQA kernels; "train-jax" -> `mha_trainable` (the
+    A/B arm). Neither training arm takes an `sm_scale` override (a
     serving-path knob, as in the JAX package).
     """
     if sm_scale is not None and sm_scale == q.shape[-1] ** -0.5:
         sm_scale = None
-    if use_flash == "train-jax":
-        raise NotImplementedError(
-            "use_flash='train-jax' (kernel J: the library flash kernel with repeated "
-            "KV heads, an A/B arm) is not ported; use 'train' (ROADMAP queue 2)")
     if isinstance(use_flash, str):
-        if use_flash != "train":
+        if use_flash not in ("train", "train-jax"):
             raise ValueError(f"unknown use_flash {use_flash!r}")
         if sm_scale is not None:
             raise ValueError("sm_scale override is a serving-path knob; the training "
                              "kernels use head_dim ** -0.5")
+        if use_flash == "train-jax":
+            return mha_trainable(q, k, v, valid=valid, causal=causal)
         from videoitg_tpu_torch.ops.flash_attention_train import flash_mha_train
 
         return flash_mha_train(q, k, v, valid=valid, causal=causal)

@@ -38,6 +38,25 @@ def create_train_state(model: nn.Module, tx: GroupedAdamW) -> TrainState:
     return TrainState(step=0, model=model, optimizer=tx)
 
 
+def step_from_loss(loss_fn):
+    """(state, batch) -> (state, metrics) around `loss_fn(model, batch) ->
+    (loss, metrics)`: gradients of the leaves that train, `grad_norm` over
+    them, one optimizer call in place. Shared by the grounding and the VLM
+    SFT steps."""
+
+    def step_fn(state: TrainState, batch):
+        opt = state.optimizer
+        loss, metrics = loss_fn(state.model, batch)
+        grads = torch.autograd.grad(loss, opt.params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(opt.params, grads)]
+        metrics = dict(metrics)
+        metrics["grad_norm"] = global_norm(grads)
+        opt.apply(grads)
+        return TrainState(state.step + 1, state.model, opt), metrics
+
+    return step_fn
+
+
 def make_train_step(cfg: GroundingConfig, tx: GroupedAdamW, hw: int, use_flash=False,
                     remat: bool = True, param_dtype=None, donate: bool = False):
     """Returns (state, batch) -> (state, metrics) with metrics `loss`,
@@ -48,19 +67,8 @@ def make_train_step(cfg: GroundingConfig, tx: GroupedAdamW, hw: int, use_flash=F
     signature's sake and do nothing: the update is in place either way, so no
     second copy of the parameters ever exists."""
     del tx, param_dtype, donate
-
-    def step_fn(state: TrainState, batch: GroundingBatch):
-        opt = state.optimizer
-        loss, metrics = grounding_loss(state.model, batch, cfg, hw=hw, use_flash=use_flash,
-                                       remat=remat, freeze_vision=True)
-        grads = torch.autograd.grad(loss, opt.params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(opt.params, grads)]
-        metrics = dict(metrics)
-        metrics["grad_norm"] = global_norm(grads)
-        opt.apply(grads)
-        return TrainState(state.step + 1, state.model, opt), metrics
-
-    return step_fn
+    return step_from_loss(lambda model, batch: grounding_loss(
+        model, batch, cfg, hw=hw, use_flash=use_flash, remat=remat, freeze_vision=True))
 
 
 def run_step(step_fn, state: TrainState, batch: GroundingBatch, mesh=None, microbatches=None):
