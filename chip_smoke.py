@@ -46,10 +46,18 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      keys left out of the invalid rows, delta dropped, causal dropped. Timed
      beside C, D, E on the same inputs and the library call with the same
      boolean mask; bounds from the pairs this run's ids admit.
-   * A, B (attention, bf16): plus a long case whose length is not a multiple
-     of the 64-key tile, a small causal case and a fully-masked-row case.
-     Tolerance: 4 bf16 half-ulps of the case's max|reference| (see
-     bf16_tol). Masked rows must be exactly 0.
+   * A, B (attention, bf16, the TMA + wgmma kernels): plus a long case whose
+     length is not a multiple of the 128-key tile, a small causal case and a
+     fully-masked-row case; A at ragged S = 577 and 1,000, at S = 500 with
+     D = 128 (both past K resident: the two-pass kernel) and at every
+     head-dim instantiation (D = 8 ... 128); B at every head-dim
+     instantiation with a key mask, causal and not, and at GQA
+     groups of 3, 8 and 1; B causal at the VLM prefill's [1, 28/4, 15,584,
+     128] with the packed layout's holes, timed beside the library call with
+     the same boolean mask. Tolerance: 4 bf16 half-ulps of the case's
+     max|reference| (see bf16_tol). Masked rows must be exactly 0. Their
+     printed lines name the first version's time (FIRST_VERSION_MS, from
+     PERF.md: not measured by this script, and not in the JSON record).
    * K (splash MQA with segment ids, the LM's A/B arm) at the LM's serving
      shape [1, 28/4, 13056, 128] with a 12,840-token valid prefix, through
      `splash_lm` against its plain form; a ragged S = 13,001; two rows of
@@ -125,7 +133,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    the two arms' losses on the same parameters within 1e-3 relative. Greedy
    `vlm_generate` at 32 frames (hw 22, 15,584 prompt slots), 16 new tokens,
    `use_flash=True`: kernel A in the tower, kernel B causal 28 times at
-   prefill and nothing else; prefill seconds and ms per decoded token. On
+   prefill and nothing else; prefill seconds, and ms per decoded token from
+   15 `vlm_decode_step`s timed alone after a prefill, three repeats. On
    videoitg-8b-shallow at 8 frames: each arm's loss and LoRA gradients
    against the plain path (loss 2e-2 relative; gradients 5e-2 of each leaf's
    largest entry, the 0-d leaves taken together), the kernel path's
@@ -133,6 +142,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    entry), and three offloaded steps (`train/offload.py`: Adam's moments in
    pinned host memory between steps) bit-equal to three plain steps.
 
+`--only attention-kernels` prints ptxas' lines for kernels A and B and stops
+after checking them (a short first run after editing them),
 `--only int8-kernels` stops after building and checking kernels F-I,
 `--only train-kernels` after C, D, E, `--only splash-kernels` after K and L
 `--only segment-kernels` after J (a short first run for a new kernel);
@@ -161,10 +172,29 @@ PEAK_BF16 = 989e12   # FLOP/s
 PEAK_INT8 = 1979e12  # OP/s
 PEAK_HBM = 3.35e12   # bytes/s
 FRAME_HW = (360, 640)  # a video-like decode resolution
+# Kernels A and B before their TMA + wgmma redesign: mma.sync, one tile staged
+# at a time (PERF.md section 6; NVIDIA H100 80GB HBM3 at 700.00 W). Printed
+# for comparison only: this run does not measure them.
+FIRST_VERSION_MS = {"flash_mha_short": 6.7473, "flash_mha": 27.5702}
 
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def ptxas_lines(log: str, kernel: str) -> list:
+    """ptxas' resource lines (registers, spills, shared memory, performance
+    notes) of the entry functions whose mangled name contains `kernel`, each
+    prefixed with that name."""
+    out, entry = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else None
+            continue
+        if entry and kernel in entry and any(w in line for w in (
+                "registers", "spill", "Performance", "warning")):
+            out.append(f"{entry}: {line.strip()}")
+    return out
 
 
 def card_line() -> str:
@@ -263,8 +293,8 @@ def check_kernels(dev) -> dict:
     print(f"kernel flash_mha_short [128, 16, 729, 72] bf16: max_abs_err {err:.6g} "
           f"(tol {tol:.6g}, max|ref| {ref.abs().max().item():.6g}); broken: last 64 keys "
           f"dropped {drop:.6g}; {ms:.4f} ms, plain {plain_ms:.4f} ms, library (sdpa) "
-          f"{library_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}",
-          flush=True)
+          f"{library_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}; first "
+          f"version {FIRST_VERSION_MS['flash_mha_short']} ms (PERF.md, not this run)", flush=True)
     if not err <= tol:
         fail(f"flash_mha_short error {err} > {tol}")
     if not drop > tol:
@@ -313,7 +343,8 @@ def check_kernels(dev) -> dict:
           f"invalid rows max {masked}; broken: key mask ignored {no_mask:.6g}, one key tile "
           f"dropped {no_tile:.6g}; {ms:.4f} ms, plain {plain_ms:.4f} ms (plain head by head), "
           f"library (sdpa, kv heads expanded, key mask as attn_mask) {library_ms:.4f} ms, "
-          f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}", flush=True)
+          f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}; first version "
+          f"{FIRST_VERSION_MS['flash_mha']} ms (PERF.md, not this run)", flush=True)
     if not err <= tol:
         fail(f"flash_mha error {err} > {tol}")
     if masked != 0.0:
@@ -363,6 +394,84 @@ def check_kernels(dev) -> dict:
     if not err <= tol or zero_rows != 0.0 or all_masked != 0.0:
         fail("flash_mha causal / fully-masked case")
     records["flash_mha"]["max_abs_err"] = max(records["flash_mha"]["max_abs_err"], err)
+    del q, k, v, out, ref
+
+    # A at ragged lengths and at every head-dim instantiation (D = 8 ... 128:
+    # the kernel pads D to a multiple of 16 through TMA's zero fill). S = 1000
+    # at D = 72 and S = 500 at D = 128 are past what K resident in shared
+    # memory holds, and take the two-pass streaming kernel.
+    for shape in [(4, 16, 577, 72), (2, 16, 1000, 72), (2, 4, 500, 128)] + [
+            (2, 4, 300, d) for d in (8, 24, 40, 56, 88, 104, 120, 128)]:
+        q, k, v = (randn(*shape) for _ in range(3))
+        ref = flash_mha_short_reference(q.float(), k.float(), v.float())
+        tol = bf16_tol(ref)
+        err = max_err(flash_mha_short(q, k, v), ref)
+        print(f"kernel flash_mha_short {list(shape)}: max_abs_err {err:.6g} (tol {tol:.6g})",
+              flush=True)
+        if not err <= tol:
+            fail(f"flash_mha_short {list(shape)}: error {err} > {tol}")
+        records["flash_mha_short"]["max_abs_err"] = max(
+            records["flash_mha_short"]["max_abs_err"], err)
+
+    # B at every head-dim instantiation (GQA 28/4, key mask), causal and not,
+    # and at GQA groups other than 7: 3, 8 and 1.
+    cases = [(28, 4, d, causal) for d in (8, 24, 40, 56, 72, 88, 104, 120)
+             for causal in (False, True)]
+    cases += [(12, 4, 128, True), (16, 2, 72, False), (6, 6, 64, True)]
+    for hq, hkv, d, causal in cases:
+        b, s = 2, 700
+        q, k, v = randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d)
+        valid = torch.rand(b, s, generator=gen, device=dev) > 0.1
+        valid[1, 650:] = False
+        out = flash_mha(q, k, v, valid=valid, causal=causal)
+        ref = flash_mha_reference(q.float(), k.float(), v.float(), valid=valid, causal=causal)
+        tol = bf16_tol(ref)
+        err = max_err(out, ref)
+        masked = out.permute(0, 2, 1, 3)[~valid].abs().max().item()
+        print(f"kernel flash_mha [{b}, {hq}/{hkv}, {s}, {d}] causal={causal}: max_abs_err "
+              f"{err:.6g} (tol {tol:.6g}); invalid rows max {masked}", flush=True)
+        if not err <= tol or masked != 0.0:
+            fail(f"flash_mha [{b}, {hq}/{hkv}, {s}, {d}] causal={causal}")
+        records["flash_mha"]["max_abs_err"] = max(records["flash_mha"]["max_abs_err"], err)
+    del q, k, v, out, ref
+
+    # B causal at the VLM prefill's shape: 32 frames at hw 22 between 32
+    # prompt and 64 answer slots (30 and 40 used: holes mid-sequence and at
+    # the tail), 15,584 tokens.
+    s = 32 + 32 * 22 * 22 + 64
+    q, k, v = randn(1, 28, s, 128), randn(1, 4, s, 128), randn(1, 4, s, 128)
+    valid = torch.ones(1, s, dtype=torch.bool, device=dev)
+    valid[0, 30:32] = False
+    valid[0, 32 + 32 * 22 * 22 + 40:] = False
+    ref = lm_reference(q, k, v, valid, causal=True)
+    tol = bf16_tol(ref)
+    out = flash_mha(q, k, v, valid=valid, causal=True)
+    err = max_err(out, ref)
+    masked = out[0][:, ~valid[0]].abs().max().item()
+    rows = valid[0]
+    no_causal = max_err(flash_mha(q, k, v, valid=valid)[:, :, rows], ref[:, :, rows])
+    ms = cuda_ms(lambda: flash_mha(q, k, v, valid=valid, causal=True), 10)
+    k28, v28 = k.repeat_interleave(7, dim=1), v.repeat_interleave(7, dim=1)
+    attn_mask = (torch.ones(s, s, dtype=torch.bool, device=dev).tril_() & valid[0][None, :])
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k28, v28, attn_mask=attn_mask[None, None]), 5)
+    del k28, v28, attn_mask
+    # The pairs this run's mask admits: each valid row with the valid keys at
+    # or before it.
+    pairs = valid[0].to(torch.int64).cumsum(0)[valid[0]].sum().item()
+    bnd = bound(4 * pairs * 128 * 28, PEAK_BF16, (2 * q.numel() + 2 * k.numel()) * 2)
+    print(f"kernel flash_mha causal [1, 28/4, {s}, 128] (VLM prefill, {int((~valid).sum())} "
+          f"holes): max_abs_err {err:.6g} (tol {tol:.6g}), invalid rows max {masked}; broken: "
+          f"causal dropped {no_causal:.6g}; {ms:.4f} ms, library (sdpa, kv heads expanded, "
+          f"causal and key mask as one boolean attn_mask) {library_ms:.4f} ms, bound "
+          f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}", flush=True)
+    if not err <= tol or masked != 0.0:
+        fail("flash_mha causal VLM-prefill case")
+    if not no_causal > tol:
+        fail(f"flash_mha tolerance {tol} does not catch a dropped causal mask ({no_causal})")
+    records["flash_mha"]["max_abs_err"] = max(records["flash_mha"]["max_abs_err"], err)
+    records["flash_mha"].update(causal_vlm_ms=ms, causal_vlm_library_ms=library_ms,
+                                causal_vlm_bound_ms=bnd["bound_ms"])
     torch.cuda.synchronize()
     return records
 
@@ -2030,14 +2139,33 @@ def run_vlm(dev, card: str) -> dict:
     n_new = 16
     out, total_s = generate(n_new)
     gen_launches = {name: fn.launches for name, fn in counted.items() if fn.launches}
-    ms_per_token = 1e3 * (total_s - prefill_s) / (n_new - 1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # ms per decoded token from the decode steps themselves, in this process:
+    # one prefill, then n_new - 1 `vlm_decode_step`s between two synchronises,
+    # three times (two separate generate calls differ by the prefill's noise).
+    decode_ms = []
+    with torch.no_grad():
+        x, valid, positions, _ = vlm._pack_embeds(model, prompt, cfg, hw, True, False, True)
+        for _ in range(3):
+            last, cache = vlm.vlm_prefill(model.lm, x, valid, positions, cfg.lm,
+                                          x.shape[1] + n_new, use_flash=True)
+            tok = qwen2_mod.lm_logits(model.lm, last[:, None], cfg.lm)[:, 0].argmax(dim=-1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_new - 1):
+                logits, cache = vlm.vlm_decode_step(model, tok, cache, cfg.lm)
+                tok = logits.argmax(dim=-1)
+            torch.cuda.synchronize()
+            decode_ms.append(1e3 * (time.perf_counter() - t0) / (n_new - 1))
+        del x, valid, positions, last, cache
     toks = out[0].tolist()
     print(f"generate [8b vlm] {t_frames} frames, hw {hw}, prompt of "
           f"{32 + t_frames * hw * hw + 64} slots, {n_new} new tokens: prefill (tower + packing + "
-          f"causal prefill + first token) {prefill_s:.4f} s, {ms_per_token:.3f} ms per decoded "
-          f"token, total {total_s:.4f} s, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches {gen_launches}, tokens "
-          f"{toks} [{card}]", flush=True)
+          f"causal prefill + first token) {prefill_s:.4f} s, total {total_s:.4f} s, peak device "
+          f"memory {peak:.3f} GiB, launches {gen_launches}, tokens {toks}; decode, "
+          f"{n_new - 1} steps timed alone after a prefill, three repeats in this process: "
+          f"{', '.join(f'{ms:.3f}' for ms in decode_ms)} ms per decoded token [{card}]",
+          flush=True)
     if tuple(out.shape) != (1, n_new) or out.dtype != torch.int32 or \
             not all(0 <= tok < cfg.lm.vocab_size for tok in toks):
         fail(f"generation returned {out}")
@@ -2163,11 +2291,13 @@ def run_vlm(dev, card: str) -> dict:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=["int8-kernels", "train-kernels", "splash-kernels",
+    parser.add_argument("--only", choices=["attention-kernels", "int8-kernels", "train-kernels",
+                                          "splash-kernels",
                                           "segment-kernels", "vlm",
                                           "serve", "train"],
                         default=None,
-                        help="build, then only: check kernels F-I (int8-kernels), C, D, E "
+                        help="build, then only: check kernels A, B (attention-kernels, with "
+                             "ptxas' lines for them), F-I (int8-kernels), C, D, E "
                              "(train-kernels), K, L (splash-kernels) or J (segment-kernels) "
                              "against their plain versions; or run the daemon phase (serve), "
                              "the training phases (train) or the causal-VLM phases (vlm)")
@@ -2196,9 +2326,19 @@ def main(argv=None) -> int:
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'}) "
           f"-> {os.path.relpath(path, HERE)}", flush=True)
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "warning" in line.lower():
+        if any(w in line for w in ("registers", "spill", "Performance")) or \
+                "warning" in line.lower():
             print(f"  ptxas: {line.strip()}", flush=True)
 
+    if args.only == "attention-kernels":
+        if _build.build_seconds is None:
+            print("  ptxas A/B: cached build, no lines (remove the build directory to see "
+                  "them)", flush=True)
+        for line in ptxas_lines(_build.build_log, "5hattn"):
+            print(f"  ptxas A/B: {line}", flush=True)
+        check_kernels(dev)
+        print("attention kernels A and B agree with their plain versions", flush=True)
+        return 0
     if args.only == "int8-kernels":
         check_int8_kernels(dev)
         print("int8 kernels agree with their plain versions", flush=True)

@@ -44,8 +44,7 @@ sys.path.insert(0, REPO)
 
 # Kernel-name fragments -> group, first match wins.
 GROUPS = (
-    ("short_attention_kernel", "kernel A flash_mha_short"),
-    ("flash_attention_kernel", "kernel B flash_mha"),
+    ("hattn::resident_kernel", "kernel A flash_mha_short"),
     ("splash_mqa_kernel", "kernel K splash_mqa"),
     ("act8_gemm_kernel", "kernel F act8_gemm"),
     ("ln_qkv_kernel", "kernel G fused_ln_qkv_int8"),
@@ -69,6 +68,8 @@ TRACER_ROWS = ("Command Buffer Full", "Activity Buffer Request")
 
 
 def group_of(name: str) -> str:
+    if "hattn::stream_kernel" in name:  # kernel B, or A in its two-pass mode beyond resident K
+        return "kernel A flash_mha_short" if ", true>" in name else "kernel B flash_mha"
     for fragment, group in GROUPS:
         if fragment in name:
             return group

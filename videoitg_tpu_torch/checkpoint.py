@@ -23,8 +23,9 @@ ways on dense, `w_q` and `w_q4` linears, in their own dtype, bit for bit.
 
 The tree's leaves must already be numpy arrays (`jax.tree.map(np.asarray,
 params)` on the JAX side); this module imports no jax. Loading HF
-safetensors waits until released weights are in the repository (ROADMAP
-queue 1).
+safetensors is not ported yet (ROADMAP queue 1, item 3); it needs no
+released weights, since the JAX package writes HF-layout checkpoints from
+random parameters.
 """
 
 from __future__ import annotations

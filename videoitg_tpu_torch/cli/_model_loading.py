@@ -26,8 +26,8 @@ def load_grounding_components(model: str | None, preset_name: str, random_init: 
                               quantize: str | None = None, tool: str = "videoitg-torch"):
     """(model, cfg, tokenizer) for a random-init preset, with the optional
     serving quantisation tier ('int8', 'int4', 'act8') applied in place. HF
-    checkpoints and pre-quantised serving checkpoints wait until released
-    weights are in the repository (ROADMAP queue 1)."""
+    checkpoints and pre-quantised serving checkpoints are not ported yet
+    (ROADMAP queue 1, item 3; they need no released weights)."""
     from videoitg_tpu_torch.config import preset as get_preset
     from videoitg_tpu_torch.models.grounding import init_grounding
     from videoitg_tpu_torch.utils.common import CharTokenizer

@@ -1,4 +1,4 @@
-// Short-sequence attention for the SigLIP vision tower (sm_90a).
+// Short-sequence attention for the SigLIP vision tower (sm_90a): kernel A.
 //
 // Replaces the TPU kernel `_short_kernel` in
 // videoitg_tpu/ops/flash_attention_short.py (entry `flash_mha_short`):
@@ -12,165 +12,65 @@
 // That is ~364 FLOP per byte, above the card's ~295 bf16 ridge, so the
 // tensor cores are the limit, not HBM.
 //
-// Design: one block per (frame x head, 64-query tile), 4 warps of 16 query
-// rows, mma.sync m16n8k16 in bf16 with fp32 accumulation for both products.
-// The TPU kernel divides P by its row sum before rounding P to bf16, so each
-// row's max and sum are needed before any P V: the kernel walks the keys
-// twice. Pass 1 computes Q K^T, the row max and the fp32 sum of
-// exp2((s - max) * scale * log2 e) online (the sum rescaled when the max
-// grows); pass 2 recomputes Q K^T, takes p = exp2((s - max) * scale * log2 e)
-// times the row's 1 / sum, rounds p to bf16 and accumulates P V. Two
-// departures from the TPU arithmetic, both at fp32 rounding level before p
-// is rounded to bf16: the online sum rounds differently from a sum taken
-// after the max is known, and p is multiplied by the reciprocal (the TPU
-// kernel's `recip` arm) where `exact` divides; a divide per score cost 10%
-// more time. The second Q K^T costs 50% more MMA work than one pass but keeps
-// the score row out of shared memory (729 fp32 scores x 64 rows would take
-// 187 KB and leave one block per SM). The online sum lifts the kernel to 143
-// registers and 3 blocks per SM; the launch bound holds it to 128 registers
-// (an 8-byte spill) and 4 blocks, which took the call from 8.30 to 6.68 ms
-// on an H100 80GB HBM3 at 700 W. D = 72 is zero-padded to 80 in shared memory for
-// the k16 MMA step (exact: the zero columns add nothing to Q K^T); S = 729
-// is masked at the ragged tile edge; padded rows are never stored. K tiles
-// of one (frame, head) are re-read by its 12 query tiles from L2.
-#include "attention_common.cuh"
+// Design (hopper_attention.cuh): option (a) of the redesign, two walks with a
+// cheap first one. The TPU kernel divides P by its row sum before rounding P
+// to bf16, so each row's max and sum are needed before any P V. One block
+// (`resident_kernel`: two consumer warpgroups of 64 rows, one producer warp)
+// owns a (frame, head): it stages the whole K by TMA once (6 tiles of 128 x
+// 80 at S = 729: 122,880 bytes, rows past S and columns past D zero-filled),
+// keeps two Q tiles in flight and walks its 6 query tiles. Per query tile,
+// pass 1 computes Q K^T from shared memory only, the row max and the online
+// fp32 sum of exp2((s - max) * scale * log2 e); pass 2 computes Q K^T again,
+// p = exp2(...) times the row's 1 / sum, rounded to bf16, and P V with V
+// streamed through a 2-stage TMA ring. The price is 1.5x the MMA work, ~555
+// GFLOP a call with the padding. Option (b), one Q K^T with a 64 x 736 fp32
+// score row kept on chip, needs 184 score registers a thread over two
+// warpgroups before O and P, or 188 KB of shared memory beside the tiles.
+//
+// Why K is resident: the first TMA version streamed K through the ring in
+// both passes, one block per 128-query tile, and took 2.09 ms, where the same
+// kernel at D = 80 took 1.69: each (frame, head)'s K came from L2 twelve
+// times and V six, in 32-byte boxes at a 144-byte row pitch that straddle two
+// 32-byte sectors on every other row. With K resident the call is 1.48 ms at
+// D = 72 and at D = 80 alike. Beyond resident_tiles<DP>() (S > 896 at D = 72)
+// the streaming kernel serves, in two-pass mode.
+//
+// Departures from the TPU arithmetic, all at fp32 rounding level before p is
+// rounded to bf16: the online sum rounds differently from a sum taken after
+// the max is known; p is exp2(s * scale - max * scale) (one FMA and ex2.approx)
+// times the reciprocal of the sum; keys are summed in tiles of 128 split over
+// the 4 threads of a row. D = 72 is read as 80 (zero columns, exact in Q K^T
+// and never stored); the ragged S = 729 is masked at the last tile's edge;
+// rows past S are never stored.
+//
+// ptxas (-Xptxas -v, sm_90a): 168 registers at entry for every head dim,
+// 0 bytes of spill; setmaxnreg raises the consumers to 232 (see
+// hopper_attention.cuh).
+#include "hopper_attention.cuh"
 
 namespace videoitg {
 
 template <int DP>
-__global__ void __launch_bounds__(kThreads, 4)
-short_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                       int S, int D, float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kBlockQ * (DP + kPad);
-  __nv_bfloat16* vt = ks + kBlockK * (DP + kPad);
-
-  const size_t base = static_cast<size_t>(blockIdx.x) * S * D;  // (frame, head)
-  const int q0 = blockIdx.y * kBlockQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-
-  load_rows<kBlockQ, DP>(qs, q + base, q0, S, D);
-  __syncthreads();
-  uint32_t qa[DP / 16][4];
-  load_q_fragments<DP>(qa, qs, warp, g, t);
-
-  const int n_tiles = (S + kBlockK - 1) / kBlockK;
-  float s[kBlockK / 8][4];
-
-  // Pass 1: the row max of the raw scores and the row sum of exp2, online.
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    __syncthreads();
-    load_rows<kBlockK, DP>(ks, k + base, kt * kBlockK, S, D);
-    __syncthreads();
-    tile_scores<DP>(s, qa, ks, g, t);
-    float t0 = -INFINITY, t1 = -INFINITY;
-#pragma unroll
-    for (int nb = 0; nb < kBlockK / 8; ++nb) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if (kt * kBlockK + nb * 8 + 2 * t + j < S) {
-          t0 = fmaxf(t0, s[nb][j]);
-          t1 = fmaxf(t1, s[nb][2 + j]);
-        }
-      }
-    }
-    // Every tile holds at least one key < S, so the new max is finite.
-    const float n0 = fmaxf(m0, quad_max(t0));
-    const float n1 = fmaxf(m1, quad_max(t1));
-    l0 *= exp2f((m0 - n0) * scale_log2);
-    l1 *= exp2f((m1 - n1) * scale_log2);
-    m0 = n0;
-    m1 = n1;
-#pragma unroll
-    for (int nb = 0; nb < kBlockK / 8; ++nb) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if (kt * kBlockK + nb * 8 + 2 * t + j < S) {
-          l0 += exp2f((s[nb][j] - m0) * scale_log2);
-          l1 += exp2f((s[nb][2 + j] - m1) * scale_log2);
-        }
-      }
-    }
-  }
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-
-  // Pass 2: p = exp2((s - max) * scale) / sum, rounded to bf16 into P V.
-  const float r0 = 1.f / l0, r1 = 1.f / l1;
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int nb = 0; nb < DP / 8; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    __syncthreads();
-    load_rows<kBlockK, DP>(ks, k + base, kt * kBlockK, S, D);
-    load_rows_transposed<kBlockK, DP>(vt, v + base, kt * kBlockK, S, D);
-    __syncthreads();
-    tile_scores<DP>(s, qa, ks, g, t);
-#pragma unroll
-    for (int nb = 0; nb < kBlockK / 8; ++nb) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const bool key_ok = kt * kBlockK + nb * 8 + 2 * t + j < S;
-        s[nb][j] = key_ok ? exp2f((s[nb][j] - m0) * scale_log2) * r0 : 0.f;
-        s[nb][2 + j] = key_ok ? exp2f((s[nb][2 + j] - m1) * scale_log2) * r1 : 0.f;
-      }
-    }
-    tile_pv<DP>(acc, s, vt, g, t);
-  }
-
-  const int row = q0 + warp * 16 + g;
-  store_rows<DP>(o + base, acc, row, 1.f, false, row + 8, 1.f, false, S, D, t);  // P is normalised
-}
-
-template <int DP>
-cudaError_t launch_short(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                         const __nv_bfloat16* v, __nv_bfloat16* o, int BH, int S, int D,
-                         float scale_log2, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<DP>();
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        short_attention_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
-  dim3 grid(BH, (S + kBlockQ - 1) / kBlockQ);
-  short_attention_kernel<DP><<<grid, kThreads, smem, stream>>>(q, k, v, o, S, D, scale_log2);
-  return cudaGetLastError();
+cudaError_t launch_short(const hattn::Args& args) {
+  return hattn::launch_two_pass<DP>(args);
 }
 
 }  // namespace videoitg
 
-// q, k, v, out: contiguous bf16 [B, H, S, D] on the current device, D a
-// multiple of 8 and at most 128. Launches on `stream`; returns cudaGetLastError().
+// q, k, v, out: contiguous, 16-byte-aligned bf16 [B, H, S, D] on the current
+// device, D a multiple of 8 and at most 128, B and H at most 65535. Launches
+// on `stream`; returns cudaGetLastError().
 extern "C" int videoitg_flash_mha_short_bf16(const void* q, const void* k, const void* v,
                                              void* out, int B, int H, int S, int D,
                                              float sm_scale, void* stream) {
   using namespace videoitg;
-  if (B <= 0 || H <= 0 || S <= 0 || D <= 0 || D > 128 || D % 8 != 0) {
+  if (B <= 0 || H <= 0 || S <= 0 || D <= 0 || D > 128 || D % 8 != 0 || B > 65535 ||
+      H > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  const float scale_log2 = sm_scale * 1.4426950408889634f;
-  auto st = static_cast<cudaStream_t>(stream);
-  const int BH = B * H;
-  switch ((D + 15) / 16) {
-    case 1: return static_cast<int>(launch_short<16>(qp, kp, vp, op, BH, S, D, scale_log2, st));
-    case 2: return static_cast<int>(launch_short<32>(qp, kp, vp, op, BH, S, D, scale_log2, st));
-    case 3: return static_cast<int>(launch_short<48>(qp, kp, vp, op, BH, S, D, scale_log2, st));
-    case 4: return static_cast<int>(launch_short<64>(qp, kp, vp, op, BH, S, D, scale_log2, st));
-    case 5: return static_cast<int>(launch_short<80>(qp, kp, vp, op, BH, S, D, scale_log2, st));
-    case 6: return static_cast<int>(launch_short<96>(qp, kp, vp, op, BH, S, D, scale_log2, st));
-    case 7: return static_cast<int>(launch_short<112>(qp, kp, vp, op, BH, S, D, scale_log2, st));
-    default: return static_cast<int>(launch_short<128>(qp, kp, vp, op, BH, S, D, scale_log2, st));
-  }
+  const hattn::Args args{q, k, v, nullptr, out, B, H, H, S, D, 0,
+                         sm_scale * 1.4426950408889634f, static_cast<cudaStream_t>(stream)};
+  VIDEOITG_DISPATCH_DP(launch_short, args)
 }
 
 extern "C" const char* videoitg_cuda_error_string(int err) {

@@ -4,8 +4,9 @@ Counterpart of videoitg_tpu/models/projector.py. [T, P, C] tower features
 are viewed as T grids of sqrt(P)^2, resized to hw x hw exactly like torch
 `F.interpolate(mode="bilinear", align_corners=False)` through the numpy
 matrix `bilinear_resize_matrix` (ops/resize.py), in fp32, then Linear / GELU(erf) /
-Linear. Only the seq_mlp family is on the selection path; the linear,
-mlpNx_gelu and identity families wait for the causal VLM (ROADMAP queue 1).
+Linear. Only the seq_mlp family is ported: every preset and path of the port,
+the causal VLM included, uses it. The linear, mlpNx_gelu and identity
+families come with HF checkpoints that name them (ROADMAP queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ class Projector(nn.Module):
         if cfg.projector_type != "seq_mlp":
             raise NotImplementedError(
                 f"projector type {cfg.projector_type!r}: only seq_mlp is ported "
-                "(the other families come with the causal VLM, ROADMAP queue 1)")
+                "(the other families come with HF checkpoints, ROADMAP queue 1, item 3)")
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.fc1 = Linear(cfg.input_dim, cfg.output_dim, **kw)
         self.fc2 = Linear(cfg.output_dim, cfg.output_dim, **kw)

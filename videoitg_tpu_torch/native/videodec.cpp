@@ -149,7 +149,7 @@ void convert_to_rgb(Decoder* d, const AVFrame* frame, uint8_t* out) {
 // packed YUV420 planes (y/u/v set). The YUV path ships the decoder's
 // native limited-range BT.601 planes — half the bytes of RGB24 — so the
 // colorspace conversion can run on the accelerator instead of this host
-// (ops/preprocess.py yuv420_to_rgb of the JAX package; not ported yet).
+// (videoitg_tpu_torch/ops/preprocess.py yuv420_to_rgb).
 struct FrameDst {
   uint8_t* rgb = nullptr;
   uint8_t* y = nullptr;

@@ -16,6 +16,14 @@ def check_operands(name: str, *tensors: torch.Tensor) -> None:
                              f"plain version), got {x.device}")
         if x.device != device:
             raise ValueError(f"{name}: tensors on {device} and {x.device}")
+    check_layout(name, *tensors)
+
+
+def check_layout(name: str, *tensors: torch.Tensor) -> None:
+    """The device-independent half of `check_operands`: bf16, [B, H, S, D],
+    contiguous, 16-byte-aligned base (a TMA tensor map needs it), head dim a
+    multiple of 8 up to 128."""
+    for x in tensors:
         if x.dtype != torch.bfloat16:
             raise ValueError(f"{name}: the kernel takes bfloat16, got {x.dtype}")
         if x.dim() != 4:

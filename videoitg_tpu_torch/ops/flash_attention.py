@@ -1,8 +1,9 @@
 """Streaming GQA attention for the grounding LM: CUDA kernel + plain version.
 
 Counterpart of videoitg_tpu/ops/flash_attention.py (`flash_mha`, Pallas
-`_flash_kernel`). The kernel is csrc/flash_attention.cu, hand-written for
-Hopper; its source note gives the design. At the LM's 13k-token prefill a
+`_flash_kernel`). The kernel is csrc/flash_attention.cu on the TMA + wgmma
+skeleton of csrc/hopper_attention.cuh, hand-written for Hopper; its source
+note gives the design. At the LM's 13k-token prefill a
 plain implementation would materialise ~19 GB of fp32 scores per layer, so
 on the card only the kernel runs.
 
@@ -36,6 +37,29 @@ def flash_mha_reference(
     return out
 
 
+def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 valid: Optional[torch.Tensor]) -> None:
+    """Raise on what the kernel refuses beyond `check_operands`: Hq not a
+    multiple of Hkv, k / v not [B, Hkv, S, D], B or Hq above 65535 (the
+    grid), B * S of 2^31 or more, a key mask that is not a contiguous bool
+    [B, S] on q's device."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    if hq % hkv:
+        raise ValueError(f"flash_mha: Hq={hq} is not a multiple of Hkv={hkv}")
+    if k.shape != (b, hkv, s, d) or v.shape != k.shape:
+        raise ValueError(f"flash_mha: k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if b > 65535 or hq > 65535 or b * s >= 2 ** 31:
+        raise ValueError(f"flash_mha: q {tuple(q.shape)} is beyond the kernel's grid "
+                         f"(B, Hq <= 65535, B * S < 2^31)")
+    if valid is not None:
+        if (valid.dtype != torch.bool or valid.shape != (b, s)
+                or valid.device != q.device or not valid.is_contiguous()):
+            raise ValueError("flash_mha: valid must be a contiguous bool [B, S] "
+                             "tensor on q's device")
+
+
 def flash_mha(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -46,23 +70,15 @@ def flash_mha(
     """Streaming attention. Returns [B, Hq, S, D] in q.dtype.
 
     CPU tensors run `flash_mha_reference`. CUDA tensors launch the kernel
-    (bf16, contiguous, D a multiple of 8 up to 128) or raise.
+    (bf16, contiguous, 16-byte aligned, D a multiple of 8 up to 128) or
+    raise.
     """
     if q.device.type == "cpu":
         return flash_mha_reference(q, k, v, valid=valid, causal=causal)
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     check_operands("flash_mha", q, k, v)
-    if hq % hkv:
-        raise ValueError(f"flash_mha: Hq={hq} is not a multiple of Hkv={hkv}")
-    if k.shape != (b, hkv, s, d) or v.shape != k.shape:
-        raise ValueError(f"flash_mha: k {tuple(k.shape)} / v {tuple(v.shape)} do not "
-                         f"match q {tuple(q.shape)}")
-    if valid is not None:
-        if (valid.dtype != torch.bool or valid.shape != (b, s)
-                or valid.device != q.device or not valid.is_contiguous()):
-            raise ValueError("flash_mha: valid must be a contiguous bool [B, S] "
-                             "tensor on q's device")
+    check_shapes(q, k, v, valid)
     out = torch.empty_like(q)
     lib = _build.library()
     err = lib.videoitg_flash_mha_bf16(

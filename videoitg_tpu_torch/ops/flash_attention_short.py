@@ -4,8 +4,9 @@ Counterpart of videoitg_tpu/ops/flash_attention_short.py (`flash_mha_short`,
 Pallas `_short_kernel`): non-causal, unmasked attention with equal q and kv
 head counts, the exact softmax in fp32 (max, exp, sum, divide), P rounded to
 the operand type before P V, fp32 accumulation. The kernel is
-csrc/flash_attention_short.cu, hand-written for Hopper; its source note gives
-the design. The TPU kernel's layout knobs (`kt`, `group`, `frames`) and its
+csrc/flash_attention_short.cu on the TMA + wgmma skeleton of
+csrc/hopper_attention.cuh, hand-written for Hopper; its source note gives the
+design. The TPU kernel's layout knobs (`kt`, `group`, `frames`) and its
 experimental softmax arms are not carried over.
 """
 
@@ -31,6 +32,16 @@ def flash_mha_short_reference(
     return mha_reference(q, k, v, sm_scale=sm_scale)
 
 
+def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise on shapes the kernel refuses: q, k, v not of one shape (MHA, no
+    GQA), or B or H above 65535 (the kernel's grid)."""
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_mha_short: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} must match (MHA, no GQA)")
+    if q.shape[0] > 65535 or q.shape[1] > 65535:
+        raise ValueError(f"flash_mha_short: B and H must be at most 65535, got {tuple(q.shape)}")
+
+
 def flash_mha_short(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -41,14 +52,13 @@ def flash_mha_short(
     D**-0.5.
 
     CPU tensors run `flash_mha_short_reference`. CUDA tensors launch the
-    kernel (bf16, contiguous, D a multiple of 8 up to 128) or raise.
+    kernel (bf16, contiguous, 16-byte aligned, D a multiple of 8 up to 128)
+    or raise.
     """
     if q.device.type == "cpu":
         return flash_mha_short_reference(q, k, v, sm_scale=sm_scale)
     check_operands("flash_mha_short", q, k, v)
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"flash_mha_short: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)} must match (MHA, no GQA)")
+    check_shapes(q, k, v)
     b, h, s, d = q.shape
     out = torch.empty_like(q)
     lib = _build.library()
