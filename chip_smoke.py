@@ -22,10 +22,16 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      training shape [1, 28/4, 16640, 128] with a 16,500-token valid prefix
      (plain versions run whole, one query head of each group at a time), a
      ragged S = 4,101, a causal two-row case with dead rows, two rows of
-     different valid lengths, D = 72 with GQA, seven more head dims from 8
-     to 120 (every instantiation runs), and the tower's shape
-     [32, 16, 729, 72] (forward only). The backward is compared like with
-     like: both sides get the kernel's own o and lse. Tolerance: 4 bf16
+     different valid lengths, D = 72 with GQA, eight head dims from 8 to 128
+     at S = 130 (every instantiation runs), each causal and not, causal at
+     the VLM SFT step's [1, 28/4, 16,960, 128] with the packed layout's key
+     mask (timed beside J's forward on the same tokens and the library call
+     with the same boolean mask), and the tower's shape [32, 16, 729, 72]
+     (forward only). C runs on the TMA + wgmma kernel of kernel B with the
+     lse store, E on its own TMA + wgmma kernel
+     (csrc/hopper_attention_dkv.cuh; `--only train-kernels` prints ptxas'
+     lines for both). The backward is compared like with like: both sides
+     get the kernel's own o and lse. Tolerance: 4 bf16
      half-ulps of each output's max|reference|, lse 1e-3 absolute. Invalid
      rows of o and dq and invalid keys of dk, dv must be exactly 0, and two
      runs of dK/dV bit-equal. Library call: scaled_dot_product_attention
@@ -716,6 +722,7 @@ def check_train_kernels(dev) -> dict:
     import torch
     from torch.nn import functional as F
 
+    from videoitg_tpu_torch.ops import flash_attention_segment as fas
     from videoitg_tpu_torch.ops import flash_attention_train as fat
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 20)
@@ -898,11 +905,69 @@ def check_train_kernels(dev) -> dict:
                    False))
 
     # The other head dims the wrappers take (each its own instantiation,
-    # padded to a multiple of 16 in shared memory), at a small ragged length.
-    for d in (8, 24, 40, 56, 88, 104, 120):
+    # padded to a multiple of 16 in shared memory), and the main path's 128,
+    # at a small ragged length, each causal and not.
+    for d in (8, 24, 40, 56, 88, 104, 120, 128):
         q, k, v = randn(1, 4, 130, d), randn(1, 2, 130, d), randn(1, 2, 130, d)
-        widen(run_case(f"[1, 4/2, 130, {d}], 100 valid", q, k, v,
-                       torch.arange(130, device=dev)[None] < 100, causal=d % 32 == 24))
+        for causal in (False, True):
+            widen(run_case(f"[1, 4/2, 130, {d}], 100 valid, causal={causal}", q, k, v,
+                           torch.arange(130, device=dev)[None] < 100, causal=causal))
+
+    # Causal at the VLM SFT step's shape: [pre 64 | image 16,384 | post 512]
+    # with 30 and 200 text slots used, so the key mask has holes. Timed
+    # beside J's forward on the same tokens as `mha_trainable` hands them over
+    # (KV heads repeated to 28, zero padding to 17,408, ids from the mask) and
+    # the library call with the same boolean mask (kv heads expanded).
+    s = 64 + 16384 + 512
+    pos = torch.arange(s, device=dev)
+    valid = ((pos < 30) | ((pos >= 64) & (pos < 64 + 16384 + 200)))[None].contiguous()
+    q, k, v = randn(1, 28, s, 128), randn(1, 4, s, 128), randn(1, 4, s, 128)
+    case = run_case(f"causal [1, 28/4, {s}, 128], VLM layout", q, k, v, valid, True)
+    widen(case)
+    do0, delta = fat.prepare_backward(valid, case["o"], case["do"])
+    lse = case["lse"]
+    del case
+    vlm = dict(fwd=cuda_ms(lambda: fat.flash_train_fwd(q, k, v, valid, True), 5),
+               dq=cuda_ms(lambda: fat.flash_train_dq(q, k, v, valid, do0, lse, delta, True), 3),
+               dkv=cuda_ms(lambda: fat.flash_train_dkv(q, k, v, valid, do0, lse, delta, True), 3))
+    plain_vlm = cuda_ms(lambda: fat.flash_mha_train_reference(q, k, v, valid, True), 1)
+    del do0, delta, lse
+    k28, v28 = k.repeat_interleave(7, dim=1), v.repeat_interleave(7, dim=1)
+    attn_mask = valid[:, None, None, :] & torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    lib_vlm = cuda_ms(lambda: F.scaled_dot_product_attention(q, k28, v28, attn_mask=attn_mask), 3)
+    del attn_mask
+    pad = -(-s // 512) * 512 - s
+    qp, kp, vp = (F.pad(x, (0, 0, 0, pad)) for x in (q, k28, v28))
+    ids = F.pad(valid.to(torch.int32), (0, pad)).contiguous()
+    j_vlm = cuda_ms(lambda: fas.flash_segment_fwd(qp, kp, vp, ids, ids, True), 3)
+    del k28, v28, qp, kp, vp, ids
+    # Pairs on or below the diagonal whose key is valid: for every query row
+    # in the forward (an invalid row's lse is stored too), for the valid rows
+    # only in the backward (dq is 0 and dO zeroed on an invalid row).
+    seen = valid.cumsum(dim=1)
+    pairs = int(seen.sum().item())
+    pairs_valid = int((seen * valid).sum().item())
+    big, small, stat = q.numel() * 2, k.numel() * 2, 28 * s * 4
+    vlm_bounds = {name: bound(n * npairs * 128 * 28, PEAK_BF16, nbytes)
+                  for name, n, npairs, nbytes in (
+                      ("fwd", 4, pairs, 2 * big + 2 * small + stat),
+                      ("dq", 6, pairs_valid, 3 * big + 2 * small + 2 * stat),
+                      ("dkv", 8, pairs_valid, 2 * big + 4 * small + 2 * stat))}
+    print(f"kernel flash_train causal [1, 28/4, {s}, 128], VLM layout: fwd {vlm['fwd']:.4f} ms, "
+          f"dq {vlm['dq']:.4f} ms, dkv {vlm['dkv']:.4f} ms; plain fwd {plain_vlm:.4f} ms; "
+          f"kernel J fwd on the same tokens [1, 28, {s + pad}, 128] {j_vlm:.4f} ms; library "
+          f"(sdpa, the same boolean mask) fwd {lib_vlm:.4f} ms; bounds fwd "
+          f"{vlm_bounds['fwd']['bound_ms']:.4f}, dq {vlm_bounds['dq']['bound_ms']:.4f}, dkv "
+          f"{vlm_bounds['dkv']['bound_ms']:.4f} ms (operations, {pairs} pairs per head forward, "
+          f"{pairs_valid} backward)",
+          flush=True)
+    for part, rec in (("fwd", "flash_train_fwd"), ("dq", "flash_train_dq"),
+                      ("dkv", "flash_train_dkv")):
+        records[rec]["causal"] = dict(shape=[1, 28, s, 128], ms=vlm[part], **vlm_bounds[part])
+    records["flash_train_fwd"]["causal"].update(plain_ms=plain_vlm, library_ms=lib_vlm,
+                                                flash_segment_fwd_ms=j_vlm)
+    del q, k, v, valid
+    torch.cuda.empty_cache()
 
     # The vision tower's shape under training (frozen: forward only).
     q, k, v = (randn(32, 16, 729, 72) for _ in range(3))
@@ -2344,6 +2409,12 @@ def main(argv=None) -> int:
         print("int8 kernels agree with their plain versions", flush=True)
         return 0
     if args.only == "train-kernels":
+        if _build.build_seconds is None:
+            print("  ptxas C/E: cached build, no lines (remove the build directory to see "
+                  "them)", flush=True)
+        for tag, fragment in (("C", "ELb0ELb1EE"), ("E", "5hattn10dkv_kernel")):
+            for line in ptxas_lines(_build.build_log, fragment):
+                print(f"  ptxas {tag}: {line}", flush=True)
         check_train_kernels(dev)
         print("training attention kernels agree with their plain versions", flush=True)
         return 0

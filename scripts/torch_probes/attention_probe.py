@@ -1,4 +1,5 @@
-"""Probe: kernels A (flash_mha_short) and B (flash_mha) timed outside chip_smoke.py.
+"""Probe: the attention kernels A, B (serving) and C, D, E (training) timed
+outside chip_smoke.py.
 
     python3 scripts/torch_probes/attention_probe.py --shapes
         A, B (online, Hq == Hkv, no mask) and scaled_dot_product_attention
@@ -8,11 +9,25 @@
         A at [128, 16, 729, 72], B at [1, 28/4, 13056, 128] with and without
         its key mask, and B causal at the VLM prefill's [1, 28/4, 15584, 128],
         in this checkout and in each other one (for example the parent commit
-        unpacked by `git archive` into a directory .gitignore lists), each in
-        its own process with its own build, in turns: others, this, this, the
-        others in reverse.
+        unpacked by `git archive` into a directory .gitignore lists), in
+        turns: others, this, this, the others in reverse.
+    python3 scripts/torch_probes/attention_probe.py --train [OTHER_CHECKOUT ...]
+        C, D and E at the grounding step's [1, 28/4, 16640, 128] with 16,500
+        valid and causal at the VLM step's [1, 28/4, 16960, 128] (the packed
+        layout's key mask), in this checkout, in each other one and in
+        variants of this checkout's E (a copy of videoitg_tpu_torch/ under
+        build/attention_probe/ with one constant of
+        csrc/hopper_attention_dkv.cuh changed), in turns: others, this, the
+        variants, this, the others in reverse.
 
-CUDA events over 20 launches (10 for B) after one warm-up; needs one card.
+Each checkout runs in its own process, which builds its own library through
+its ops/_build.py and prints ptxas' lines for the DP = 128 instances of
+`hattn::stream_kernel` (and of `hattn::dkv_kernel` with --train) when it built
+it, and a hash of the machine code (cuobjdump -sass) of each `stream_kernel`
+instance that stores no lse, so that two checkouts' A and B can be compared
+instruction for instruction. Times: chip_smoke.py's CUDA-event timer, over 20
+launches (10 for B, 5 for C, 3 for D and E) after one warm-up; needs one card.
+
 Read on an NVIDIA H100 80GB HBM3 at 700 W, ms:
   --shapes, with the first TMA version of A (K and V streamed in both
   passes): [128, 16, 729, 72] A 2.0968, B 1.5070, sdpa 1.0683; [.., 729, 80]
@@ -25,25 +40,38 @@ Read on an NVIDIA H100 80GB HBM3 at 700 W, ms:
 
 from __future__ import annotations
 
+import hashlib
+import importlib.util
 import os
+import re
+import shutil
 import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+VARIANT_ROOT = os.path.join(HERE, "build", "attention_probe")
+# tag -> {constant of csrc/hopper_attention_dkv.cuh: value}
+E_VARIANTS = {
+    "E ring 2": {"kDkvStages": 2},
+    "E ring 4": {"kDkvStages": 4},
+    "E setmaxnreg 40 / 232": {"kDkvProducerRegs": 40, "kDkvConsumerRegs": 232},
+}
+# A `stream_kernel` instance without the lse store: DP, then the two-pass flag
+# (the checkouts from before the lse store have no third template argument).
+STREAM_NO_LSE = re.compile(r"stream_kernelILi(\d+)ELb([01])E(?:Lb0E)?EEv")
 
 
-def ms(fn, reps=20):
-    import torch
+def _smoke():
+    """chip_smoke.py of this checkout, for its timer and ptxas parser."""
+    path = os.path.join(HERE, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
-    fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+
+smoke = _smoke()
+cuda_ms = smoke.cuda_ms
 
 
 def kernels(root):
@@ -64,34 +92,135 @@ def shapes() -> None:
                   (16, 16, 4096, 72), (1, 28, 13056, 72), (128, 16, 1458, 72)]:
         q, k, v = (torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
-        print(shape, "A %.4f" % ms(lambda: flash_mha_short(q, k, v)),
-              "B-online %.4f" % ms(lambda: flash_mha(q, k, v)),
-              "sdpa %.4f" % ms(lambda: F.scaled_dot_product_attention(q, k, v)), flush=True)
+        print(shape, "A %.4f" % cuda_ms(lambda: flash_mha_short(q, k, v), 20),
+              "B-online %.4f" % cuda_ms(lambda: flash_mha(q, k, v), 20),
+              "sdpa %.4f" % cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20),
+              flush=True)
+
+
+def sass_hashes(lib_path: str, nvcc: str) -> dict:
+    """(DP, two-pass) -> (hash, instruction count) of each `stream_kernel`
+    instance without the lse store, from cuobjdump -sass; addresses and
+    encodings are left out, so equal hashes mean the same instructions."""
+    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    proc = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {proc.stderr.strip()[-300:]}")
+    out, key, body = {}, None, []
+    text = proc.stdout
+    for line in text.splitlines() + ["Function : end"]:
+        if "Function :" in line:
+            if key is not None:
+                out[key] = (hashlib.sha256("\n".join(body).encode()).hexdigest()[:16], len(body))
+            match = STREAM_NO_LSE.search(line)
+            key = (int(match.group(1)), match.group(2) == "1") if match else None
+            body = []
+            continue
+        instr = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
+        if key is not None and instr:
+            body.append(instr.group(1))
+    return out
+
+
+def code_report(tag: str, train: bool) -> None:
+    """Builds this process's library; prints ptxas' lines and the hashes."""
+    from videoitg_tpu_torch.ops import _build
+
+    path = _build.build()
+    _build.library()
+    if _build.build_seconds is None:
+        print(f"{tag}: cached build, no ptxas lines", flush=True)
+    fragments = ("stream_kernelILi128E",) + (("dkv_kernelILi128E",) if train else ())
+    for fragment in fragments:
+        for line in smoke.ptxas_lines(_build.build_log, fragment):
+            print(f"{tag}: ptxas {line}", flush=True)
+    try:
+        hashes = sass_hashes(path, _build.nvcc_path())
+    except (OSError, RuntimeError) as exc:  # the timings below need no disassembler
+        print(f"{tag}: no machine code hashes: {exc}", flush=True)
+        return
+    print(f"{tag}: stream_kernel code without lse (DP, two-pass: sha256[:16] / instructions): "
+          + ", ".join(f"{dp}{' two-pass' if two else ''}: {h} / {n}"
+                      for (dp, two), (h, n) in sorted(hashes.items())), flush=True)
 
 
 def one_checkout(tag: str) -> None:
     import torch
 
     flash_mha_short, flash_mha = kernels(os.getcwd())
+    code_report(tag, train=False)
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def r(*sh):
         return torch.randn(*sh, generator=g, device="cuda").to(torch.bfloat16)
 
     q, k, v = r(128, 16, 729, 72), r(128, 16, 729, 72), r(128, 16, 729, 72)
-    a_ms = ms(lambda: flash_mha_short(q, k, v))
+    a_ms = cuda_ms(lambda: flash_mha_short(q, k, v), 20)
     s = 13056
     q, k, v = r(1, 28, s, 128), r(1, 4, s, 128), r(1, 4, s, 128)
     valid = torch.rand(1, s, generator=g, device="cuda") > 0.01
-    b_ms = ms(lambda: flash_mha(q, k, v, valid=valid), 10)
-    b_nomask = ms(lambda: flash_mha(q, k, v), 10)
+    b_ms = cuda_ms(lambda: flash_mha(q, k, v, valid=valid), 10)
+    b_nomask = cuda_ms(lambda: flash_mha(q, k, v), 10)
     s = 15584
     q, k, v = r(1, 28, s, 128), r(1, 4, s, 128), r(1, 4, s, 128)
     valid = torch.ones(1, s, dtype=torch.bool, device="cuda")
     valid[0, 30:32] = False
-    c_ms = ms(lambda: flash_mha(q, k, v, valid=valid, causal=True), 10)
+    c_ms = cuda_ms(lambda: flash_mha(q, k, v, valid=valid, causal=True), 10)
     print(f"{tag}: A {a_ms:.4f} B {b_ms:.4f} B-nomask {b_nomask:.4f} B-causal {c_ms:.4f}",
           flush=True)
+
+
+def one_checkout_train(tag: str) -> None:
+    import torch
+
+    sys.path.insert(0, os.getcwd())
+    from videoitg_tpu_torch.ops import flash_attention_train as fat
+
+    code_report(tag, train=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def r(*sh):
+        return torch.randn(*sh, generator=g, device="cuda").to(torch.bfloat16)
+
+    s = 16640
+    main = (r(1, 28, s, 128), r(1, 4, s, 128), r(1, 4, s, 128),
+            (torch.arange(s, device="cuda") < 16500)[None].contiguous(), False)
+    s = 64 + 16384 + 512
+    pos = torch.arange(s, device="cuda")
+    valid = ((pos < 30) | ((pos >= 64) & (pos < 64 + 16384 + 200)))[None].contiguous()
+    causal = (r(1, 28, s, 128), r(1, 4, s, 128), r(1, 4, s, 128), valid, True)
+    times = []
+    for q, k, v, valid, is_causal in (main, causal):
+        o, lse = fat.flash_train_fwd(q, k, v, valid, is_causal)
+        do, delta = fat.prepare_backward(valid, o, r(*q.shape))
+        times.append((
+            cuda_ms(lambda: fat.flash_train_fwd(q, k, v, valid, is_causal), 5),
+            cuda_ms(lambda: fat.flash_train_dq(q, k, v, valid, do, lse, delta, is_causal), 3),
+            cuda_ms(lambda: fat.flash_train_dkv(q, k, v, valid, do, lse, delta, is_causal), 3)))
+        del o, lse, do, delta
+        torch.cuda.empty_cache()
+    (c, d, e), (cc, dc, ec) = times
+    print(f"{tag}: C {c:.4f} D {d:.4f} E {e:.4f}; causal C {cc:.4f} D {dc:.4f} E {ec:.4f}",
+          flush=True)
+
+
+def variant(tag: str, change: dict) -> str:
+    """A copy of this checkout's package with `change` applied to E's header."""
+    root = os.path.join(VARIANT_ROOT, re.sub(r"[^A-Za-z0-9]+", "_", tag))
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(os.path.join(HERE, "videoitg_tpu_torch"),
+                    os.path.join(root, "videoitg_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__", "*.so"))
+    header = os.path.join(root, "videoitg_tpu_torch", "csrc", "hopper_attention_dkv.cuh")
+    with open(header) as f:
+        text = f.read()
+    for name, value in change.items():
+        text, n = re.subn(rf"(constexpr int {name} = )\d+;", rf"\g<1>{value};", text)
+        if n != 1:
+            raise SystemExit(f"{tag}: constant {name} not found in {header}")
+    with open(header, "w") as f:
+        f.write(text)
+    return root
 
 
 def main(argv) -> int:
@@ -99,16 +228,18 @@ def main(argv) -> int:
         shapes()
         return 0
     if argv[:1] == ["--one"]:
-        one_checkout(argv[1])
+        (one_checkout_train if argv[2:3] == ["--train"] else one_checkout)(argv[1])
         return 0
-    if not argv:
+    train = argv[:1] == ["--train"]
+    others = [(os.path.abspath(p), "other " + p) for p in argv[train:]]
+    if not others and not train:
         raise SystemExit(__doc__)
-    others = [os.path.abspath(p) for p in argv]
-    order = [(o, "other " + o) for o in others] + [(HERE, "this")] * 2 + \
-        [(o, "other " + o) for o in reversed(others)]
+    middle = [(variant(tag, change), tag) for tag, change in E_VARIANTS.items()] if train else []
+    order = others + [(HERE, "this")] + middle + [(HERE, "this")] + others[::-1]
     for root, tag in order:
-        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tag], cwd=root,
-                           capture_output=True, text=True, timeout=600)
+        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tag]
+                           + (["--train"] if train else []), cwd=root, capture_output=True,
+                           text=True, timeout=900)
         print(p.stdout.strip(), p.stderr.strip()[-500:], flush=True)
     return 0
 

@@ -50,9 +50,8 @@ GROUPS = (
     ("ln_qkv_kernel", "kernel G fused_ln_qkv_int8"),
     ("ln_mlp_kernel", "kernel H fused_ln_mlp_int8"),
     ("proj_res_kernel", "kernel I fused_proj_residual_int8"),
-    ("flash_train_fwd_kernel", "kernel C flash_train_fwd"),
     ("flash_train_dq_kernel", "kernel D flash_train_dq"),
-    ("flash_train_dkv_kernel", "kernel E flash_train_dkv"),
+    ("hattn::dkv_kernel", "kernel E flash_train_dkv"),
     ("flash_segment_fwd_kernel", "kernel J flash_segment_fwd"),
     ("flash_segment_dq_kernel", "kernel J flash_segment_dq"),
     ("flash_segment_dkv_kernel", "kernel J flash_segment_dkv"),
@@ -68,8 +67,12 @@ TRACER_ROWS = ("Command Buffer Full", "Activity Buffer Request")
 
 
 def group_of(name: str) -> str:
-    if "hattn::stream_kernel" in name:  # kernel B, or A in its two-pass mode beyond resident K
-        return "kernel A flash_mha_short" if ", true>" in name else "kernel B flash_mha"
+    # stream_kernel<DP, kTwoPass, kLse>: kernel C with the lse store, A in its
+    # two-pass mode beyond resident K, else B.
+    if "hattn::stream_kernel" in name:
+        if ", false, true>" in name:
+            return "kernel C flash_train_fwd"
+        return "kernel A flash_mha_short" if ", true, false>" in name else "kernel B flash_mha"
     for fragment, group in GROUPS:
         if fragment in name:
             return group

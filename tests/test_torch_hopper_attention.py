@@ -30,14 +30,17 @@ BLOCK_N = 128  # keys per tile (hattn::kBlockN)
 
 def _scores(q, k, k0, sm_scale):
     """Raw scores of one key tile and exp2's scale (scale folded as in the kernel)."""
-    return q @ k[..., k0:k0 + BLOCK_N, :].transpose(-1, -2), sm_scale * math.log2(math.e)
+    return (q.float() @ k[..., k0:k0 + BLOCK_N, :].float().transpose(-1, -2),
+            sm_scale * math.log2(math.e))
 
 
-def tiled_online(q, k, v, valid=None, causal=False):
+def tiled_online(q, k, v, valid=None, causal=False, with_lse=False):
     """Kernel B's arithmetic: per 128-key tile the running max (a row with no
     visible key keeps -inf and takes base 0), p = exp2(s * scale - base *
     scale) rounded to v's type, O and the sum rescaled by alpha; O / sum at
-    the end, 0 for invalid rows and rows with no visible valid key."""
+    the end, 0 for invalid rows and rows with no visible valid key. With
+    `with_lse` (kernel C) also lse = (max * scale + log2 sum) * ln 2 in fp32,
+    +inf where the sum is 0: returns (o, lse)."""
     b, hq, s, d = q.shape
     group = hq // k.shape[1]
     k, v = k.repeat_interleave(group, 1), v.repeat_interleave(group, 1)
@@ -59,12 +62,18 @@ def tiled_online(q, k, v, valid=None, causal=False):
         alpha = torch.exp2((m - base) * sl)
         p = torch.exp2(sc * sl - (base * sl)[..., None])
         l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + p.to(v.dtype) @ v[..., k0:k0 + BLOCK_N, :]
+        acc = acc * alpha[..., None] + p.to(v.dtype).float() @ v[..., k0:k0 + BLOCK_N, :].float()
         m = mn
     ok_rows = l > 0
     if valid is not None:
         ok_rows = ok_rows & valid[:, None, :]
-    return torch.where(ok_rows[..., None], acc / torch.where(ok_rows, l, 1.0)[..., None], 0.0)
+    o = torch.where(ok_rows[..., None], acc / torch.where(ok_rows, l, 1.0)[..., None], 0.0)
+    if not with_lse:
+        return o
+    sl = d ** -0.5 * math.log2(math.e)
+    lse = torch.where(l > 0, (m * sl + torch.log2(torch.where(l > 0, l, 1.0))) * math.log(2.0),
+                      math.inf)
+    return o.to(q.dtype), lse
 
 
 def tiled_two_pass(q, k, v, sm_scale=None):

@@ -305,8 +305,10 @@ def main(argv=None) -> int:
             now = time.time()
             s_per_step = (now - t_window) / max(1, step - last_logged)
             t_window, last_logged = now, step
+            # grad_norm is the norm over the leaves that train (gradients exist
+            # only for those); the JAX package's is over the whole tree.
             print(f"[train] step {step}/{total_steps} "
-                  f"loss={m['loss']:.4f} grad_norm={m['grad_norm']:.3f} "
+                  f"loss={m['loss']:.4f} trained_grad_norm={m['grad_norm']:.3f} "
                   f"{extras} "
                   f"({s_per_step:.1f}s/step)")
         ckpt.maybe_save(step, state)

@@ -1,5 +1,5 @@
-// The TMA + wgmma attention kernels behind kernels A (flash_attention_short.cu)
-// and B (flash_attention.cu). sm_90a.
+// The TMA + wgmma attention kernels behind kernels A (flash_attention_short.cu),
+// B (flash_attention.cu) and C (flash_attention_train.cu). sm_90a.
 //
 // A block is three warpgroups: two consumer warpgroups of 64 query rows each
 // (warps 0-7) and a producer warpgroup of which one warp works (warp 8). The
@@ -29,7 +29,9 @@
 //    running row max and sum, the rescale of O by alpha, p rounded to bf16
 //    into P V; masked keys (key mask, causal, key >= S) are -inf scores, a
 //    row with no visible key keeps max -inf and takes base 0, so its p and
-//    alpha are 0. Two-pass mode (kTwoPass = true, kernel A beyond
+//    alpha are 0. With kLse (kernel C) it also stores each row's logsumexp
+//    lse = sm_scale m + ln l in nats, +inf for a row with no visible valid
+//    key. Two-pass mode (kTwoPass = true, kernel A beyond
 //    `resident_tiles`): P is divided by its exact row sum before it is
 //    rounded to bf16, so pass 1 walks K for the row max and sum (online) and
 //    pass 2 walks K and V again; the producer loads K alone in pass 1.
@@ -229,13 +231,14 @@ __device__ __forceinline__ void advance(int& stage, uint32_t& phase, int n_stage
 
 // ------------------------------------------------------------ kernels --
 
-template <int DP, bool kTwoPass>
+template <int DP, bool kTwoPass, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 stream_kernel(const __grid_constant__ CUtensorMap q_map,
               const __grid_constant__ CUtensorMap k_map,
               const __grid_constant__ CUtensorMap v_map, const uint8_t* __restrict__ valid,
               __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int S, int D, int causal,
-              float scale_log2) {
+              float scale_log2, float* __restrict__ lse) {
+  static_assert(!(kTwoPass && kLse), "the logsumexp is stored in online mode only");
   constexpr int kTile = tile_bytes<DP>();
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages];
@@ -388,6 +391,17 @@ stream_kernel(const __grid_constant__ CUtensorMap q_map,
   }
   store_rows<DP>(o + static_cast<size_t>(bh_q) * S * D, acc, row0, row1, inv0, inv1, zero0,
                  zero1, S, D, t);
+  if constexpr (kLse) {
+    // lse = sm_scale m + ln l = (scale_log2 m + log2 l) ln 2, also for an
+    // invalid query row; +inf where no valid key was visible (l = 0), which
+    // makes every p of the row exp(-inf) = 0 in the backward.
+    if (t == 0) {
+      constexpr float kLn2 = 0.6931471805599453f;
+      float* lrow = lse + static_cast<size_t>(bh_q) * S;
+      if (row0 < S) lrow[row0] = inv0 > 0.f ? (m0 * scale_log2 + log2f(inv0)) * kLn2 : INFINITY;
+      if (row1 < S) lrow[row1] = inv1 > 0.f ? (m1 * scale_log2 + log2f(inv1)) * kLn2 : INFINITY;
+    }
+  }
 }
 
 // Kernel A with the (frame, head)'s K resident: grid (H, 1, B), S at most
@@ -533,6 +547,7 @@ struct Args {
   int B, Hq, Hkv, S, D, causal;
   float scale_log2;
   cudaStream_t stream;
+  float* lse = nullptr;  // [B, Hq, S] fp32, stream_kernel<DP, false, true> (kernel C) only
 };
 
 // Encodes the tensor maps of this call (a few microseconds each): Q in boxes
@@ -545,19 +560,19 @@ inline cudaError_t make_maps(const Args& a, CUtensorMap* q_map, CUtensorMap* k_m
   return err;
 }
 
-template <int DP, bool kTwoPass>
+template <int DP, bool kTwoPass, bool kLse = false>
 cudaError_t launch_stream(const Args& a) {
   CUtensorMap q_map, k_map, v_map;
   cudaError_t err = make_maps(a, &q_map, &k_map, &v_map);
   if (err != cudaSuccess) return err;
   constexpr int smem = stream_smem_bytes<DP>();
-  err = cudaFuncSetAttribute(stream_kernel<DP, kTwoPass>,
+  err = cudaFuncSetAttribute(stream_kernel<DP, kTwoPass, kLse>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(a.Hq, (a.S + kBlockM - 1) / kBlockM, a.B);
-  stream_kernel<DP, kTwoPass><<<grid, kThreads, smem, a.stream>>>(
+  stream_kernel<DP, kTwoPass, kLse><<<grid, kThreads, smem, a.stream>>>(
       q_map, k_map, v_map, a.valid, static_cast<__nv_bfloat16*>(a.o), a.Hq, a.Hkv, a.S, a.D,
-      a.causal, a.scale_log2);
+      a.causal, a.scale_log2, a.lse);
   return cudaGetLastError();
 }
 

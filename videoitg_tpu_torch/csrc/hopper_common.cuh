@@ -1,5 +1,6 @@
-// Hopper pieces of the attention kernels A and B (flash_attention_short.cu,
-// flash_attention.cu, through hopper_attention.cuh): shared-memory barriers
+// Hopper pieces of the attention kernels A, B, C (flash_attention_short.cu,
+// flash_attention.cu, flash_attention_train.cu, through hopper_attention.cuh)
+// and E (hopper_attention_dkv.cuh): shared-memory barriers
 // (mbarrier), TMA tile loads driven by tensor maps encoded on the host, and
 // the warpgroup MMA (wgmma) with its shared-memory descriptors and fences.
 // sm_90a only.
@@ -151,6 +152,17 @@ __device__ __forceinline__ void fence_operands(float (&r)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// The same for register A operands (packed bf16 fragments): keeps their
+// registers live, and unchanged, until the MMA that reads them has completed.
+template <int R, int C>
+__device__ __forceinline__ void fence_operands(uint32_t (&r)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int j = 0; j < C; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+  }
+}
+
 // d (+)= A B with A [64 x 16] and B [16 x N] read from shared memory through
 // their descriptors, both K-major (Q K^T). scale_d = 0 overwrites d.
 template <int N>
@@ -162,6 +174,25 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uin
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t desc_b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t desc_a, uint64_t desc_b,

@@ -38,25 +38,25 @@ def flash_mha_reference(
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 valid: Optional[torch.Tensor]) -> None:
+                 valid: Optional[torch.Tensor], name: str = "flash_mha") -> None:
     """Raise on what the kernel refuses beyond `check_operands`: Hq not a
     multiple of Hkv, k / v not [B, Hkv, S, D], B or Hq above 65535 (the
     grid), B * S of 2^31 or more, a key mask that is not a contiguous bool
-    [B, S] on q's device."""
+    [B, S] on q's device. The training kernels (same grid) share it."""
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     if hq % hkv:
-        raise ValueError(f"flash_mha: Hq={hq} is not a multiple of Hkv={hkv}")
+        raise ValueError(f"{name}: Hq={hq} is not a multiple of Hkv={hkv}")
     if k.shape != (b, hkv, s, d) or v.shape != k.shape:
-        raise ValueError(f"flash_mha: k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+        raise ValueError(f"{name}: k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
     if b > 65535 or hq > 65535 or b * s >= 2 ** 31:
-        raise ValueError(f"flash_mha: q {tuple(q.shape)} is beyond the kernel's grid "
+        raise ValueError(f"{name}: q {tuple(q.shape)} is beyond the kernel's grid "
                          f"(B, Hq <= 65535, B * S < 2^31)")
     if valid is not None:
         if (valid.dtype != torch.bool or valid.shape != (b, s)
                 or valid.device != q.device or not valid.is_contiguous()):
-            raise ValueError("flash_mha: valid must be a contiguous bool [B, S] "
+            raise ValueError(f"{name}: valid must be a contiguous bool [B, S] "
                              "tensor on q's device")
 
 

@@ -1,9 +1,12 @@
 """Trainable streaming attention with native GQA: CUDA kernels + plain versions.
 
 Counterpart of videoitg_tpu/ops/flash_attention_train.py (`flash_mha_train`,
-Pallas `_fwd_kernel`, `_dq_kernel`, `_dkv_kernel`). The kernels are in
-csrc/flash_attention_train.cu, hand-written for Hopper; the source note gives
-their design. Three wrappers launch them, each with a `.launches` count:
+Pallas `_fwd_kernel`, `_dq_kernel`, `_dkv_kernel`). The kernels are
+hand-written for Hopper and launched from csrc/flash_attention_train.cu: the
+forward on the TMA + wgmma kernel of csrc/hopper_attention.cuh with the lse
+store, dK/dV on the key-stationary TMA + wgmma kernel of
+csrc/hopper_attention_dkv.cuh, dQ on mma.sync; the source notes give their
+design. Three wrappers launch them, each with a `.launches` count:
 
 * `flash_train_fwd`  -> (o, lse): online-softmax forward plus the per-row
   logsumexp (natural log, fp32) that the backward needs.
@@ -31,7 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from videoitg_tpu_torch.ops import _build
+from videoitg_tpu_torch.ops import _build, flash_attention
 from videoitg_tpu_torch.ops._kernel_args import check_matrix, check_operands, stream_handle
 
 
@@ -132,24 +135,21 @@ def flash_mha_train_backward_reference(q, k, v, valid, o, lse, do, causal=False)
     return backward_on_kernel_inputs(q, k, v, valid, do, lse, delta, causal)
 
 
-def _check(name, q, k, v, valid, extra=()):
-    b, hq, s, d = q.shape
-    hkv = k.shape[1]
-    check_operands(name, q, k, v, *extra)
-    if hq % hkv:
-        raise ValueError(f"{name}: Hq={hq} is not a multiple of Hkv={hkv}")
-    if k.shape != (b, hkv, s, d) or v.shape != k.shape:
-        raise ValueError(f"{name}: k {tuple(k.shape)} / v {tuple(v.shape)} do not "
-                         f"match q {tuple(q.shape)}")
+def check_shapes(name, q, k, v, valid, extra=()):
+    """Raise on what the kernels refuse beyond `check_operands`: what
+    `flash_attention.check_shapes` refuses (the forward is kernel B's kernel),
+    and a dO that is not q's shape."""
+    flash_attention.check_shapes(q, k, v, valid, name=name)
     for x in extra:
         if x.shape != q.shape:
             raise ValueError(f"{name}: dO {tuple(x.shape)} does not match q {tuple(q.shape)}")
-    if valid is not None:
-        if (valid.dtype != torch.bool or valid.shape != (b, s)
-                or valid.device != q.device or not valid.is_contiguous()):
-            raise ValueError(f"{name}: valid must be a contiguous bool [B, S] "
-                             "tensor on q's device")
-    return b, hq, hkv, s, d
+
+
+def _check(name, q, k, v, valid, extra=()):
+    check_operands(name, q, k, v, *extra)
+    check_shapes(name, q, k, v, valid, extra)
+    b, hq, s, d = q.shape
+    return b, hq, k.shape[1], s, d
 
 
 def _check_stats(name, q, lse, delta):
