@@ -29,13 +29,17 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      with the same boolean mask), and the tower's shape [32, 16, 729, 72]
      (forward only). C runs on the TMA + wgmma kernel of kernel B with the
      lse store, E on its own TMA + wgmma kernel
-     (csrc/hopper_attention_dkv.cuh; `--only train-kernels` prints ptxas'
-     lines for both). The backward is compared like with like: both sides
+     (csrc/hopper_attention_dkv.cuh), D on the query-stationary TMA + wgmma
+     kernel it shares with J's dQ (csrc/hopper_attention_dq.cuh);
+     `--only train-kernels` prints ptxas' lines for C, E and both dQ
+     instances. The backward is compared like with like: both sides
      get the kernel's own o and lse. Tolerance: 4 bf16
      half-ulps of each output's max|reference|, lse 1e-3 absolute. Invalid
      rows of o and dq and invalid keys of dk, dv must be exactly 0, and two
-     runs of dK/dV bit-equal. Library call: scaled_dot_product_attention
-     forward for C, its autograd backward for D and E together.
+     runs of dQ and of dK/dV bit-equal. D causal at the VLM shape is timed
+     beside J's dQ on the same tokens. Library call:
+     scaled_dot_product_attention forward for C, its autograd backward for D
+     and E together.
    * J (trainable MHA with segment ids: forward + lse, dQ, dK/dV; the
      `use_flash="train-jax"` arm) at the shapes `mha_trainable` hands it: the
      grounding LM's [1, 28 heads after the KV repeat, 16,640 padded to 16,896,
@@ -48,7 +52,7 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      queries that match no key (o exactly 0, lse +inf, dq exactly 0); nine
      more head dims. Every row is compared, the id-0 rows included. The
      backward like with like, as C, D, E; the same tolerances; two runs of
-     dK/dV bit-equal. Broken uses: ids ignored (forward, dQ, dK/dV), the pad
+     dQ and of dK/dV bit-equal. Broken uses: ids ignored (forward, dQ, dK/dV), the pad
      keys left out of the invalid rows, delta dropped, causal dropped. Timed
      beside C, D, E on the same inputs and the library call with the same
      boolean mask; bounds from the pairs this run's ids admit.
@@ -182,6 +186,10 @@ FRAME_HW = (360, 640)  # a video-like decode resolution
 # at a time (PERF.md section 6; NVIDIA H100 80GB HBM3 at 700.00 W). Printed
 # for comparison only: this run does not measure them.
 FIRST_VERSION_MS = {"flash_mha_short": 6.7473, "flash_mha": 27.5702}
+# Fragments of the mangled names of kernel instances whose ptxas lines
+# `--only train-kernels` / `--only segment-kernels` print.
+DQ_PTXAS = (("D", "7KeyMask"), ("J dq", "10SegmentIds"))
+TRAIN_PTXAS = (("C", "ELb0ELb1EE"), ("E", "5hattn10dkv_kernel"))
 
 
 def fail(msg: str) -> None:
@@ -780,6 +788,8 @@ def check_train_kernels(dev) -> dict:
     dk2, dv2 = fat.flash_train_dkv(q, k, v, valid, do0, lse, delta)
     if not (torch.equal(dk2, c["dk"]) and torch.equal(dv2, c["dv"])):
         fail("flash_train_dkv: two runs differ")
+    if not torch.equal(fat.flash_train_dq(q, k, v, valid, do0, lse, delta), c["dq"]):
+        fail("flash_train_dq: two runs differ")
     del dk2, dv2
 
     # Deliberately broken uses, through the kernels themselves.
@@ -926,6 +936,12 @@ def check_train_kernels(dev) -> dict:
     widen(case)
     do0, delta = fat.prepare_backward(valid, case["o"], case["do"])
     lse = case["lse"]
+    ratio = max_err(fat.flash_train_dq(q, k, v, valid, do0, lse, delta, False),
+                    case["ref_dq"].float()) / case["tol_dq"]
+    print(f"kernel flash_train causal [1, 28/4, {s}, 128], VLM layout: broken use, worst error "
+          f"over its tolerance: causal ignored in dQ {ratio:.3g}x", flush=True)
+    if not ratio > 1.0:
+        fail(f"flash_train tolerance does not catch: causal ignored in dQ ({ratio}x)")
     del case
     vlm = dict(fwd=cuda_ms(lambda: fat.flash_train_fwd(q, k, v, valid, True), 5),
                dq=cuda_ms(lambda: fat.flash_train_dq(q, k, v, valid, do0, lse, delta, True), 3),
@@ -940,7 +956,12 @@ def check_train_kernels(dev) -> dict:
     qp, kp, vp = (F.pad(x, (0, 0, 0, pad)) for x in (q, k28, v28))
     ids = F.pad(valid.to(torch.int32), (0, pad)).contiguous()
     j_vlm = cuda_ms(lambda: fas.flash_segment_fwd(qp, kp, vp, ids, ids, True), 3)
-    del k28, v28, qp, kp, vp, ids
+    o_j, lse_j = fas.flash_segment_fwd(qp, kp, vp, ids, ids, True)
+    do_j = F.pad(randn(*q.shape), (0, 0, 0, pad))
+    delta_j = fas.segment_delta(o_j, do_j)
+    j_dq_vlm = cuda_ms(lambda: fas.flash_segment_dq(qp, kp, vp, ids, ids, do_j, lse_j, delta_j,
+                                                    True), 3)
+    del k28, v28, qp, kp, vp, ids, o_j, lse_j, do_j, delta_j
     # Pairs on or below the diagonal whose key is valid: for every query row
     # in the forward (an invalid row's lse is stored too), for the valid rows
     # only in the backward (dq is 0 and dO zeroed on an invalid row).
@@ -955,7 +976,8 @@ def check_train_kernels(dev) -> dict:
                       ("dkv", 8, pairs_valid, 2 * big + 4 * small + 2 * stat))}
     print(f"kernel flash_train causal [1, 28/4, {s}, 128], VLM layout: fwd {vlm['fwd']:.4f} ms, "
           f"dq {vlm['dq']:.4f} ms, dkv {vlm['dkv']:.4f} ms; plain fwd {plain_vlm:.4f} ms; "
-          f"kernel J fwd on the same tokens [1, 28, {s + pad}, 128] {j_vlm:.4f} ms; library "
+          f"kernel J fwd on the same tokens [1, 28, {s + pad}, 128] {j_vlm:.4f} ms, J dq "
+          f"{j_dq_vlm:.4f} ms; library "
           f"(sdpa, the same boolean mask) fwd {lib_vlm:.4f} ms; bounds fwd "
           f"{vlm_bounds['fwd']['bound_ms']:.4f}, dq {vlm_bounds['dq']['bound_ms']:.4f}, dkv "
           f"{vlm_bounds['dkv']['bound_ms']:.4f} ms (operations, {pairs} pairs per head forward, "
@@ -966,6 +988,7 @@ def check_train_kernels(dev) -> dict:
         records[rec]["causal"] = dict(shape=[1, 28, s, 128], ms=vlm[part], **vlm_bounds[part])
     records["flash_train_fwd"]["causal"].update(plain_ms=plain_vlm, library_ms=lib_vlm,
                                                 flash_segment_fwd_ms=j_vlm)
+    records["flash_train_dq"]["causal"]["flash_segment_dq_ms"] = j_dq_vlm
     del q, k, v, valid
     torch.cuda.empty_cache()
 
@@ -1286,6 +1309,9 @@ def check_segment_kernels(dev) -> dict:
     dk2, dv2 = fas.flash_segment_dkv(q, k, v, ids, ids, c["do"], c["lse"], delta)
     if not (torch.equal(dk2, c["dk"]) and torch.equal(dv2, c["dv"])):
         fail("flash_segment_dkv: two runs differ")
+    if not torch.equal(fas.flash_segment_dq(q, k, v, ids, ids, c["do"], c["lse"], delta),
+                       c["dq"]):
+        fail("flash_segment_dq: two runs differ")
     del dk2, dv2
     invalid_rows = slice(n_valid, s)
     inv_max = c["o"][:, :, invalid_rows].float().abs().max().item()
@@ -2408,13 +2434,15 @@ def main(argv=None) -> int:
         check_int8_kernels(dev)
         print("int8 kernels agree with their plain versions", flush=True)
         return 0
-    if args.only == "train-kernels":
+    if args.only in ("train-kernels", "segment-kernels"):
         if _build.build_seconds is None:
-            print("  ptxas C/E: cached build, no lines (remove the build directory to see "
-                  "them)", flush=True)
-        for tag, fragment in (("C", "ELb0ELb1EE"), ("E", "5hattn10dkv_kernel")):
+            print("  ptxas: cached build, no lines (remove the build directory to see them)",
+                  flush=True)
+        tagged = DQ_PTXAS + (TRAIN_PTXAS if args.only == "train-kernels" else ())
+        for tag, fragment in tagged:
             for line in ptxas_lines(_build.build_log, fragment):
                 print(f"  ptxas {tag}: {line}", flush=True)
+    if args.only == "train-kernels":
         check_train_kernels(dev)
         print("training attention kernels agree with their plain versions", flush=True)
         return 0

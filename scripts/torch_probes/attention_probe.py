@@ -14,19 +14,23 @@ outside chip_smoke.py.
     python3 scripts/torch_probes/attention_probe.py --train [OTHER_CHECKOUT ...]
         C, D and E at the grounding step's [1, 28/4, 16640, 128] with 16,500
         valid and causal at the VLM step's [1, 28/4, 16960, 128] (the packed
-        layout's key mask), in this checkout, in each other one and in
-        variants of this checkout's E (a copy of videoitg_tpu_torch/ under
-        build/attention_probe/ with one constant of
-        csrc/hopper_attention_dkv.cuh changed), in turns: others, this, the
+        layout's key mask), and J's dQ on the same tokens as the `train-jax`
+        arm hands them over ([1, 28, 16896, 128] with 16,500 id-1 tokens;
+        causal [1, 28, 17408, 128]), in this checkout, in each other one and
+        in variants of this checkout's dQ kernel (a copy of
+        videoitg_tpu_torch/ under build/attention_probe/ with constants of
+        csrc/hopper_attention_dq.cuh changed), in turns: others, this, the
         variants, this, the others in reverse.
 
 Each checkout runs in its own process, which builds its own library through
 its ops/_build.py and prints ptxas' lines for the DP = 128 instances of
-`hattn::stream_kernel` (and of `hattn::dkv_kernel` with --train) when it built
-it, and a hash of the machine code (cuobjdump -sass) of each `stream_kernel`
-instance that stores no lse, so that two checkouts' A and B can be compared
-instruction for instruction. Times: chip_smoke.py's CUDA-event timer, over 20
-launches (10 for B, 5 for C, 3 for D and E) after one warm-up; needs one card.
+`hattn::stream_kernel` (and of `hattn::dkv_kernel` and `hattn::dq_kernel` with
+--train) when it built it, and a hash of the machine code (cuobjdump -sass)
+of every instance of A, B, C and E (`resident_kernel`, `stream_kernel`,
+`dkv_kernel`); the last lines say, instance by instance, whether each other
+checkout's hashes equal this one's. Times: chip_smoke.py's CUDA-event timer,
+over 20 launches (10 for B, 5 for C, 3 for D, E and J's dQ) after one
+warm-up; needs one card.
 
 Read on an NVIDIA H100 80GB HBM3 at 700 W, ms:
   --shapes, with the first TMA version of A (K and V streamed in both
@@ -42,6 +46,7 @@ from __future__ import annotations
 
 import hashlib
 import importlib.util
+import json
 import os
 import re
 import shutil
@@ -50,15 +55,14 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 VARIANT_ROOT = os.path.join(HERE, "build", "attention_probe")
-# tag -> {constant of csrc/hopper_attention_dkv.cuh: value}
-E_VARIANTS = {
-    "E ring 2": {"kDkvStages": 2},
-    "E ring 4": {"kDkvStages": 4},
-    "E setmaxnreg 40 / 232": {"kDkvProducerRegs": 40, "kDkvConsumerRegs": 232},
+# tag -> {constant of csrc/hopper_attention_dq.cuh: value}
+DQ_VARIANTS = {
+    "dQ 64-key tiles, ring 4": {"kDqKeys": 64, "kDqStages": 4},
+    "dQ 64-key tiles, ring 3": {"kDqKeys": 64, "kDqStages": 3},
 }
-# A `stream_kernel` instance without the lse store: DP, then the two-pass flag
-# (the checkouts from before the lse store have no third template argument).
-STREAM_NO_LSE = re.compile(r"stream_kernelILi(\d+)ELb([01])E(?:Lb0E)?EEv")
+# The instances of A, B, C and E, by mangled name: the kernel, then its
+# template arguments (DP, and stream_kernel's two-pass and lse flags).
+HASHED = re.compile(r"hattn\d+(resident_kernel|stream_kernel|dkv_kernel)I((?:L[a-z]+\d+E)+)EEv")
 
 
 def _smoke():
@@ -98,10 +102,23 @@ def shapes() -> None:
               flush=True)
 
 
+def instance_name(kernel: str, args: str) -> str:
+    """'B DP 128', 'A two-pass DP 80', ... from a mangled instance."""
+    flags = re.findall(r"L[a-z]+(\d+)E", args)
+    dp = flags[0]
+    if kernel == "resident_kernel":
+        return f"A DP {dp}"
+    if kernel == "dkv_kernel":
+        return f"E DP {dp}"
+    if flags[1:2] == ["1"]:
+        return f"A two-pass DP {dp}"
+    return f"{'C' if flags[2:3] == ['1'] else 'B'} DP {dp}"
+
+
 def sass_hashes(lib_path: str, nvcc: str) -> dict:
-    """(DP, two-pass) -> (hash, instruction count) of each `stream_kernel`
-    instance without the lse store, from cuobjdump -sass; addresses and
-    encodings are left out, so equal hashes mean the same instructions."""
+    """instance -> (hash, instruction count) of each instance of A, B, C and
+    E, from cuobjdump -sass; addresses and encodings are left out, so equal
+    hashes mean the same instructions."""
     tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(nvcc), "cuobjdump")
     proc = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True)
     if proc.returncode != 0:
@@ -112,8 +129,8 @@ def sass_hashes(lib_path: str, nvcc: str) -> dict:
         if "Function :" in line:
             if key is not None:
                 out[key] = (hashlib.sha256("\n".join(body).encode()).hexdigest()[:16], len(body))
-            match = STREAM_NO_LSE.search(line)
-            key = (int(match.group(1)), match.group(2) == "1") if match else None
+            match = HASHED.search(line)
+            key = instance_name(match.group(1), match.group(2)) if match else None
             body = []
             continue
         instr = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
@@ -130,7 +147,8 @@ def code_report(tag: str, train: bool) -> None:
     _build.library()
     if _build.build_seconds is None:
         print(f"{tag}: cached build, no ptxas lines", flush=True)
-    fragments = ("stream_kernelILi128E",) + (("dkv_kernelILi128E",) if train else ())
+    fragments = ("stream_kernelILi128E",) + (
+        ("dkv_kernelILi128E", "dq_kernelILi128E") if train else ())
     for fragment in fragments:
         for line in smoke.ptxas_lines(_build.build_log, fragment):
             print(f"{tag}: ptxas {line}", flush=True)
@@ -139,9 +157,10 @@ def code_report(tag: str, train: bool) -> None:
     except (OSError, RuntimeError) as exc:  # the timings below need no disassembler
         print(f"{tag}: no machine code hashes: {exc}", flush=True)
         return
-    print(f"{tag}: stream_kernel code without lse (DP, two-pass: sha256[:16] / instructions): "
-          + ", ".join(f"{dp}{' two-pass' if two else ''}: {h} / {n}"
-                      for (dp, two), (h, n) in sorted(hashes.items())), flush=True)
+    print(f"{tag}: machine code of A, B, C, E (sha256[:16] / instructions): "
+          + ", ".join(f"{name}: {h} / {n}" for name, (h, n) in sorted(hashes.items())),
+          flush=True)
+    print("HASHES " + json.dumps({name: h for name, (h, _) in hashes.items()}), flush=True)
 
 
 def one_checkout(tag: str) -> None:
@@ -193,25 +212,62 @@ def one_checkout_train(tag: str) -> None:
     for q, k, v, valid, is_causal in (main, causal):
         o, lse = fat.flash_train_fwd(q, k, v, valid, is_causal)
         do, delta = fat.prepare_backward(valid, o, r(*q.shape))
-        times.append((
-            cuda_ms(lambda: fat.flash_train_fwd(q, k, v, valid, is_causal), 5),
-            cuda_ms(lambda: fat.flash_train_dq(q, k, v, valid, do, lse, delta, is_causal), 3),
-            cuda_ms(lambda: fat.flash_train_dkv(q, k, v, valid, do, lse, delta, is_causal), 3)))
+        def e():
+            return cuda_ms(lambda: fat.flash_train_dkv(q, k, v, valid, do, lse, delta, is_causal),
+                           3)
+
+        # E before and right after D: E's time depends on what ran before it.
+        times.append((cuda_ms(lambda: fat.flash_train_fwd(q, k, v, valid, is_causal), 5), e(),
+                      cuda_ms(lambda: fat.flash_train_dq(q, k, v, valid, do, lse, delta,
+                                                         is_causal), 3), e()))
         del o, lse, do, delta
         torch.cuda.empty_cache()
-    (c, d, e), (cc, dc, ec) = times
-    print(f"{tag}: C {c:.4f} D {d:.4f} E {e:.4f}; causal C {cc:.4f} D {dc:.4f} E {ec:.4f}",
-          flush=True)
+    j = segment_dq_times(r)
+    print(f"{tag}: " + "; ".join(
+        f"{what}C {c:.4f} E {e0:.4f} D {d:.4f} E-after-D {e1:.4f} J-dq {jt:.4f}"
+        for what, (c, e0, d, e1), jt in zip(("", "causal "), times, j)), flush=True)
+
+
+def segment_dq_times(r):
+    """J's dQ as the `train-jax` arm calls it: 4 KV heads repeated to 28, S
+    padded to a multiple of 512 with zeros in segment 0; (non-causal at the
+    grounding step, causal at the VLM step's layout)."""
+    import torch
+
+    from videoitg_tpu_torch.ops import flash_attention_segment as fas
+
+    out = []
+    for s, causal in ((16640, False), (64 + 16384 + 512, True)):
+        s_pad = -(-s // 512) * 512
+        pos = torch.arange(s_pad, device="cuda")
+        if causal:
+            ids = (pos < 30) | ((pos >= 64) & (pos < 64 + 16384 + 200))
+        else:
+            ids = pos < 16500
+        ids = ids.to(torch.int32)[None].contiguous()
+        q = r(1, 28, s_pad, 128)
+        k, v = (r(1, 4, s_pad, 128).repeat_interleave(7, dim=1) for _ in range(2))
+        for x in (q, k, v):
+            x[:, :, s:] = 0
+        o, lse = fas.flash_segment_fwd(q, k, v, ids, ids, causal)
+        do = r(1, 28, s_pad, 128)
+        delta = fas.segment_delta(o, do)
+        out.append(cuda_ms(lambda: fas.flash_segment_dq(q, k, v, ids, ids, do, lse, delta,
+                                                        causal), 3))
+        del q, k, v, o, lse, do, delta
+        torch.cuda.empty_cache()
+    return out
 
 
 def variant(tag: str, change: dict) -> str:
-    """A copy of this checkout's package with `change` applied to E's header."""
+    """A copy of this checkout's package with `change` applied to the dQ
+    kernel's header."""
     root = os.path.join(VARIANT_ROOT, re.sub(r"[^A-Za-z0-9]+", "_", tag))
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(os.path.join(HERE, "videoitg_tpu_torch"),
                     os.path.join(root, "videoitg_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__", "*.so"))
-    header = os.path.join(root, "videoitg_tpu_torch", "csrc", "hopper_attention_dkv.cuh")
+    header = os.path.join(root, "videoitg_tpu_torch", "csrc", "hopper_attention_dq.cuh")
     with open(header) as f:
         text = f.read()
     for name, value in change.items():
@@ -234,13 +290,29 @@ def main(argv) -> int:
     others = [(os.path.abspath(p), "other " + p) for p in argv[train:]]
     if not others and not train:
         raise SystemExit(__doc__)
-    middle = [(variant(tag, change), tag) for tag, change in E_VARIANTS.items()] if train else []
+    middle = [(variant(tag, change), tag) for tag, change in DQ_VARIANTS.items()] if train else []
     order = others + [(HERE, "this")] + middle + [(HERE, "this")] + others[::-1]
+    hashes = {}
     for root, tag in order:
         p = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tag]
                            + (["--train"] if train else []), cwd=root, capture_output=True,
                            text=True, timeout=900)
-        print(p.stdout.strip(), p.stderr.strip()[-500:], flush=True)
+        lines = p.stdout.strip().splitlines()
+        for line in lines:
+            if line.startswith("HASHES "):
+                hashes.setdefault(tag, json.loads(line[len("HASHES "):]))
+        print("\n".join(x for x in lines if not x.startswith("HASHES ")),
+              p.stderr.strip()[-500:], flush=True)
+    mine = hashes.get("this", {})
+    for tag, theirs in hashes.items():
+        if tag == "this" or tag in DQ_VARIANTS:
+            continue
+        same = sum(theirs.get(n) == h for n, h in mine.items())
+        differ = sorted(n for n in mine if n in theirs and theirs[n] != mine[n])
+        missing = sorted(set(mine) - set(theirs))
+        print(f"machine code, {tag} against this: {same} instances equal; differ: "
+              f"{', '.join(differ) or 'none'}; only here: {', '.join(missing) or 'none'}",
+              flush=True)
     return 0
 
 

@@ -50,10 +50,8 @@ GROUPS = (
     ("ln_qkv_kernel", "kernel G fused_ln_qkv_int8"),
     ("ln_mlp_kernel", "kernel H fused_ln_mlp_int8"),
     ("proj_res_kernel", "kernel I fused_proj_residual_int8"),
-    ("flash_train_dq_kernel", "kernel D flash_train_dq"),
     ("hattn::dkv_kernel", "kernel E flash_train_dkv"),
     ("flash_segment_fwd_kernel", "kernel J flash_segment_fwd"),
-    ("flash_segment_dq_kernel", "kernel J flash_segment_dq"),
     ("flash_segment_dkv_kernel", "kernel J flash_segment_dkv"),
     ("Memcpy", "copies"),
     ("Memset", "copies"),
@@ -73,6 +71,10 @@ def group_of(name: str) -> str:
         if ", false, true>" in name:
             return "kernel C flash_train_fwd"
         return "kernel A flash_mha_short" if ", true, false>" in name else "kernel B flash_mha"
+    # dq_kernel<DP, Policy>: kernel D with the key mask, J's dQ with segment ids.
+    if "hattn::dq_kernel" in name:
+        return ("kernel J flash_segment_dq" if "SegmentIds" in name
+                else "kernel D flash_train_dq")
     for fragment, group in GROUPS:
         if fragment in name:
             return group

@@ -6,11 +6,9 @@ built.
 
 `yuv420_to_rgb` ends in a round to integers, so the two packages agree
 exactly except where the unrounded value sits within the float error of .5:
-there they may differ by 1 level. With even sizes (chroma enlarged by exactly
-2, every weight 0.25 or 0.75) the asserted bound is 1 level on at most 1 value
-in 10,000. With an odd size the factor is not 2 and jax builds its resize
-weights in float32 (sample positions off by up to ~2e-5 pixels, chroma by up
-to ~2e-3 levels), the port in float64: 1 level on at most 5 values in 1,000.
+there they may differ by 1 level. The port builds its chroma weights as jax
+does, in float32, also where an odd size makes the factor other than 2; the
+asserted bound at every size is 1 level on at most 1 value in 10,000.
 """
 
 import numpy as np
@@ -58,8 +56,23 @@ def test_yuv420_to_rgb_matches_jax(h, w):
     assert np.array_equal(got, np.round(got)) and got.min() >= 0 and got.max() <= 255
     diff = np.abs(got - want)
     assert diff.max() <= 1.0
-    even = h % 2 == 0 and w % 2 == 0
-    assert (diff > 0).mean() <= (1e-4 if even else 5e-3), (diff > 0).sum()
+    assert (diff > 0).mean() <= 1e-4, (diff > 0).sum()
+
+
+@pytest.mark.parametrize("n_in,n_out", [(2, 4), (1, 2), (3, 5), (19, 37), (27, 53), (181, 361),
+                                        (321, 641), (4, 7)])
+def test_upsample_weights_match_jax(n_in, n_out):
+    """The chroma weights are jax's: resizing the identity along one axis
+    gives jax's weight matrix (each output is one weight times 1). Both are
+    float32 at every step; jax's compiler may fuse a sample position's
+    multiply-add where the source order rounds twice, which moves a weight by
+    at most one float32 ulp of the largest position."""
+    want = np.asarray(jax.image.resize(jnp.eye(n_in, dtype=jnp.float32), (n_out, n_in),
+                                       method="bilinear"))
+    got = preprocess.upsample_weights(n_in, n_out)
+    assert got.dtype == np.float32 and got.shape == (n_out, n_in)
+    np.testing.assert_allclose(got, want, rtol=0, atol=np.spacing(np.float32(n_in)))
+    np.testing.assert_allclose(got.sum(axis=1), 1.0, rtol=0, atol=1e-6)
 
 
 def test_yuv420_to_rgb_grey_and_black():

@@ -1,8 +1,8 @@
 // Shared pieces of the attention kernels (flash_attention.cu,
 // flash_attention_short.cu, splash_attention.cu, flash_attention_train.cu,
 // flash_attention_segment.cu): the bf16 tensor-core MMA, bf16 packing, the
-// global -> shared tile loaders, and the fragment products of the two
-// backward kernels.
+// global -> shared tile loaders, and the fragment products of the mma.sync
+// backward kernel (kernel J's dK/dV).
 //
 // The kernels give each warp 16 query rows and use mma.sync m16n8k16
 // (bf16 operands, fp32 accumulation). Fragment ownership, with
@@ -179,22 +179,6 @@ constexpr int smem_bytes() {
 
 // ------------------------------------------------- pieces of the backward --
 
-// c[nb] = A B^T for one warp: A is 16 x DP as fragments, B the NB * 8 rows of
-// a row-major [.][DP + kPad] tile that start at `rows`.
-template <int DP, int NB>
-__device__ __forceinline__ void fragments_times_rows(float c[NB][4], const uint32_t a[DP / 16][4],
-                                                     const __nv_bfloat16* rows, int g, int t) {
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb) {
-    c[nb][0] = c[nb][1] = c[nb][2] = c[nb][3] = 0.f;
-    const __nv_bfloat16* row = rows + (nb * 8 + g) * (DP + kPad);
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      mma_16816(c[nb], a[kk], ld_pair(row + kk * 16 + 2 * t), ld_pair(row + kk * 16 + 8 + 2 * t));
-    }
-  }
-}
-
 // acc += A B for one warp: A is one 16 x 16 fragment, B[k][n] = tt[n][k], with
 // `tt` pointing at column k = 0 of a transposed tile [DP][kBlockK + kPad].
 template <int DP>
@@ -263,14 +247,7 @@ __device__ __forceinline__ void store_scaled_rows(__nv_bfloat16* out, const floa
   }
 }
 
-// Shared memory of the dQ kernels and of the dK/dV kernels.
-template <int DP>
-constexpr int dq_smem_bytes() {
-  // Q / dO staging tile, K, V (row-major), K transposed.
-  return static_cast<int>(sizeof(__nv_bfloat16)) *
-         (3 * kBlockK * (DP + kPad) + DP * (kBlockK + kPad));
-}
-
+// Shared memory of the segment-id dK/dV kernel.
 template <int DP>
 constexpr int dkv_smem_bytes() {
   // K, V, Q, dO (row-major), Q and dO transposed.

@@ -11,8 +11,9 @@
 // equal (and, when causal, key <= query); the scores are scaled by sm_scale in
 // fp32; fp32 softmax statistics.
 //
-// What differs from flash_attention_train.cu (kernels C, D, E), and why these
-// are kernels of their own:
+// What differs from flash_attention_train.cu (kernels C, D, E), and why the
+// forward and dK/dV are kernels of their own (dQ shares kernel D's kernel,
+// with another mask policy):
 // * The mask is id equality for both sides, not a key-valid mask. A query at
 //   a position the caller calls invalid (id 0) is computed like any other
 //   row: it attends the other id-0 keys (the caller's zero padding included),
@@ -45,23 +46,29 @@
 // lies wholly above the diagonal, in all three kernels, so they do about half
 // the work.
 //
-// Design. One block of 4 warps per 64-row tile, mma.sync m16n8k16 bf16, one
-// tile in flight, as C, D, E (whose fragment helpers these share through
-// attention_common.cuh).
-// * forward: the block owns 64 query rows of one head, holds Q as A
-//   fragments, streams 64-key tiles of K and V (V transposed in shared
-//   memory) and the tile's 64 key ids.
-// * dQ: the same ownership; Q and dO stay in registers; per key tile K, V and
-//   K^T are staged; scores and dp are formed 16 keys at a time so that ds
-//   never leaves registers.
-// * dK/dV: the block owns 64 keys of one head; K and V stay in shared memory;
-//   each query tile (from the diagonal on when causal) is staged once in both
-//   layouts with its ids, lse and delta; it works on the transposed scores,
-//   whose accumulators are already the A fragments of p^T dO and ds^T Q.
-// Lengths need not be a multiple of 64 (or of the caller's 512): rows beyond
-// S are staged as zeros and masked. D is any multiple of 8 up to 128, padded
-// to a multiple of 16 in shared memory only (72 -> 80).
-#include "attention_common.cuh"
+// Design.
+// * forward and dK/dV: one block of 4 warps per 64-row tile, mma.sync
+//   m16n8k16 bf16, one tile in flight (fragment helpers in
+//   attention_common.cuh).
+//   - forward: the block owns 64 query rows of one head, holds Q as A
+//     fragments, streams 64-key tiles of K and V (V transposed in shared
+//     memory) and the tile's 64 key ids.
+//   - dK/dV: the block owns 64 keys of one head; K and V stay in shared
+//     memory; each query tile (from the diagonal on when causal) is staged
+//     once in both layouts with its ids, lse and delta; it works on the
+//     transposed scores, whose accumulators are already the A fragments of
+//     p^T dO and ds^T Q.
+// * dQ: hattn::dq_kernel<DP, SegmentIds> (hopper_attention_dq.cuh), the TMA +
+//   wgmma kernel of kernel D: one block owns 128 query rows of one head
+//   (producer warp, two consumer warpgroups), loads Q and dO once by TMA,
+//   streams K and V tiles with the tiles' kv ids staged by the producer's
+//   lanes, and keeps each thread's two q ids in registers; S, dP and dQ +=
+//   dS K are wgmma, dS the register operand. Its tensor maps need q, k, v
+//   and dout 16-byte aligned.
+// Lengths need not be a multiple of the tiles (or of the caller's 512): rows
+// beyond S are staged as zeros and masked. D is any multiple of 8 up to 128,
+// padded to a multiple of 16 in shared memory only (72 -> 80).
+#include "hopper_attention_dq.cuh"
 
 namespace videoitg {
 
@@ -182,104 +189,6 @@ flash_segment_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
     if (row0 < S) lse[stat_base + row0] = l0 > 0.f ? m0 * sm_scale + logf(l0) : INFINITY;
     if (row1 < S) lse[stat_base + row1] = l1 > 0.f ? m1 * sm_scale + logf(l1) : INFINITY;
   }
-}
-
-// --------------------------------------------------------------------- dQ --
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_segment_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, const int* __restrict__ q_ids,
-                        const int* __restrict__ kv_ids, const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dq, int H, int S, int D, int causal,
-                        float sm_scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // Q, then dO
-  __nv_bfloat16* ks = xs + kBlockQ * (DP + kPad);
-  __nv_bfloat16* vs = ks + kBlockK * (DP + kPad);
-  __nv_bfloat16* kts = vs + kBlockK * (DP + kPad);
-  __shared__ int kid_s[kBlockK];
-
-  const float scale_log2 = sm_scale * kLog2e;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t base = (static_cast<size_t>(b) * H + h) * S * D;
-  const size_t stat_base = (static_cast<size_t>(b) * H + h) * S;
-  const int* qid_b = q_ids + static_cast<size_t>(b) * S;
-  const int* kid_b = kv_ids + static_cast<size_t>(b) * S;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int row0 = q0 + warp * 16 + g;
-  const int row1 = row0 + 8;
-  const int qid0 = row0 < S ? qid_b[row0] : 0;
-  const int qid1 = row1 < S ? qid_b[row1] : 0;
-
-  uint32_t qa[DP / 16][4], doa[DP / 16][4];
-  load_rows<kBlockQ, DP>(xs, q + base, q0, S, D);
-  __syncthreads();
-  load_q_fragments<DP>(qa, xs, warp, g, t);
-  __syncthreads();
-  load_rows<kBlockQ, DP>(xs, dout + base, q0, S, D);
-  __syncthreads();
-  load_q_fragments<DP>(doa, xs, warp, g, t);
-
-  // lse in log2 units; rows beyond S behave like rows that saw nothing.
-  const float lse0 = row0 < S ? lse[stat_base + row0] * kLog2e : INFINITY;
-  const float lse1 = row1 < S ? lse[stat_base + row1] * kLog2e : INFINITY;
-  const float delta0 = row0 < S ? delta[stat_base + row0] : 0.f;
-  const float delta1 = row1 < S ? delta[stat_base + row1] : 0.f;
-
-  int n_tiles = (S + kBlockK - 1) / kBlockK;
-  if (causal) n_tiles = min(n_tiles, (min(q0 + kBlockQ, S) - 1) / kBlockK + 1);
-
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int nb = 0; nb < DP / 8; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();
-    load_rows_both<kBlockK, DP>(ks, kts, k + base, k0, S, D);
-    load_rows<kBlockK, DP>(vs, v + base, k0, S, D);
-    if (threadIdx.x < kBlockK) {
-      const int key = k0 + threadIdx.x;
-      kid_s[threadIdx.x] = key < S ? kid_b[key] : 0;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kc = 0; kc < kBlockK / 16; ++kc) {  // 16 keys at a time
-      float s[2][4], dp[2][4];
-      fragments_times_rows<DP, 2>(s, qa, ks + kc * 16 * (DP + kPad), g, t);
-      fragments_times_rows<DP, 2>(dp, doa, vs + kc * 16 * (DP + kPad), g, t);
-#pragma unroll
-      for (int nb = 0; nb < 2; ++nb) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int local = kc * 16 + nb * 8 + 2 * t + j;
-          const int key = k0 + local;
-          const int kid = kid_s[local];
-          const bool in = key < S;
-          const bool see0 = in && kid == qid0 && !(causal && key > row0);
-          const bool see1 = in && kid == qid1 && !(causal && key > row1);
-          const float p0 = see0 ? exp2f(s[nb][j] * scale_log2 - lse0) : 0.f;
-          const float p1 = see1 ? exp2f(s[nb][2 + j] * scale_log2 - lse1) : 0.f;
-          s[nb][j] = p0 * (dp[nb][j] - delta0);
-          s[nb][2 + j] = p1 * (dp[nb][2 + j] - delta1);
-        }
-      }
-      uint32_t dsa[4];
-      dsa[0] = pack_bf16(s[0][0], s[0][1]);
-      dsa[1] = pack_bf16(s[0][2], s[0][3]);
-      dsa[2] = pack_bf16(s[1][0], s[1][1]);
-      dsa[3] = pack_bf16(s[1][2], s[1][3]);
-      fragment_times_transposed<DP>(acc, dsa, kts + kc * 16, g, t);
-    }
-  }
-  store_scaled_rows<DP>(dq + base, acc, sm_scale, row0, row1, S, D, t);
 }
 
 // ------------------------------------------------------------------ dK/dV --
@@ -437,16 +346,13 @@ cudaError_t launch_segment_fwd(const SegmentArgs& a) {
   return cudaGetLastError();
 }
 
+// dQ: hattn::dq_kernel<DP, SegmentIds> (hopper_attention_dq.cuh), kernel D's
+// kernel with the segment-id policy and as many KV heads as query heads.
 template <int DP>
 cudaError_t launch_segment_dq(const SegmentArgs& a) {
-  constexpr int smem = dq_smem_bytes<DP>();
-  cudaError_t err = allow_smem(flash_segment_dq_kernel<DP>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.S + kBlockQ - 1) / kBlockQ, a.H, a.B);
-  flash_segment_dq_kernel<DP><<<grid, kThreads, smem, a.stream>>>(
-      a.q, a.k, a.v, a.q_ids, a.kv_ids, a.dout, a.lse_in, a.delta, a.dq, a.H, a.S, a.D,
-      a.causal, a.sm_scale);
-  return cudaGetLastError();
+  const hattn::DqArgs d{a.q, a.k, a.v, a.dout, a.lse_in, a.delta, a.dq, a.B,
+                        a.H, a.H, a.S, a.D, a.causal, a.sm_scale, a.stream};
+  return hattn::launch_dq<DP>(d, hattn::SegmentIds{a.q_ids, a.kv_ids});
 }
 
 template <int DP>
@@ -463,15 +369,16 @@ cudaError_t launch_segment_dkv(const SegmentArgs& a) {
 
 static bool segment_shapes_ok(const SegmentArgs& a) {
   return a.B > 0 && a.H > 0 && a.S > 0 && a.D > 0 && a.D <= 128 && a.D % 8 == 0 &&
-         a.B <= 65535 && a.H <= 65535;
+         a.B <= 65535 && a.H <= 65535 && static_cast<long long>(a.B) * a.S < (1LL << 31);
 }
 
 }  // namespace videoitg
 
 // Shapes for all three: q, k, v, out, dout, dq, dk, dv contiguous bf16
-// [B, H, S, D]; lse, delta contiguous fp32 [B, H, S]; q_ids, kv_ids
-// contiguous int32 [B, S]. D a multiple of 8 and at most 128. Each launches
-// on `stream` and returns cudaGetLastError().
+// [B, H, S, D] (q, k, v, dout 16-byte aligned: dQ reads them by TMA); lse,
+// delta contiguous fp32 [B, H, S]; q_ids, kv_ids contiguous int32 [B, S]. D a
+// multiple of 8 and at most 128, B and H at most 65535, B * S below 2^31.
+// Each launches on `stream` and returns cudaGetLastError().
 
 extern "C" int videoitg_flash_segment_fwd_bf16(const void* q, const void* k, const void* v,
                                                const void* q_ids, const void* kv_ids, void* out,

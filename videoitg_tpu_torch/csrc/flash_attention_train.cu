@@ -28,21 +28,24 @@
 // 5.95 and dK/dV 7.94 against a few hundred MB of operands: thousands of
 // operations per byte, far above the ~295 bf16 ridge. All three are bound by
 // the tensor cores; none of the S x S matrices leaves registers. On an NVIDIA
-// H100 80GB HBM3 at 700 W they take 8.55 (C), 50.17 (D) and 12.97 ms (E) at
+// H100 80GB HBM3 at 700 W they take 8.55 (C), 9.45 (D) and 12.97 ms (E) at
 // that shape with 16,500 valid tokens (chip_smoke.py).
 //
-// Design.
+// Design: all three on TMA + wgmma, a producer warp and two consumer
+// warpgroups a block.
 // * forward (kernel C): hattn::stream_kernel<DP, false, true>
 //   (hopper_attention.cuh), kernel B's TMA + wgmma kernel with the lse store:
 //   a producer warp streams 128-key tiles of K and V by TMA through a ring,
 //   two consumer warpgroups of 64 query rows each run S = Q K^T and O += P V
 //   as wgmma; one block per (q head, 128-row tile, batch), causal blocks with
 //   the most key tiles first.
-// * dQ (kernel D): one block of 4 warps per 64-row tile, mma.sync m16n8k16;
-//   Q and dO stay in registers as A fragments; per key tile K, V (row-major)
-//   and K^T are staged; scores and dp are formed 16 keys at a time so that ds
-//   (the A fragment of ds K) never leaves registers and the live accumulators
-//   stay under the register limit.
+// * dQ (kernel D): hattn::dq_kernel<DP, KeyMask> (hopper_attention_dq.cuh),
+//   query-stationary: one block owns 128 query rows of one q head, loads Q
+//   and dO once by TMA and streams K and V with the tile's key-valid bytes;
+//   S = Q K^T and dP = dO V^T from shared memory, dQ += dS K with dS as the
+//   register operand and K read MN-major, so nothing is transposed. The
+//   kernel is shared with kernel J's dQ (flash_attention_segment.cu), which
+//   differs only in its mask policy.
 // * dK/dV (kernel E): hattn::dkv_kernel (hopper_attention_dkv.cuh): one block
 //   owns 128 keys of one KV head, loads K and V once by TMA, and walks every
 //   query head of the group and every 64-row query tile itself, so the sums
@@ -54,104 +57,9 @@
 // zeros and masked (keys) or given lse = +inf (queries). D is any multiple
 // of 8 up to 128 and is padded to a multiple of 16 in shared memory only
 // (72 -> 80). Causal blocks skip the tiles wholly above the diagonal.
-#include "hopper_attention_dkv.cuh"
+#include "hopper_attention_dq.cuh"
 
 namespace videoitg {
-
-// --------------------------------------------------------------------- dQ --
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_train_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ valid,
-                      const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                      const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int Hq,
-                      int Hkv, int S, int D, int causal, float sm_scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // Q, then dO
-  __nv_bfloat16* ks = xs + kBlockQ * (DP + kPad);
-  __nv_bfloat16* vs = ks + kBlockK * (DP + kPad);
-  __nv_bfloat16* kts = vs + kBlockK * (DP + kPad);
-  __shared__ bool key_ok[kBlockK];
-
-  const float scale_log2 = sm_scale * kLog2e;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const size_t q_base = (static_cast<size_t>(b) * Hq + h) * S * D;
-  const size_t kv_base = (static_cast<size_t>(b) * Hkv + hk) * S * D;
-  const size_t stat_base = (static_cast<size_t>(b) * Hq + h) * S;
-  const uint8_t* vrow = valid == nullptr ? nullptr : valid + static_cast<size_t>(b) * S;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int row0 = q0 + warp * 16 + g;
-  const int row1 = row0 + 8;
-
-  uint32_t qa[DP / 16][4], doa[DP / 16][4];
-  load_rows<kBlockQ, DP>(xs, q + q_base, q0, S, D);
-  __syncthreads();
-  load_q_fragments<DP>(qa, xs, warp, g, t);
-  __syncthreads();
-  load_rows<kBlockQ, DP>(xs, dout + q_base, q0, S, D);
-  __syncthreads();
-  load_q_fragments<DP>(doa, xs, warp, g, t);
-
-  // lse in log2 units; rows beyond S behave like dead rows.
-  const float lse0 = row0 < S ? lse[stat_base + row0] * kLog2e : INFINITY;
-  const float lse1 = row1 < S ? lse[stat_base + row1] * kLog2e : INFINITY;
-  const float delta0 = row0 < S ? delta[stat_base + row0] : 0.f;
-  const float delta1 = row1 < S ? delta[stat_base + row1] : 0.f;
-
-  int n_tiles = (S + kBlockK - 1) / kBlockK;
-  if (causal) n_tiles = min(n_tiles, (min(q0 + kBlockQ, S) - 1) / kBlockK + 1);
-
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int nb = 0; nb < DP / 8; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();
-    load_rows_both<kBlockK, DP>(ks, kts, k + kv_base, k0, S, D);
-    load_rows<kBlockK, DP>(vs, v + kv_base, k0, S, D);
-    if (threadIdx.x < kBlockK) {
-      const int key = k0 + threadIdx.x;
-      key_ok[threadIdx.x] = key < S && (vrow == nullptr || vrow[key] != 0);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kc = 0; kc < kBlockK / 16; ++kc) {  // 16 keys at a time
-      float s[2][4], dp[2][4];
-      fragments_times_rows<DP, 2>(s, qa, ks + kc * 16 * (DP + kPad), g, t);
-      fragments_times_rows<DP, 2>(dp, doa, vs + kc * 16 * (DP + kPad), g, t);
-#pragma unroll
-      for (int nb = 0; nb < 2; ++nb) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int local = kc * 16 + nb * 8 + 2 * t + j;
-          const int key = k0 + local;
-          const bool ok = key_ok[local];
-          const bool see0 = ok && !(causal && key > row0);
-          const bool see1 = ok && !(causal && key > row1);
-          const float p0 = see0 ? exp2f(s[nb][j] * scale_log2 - lse0) : 0.f;
-          const float p1 = see1 ? exp2f(s[nb][2 + j] * scale_log2 - lse1) : 0.f;
-          s[nb][j] = p0 * (dp[nb][j] - delta0);
-          s[nb][2 + j] = p1 * (dp[nb][2 + j] - delta1);
-        }
-      }
-      uint32_t dsa[4];
-      dsa[0] = pack_bf16(s[0][0], s[0][1]);
-      dsa[1] = pack_bf16(s[0][2], s[0][3]);
-      dsa[2] = pack_bf16(s[1][0], s[1][1]);
-      dsa[3] = pack_bf16(s[1][2], s[1][3]);
-      fragment_times_transposed<DP>(acc, dsa, kts + kc * 16, g, t);
-    }
-  }
-  store_scaled_rows<DP>(dq + q_base, acc, sm_scale, row0, row1, S, D, t);
-}
 
 // --------------------------------------------------------------- launches --
 
@@ -177,16 +85,13 @@ cudaError_t launch_fwd(const TrainArgs& a) {
   return hattn::launch_stream<DP, false, true>(h);
 }
 
+// Kernel D: hattn::dq_kernel<DP, KeyMask> (hopper_attention_dq.cuh), grid
+// (ceil(S / 128), Hq, B), causal blocks with the most key tiles first.
 template <int DP>
 cudaError_t launch_dq(const TrainArgs& a) {
-  constexpr int smem = dq_smem_bytes<DP>();
-  cudaError_t err = allow_smem(flash_train_dq_kernel<DP>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.S + kBlockQ - 1) / kBlockQ, a.Hq, a.B);
-  flash_train_dq_kernel<DP><<<grid, kThreads, smem, a.stream>>>(
-      a.q, a.k, a.v, a.valid, a.dout, a.lse_in, a.delta, a.dq, a.Hq, a.Hkv, a.S, a.D, a.causal,
-      a.sm_scale);
-  return cudaGetLastError();
+  const hattn::DqArgs d{a.q, a.k, a.v, a.dout, a.lse_in, a.delta, a.dq, a.B,
+                        a.Hq, a.Hkv, a.S, a.D, a.causal, a.sm_scale, a.stream};
+  return hattn::launch_dq<DP>(d, hattn::KeyMask{a.valid});
 }
 
 // Kernel E: hattn::dkv_kernel (hopper_attention_dkv.cuh): Q and dO in

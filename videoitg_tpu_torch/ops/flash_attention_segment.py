@@ -3,14 +3,16 @@
 Counterpart of the kernels behind `mha_trainable` in
 videoitg_tpu/ops/attention.py (the `use_flash="train-jax"` arm): jax's
 library flash attention for the TPU, forward, dq and dkv under one custom
-VJP. The kernels here are in csrc/flash_attention_segment.cu, hand-written
-for Hopper; the source note gives their design and how they differ from
-csrc/flash_attention_train.cu. Three wrappers launch them, each with a
-`.launches` count:
+VJP. The kernels here are launched from csrc/flash_attention_segment.cu,
+hand-written for Hopper: the forward and dK/dV on mma.sync, dQ on the
+query-stationary TMA + wgmma kernel of csrc/hopper_attention_dq.cuh that
+kernel D shares, with the segment-id mask policy. The source notes give
+their design and how they differ from csrc/flash_attention_train.cu. Three
+wrappers launch them, each with a `.launches` count:
 
 * `flash_segment_fwd`  -> (o, lse): online-softmax forward plus the per-row
   logsumexp (natural log, fp32) that the backward needs.
-* `flash_segment_dq`   -> dq
+* `flash_segment_dq`   -> dq; no atomics, two runs give the same bits.
 * `flash_segment_dkv`  -> (dk, dv); a block owns a key tile of one head, so
   there are no atomics and two runs give the same bits.
 
@@ -139,13 +141,24 @@ def flash_mha_segment_backward_reference(q, k, v, q_ids, kv_ids, o, lse, do, cau
                                      causal)
 
 
-def _check(name, q, k, v, q_ids, kv_ids, extra=()):
+def check_shapes(name, q, k, v, extra=()):
+    """Raise on what the kernels refuse beyond `check_operands`: k, v (and
+    dO) not q's shape, and B or H above 65535 or B * S of 2^31 or more (the
+    grid, and dQ's tensor maps). Returns (B, H, S, D)."""
     b, h, s, d = q.shape
-    check_operands(name, q, k, v, *extra)
     for what, x in (("k", k), ("v", v), *(("dO", x) for x in extra)):
         if x.shape != q.shape:
             raise ValueError(f"{name}: {what} {tuple(x.shape)} does not match q "
                              f"{tuple(q.shape)} (MHA: repeat the KV heads of a GQA model first)")
+    if b > 65535 or h > 65535 or b * s >= 2 ** 31:
+        raise ValueError(f"{name}: q {tuple(q.shape)} is beyond the kernel's grid "
+                         f"(B, H <= 65535, B * S < 2^31)")
+    return b, h, s, d
+
+
+def _check(name, q, k, v, q_ids, kv_ids, extra=()):
+    check_operands(name, q, k, v, *extra)
+    b, h, s, d = check_shapes(name, q, k, v, extra)
     check_matrix(name, "q_ids", q_ids, torch.int32, (b, s), q.device)
     check_matrix(name, "kv_ids", kv_ids, torch.int32, (b, s), q.device)
     return b, h, s, d

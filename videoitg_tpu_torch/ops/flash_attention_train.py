@@ -5,12 +5,14 @@ Pallas `_fwd_kernel`, `_dq_kernel`, `_dkv_kernel`). The kernels are
 hand-written for Hopper and launched from csrc/flash_attention_train.cu: the
 forward on the TMA + wgmma kernel of csrc/hopper_attention.cuh with the lse
 store, dK/dV on the key-stationary TMA + wgmma kernel of
-csrc/hopper_attention_dkv.cuh, dQ on mma.sync; the source notes give their
-design. Three wrappers launch them, each with a `.launches` count:
+csrc/hopper_attention_dkv.cuh, dQ on the query-stationary TMA + wgmma kernel
+of csrc/hopper_attention_dq.cuh with the key-mask policy; the source notes
+give their design. Three wrappers launch them, each with a `.launches`
+count:
 
 * `flash_train_fwd`  -> (o, lse): online-softmax forward plus the per-row
   logsumexp (natural log, fp32) that the backward needs.
-* `flash_train_dq`   -> dq
+* `flash_train_dq`   -> dq; no atomics, two runs give the same bits.
 * `flash_train_dkv`  -> (dk, dv), summed over the GQA group inside the kernel
   with no atomics, so two runs give the same bits.
 

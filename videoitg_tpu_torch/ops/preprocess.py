@@ -10,9 +10,10 @@ frames; `preprocess_frames_yuv` takes the decoder's native YUV420 planes
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from videoitg_tpu_torch.ops.resize import bilinear_resize_matrix, pil_resize_uint8
+from videoitg_tpu_torch.ops.resize import pil_resize_uint8
 
 # SigLIP normalization (HF SiglipImageProcessor defaults).
 SIGLIP_MEAN = (0.5, 0.5, 0.5)
@@ -36,13 +37,33 @@ def preprocess_frames(frames: torch.Tensor, out_size: int = 384,
     return _resize_normalize(frames.float(), out_size, dtype)
 
 
+def upsample_weights(in_size: int, out_size: int) -> np.ndarray:
+    """float32 [out_size, in_size] bilinear weights for an enlargement, built
+    as `jax.image.resize(method="bilinear")` builds them, in float32 at every
+    step: sample positions (i + 0.5) / scale - 0.5 with scale = out / in and
+    its inverse rounded to float32, the triangle kernel of the distance to
+    each input pixel, each column divided by its sum (which clamps the
+    edges). float64 weights put the samples of a factor other than 2 a few
+    ulps elsewhere, enough to move a rounded RGB value by 1 level."""
+    inv_scale = np.float32(1.0 / (out_size / in_size))
+    sample = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
+    dist = np.abs(sample[None, :] - np.arange(in_size, dtype=np.float32)[:, None])
+    weights = np.maximum(np.float32(0.0), np.float32(1.0) - dist)
+    total = weights.sum(axis=0, keepdims=True, dtype=np.float32)
+    weights = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                       weights / np.where(total != 0, total, np.float32(1.0)), np.float32(0.0))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], weights, np.float32(0.0)).astype(np.float32).T
+
+
 def _upsample_bilinear(plane: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """fp32 [T, h_in, w_in] -> [T, h, w], bilinear with half-pixel centres and
     clamped edges: what `jax.image.resize(method="bilinear")` computes when it
-    enlarges (its antialiasing only acts on a reduction). The factor need not
-    be 2: an odd luma size has a chroma plane of (size + 1) // 2."""
-    mh = torch.from_numpy(bilinear_resize_matrix(plane.shape[1], h)).to(plane.device)
-    mw = torch.from_numpy(bilinear_resize_matrix(plane.shape[2], w)).to(plane.device)
+    enlarges (its antialiasing only acts on a reduction), with its float32
+    weights. The factor need not be 2: an odd luma size has a chroma plane of
+    (size + 1) // 2."""
+    mh = torch.from_numpy(upsample_weights(plane.shape[1], h)).to(plane.device)
+    mw = torch.from_numpy(upsample_weights(plane.shape[2], w)).to(plane.device)
     x = torch.einsum("oh,thw->tow", mh, plane)
     return torch.einsum("pw,tow->top", mw, x)
 
