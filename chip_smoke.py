@@ -29,10 +29,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      with the same boolean mask), and the tower's shape [32, 16, 729, 72]
      (forward only). C runs on the TMA + wgmma kernel of kernel B with the
      lse store, E on its own TMA + wgmma kernel
-     (csrc/hopper_attention_dkv.cuh), D on the query-stationary TMA + wgmma
-     kernel it shares with J's dQ (csrc/hopper_attention_dq.cuh);
-     `--only train-kernels` prints ptxas' lines for C, E and both dQ
-     instances. The backward is compared like with like: both sides
+     (csrc/hopper_attention_dkv.cuh, shared with J's dK/dV), D on the
+     query-stationary TMA + wgmma kernel it shares with J's dQ
+     (csrc/hopper_attention_dq.cuh); `--only train-kernels` prints ptxas'
+     lines for C, D, E and J's dQ. The backward is compared like with like: both sides
      get the kernel's own o and lse. Tolerance: 4 bf16
      half-ulps of each output's max|reference|, lse 1e-3 absolute. Invalid
      rows of o and dq and invalid keys of dk, dv must be exactly 0, and two
@@ -55,7 +55,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      dQ and of dK/dV bit-equal. Broken uses: ids ignored (forward, dQ, dK/dV), the pad
      keys left out of the invalid rows, delta dropped, causal dropped. Timed
      beside C, D, E on the same inputs and the library call with the same
-     boolean mask; bounds from the pairs this run's ids admit.
+     boolean mask; bounds from the pairs this run's ids admit. J's dQ and
+     dK/dV run on D's and E's TMA + wgmma kernels with the segment-id
+     policy; `--only segment-kernels` prints ptxas' lines for them and E.
    * A, B (attention, bf16, the TMA + wgmma kernels): plus a long case whose
      length is not a multiple of the 128-key tile, a small causal case and a
      fully-masked-row case; A at ragged S = 577 and 1,000, at S = 500 with
@@ -72,10 +74,13 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      shape [1, 28/4, 13056, 128] with a 12,840-token valid prefix, through
      `splash_lm` against its plain form; a ragged S = 13,001; two rows of
      different valid lengths; D = 72 with GQA; three segments with ids other
-     than 0 / 1 (in runs and scattered); a group of 8 heads (split over two
-     blocks); a group of 1 at eight more head dims. Tolerance: 4 bf16
-     half-ulps of max|reference|; invalid rows exactly 0. Timed beside kernel
-     B on the same inputs and the same library call as B.
+     than 0 / 1 (in runs and scattered); a group of 8 heads; a group of 1 at
+     eight more head dims (ids 0 / 1 straight into `splash_mqa`, no final
+     multiply: id-0 rows must come out computed, not zeroed). K runs on B's
+     TMA + wgmma kernel with the segment-id policy; `--only splash-kernels`
+     prints ptxas' lines for it. Tolerance: 4 bf16 half-ulps of
+     max|reference|; invalid rows exactly 0. Timed beside kernel B on the
+     same inputs and the same library call as B.
    * L (`double_literal`, `double_no_literal`) on [8, 128] fp32: bit-equal to
      each other and to their plain versions (8 KiB moved: the launch is the
      floor).
@@ -170,6 +175,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -186,10 +192,17 @@ FRAME_HW = (360, 640)  # a video-like decode resolution
 # at a time (PERF.md section 6; NVIDIA H100 80GB HBM3 at 700.00 W). Printed
 # for comparison only: this run does not measure them.
 FIRST_VERSION_MS = {"flash_mha_short": 6.7473, "flash_mha": 27.5702}
-# Fragments of the mangled names of kernel instances whose ptxas lines
-# `--only train-kernels` / `--only segment-kernels` print.
-DQ_PTXAS = (("D", "7KeyMask"), ("J dq", "10SegmentIds"))
-TRAIN_PTXAS = (("C", "ELb0ELb1EE"), ("E", "5hattn10dkv_kernel"))
+# Patterns of the mangled names of the kernel instances whose ptxas lines
+# each `--only` run prints.
+PTXAS = {
+    "attention-kernels": (("A", r"resident_kernel|stream_kernelILi\d+ELb1E"),
+                          ("B", r"stream_kernelILi\d+ELb0ELb0E.*KeyMask")),
+    "train-kernels": (("C", r"stream_kernelILi\d+ELb0ELb1E"), ("D", r"dq_kernel.*KeyMask"),
+                      ("E", r"dkv_kernel.*KeyMask"), ("J dq", r"dq_kernel.*SegmentIds")),
+    "splash-kernels": (("K", r"stream_kernel.*SegmentIds"),),
+    "segment-kernels": (("J dq", r"dq_kernel.*SegmentIds"), ("J dkv", r"dkv_kernel.*SegmentIds"),
+                        ("E", r"dkv_kernel.*KeyMask")),
+}
 
 
 def fail(msg: str) -> None:
@@ -198,14 +211,15 @@ def fail(msg: str) -> None:
 
 def ptxas_lines(log: str, kernel: str) -> list:
     """ptxas' resource lines (registers, spills, shared memory, performance
-    notes) of the entry functions whose mangled name contains `kernel`, each
-    prefixed with that name."""
+    notes) of the entry functions whose mangled name matches the regular
+    expression `kernel` (a plain fragment is one), each prefixed with that
+    name."""
     out, entry = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1] if "'" in line else None
             continue
-        if entry and kernel in entry and any(w in line for w in (
+        if entry and re.search(kernel, entry) and any(w in line for w in (
                 "registers", "spill", "Performance", "warning")):
             out.append(f"{entry}: {line.strip()}")
     return out
@@ -1092,7 +1106,8 @@ def check_splash_kernels(dev) -> dict:
                 (2 * q.numel() + 2 * k.numel()) * 2 + 2 * seg.numel() * 4)
     print(f"kernel splash_mqa [1, 28/4, {s}, 128] bf16: {ms:.4f} ms (again after the others "
           f"{ms2:.4f} ms), the arm with its pre-scale and final multiply {arm_ms:.4f} ms; "
-          f"kernel B (flash_mha) on the same inputs {flash_ms:.4f} ms; plain {plain_ms:.4f} ms "
+          f"kernel B (flash_mha) on the same inputs {flash_ms:.4f} ms (K / B "
+          f"{ms / flash_ms:.4f}); plain {plain_ms:.4f} ms "
           f"(head by head); library (sdpa, kv heads expanded, key mask as attn_mask) "
           f"{library_ms:.4f} ms; bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}",
           flush=True)
@@ -1130,8 +1145,8 @@ def check_splash_kernels(dev) -> dict:
         widen(e)
 
     # Three segments with ids other than 0 / 1, in runs and scattered; then a
-    # group above 7 heads (split over two blocks), a group of one, and the
-    # other head dims (each its own instantiation).
+    # group of 8 heads, a group of one, and the other head dims (each its own
+    # instantiation).
     s = 1500
     q, k, v = randn(2, 28, s, 128) * 0.3, randn(2, 4, s, 128), randn(2, 4, s, 128)
     ids = torch.tensor([-3, 5, 1000], dtype=torch.int32, device=dev)
@@ -1277,6 +1292,8 @@ def check_segment_kernels(dev) -> dict:
               f"{ms['dkv']:.4f} ms; plain fwd {plain_fwd:.4f} ms, plain backward (dq, dk, dv "
               f"together) {plain_bwd:.4f} ms; library (sdpa, the same boolean mask) fwd "
               f"{lib_fwd:.4f} ms, its autograd backward (dq, dk, dv together) {lib_bwd:.4f} ms; "
+              f"dq, dkv at {ms['dq'] / (lib_bwd * 3 / 7):.4f}x, {ms['dkv'] / (lib_bwd * 4 / 7):.4f}x "
+              f"their shares (3/7, 4/7) of it; "
               f"bounds fwd {bounds['fwd']['bound_ms']:.4f}, dq {bounds['dq']['bound_ms']:.4f}, dkv "
               f"{bounds['dkv']['bound_ms']:.4f} ms by {bounds['dkv']['bound_by']}; kernels C, D, E "
               f"on the same inputs (4 KV heads, ids as key mask) fwd {cde['fwd']:.4f}, dq "
@@ -2387,10 +2404,11 @@ def main(argv=None) -> int:
                                           "segment-kernels", "vlm",
                                           "serve", "train"],
                         default=None,
-                        help="build, then only: check kernels A, B (attention-kernels, with "
-                             "ptxas' lines for them), F-I (int8-kernels), C, D, E "
-                             "(train-kernels), K, L (splash-kernels) or J (segment-kernels) "
-                             "against their plain versions; or run the daemon phase (serve), "
+                        help="build, then only: check kernels A, B (attention-kernels), F-I "
+                             "(int8-kernels), C, D, E (train-kernels), K, L (splash-kernels) "
+                             "or J (segment-kernels) against their plain versions, with "
+                             "ptxas' lines for the TMA + wgmma instances among them; or run "
+                             "the daemon phase (serve), "
                              "the training phases (train) or the causal-VLM phases (vlm)")
     args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "videoitg_tpu_torch")):
@@ -2421,12 +2439,14 @@ def main(argv=None) -> int:
                 "warning" in line.lower():
             print(f"  ptxas: {line.strip()}", flush=True)
 
-    if args.only == "attention-kernels":
+    if args.only in PTXAS:
         if _build.build_seconds is None:
-            print("  ptxas A/B: cached build, no lines (remove the build directory to see "
-                  "them)", flush=True)
-        for line in ptxas_lines(_build.build_log, "5hattn"):
-            print(f"  ptxas A/B: {line}", flush=True)
+            print("  ptxas: cached build, no lines (remove the build directory to see them)",
+                  flush=True)
+        for tag, pattern in PTXAS[args.only]:
+            for line in ptxas_lines(_build.build_log, pattern):
+                print(f"  ptxas {tag}: {line}", flush=True)
+    if args.only == "attention-kernels":
         check_kernels(dev)
         print("attention kernels A and B agree with their plain versions", flush=True)
         return 0
@@ -2434,14 +2454,6 @@ def main(argv=None) -> int:
         check_int8_kernels(dev)
         print("int8 kernels agree with their plain versions", flush=True)
         return 0
-    if args.only in ("train-kernels", "segment-kernels"):
-        if _build.build_seconds is None:
-            print("  ptxas: cached build, no lines (remove the build directory to see them)",
-                  flush=True)
-        tagged = DQ_PTXAS + (TRAIN_PTXAS if args.only == "train-kernels" else ())
-        for tag, fragment in tagged:
-            for line in ptxas_lines(_build.build_log, fragment):
-                print(f"  ptxas {tag}: {line}", flush=True)
     if args.only == "train-kernels":
         check_train_kernels(dev)
         print("training attention kernels agree with their plain versions", flush=True)

@@ -1,5 +1,5 @@
-"""Probe: the attention kernels A, B (serving) and C, D, E (training) timed
-outside chip_smoke.py.
+"""Probe: the attention kernels A, B, K (serving) and C, D, E, J's dQ and
+dK/dV (training) timed outside chip_smoke.py.
 
     python3 scripts/torch_probes/attention_probe.py --shapes
         A, B (online, Hq == Hkv, no mask) and scaled_dot_product_attention
@@ -7,30 +7,34 @@ outside chip_smoke.py.
         against one, and what the head dim does to each.
     python3 scripts/torch_probes/attention_probe.py OTHER_CHECKOUT [OTHER_CHECKOUT ...]
         A at [128, 16, 729, 72], B at [1, 28/4, 13056, 128] with and without
-        its key mask, and B causal at the VLM prefill's [1, 28/4, 15584, 128],
-        in this checkout and in each other one (for example the parent commit
-        unpacked by `git archive` into a directory .gitignore lists), in
-        turns: others, this, this, the others in reverse.
+        its key mask, K (`splash_mqa`) on B's masked inputs as the splash arm
+        hands them over (q pre-scaled, the mask as ids), and B causal at the
+        VLM prefill's [1, 28/4, 15584, 128], in this checkout and in each
+        other one (for example the parent commit unpacked by `git archive`
+        into a directory .gitignore lists), in turns: others, this, this, the
+        others in reverse.
     python3 scripts/torch_probes/attention_probe.py --train [OTHER_CHECKOUT ...]
         C, D and E at the grounding step's [1, 28/4, 16640, 128] with 16,500
         valid and causal at the VLM step's [1, 28/4, 16960, 128] (the packed
-        layout's key mask), and J's dQ on the same tokens as the `train-jax`
-        arm hands them over ([1, 28, 16896, 128] with 16,500 id-1 tokens;
-        causal [1, 28, 17408, 128]), in this checkout, in each other one and
-        in variants of this checkout's dQ kernel (a copy of
-        videoitg_tpu_torch/ under build/attention_probe/ with constants of
-        csrc/hopper_attention_dq.cuh changed), in turns: others, this, the
-        variants, this, the others in reverse.
+        layout's key mask), and J's dQ and dK/dV on the same tokens as the
+        `train-jax` arm hands them over ([1, 28, 16896, 128] with 16,500 id-1
+        tokens; causal [1, 28, 17408, 128]); E is timed first, right after D
+        and right after J's dK/dV. In this checkout, in each other one and in
+        variants of this checkout (a copy of videoitg_tpu_torch/ under
+        build/attention_probe/ with constants of a csrc header changed: the
+        grid order of E's and J's dK/dV instances), in turns: others, this,
+        the variants, this, the others in reverse.
 
 Each checkout runs in its own process, which builds its own library through
 its ops/_build.py and prints ptxas' lines for the DP = 128 instances of
 `hattn::stream_kernel` (and of `hattn::dkv_kernel` and `hattn::dq_kernel` with
 --train) when it built it, and a hash of the machine code (cuobjdump -sass)
-of every instance of A, B, C and E (`resident_kernel`, `stream_kernel`,
-`dkv_kernel`); the last lines say, instance by instance, whether each other
-checkout's hashes equal this one's. Times: chip_smoke.py's CUDA-event timer,
-over 20 launches (10 for B, 5 for C, 3 for D, E and J's dQ) after one
-warm-up; needs one card.
+of every instance of A, B, C, D, E, K and J's dQ and dK/dV
+(`resident_kernel`, `stream_kernel`, `dq_kernel`, `dkv_kernel`); the last
+lines say, instance by instance, whether each other checkout's hashes equal
+this one's. Times: chip_smoke.py's CUDA-event timer, over 20 launches (10 for
+B and K, 5 for C, 3 for D, E and J's dQ and dK/dV) after one warm-up; needs
+one card.
 
 Read on an NVIDIA H100 80GB HBM3 at 700 W, ms:
   --shapes, with the first TMA version of A (K and V streamed in both
@@ -55,14 +59,15 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 VARIANT_ROOT = os.path.join(HERE, "build", "attention_probe")
-# tag -> {constant of csrc/hopper_attention_dq.cuh: value}
-DQ_VARIANTS = {
-    "dQ 64-key tiles, ring 4": {"kDqKeys": 64, "kDqStages": 4},
-    "dQ 64-key tiles, ring 3": {"kDqKeys": 64, "kDqStages": 3},
+# tag -> (header under csrc/, {constant: value})
+VARIANTS = {
+    "J dK/dV heads fastest": ("hopper_attention_dkv.cuh", {"kDkvKeyTilesFirstJ": 0}),
+    "E key tiles fastest": ("hopper_attention_dkv.cuh", {"kDkvKeyTilesFirstE": 1}),
 }
-# The instances of A, B, C and E, by mangled name: the kernel, then its
-# template arguments (DP, and stream_kernel's two-pass and lse flags).
-HASHED = re.compile(r"hattn\d+(resident_kernel|stream_kernel|dkv_kernel)I((?:L[a-z]+\d+E)+)EEv")
+# The attention instances, by mangled name: the kernel, then its template
+# arguments (DP, stream_kernel's two-pass and lse flags, the mask policy,
+# dkv_kernel's grid order).
+HASHED = re.compile(r"hattn\d+(resident_kernel|stream_kernel|dkv_kernel|dq_kernel)I(.+?)EEv")
 
 
 def _smoke():
@@ -103,22 +108,28 @@ def shapes() -> None:
 
 
 def instance_name(kernel: str, args: str) -> str:
-    """'B DP 128', 'A two-pass DP 80', ... from a mangled instance."""
+    """'B DP 128', 'A two-pass DP 80', 'J dkv DP 128', ... from a mangled
+    instance (the grid order of dkv_kernel is left out of the name)."""
     flags = re.findall(r"L[a-z]+(\d+)E", args)
     dp = flags[0]
+    segment = "SegmentIds" in args
     if kernel == "resident_kernel":
         return f"A DP {dp}"
     if kernel == "dkv_kernel":
-        return f"E DP {dp}"
+        return f"{'J dkv' if segment else 'E'} DP {dp}"
+    if kernel == "dq_kernel":
+        return f"{'J dq' if segment else 'D'} DP {dp}"
     if flags[1:2] == ["1"]:
         return f"A two-pass DP {dp}"
+    if segment:
+        return f"{'J fwd' if flags[2:3] == ['1'] else 'K'} DP {dp}"
     return f"{'C' if flags[2:3] == ['1'] else 'B'} DP {dp}"
 
 
 def sass_hashes(lib_path: str, nvcc: str) -> dict:
-    """instance -> (hash, instruction count) of each instance of A, B, C and
-    E, from cuobjdump -sass; addresses and encodings are left out, so equal
-    hashes mean the same instructions."""
+    """instance -> (hash, instruction count) of each attention instance, from
+    cuobjdump -sass; addresses and encodings are left out, so equal hashes
+    mean the same instructions."""
     tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(nvcc), "cuobjdump")
     proc = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True)
     if proc.returncode != 0:
@@ -157,7 +168,7 @@ def code_report(tag: str, train: bool) -> None:
     except (OSError, RuntimeError) as exc:  # the timings below need no disassembler
         print(f"{tag}: no machine code hashes: {exc}", flush=True)
         return
-    print(f"{tag}: machine code of A, B, C, E (sha256[:16] / instructions): "
+    print(f"{tag}: machine code (sha256[:16] / instructions): "
           + ", ".join(f"{name}: {h} / {n}" for name, (h, n) in sorted(hashes.items())),
           flush=True)
     print("HASHES " + json.dumps({name: h for name, (h, _) in hashes.items()}), flush=True)
@@ -167,6 +178,8 @@ def one_checkout(tag: str) -> None:
     import torch
 
     flash_mha_short, flash_mha = kernels(os.getcwd())
+    from videoitg_tpu_torch.ops import splash_attention as sa
+
     code_report(tag, train=False)
     g = torch.Generator(device="cuda").manual_seed(0)
 
@@ -179,14 +192,17 @@ def one_checkout(tag: str) -> None:
     q, k, v = r(1, 28, s, 128), r(1, 4, s, 128), r(1, 4, s, 128)
     valid = torch.rand(1, s, generator=g, device="cuda") > 0.01
     b_ms = cuda_ms(lambda: flash_mha(q, k, v, valid=valid), 10)
+    qs, seg = sa.prescale(q), valid.to(torch.int32)
+    k_ms = cuda_ms(lambda: sa.splash_mqa(qs, k, v, seg, seg), 10)
+    del qs
     b_nomask = cuda_ms(lambda: flash_mha(q, k, v), 10)
     s = 15584
     q, k, v = r(1, 28, s, 128), r(1, 4, s, 128), r(1, 4, s, 128)
     valid = torch.ones(1, s, dtype=torch.bool, device="cuda")
     valid[0, 30:32] = False
     c_ms = cuda_ms(lambda: flash_mha(q, k, v, valid=valid, causal=True), 10)
-    print(f"{tag}: A {a_ms:.4f} B {b_ms:.4f} B-nomask {b_nomask:.4f} B-causal {c_ms:.4f}",
-          flush=True)
+    print(f"{tag}: A {a_ms:.4f} B {b_ms:.4f} K {k_ms:.4f} B-nomask {b_nomask:.4f} "
+          f"B-causal {c_ms:.4f}", flush=True)
 
 
 def one_checkout_train(tag: str) -> None:
@@ -208,66 +224,68 @@ def one_checkout_train(tag: str) -> None:
     pos = torch.arange(s, device="cuda")
     valid = ((pos < 30) | ((pos >= 64) & (pos < 64 + 16384 + 200)))[None].contiguous()
     causal = (r(1, 28, s, 128), r(1, 4, s, 128), r(1, 4, s, 128), valid, True)
-    times = []
-    for q, k, v, valid, is_causal in (main, causal):
+    lines = []
+    for what, (q, k, v, valid, is_causal) in (("", main), ("causal ", causal)):
         o, lse = fat.flash_train_fwd(q, k, v, valid, is_causal)
         do, delta = fat.prepare_backward(valid, o, r(*q.shape))
+
         def e():
             return cuda_ms(lambda: fat.flash_train_dkv(q, k, v, valid, do, lse, delta, is_causal),
                            3)
 
-        # E before and right after D: E's time depends on what ran before it.
-        times.append((cuda_ms(lambda: fat.flash_train_fwd(q, k, v, valid, is_causal), 5), e(),
-                      cuda_ms(lambda: fat.flash_train_dq(q, k, v, valid, do, lse, delta,
-                                                         is_causal), 3), e()))
+        # E first, right after D and right after J's dK/dV: E's time depends
+        # on what ran before it.
+        c_ms, e0 = cuda_ms(lambda: fat.flash_train_fwd(q, k, v, valid, is_causal), 5), e()
+        d_ms = cuda_ms(lambda: fat.flash_train_dq(q, k, v, valid, do, lse, delta, is_causal), 3)
+        e1 = e()
+        jdq, jdkv = segment_times(r, q.shape[2], is_causal)
+        e2 = e()
+        lines.append(f"{what}C {c_ms:.4f} E {e0:.4f} D {d_ms:.4f} E-after-D {e1:.4f} "
+                     f"J-dq {jdq:.4f} J-dkv {jdkv:.4f} E-after-J-dkv {e2:.4f}")
         del o, lse, do, delta
         torch.cuda.empty_cache()
-    j = segment_dq_times(r)
-    print(f"{tag}: " + "; ".join(
-        f"{what}C {c:.4f} E {e0:.4f} D {d:.4f} E-after-D {e1:.4f} J-dq {jt:.4f}"
-        for what, (c, e0, d, e1), jt in zip(("", "causal "), times, j)), flush=True)
+    print(f"{tag}: " + "; ".join(lines), flush=True)
 
 
-def segment_dq_times(r):
-    """J's dQ as the `train-jax` arm calls it: 4 KV heads repeated to 28, S
-    padded to a multiple of 512 with zeros in segment 0; (non-causal at the
-    grounding step, causal at the VLM step's layout)."""
+def segment_times(r, s, causal):
+    """J's dQ and dK/dV as the `train-jax` arm calls them: 4 KV heads
+    repeated to 28, S padded to a multiple of 512 with zeros in segment 0;
+    non-causal with 16,500 id-1 tokens (the grounding step), causal with the
+    VLM step's layout. Returns (dq ms, dkv ms)."""
     import torch
 
     from videoitg_tpu_torch.ops import flash_attention_segment as fas
 
-    out = []
-    for s, causal in ((16640, False), (64 + 16384 + 512, True)):
-        s_pad = -(-s // 512) * 512
-        pos = torch.arange(s_pad, device="cuda")
-        if causal:
-            ids = (pos < 30) | ((pos >= 64) & (pos < 64 + 16384 + 200))
-        else:
-            ids = pos < 16500
-        ids = ids.to(torch.int32)[None].contiguous()
-        q = r(1, 28, s_pad, 128)
-        k, v = (r(1, 4, s_pad, 128).repeat_interleave(7, dim=1) for _ in range(2))
-        for x in (q, k, v):
-            x[:, :, s:] = 0
-        o, lse = fas.flash_segment_fwd(q, k, v, ids, ids, causal)
-        do = r(1, 28, s_pad, 128)
-        delta = fas.segment_delta(o, do)
-        out.append(cuda_ms(lambda: fas.flash_segment_dq(q, k, v, ids, ids, do, lse, delta,
-                                                        causal), 3))
-        del q, k, v, o, lse, do, delta
-        torch.cuda.empty_cache()
+    s_pad = -(-s // 512) * 512
+    pos = torch.arange(s_pad, device="cuda")
+    if causal:
+        ids = (pos < 30) | ((pos >= 64) & (pos < 64 + 16384 + 200))
+    else:
+        ids = pos < 16500
+    ids = ids.to(torch.int32)[None].contiguous()
+    q = r(1, 28, s_pad, 128)
+    k, v = (r(1, 4, s_pad, 128).repeat_interleave(7, dim=1) for _ in range(2))
+    for x in (q, k, v):
+        x[:, :, s:] = 0
+    o, lse = fas.flash_segment_fwd(q, k, v, ids, ids, causal)
+    do = r(1, 28, s_pad, 128)
+    delta = fas.segment_delta(o, do)
+    out = (cuda_ms(lambda: fas.flash_segment_dq(q, k, v, ids, ids, do, lse, delta, causal), 3),
+           cuda_ms(lambda: fas.flash_segment_dkv(q, k, v, ids, ids, do, lse, delta, causal), 3))
+    del q, k, v, o, lse, do, delta
+    torch.cuda.empty_cache()
     return out
 
 
-def variant(tag: str, change: dict) -> str:
-    """A copy of this checkout's package with `change` applied to the dQ
-    kernel's header."""
+def variant(tag: str, header: str, change: dict) -> str:
+    """A copy of this checkout's package with `change` applied to the
+    constants of csrc/`header`."""
     root = os.path.join(VARIANT_ROOT, re.sub(r"[^A-Za-z0-9]+", "_", tag))
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(os.path.join(HERE, "videoitg_tpu_torch"),
                     os.path.join(root, "videoitg_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__", "*.so"))
-    header = os.path.join(root, "videoitg_tpu_torch", "csrc", "hopper_attention_dq.cuh")
+    header = os.path.join(root, "videoitg_tpu_torch", "csrc", header)
     with open(header) as f:
         text = f.read()
     for name, value in change.items():
@@ -290,7 +308,8 @@ def main(argv) -> int:
     others = [(os.path.abspath(p), "other " + p) for p in argv[train:]]
     if not others and not train:
         raise SystemExit(__doc__)
-    middle = [(variant(tag, change), tag) for tag, change in DQ_VARIANTS.items()] if train else []
+    middle = ([(variant(tag, *change), tag) for tag, change in VARIANTS.items()]
+              if train else [])
     order = others + [(HERE, "this")] + middle + [(HERE, "this")] + others[::-1]
     hashes = {}
     for root, tag in order:
@@ -305,7 +324,7 @@ def main(argv) -> int:
               p.stderr.strip()[-500:], flush=True)
     mine = hashes.get("this", {})
     for tag, theirs in hashes.items():
-        if tag == "this" or tag in DQ_VARIANTS:
+        if tag == "this" or tag in VARIANTS:
             continue
         same = sum(theirs.get(n) == h for n, h in mine.items())
         differ = sorted(n for n in mine if n in theirs and theirs[n] != mine[n])

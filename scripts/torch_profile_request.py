@@ -45,14 +45,11 @@ sys.path.insert(0, REPO)
 # Kernel-name fragments -> group, first match wins.
 GROUPS = (
     ("hattn::resident_kernel", "kernel A flash_mha_short"),
-    ("splash_mqa_kernel", "kernel K splash_mqa"),
     ("act8_gemm_kernel", "kernel F act8_gemm"),
     ("ln_qkv_kernel", "kernel G fused_ln_qkv_int8"),
     ("ln_mlp_kernel", "kernel H fused_ln_mlp_int8"),
     ("proj_res_kernel", "kernel I fused_proj_residual_int8"),
-    ("hattn::dkv_kernel", "kernel E flash_train_dkv"),
     ("flash_segment_fwd_kernel", "kernel J flash_segment_fwd"),
-    ("flash_segment_dkv_kernel", "kernel J flash_segment_dkv"),
     ("Memcpy", "copies"),
     ("Memset", "copies"),
     ("nvjet", "library GEMMs"),
@@ -65,16 +62,23 @@ TRACER_ROWS = ("Command Buffer Full", "Activity Buffer Request")
 
 
 def group_of(name: str) -> str:
-    # stream_kernel<DP, kTwoPass, kLse>: kernel C with the lse store, A in its
-    # two-pass mode beyond resident K, else B.
+    # stream_kernel<DP, kTwoPass, kLse, Policy>: kernel K with segment ids;
+    # with the key mask kernel C with the lse store, A in its two-pass mode
+    # beyond resident K, else B.
     if "hattn::stream_kernel" in name:
-        if ", false, true>" in name:
+        if "SegmentIds" in name:
+            return "kernel K splash_mqa"
+        if ", false, true," in name:
             return "kernel C flash_train_fwd"
-        return "kernel A flash_mha_short" if ", true, false>" in name else "kernel B flash_mha"
-    # dq_kernel<DP, Policy>: kernel D with the key mask, J's dQ with segment ids.
+        return "kernel A flash_mha_short" if ", true, false," in name else "kernel B flash_mha"
+    # dq_kernel<DP, Policy> and dkv_kernel<DP, Policy, order>: kernels D and E
+    # with the key mask, J's dQ and dK/dV with segment ids.
     if "hattn::dq_kernel" in name:
         return ("kernel J flash_segment_dq" if "SegmentIds" in name
                 else "kernel D flash_train_dq")
+    if "hattn::dkv_kernel" in name:
+        return ("kernel J flash_segment_dkv" if "SegmentIds" in name
+                else "kernel E flash_train_dkv")
     for fragment, group in GROUPS:
         if fragment in name:
             return group

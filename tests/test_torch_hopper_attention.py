@@ -34,14 +34,18 @@ def _scores(q, k, k0, sm_scale):
             sm_scale * math.log2(math.e))
 
 
-def tiled_online(q, k, v, valid=None, causal=False, with_lse=False):
+def tiled_online(q, k, v, valid=None, causal=False, with_lse=False, seen=None, sm_scale=None):
     """Kernel B's arithmetic: per 128-key tile the running max (a row with no
     visible key keeps -inf and takes base 0), p = exp2(s * scale - base *
     scale) rounded to v's type, O and the sum rescaled by alpha; O / sum at
     the end, 0 for invalid rows and rows with no visible valid key. With
     `with_lse` (kernel C) also lse = (max * scale + log2 sum) * ln 2 in fp32,
-    +inf where the sum is 0: returns (o, lse)."""
+    +inf where the sum is 0: returns (o, lse). With `seen` (a mask policy of
+    tests/test_torch_hopper_dq_attention.py: seen(rows, keys) -> [B, 1, R, K])
+    and `sm_scale` 1 on a pre-scaled q, kernel K: the same kernel with the
+    segment-id policy, where only a row that sees no key is 0."""
     b, hq, s, d = q.shape
+    scale = d ** -0.5 if sm_scale is None else sm_scale
     group = hq // k.shape[1]
     k, v = k.repeat_interleave(group, 1), v.repeat_interleave(group, 1)
     m = torch.full((b, hq, s), -math.inf)
@@ -49,11 +53,13 @@ def tiled_online(q, k, v, valid=None, causal=False, with_lse=False):
     acc = torch.zeros(b, hq, s, d)
     rows = torch.arange(s)
     for k0 in range(0, s, BLOCK_N):
-        sc, sl = _scores(q, k, k0, d ** -0.5)
+        sc, sl = _scores(q, k, k0, scale)
         keys = torch.arange(k0, min(k0 + BLOCK_N, s))
         ok = torch.ones(b, 1, s, keys.numel(), dtype=torch.bool)
         if valid is not None:
             ok = ok & valid[:, None, None, keys]
+        if seen is not None:
+            ok = ok & seen(rows, keys)
         if causal:
             ok = ok & (keys[None, :] <= rows[:, None])
         sc = torch.where(ok, sc, -math.inf)
@@ -70,7 +76,7 @@ def tiled_online(q, k, v, valid=None, causal=False, with_lse=False):
     o = torch.where(ok_rows[..., None], acc / torch.where(ok_rows, l, 1.0)[..., None], 0.0)
     if not with_lse:
         return o
-    sl = d ** -0.5 * math.log2(math.e)
+    sl = scale * math.log2(math.e)
     lse = torch.where(l > 0, (m * sl + torch.log2(torch.where(l > 0, l, 1.0))) * math.log(2.0),
                       math.inf)
     return o.to(q.dtype), lse

@@ -43,13 +43,16 @@ CASES = {
 }
 
 
-def tiled_dkv(q, k, v, valid, do, lse, delta, causal=False):
+def tiled_dkv(q, k, v, valid, do, lse, delta, causal=False, seen=None):
     """Kernel E's arithmetic on its own inputs (`do` zero on invalid rows,
     `delta` given): per block of 128 keys, the group's q heads in order, each
     in 64-row query tiles from the first that can see the block (causal);
     p = exp2(s * scale log2 e - lse log2 e), 0 where the key is invalid or
     (causal) after the query; ds = p (dp - delta); dV += bf16(p)^T dO, dK +=
-    bf16(ds)^T Q in fp32; dK times sm_scale at the end."""
+    bf16(ds)^T Q in fp32; dK times sm_scale at the end. With `seen` (a mask
+    policy of tests/test_torch_hopper_dq_attention.py: seen(rows, keys) ->
+    [B, 1, R, K]) in place of `valid`, the same kernel's other instance (J's
+    dK/dV: segment ids)."""
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     group = hq // hkv
@@ -69,7 +72,8 @@ def tiled_dkv(q, k, v, valid, do, lse, delta, causal=False):
                 rows = torch.arange(q0, min(q0 + ROWS, s))
                 st = kt @ qh[:, :, g, rows].transpose(-1, -2)    # [b, hkv, keys, rows]
                 dpt = vt @ doh[:, :, g, rows].transpose(-1, -2)
-                ok = key_ok[:, None, keys, None].expand(b, 1, len(keys), len(rows))
+                ok = (key_ok[:, None, keys, None].expand(b, 1, len(keys), len(rows))
+                      if seen is None else seen(rows, keys).transpose(-1, -2))
                 if causal:
                     ok = ok & (keys[:, None] <= rows[None, :])
                 p = torch.where(ok, torch.exp2(st * sl - lse2[:, :, g, None, rows]), 0.0)

@@ -1,10 +1,10 @@
-// Shared pieces of the attention kernels (flash_attention.cu,
-// flash_attention_short.cu, splash_attention.cu, flash_attention_train.cu,
-// flash_attention_segment.cu): the bf16 tensor-core MMA, bf16 packing, the
-// global -> shared tile loaders, and the fragment products of the mma.sync
-// backward kernel (kernel J's dK/dV).
+// Shared pieces of the attention kernels: the row reductions and constants
+// that the TMA + wgmma kernels (hopper_attention*.cuh) use too, and the
+// mma.sync pieces of the one attention kernel still on mma.sync, kernel J's
+// forward (flash_attention_segment.cu): the bf16 tensor-core MMA, bf16
+// packing, the global -> shared tile loaders.
 //
-// The kernels give each warp 16 query rows and use mma.sync m16n8k16
+// The mma.sync kernel gives each warp 16 query rows and uses mma.sync m16n8k16
 // (bf16 operands, fp32 accumulation). Fragment ownership, with
 // g = lane / 4 and t = lane % 4:
 //   A (16x16, row-major): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
@@ -175,84 +175,6 @@ constexpr int smem_bytes() {
   // Q tile, K tile, transposed V tile.
   return static_cast<int>(sizeof(__nv_bfloat16)) *
          ((kBlockQ + kBlockK) * (DP + kPad) + DP * (kBlockK + kPad));
-}
-
-// ------------------------------------------------- pieces of the backward --
-
-// acc += A B for one warp: A is one 16 x 16 fragment, B[k][n] = tt[n][k], with
-// `tt` pointing at column k = 0 of a transposed tile [DP][kBlockK + kPad].
-template <int DP>
-__device__ __forceinline__ void fragment_times_transposed(float acc[DP / 8][4],
-                                                          const uint32_t a[4],
-                                                          const __nv_bfloat16* tt, int g, int t) {
-#pragma unroll
-  for (int nb = 0; nb < DP / 8; ++nb) {
-    const __nv_bfloat16* row = tt + (nb * 8 + g) * (kBlockK + kPad);
-    mma_16816(acc[nb], a, ld_pair(row + 2 * t), ld_pair(row + 8 + 2 * t));
-  }
-}
-
-// The A fragment (16 rows from `row_base`, columns kk * 16 ..) of a row-major
-// [.][DP + kPad] tile.
-template <int DP>
-__device__ __forceinline__ void load_a_fragment(uint32_t a[4], const __nv_bfloat16* tile,
-                                                int row_base, int kk, int g, int t) {
-  const __nv_bfloat16* r0 = tile + (row_base + g) * (DP + kPad) + kk * 16;
-  const __nv_bfloat16* r1 = r0 + 8 * (DP + kPad);
-  a[0] = ld_pair(r0 + 2 * t);
-  a[1] = ld_pair(r1 + 2 * t);
-  a[2] = ld_pair(r0 + 8 + 2 * t);
-  a[3] = ld_pair(r1 + 8 + 2 * t);
-}
-
-// rows [row0, row0 + ROWS) of a [S, D] matrix into both layouts at once:
-// `dst` [ROWS][DP + kPad] and `dst_t` [DP][ROWS + kPad], zero-filled beyond S
-// and D like load_rows.
-template <int ROWS, int DP>
-__device__ __forceinline__ void load_rows_both(__nv_bfloat16* dst, __nv_bfloat16* dst_t,
-                                               const __nv_bfloat16* src, int row0, int S,
-                                               int D) {
-  constexpr int kChunks = DP / 8;
-  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += blockDim.x) {
-    const int r = idx % ROWS;  // neighbouring threads take neighbouring rows
-    const int c = (idx / ROWS) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S && c < D) {
-      val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * D + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * (DP + kPad) + c) = val;
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst_t[(c + i) * (ROWS + kPad) + r] = e[i];
-  }
-}
-
-// out rows = acc * scale as bf16; rows >= S and columns >= D are not stored.
-template <int DP>
-__device__ __forceinline__ void store_scaled_rows(__nv_bfloat16* out, const float acc[DP / 8][4],
-                                                  float scale, int row_g, int row_g8, int S,
-                                                  int D, int t) {
-#pragma unroll
-  for (int nb = 0; nb < DP / 8; ++nb) {
-    const int col = nb * 8 + 2 * t;
-    if (col >= D) continue;
-    if (row_g < S) {
-      *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row_g) * D + col) =
-          pack_bf16(acc[nb][0] * scale, acc[nb][1] * scale);
-    }
-    if (row_g8 < S) {
-      *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row_g8) * D + col) =
-          pack_bf16(acc[nb][2] * scale, acc[nb][3] * scale);
-    }
-  }
-}
-
-// Shared memory of the segment-id dK/dV kernel.
-template <int DP>
-constexpr int dkv_smem_bytes() {
-  // K, V, Q, dO (row-major), Q and dO transposed.
-  return static_cast<int>(sizeof(__nv_bfloat16)) *
-         (4 * kBlockK * (DP + kPad) + 2 * DP * (kBlockQ + kPad));
 }
 
 template <typename Kernel>

@@ -17,8 +17,9 @@
 // tensor cores bound it and HBM traffic does not matter. The O(S^2) score
 // matrix (19 GB in fp32 per layer if materialised) never leaves registers.
 //
-// Design (hopper_attention.cuh, `stream_kernel`, online mode): one block per
-// (128-query tile, q head, batch); a producer warp streams K and V by TMA
+// Design (hopper_attention.cuh, `stream_kernel<DP, false, false, KeyMask>`,
+// online mode): one block per (128-query tile, q head, batch); a producer
+// warp streams K and V by TMA
 // through a 3-stage ring and stages each tile's 128 key-mask bytes beside
 // them; two consumer warpgroups of 64 rows run S = Q K^T and O += P V as
 // wgmma (P from registers, V read transposed from shared memory), the running
@@ -30,9 +31,10 @@
 // GQA: the grid puts the q heads innermost (blockIdx.x), so the 7 q heads of
 // a group on the same query tile run side by side and read the same K / V
 // tiles, which stay in L2 (6.7 MB a layer against 50 MB). A block that owned
-// the whole group, as kernel K does, would stage each tile once for 7 heads
-// but needs 7 x 64 x 128 fp32 accumulators or a loop over the heads inside
-// the block. The L2 order keeps one skeleton for A and B, and B at
+// the whole group would stage each tile once for 7 heads but needs 7 x 64 x
+// 128 fp32 accumulators or a loop over the heads inside the block (kernel K's
+// first version did so, 14 warps at 17.1 ms). The L2 order keeps one
+// skeleton for A, B, C and K, and B at
 // [1, 28/4, 13056, 128] with its key mask takes 5.22 ms on an H100 80GB HBM3
 // at 700 W, below one scaled_dot_product_attention call on the same inputs
 // (5.50 ms).
@@ -47,7 +49,7 @@ namespace videoitg {
 
 template <int DP>
 cudaError_t launch_flash(const hattn::Args& args) {
-  return hattn::launch_stream<DP, false>(args);
+  return hattn::launch_stream<DP, false>(args, hattn::KeyMask{args.valid});
 }
 
 }  // namespace videoitg

@@ -12,16 +12,16 @@
 // fp32; fp32 softmax statistics.
 //
 // What differs from flash_attention_train.cu (kernels C, D, E), and why the
-// forward and dK/dV are kernels of their own (dQ shares kernel D's kernel,
-// with another mask policy):
+// forward is a kernel of its own (dQ shares kernel D's kernel and dK/dV
+// kernel E's, each with another mask policy):
 // * The mask is id equality for both sides, not a key-valid mask. A query at
 //   a position the caller calls invalid (id 0) is computed like any other
 //   row: it attends the other id-0 keys (the caller's zero padding included),
 //   its o is not zeroed, its dO is not ignored and it gets a dq; an id-0 key
 //   gets dk and dv from the id-0 queries.
-// * MHA: a block of dK/dV owns 64 keys of ONE head and walks that head's query
-//   tiles. There is no group to sum over, so no atomics: two runs give the
-//   same bits.
+// * MHA: a block of dK/dV owns 128 keys of ONE head and walks that head's
+//   query tiles. There is no group to sum over, and no atomics: two runs
+//   give the same bits.
 // * A query whose id matches no visible key (it cannot occur when both id
 //   arrays are the same tensor and the mask is not causal-cut below the row
 //   itself: a row always sees itself) outputs 0, stores lse = +inf and has
@@ -47,24 +47,27 @@
 // the work.
 //
 // Design.
-// * forward and dK/dV: one block of 4 warps per 64-row tile, mma.sync
-//   m16n8k16 bf16, one tile in flight (fragment helpers in
-//   attention_common.cuh).
-//   - forward: the block owns 64 query rows of one head, holds Q as A
-//     fragments, streams 64-key tiles of K and V (V transposed in shared
-//     memory) and the tile's 64 key ids.
-//   - dK/dV: the block owns 64 keys of one head; K and V stay in shared
-//     memory; each query tile (from the diagonal on when causal) is staged
-//     once in both layouts with its ids, lse and delta; it works on the
-//     transposed scores, whose accumulators are already the A fragments of
-//     p^T dO and ds^T Q.
+// * forward: one block of 4 warps per 64-row tile, mma.sync m16n8k16 bf16,
+//   one tile in flight (fragment helpers in attention_common.cuh). The block
+//   owns 64 query rows of one head, holds Q as A fragments, streams 64-key
+//   tiles of K and V (V transposed in shared memory) and the tile's 64 key
+//   ids.
 // * dQ: hattn::dq_kernel<DP, SegmentIds> (hopper_attention_dq.cuh), the TMA +
 //   wgmma kernel of kernel D: one block owns 128 query rows of one head
 //   (producer warp, two consumer warpgroups), loads Q and dO once by TMA,
 //   streams K and V tiles with the tiles' kv ids staged by the producer's
 //   lanes, and keeps each thread's two q ids in registers; S, dP and dQ +=
-//   dS K are wgmma, dS the register operand. Its tensor maps need q, k, v
-//   and dout 16-byte aligned.
+//   dS K are wgmma, dS the register operand.
+// * dK/dV: hattn::dkv_kernel<DP, SegmentIds, true> (hopper_attention_dkv.cuh),
+//   the TMA + wgmma kernel of kernel E with a group of 1: one block owns 128
+//   keys of one head (producer warp, two consumer warpgroups of 64 keys),
+//   loads K and V once by TMA, streams the head's 64-row Q and dO tiles
+//   with their lse, delta and q ids staged by the producer's lanes, and keeps
+//   each thread's two kv ids in registers; S^T = K Q^T and dP^T = V dO^T
+//   from shared memory, dV += P^T dO and dK += dS^T Q with P^T, dS^T as the
+//   register operands. The key tiles are the fastest grid index, so a wave's
+//   blocks share one head's Q and dO stream.
+// The tensor maps of dQ and dK/dV need q, k, v and dout 16-byte aligned.
 // Lengths need not be a multiple of the tiles (or of the caller's 512): rows
 // beyond S are staged as zeros and masked. D is any multiple of 8 up to 128,
 // padded to a multiple of 16 in shared memory only (72 -> 80).
@@ -191,137 +194,6 @@ flash_segment_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
   }
 }
 
-// ------------------------------------------------------------------ dK/dV --
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_segment_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, const int* __restrict__ q_ids,
-                         const int* __restrict__ kv_ids, const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int H,
-                         int S, int D, int causal, float sm_scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + kBlockK * (DP + kPad);
-  __nv_bfloat16* qs = vs + kBlockK * (DP + kPad);
-  __nv_bfloat16* dos = qs + kBlockQ * (DP + kPad);
-  __nv_bfloat16* qts = dos + kBlockQ * (DP + kPad);
-  __nv_bfloat16* dots = qts + DP * (kBlockQ + kPad);
-  __shared__ float lse_s[kBlockQ];    // log2 units, +inf beyond S
-  __shared__ float delta_s[kBlockQ];
-  __shared__ int qid_s[kBlockQ];
-
-  const float scale_log2 = sm_scale * kLog2e;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t base = (static_cast<size_t>(b) * H + h) * S * D;
-  const size_t stat_base = (static_cast<size_t>(b) * H + h) * S;
-  const int* qid_b = q_ids + static_cast<size_t>(b) * S;
-  const int* kid_b = kv_ids + static_cast<size_t>(b) * S;
-  const int k0 = blockIdx.x * kBlockK;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0 and key0 + 8
-  const int key1 = key0 + 8;
-  const bool in0 = key0 < S;
-  const bool in1 = key1 < S;
-  const int kid0 = in0 ? kid_b[key0] : 0;
-  const int kid1 = in1 ? kid_b[key1] : 0;
-
-  load_rows<kBlockK, DP>(ks, k + base, k0, S, D);
-  load_rows<kBlockK, DP>(vs, v + base, k0, S, D);
-
-  float dk_acc[DP / 8][4], dv_acc[DP / 8][4];
-#pragma unroll
-  for (int nb = 0; nb < DP / 8; ++nb) {
-    dk_acc[nb][0] = dk_acc[nb][1] = dk_acc[nb][2] = dk_acc[nb][3] = 0.f;
-    dv_acc[nb][0] = dv_acc[nb][1] = dv_acc[nb][2] = dv_acc[nb][3] = 0.f;
-  }
-
-  const int n_qt = (S + kBlockQ - 1) / kBlockQ;
-  // Causal: query tiles before this key tile see none of its keys
-  // (kBlockQ == kBlockK, so tile indices compare directly).
-  const int qt_begin = causal ? static_cast<int>(blockIdx.x) : 0;
-
-  for (int qt = qt_begin; qt < n_qt; ++qt) {
-    const int q0 = qt * kBlockQ;
-    __syncthreads();
-    load_rows_both<kBlockQ, DP>(qs, qts, q + base, q0, S, D);
-    load_rows_both<kBlockQ, DP>(dos, dots, dout + base, q0, S, D);
-    if (threadIdx.x < kBlockQ) {
-      const int row = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = row < S ? lse[stat_base + row] * kLog2e : INFINITY;
-      delta_s[threadIdx.x] = row < S ? delta[stat_base + row] : 0.f;
-      qid_s[threadIdx.x] = row < S ? qid_b[row] : 0;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int qc = 0; qc < kBlockQ / 32; ++qc) {  // 32 queries at a time
-      // Transposed scores and dp: rows are this warp's keys, columns queries.
-      float st[4][4], dpt[4][4];
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
-        st[nb][0] = st[nb][1] = st[nb][2] = st[nb][3] = 0.f;
-        dpt[nb][0] = dpt[nb][1] = dpt[nb][2] = dpt[nb][3] = 0.f;
-      }
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        uint32_t a[4];
-        load_a_fragment<DP>(a, ks, warp * 16, kk, g, t);
-#pragma unroll
-        for (int nb = 0; nb < 4; ++nb) {
-          const __nv_bfloat16* row = qs + (qc * 32 + nb * 8 + g) * (DP + kPad) + kk * 16;
-          mma_16816(st[nb], a, ld_pair(row + 2 * t), ld_pair(row + 8 + 2 * t));
-        }
-        load_a_fragment<DP>(a, vs, warp * 16, kk, g, t);
-#pragma unroll
-        for (int nb = 0; nb < 4; ++nb) {
-          const __nv_bfloat16* row = dos + (qc * 32 + nb * 8 + g) * (DP + kPad) + kk * 16;
-          mma_16816(dpt[nb], a, ld_pair(row + 2 * t), ld_pair(row + 8 + 2 * t));
-        }
-      }
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int local = qc * 32 + nb * 8 + 2 * t + j;
-          const int qrow = q0 + local;
-          const int qid = qid_s[local];
-          const float l2 = lse_s[local];  // +inf for rows beyond S: p = 0
-          const float dl = delta_s[local];
-          const bool see0 = in0 && kid0 == qid && !(causal && key0 > qrow);
-          const bool see1 = in1 && kid1 == qid && !(causal && key1 > qrow);
-          const float p0 = see0 ? exp2f(st[nb][j] * scale_log2 - l2) : 0.f;
-          const float p1 = see1 ? exp2f(st[nb][2 + j] * scale_log2 - l2) : 0.f;
-          st[nb][j] = p0;
-          st[nb][2 + j] = p1;
-          dpt[nb][j] = p0 * (dpt[nb][j] - dl);
-          dpt[nb][2 + j] = p1 * (dpt[nb][2 + j] - dl);
-        }
-      }
-#pragma unroll
-      for (int kq = 0; kq < 2; ++kq) {  // two 16-query steps of the chunk
-        uint32_t pa[4], dsa[4];
-        pa[0] = pack_bf16(st[2 * kq][0], st[2 * kq][1]);
-        pa[1] = pack_bf16(st[2 * kq][2], st[2 * kq][3]);
-        pa[2] = pack_bf16(st[2 * kq + 1][0], st[2 * kq + 1][1]);
-        pa[3] = pack_bf16(st[2 * kq + 1][2], st[2 * kq + 1][3]);
-        dsa[0] = pack_bf16(dpt[2 * kq][0], dpt[2 * kq][1]);
-        dsa[1] = pack_bf16(dpt[2 * kq][2], dpt[2 * kq][3]);
-        dsa[2] = pack_bf16(dpt[2 * kq + 1][0], dpt[2 * kq + 1][1]);
-        dsa[3] = pack_bf16(dpt[2 * kq + 1][2], dpt[2 * kq + 1][3]);
-        fragment_times_transposed<DP>(dv_acc, pa, dots + qc * 32 + kq * 16, g, t);
-        fragment_times_transposed<DP>(dk_acc, dsa, qts + qc * 32 + kq * 16, g, t);
-      }
-    }
-  }
-  store_scaled_rows<DP>(dv + base, dv_acc, 1.0f, key0, key1, S, D, t);
-  store_scaled_rows<DP>(dk + base, dk_acc, sm_scale, key0, key1, S, D, t);
-}
-
 // --------------------------------------------------------------- launches --
 
 struct SegmentArgs {
@@ -346,25 +218,25 @@ cudaError_t launch_segment_fwd(const SegmentArgs& a) {
   return cudaGetLastError();
 }
 
-// dQ: hattn::dq_kernel<DP, SegmentIds> (hopper_attention_dq.cuh), kernel D's
-// kernel with the segment-id policy and as many KV heads as query heads.
-template <int DP>
-cudaError_t launch_segment_dq(const SegmentArgs& a) {
-  const hattn::DqArgs d{a.q, a.k, a.v, a.dout, a.lse_in, a.delta, a.dq, a.B,
+// The backward kernels' operands: as many KV heads as query heads.
+static hattn::BwdArgs bwd_args(const SegmentArgs& a) {
+  return hattn::BwdArgs{a.q, a.k, a.v, a.dout, a.lse_in, a.delta, a.dq, a.dk, a.dv, a.B,
                         a.H, a.H, a.S, a.D, a.causal, a.sm_scale, a.stream};
-  return hattn::launch_dq<DP>(d, hattn::SegmentIds{a.q_ids, a.kv_ids});
 }
 
+// dQ: hattn::dq_kernel<DP, SegmentIds> (hopper_attention_dq.cuh), kernel D's
+// kernel with the segment-id policy.
+template <int DP>
+cudaError_t launch_segment_dq(const SegmentArgs& a) {
+  return hattn::launch_dq<DP>(bwd_args(a), hattn::SegmentIds{a.q_ids, a.kv_ids});
+}
+
+// dK/dV: hattn::dkv_kernel<DP, SegmentIds, true> (hopper_attention_dkv.cuh),
+// kernel E's kernel with the segment-id policy, grid (ceil(S / 128), H, B).
 template <int DP>
 cudaError_t launch_segment_dkv(const SegmentArgs& a) {
-  constexpr int smem = dkv_smem_bytes<DP>();
-  cudaError_t err = allow_smem(flash_segment_dkv_kernel<DP>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.S + kBlockK - 1) / kBlockK, a.H, a.B);
-  flash_segment_dkv_kernel<DP><<<grid, kThreads, smem, a.stream>>>(
-      a.q, a.k, a.v, a.q_ids, a.kv_ids, a.dout, a.lse_in, a.delta, a.dk, a.dv, a.H, a.S, a.D,
-      a.causal, a.sm_scale);
-  return cudaGetLastError();
+  return hattn::launch_dkv<DP, hattn::kDkvKeyTilesFirstJ != 0>(
+      bwd_args(a), hattn::SegmentIds{a.q_ids, a.kv_ids});
 }
 
 static bool segment_shapes_ok(const SegmentArgs& a) {
@@ -375,7 +247,8 @@ static bool segment_shapes_ok(const SegmentArgs& a) {
 }  // namespace videoitg
 
 // Shapes for all three: q, k, v, out, dout, dq, dk, dv contiguous bf16
-// [B, H, S, D] (q, k, v, dout 16-byte aligned: dQ reads them by TMA); lse,
+// [B, H, S, D] (q, k, v, dout 16-byte aligned: dQ and dK/dV read them by
+// TMA); lse,
 // delta contiguous fp32 [B, H, S]; q_ids, kv_ids contiguous int32 [B, S]. D a
 // multiple of 8 and at most 128, B and H at most 65535, B * S below 2^31.
 // Each launches on `stream` and returns cudaGetLastError().

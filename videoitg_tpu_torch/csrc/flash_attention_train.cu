@@ -46,7 +46,8 @@
 //   register operand and K read MN-major, so nothing is transposed. The
 //   kernel is shared with kernel J's dQ (flash_attention_segment.cu), which
 //   differs only in its mask policy.
-// * dK/dV (kernel E): hattn::dkv_kernel (hopper_attention_dkv.cuh): one block
+// * dK/dV (kernel E): hattn::dkv_kernel<DP, KeyMask, false>
+//   (hopper_attention_dkv.cuh), shared with kernel J's dK/dV: one block
 //   owns 128 keys of one KV head, loads K and V once by TMA, and walks every
 //   query head of the group and every 64-row query tile itself, so the sums
 //   over the group need no atomics and are the same from run to run. It works
@@ -82,39 +83,27 @@ cudaError_t launch_fwd(const TrainArgs& a) {
   hattn::Args h{a.q, a.k, a.v, a.valid, a.o, a.B, a.Hq, a.Hkv, a.S, a.D, a.causal,
                 a.sm_scale * kLog2e, a.stream};
   h.lse = a.lse_out;
-  return hattn::launch_stream<DP, false, true>(h);
+  return hattn::launch_stream<DP, false, true>(h, hattn::KeyMask{a.valid});
 }
 
 // Kernel D: hattn::dq_kernel<DP, KeyMask> (hopper_attention_dq.cuh), grid
 // (ceil(S / 128), Hq, B), causal blocks with the most key tiles first.
-template <int DP>
-cudaError_t launch_dq(const TrainArgs& a) {
-  const hattn::DqArgs d{a.q, a.k, a.v, a.dout, a.lse_in, a.delta, a.dq, a.B,
+static hattn::BwdArgs bwd_args(const TrainArgs& a) {
+  return hattn::BwdArgs{a.q, a.k, a.v, a.dout, a.lse_in, a.delta, a.dq, a.dk, a.dv, a.B,
                         a.Hq, a.Hkv, a.S, a.D, a.causal, a.sm_scale, a.stream};
-  return hattn::launch_dq<DP>(d, hattn::KeyMask{a.valid});
 }
 
-// Kernel E: hattn::dkv_kernel (hopper_attention_dkv.cuh): Q and dO in
-// tensor maps of 64-row boxes, K and V of 128-row boxes; grid
-// (Hkv, ceil(S / 128), B).
+template <int DP>
+cudaError_t launch_dq(const TrainArgs& a) {
+  return hattn::launch_dq<DP>(bwd_args(a), hattn::KeyMask{a.valid});
+}
+
+// Kernel E: hattn::dkv_kernel<DP, KeyMask, false> (hopper_attention_dkv.cuh),
+// grid (Hkv, ceil(S / 128), B).
 template <int DP>
 cudaError_t launch_dkv(const TrainArgs& a) {
-  constexpr int rows = hattn::kDkvRows, keys = hattn::kDkvKeys;
-  CUtensorMap q_map, do_map, k_map, v_map;
-  cudaError_t err = hopper::make_rows_map(&q_map, a.q, a.B * a.Hq, a.S, a.D, rows);
-  if (err == cudaSuccess) err = hopper::make_rows_map(&do_map, a.dout, a.B * a.Hq, a.S, a.D, rows);
-  if (err == cudaSuccess) err = hopper::make_rows_map(&k_map, a.k, a.B * a.Hkv, a.S, a.D, keys);
-  if (err == cudaSuccess) err = hopper::make_rows_map(&v_map, a.v, a.B * a.Hkv, a.S, a.D, keys);
-  if (err != cudaSuccess) return err;
-  constexpr int smem = hattn::dkv_kernel_smem_bytes<DP>();
-  err = cudaFuncSetAttribute(hattn::dkv_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(a.Hkv, (a.S + keys - 1) / keys, a.B);
-  hattn::dkv_kernel<DP><<<grid, hattn::kThreads, smem, a.stream>>>(
-      q_map, do_map, k_map, v_map, a.valid, a.lse_in, a.delta, a.dk, a.dv, a.Hq, a.Hkv, a.S,
-      a.D, a.causal, a.sm_scale);
-  return cudaGetLastError();
+  return hattn::launch_dkv<DP, hattn::kDkvKeyTilesFirstE != 0>(bwd_args(a),
+                                                              hattn::KeyMask{a.valid});
 }
 
 static bool shapes_ok(const TrainArgs& a) {

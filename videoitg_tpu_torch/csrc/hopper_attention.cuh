@@ -1,5 +1,6 @@
 // The TMA + wgmma attention kernels behind kernels A (flash_attention_short.cu),
-// B (flash_attention.cu) and C (flash_attention_train.cu). sm_90a.
+// B (flash_attention.cu), C (flash_attention_train.cu) and K
+// (splash_attention.cu). sm_90a.
 //
 // A block is three warpgroups: two consumer warpgroups of 64 query rows each
 // (warps 0-7) and a producer warpgroup of which one warp works (warp 8). The
@@ -21,13 +22,27 @@
 // the 512 a lane has per register file. A consumer holds a 64 x 128 score
 // tile (64 fp32), P as bf16 (32) and O (DP / 2, 64 at DP = 128).
 //
+// The mask is a policy, a template parameter of the kernels here and of
+// dq_kernel and dkv_kernel (hopper_attention_dq.cuh, hopper_attention_dkv.cuh):
+//  * `KeyMask` (A, B, C, D, E): a key-valid byte per key, 0 past S (every key
+//    below S when the mask is null); the forward zeroes invalid query rows.
+//  * `SegmentIds` (K, J's dQ and dK/dV): int32 ids for the queries and for
+//    the keys; a key is seen iff it lies below S and its id equals the
+//    row's. Every row is computed, whatever its id; only a row that saw no
+//    key is 0.
+// The side that streams (keys here and in dQ, query rows in dK/dV) has its
+// words staged per tile by the producer's lanes; the stationary side keeps
+// its own in registers. With segment ids stream_kernel also stages a
+// summary per tile (one id for every key below S, or not), which lets a
+// thread skip the per-key test on such a tile.
+//
 // Two kernels:
 //  * `stream_kernel` owns 128 query rows of one (batch, q head) and streams
 //    K and V through a ring of kStages stages; the producer also stages each
-//    tile's 128 key-mask bytes (0 past S; its 32 lanes read them from the
-//    [B, S] mask). Online mode (kTwoPass = false, kernel B): per tile the
+//    tile's 128 policy words (key-mask bytes or key ids, read by its 32
+//    lanes). Online mode (kTwoPass = false, kernels B, C, K): per tile the
 //    running row max and sum, the rescale of O by alpha, p rounded to bf16
-//    into P V; masked keys (key mask, causal, key >= S) are -inf scores, a
+//    into P V; hidden keys (policy, causal, key >= S) are -inf scores, a
 //    row with no visible key keeps max -inf and takes base 0, so its p and
 //    alpha are 0. With kLse (kernel C) it also stores each row's logsumexp
 //    lse = sm_scale m + ln l in nats, +inf for a row with no visible valid
@@ -68,10 +83,97 @@ __host__ __device__ constexpr int q_bytes() {
   return DP / 16 * kBlockM * 32;
 }
 
-template <int DP>
+// Kernels A, B, C, D and E's policy: a key is seen iff it lies below S and
+// its valid byte is set (every key below S when `valid` is null). Rows carry
+// no id. The forward zeroes an invalid query row; the backward's caller
+// zeroes dO there, so its delta, ds and dq are exactly 0.
+struct KeyMask {
+  using Word = uint8_t;
+  static constexpr bool kRowIds = false;
+  const uint8_t* valid;  // [B, S] or null
+
+  __device__ __forceinline__ bool has_mask() const { return valid != nullptr; }
+  // The word of key `key` of batch row b.
+  __device__ __forceinline__ Word stage(int b, int key, int S) const {
+    return key < S && (valid == nullptr || valid[static_cast<size_t>(b) * S + key] != 0);
+  }
+  // The id of query row `row` (none here).
+  __device__ __forceinline__ int row_key(int, int, int) const { return 0; }
+  // Whether a row may see the key at all (w folds in key < S), whether the
+  // row's id admits it, and both.
+  __device__ __forceinline__ static bool key_ok(Word w, int, int) { return w != 0; }
+  __device__ __forceinline__ static bool same(Word, int) { return true; }
+  __device__ __forceinline__ static bool sees(Word w, int key, int S, int id) {
+    return key_ok(w, key, S) && same(w, id);
+  }
+  // Whether the forward stores row `row` as computed (else 0).
+  __device__ __forceinline__ bool keeps_row(int b, int row, int S) const {
+    return row < S && (valid == nullptr || valid[static_cast<size_t>(b) * S + row] != 0);
+  }
+};
+
+// Kernels K's and J's policy: a key is seen iff it lies below S and its
+// segment id equals the row's. An id-0 row is computed like any other.
+struct SegmentIds {
+  using Word = int;
+  static constexpr bool kRowIds = true;
+  const int* q_ids;   // [B, S]
+  const int* kv_ids;  // [B, S]
+
+  __device__ __forceinline__ bool has_mask() const { return true; }
+  __device__ __forceinline__ Word stage(int b, int key, int S) const {
+    return key < S ? kv_ids[static_cast<size_t>(b) * S + key] : 0;
+  }
+  __device__ __forceinline__ int row_key(int b, int row, int S) const {
+    return row < S ? q_ids[static_cast<size_t>(b) * S + row] : 0;
+  }
+  __device__ __forceinline__ static bool key_ok(Word, int key, int S) { return key < S; }
+  __device__ __forceinline__ static bool same(Word w, int id) { return w == id; }
+  __device__ __forceinline__ static bool sees(Word w, int key, int S, int id) {
+    return key_ok(w, key, S) && same(w, id);
+  }
+  __device__ __forceinline__ bool keeps_row(int, int, int) const { return true; }
+};
+
+// The two words of a thread's pair (8 j + 2 t, + 1) in one shared load, or
+// `fill` twice where `use` is false: a select of the value, not a branch
+// around the load (a branch doubled B's branches and took it from 5.2 to 6.6
+// ms).
+__device__ __forceinline__ void load_word_pair(uint8_t (&w)[2], const uint8_t* p,
+                                               bool use = true, uint8_t fill = 1) {
+  const uint32_t pair =
+      use ? *reinterpret_cast<const uint16_t*>(p) : fill | (static_cast<uint32_t>(fill) << 8);
+  w[0] = static_cast<uint8_t>(pair & 0xFFu);
+  w[1] = static_cast<uint8_t>(pair >> 8);
+}
+
+__device__ __forceinline__ void load_word_pair(int (&w)[2], const int* p, bool use = true,
+                                               int fill = 1) {
+  const int2 pair = use ? *reinterpret_cast<const int2*>(p) : make_int2(fill, fill);
+  w[0] = pair.x;
+  w[1] = pair.y;
+}
+
+// A producer lane's four words (keys 4 lane .. 4 lane + 3) in one shared store.
+__device__ __forceinline__ void store_words(uint8_t* p, const uint8_t (&w)[4]) {
+  *reinterpret_cast<uint32_t*>(p) = static_cast<uint32_t>(w[0]) |
+                                    (static_cast<uint32_t>(w[1]) << 8) |
+                                    (static_cast<uint32_t>(w[2]) << 16) |
+                                    (static_cast<uint32_t>(w[3]) << 24);
+}
+
+__device__ __forceinline__ void store_words(int* p, const int (&w)[4]) {
+  *reinterpret_cast<int4*>(p) = make_int4(w[0], w[1], w[2], w[3]);
+}
+
+template <int DP, class Policy>
 constexpr int stream_smem_bytes() {
-  // Q, K and V stages, key-mask stages, and slack to align the base to 1024.
-  return q_bytes<DP>() + 2 * kStages * tile_bytes<DP>() + kStages * kBlockN + 1024;
+  // Q, K and V stages, the policy's words per stage (with row ids also a
+  // tile summary of two ints per stage), and slack to align the base to 1024
+  // (231,960 bytes at DP = 128 with segment ids).
+  return q_bytes<DP>() + 2 * kStages * tile_bytes<DP>() +
+         kStages * kBlockN * static_cast<int>(sizeof(typename Policy::Word)) +
+         (Policy::kRowIds ? kStages * 8 : 0) + 1024;
 }
 
 // K tiles that fit beside resident_kernel's two Q buffers and two V stages
@@ -104,24 +206,32 @@ __device__ __forceinline__ void tile_scores(float (&s)[kBlockN / 2], uint32_t q_
   fence_operands(s);
 }
 
-// -inf where the key is masked (the tile's `mask` bytes in shared memory,
-// read only if `use_mask`), at or past S, or (causal) after the row. The
-// pointer is always a shared one: a select against null would turn the
-// byte loads into generic ones (B with its key mask: 6.3 against 5.2 ms).
-__device__ __forceinline__ void mask_scores(float (&s)[kBlockN / 2], const uint8_t* mask,
-                                            bool use_mask, int k0, int S, bool causal, int row0,
-                                            int row1, int t) {
+// -inf where the policy hides the key from the row (the tile's `words` in
+// shared memory, read only if `use_words`, else `fill` for every key; rows'
+// ids id0 / id1), at or past S, or (causal) after the row. The pointer is
+// always a shared one: a select against null would turn the word loads into
+// generic ones (B with its key mask: 6.3 against 5.2 ms).
+template <class Policy>
+__device__ __forceinline__ void mask_scores(float (&s)[kBlockN / 2],
+                                            const typename Policy::Word* words, bool use_words,
+                                            typename Policy::Word fill, int k0, int S,
+                                            bool causal, int row0, int row1, int id0, int id1,
+                                            int t) {
 #pragma unroll
   for (int j = 0; j < kBlockN / 8; ++j) {
     const int local = 8 * j + 2 * t;
-    const uint32_t pair =
-        use_mask ? *reinterpret_cast<const uint16_t*>(mask + local) : 0x0101u;
+    typename Policy::Word w[2];
+    load_word_pair(w, words + local, use_words, fill);
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
+      // Bitwise tests and selects: with `&&` and `if` K's instance branched
+      // on every key.
       const int key = k0 + local + c;
-      const bool ok = key < S && ((pair >> (8 * c)) & 0xFFu) != 0u;
-      if (!ok || (causal && key > row0)) s[4 * j + c] = -INFINITY;
-      if (!ok || (causal && key > row1)) s[4 * j + 2 + c] = -INFINITY;
+      const bool ok = (key < S) & Policy::key_ok(w[c], key, S);
+      const bool see0 = ok & Policy::same(w[c], id0) & !(causal & (key > row0));
+      const bool see1 = ok & Policy::same(w[c], id1) & !(causal & (key > row1));
+      s[4 * j + c] = see0 ? s[4 * j + c] : -INFINITY;
+      s[4 * j + 2 + c] = see1 ? s[4 * j + 2 + c] : -INFINITY;
     }
   }
 }
@@ -231,14 +341,15 @@ __device__ __forceinline__ void advance(int& stage, uint32_t& phase, int n_stage
 
 // ------------------------------------------------------------ kernels --
 
-template <int DP, bool kTwoPass, bool kLse>
+template <int DP, bool kTwoPass, bool kLse, class Policy>
 __global__ void __launch_bounds__(kThreads, 1)
 stream_kernel(const __grid_constant__ CUtensorMap q_map,
               const __grid_constant__ CUtensorMap k_map,
-              const __grid_constant__ CUtensorMap v_map, const uint8_t* __restrict__ valid,
+              const __grid_constant__ CUtensorMap v_map, const Policy policy,
               __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int S, int D, int causal,
               float scale_log2, float* __restrict__ lse) {
   static_assert(!(kTwoPass && kLse), "the logsumexp is stored in online mode only");
+  using Word = typename Policy::Word;
   constexpr int kTile = tile_bytes<DP>();
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages];
@@ -247,7 +358,10 @@ stream_kernel(const __grid_constant__ CUtensorMap q_map,
   uint8_t* qs = align_1024(smem_raw);
   uint8_t* ks = qs + q_bytes<DP>();
   uint8_t* vs = ks + kStages * kTile;
-  uint8_t* ms = vs + kStages * kTile;
+  Word* words = reinterpret_cast<Word*>(vs + kStages * kTile);
+  // With row ids, per stage: whether every key of the tile lies below S and
+  // carries one id, and that id.
+  int2* summary = reinterpret_cast<int2*>(words + kStages * kBlockN);
 
   const int h = blockIdx.x;
   const int b = blockIdx.z;
@@ -256,7 +370,7 @@ stream_kernel(const __grid_constant__ CUtensorMap q_map,
   const int q0 = qt * kBlockM;
   const int bh_q = b * Hq + h;
   const int bh_kv = b * Hkv + h / (Hq / Hkv);
-  const bool has_mask = valid != nullptr;
+  const bool has_mask = policy.has_mask();
   int n_tiles = (S + kBlockN - 1) / kBlockN;
   if (causal) n_tiles = min(n_tiles, (min(q0 + kBlockM, S) - 1) / kBlockN + 1);
   const int n_iters = kTwoPass ? 2 * n_tiles : n_tiles;
@@ -266,7 +380,7 @@ stream_kernel(const __grid_constant__ CUtensorMap q_map,
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], has_mask ? 2 : 1);  // TMA bytes (+ the mask)
+      mbar_init(&full[s], has_mask ? 2 : 1);  // TMA bytes (+ the words)
       mbar_init(&empty[s], kConsumerWarps);
     }
     mbar_init(&q_full, 1);
@@ -285,19 +399,22 @@ stream_kernel(const __grid_constant__ CUtensorMap q_map,
         tma_load_3d(qs + c * kBlockM * 32, &q_map, &q_full, 16 * c, q0, bh_q);
       }
     }
-    const uint8_t* vrow = has_mask ? valid + static_cast<size_t>(b) * S : nullptr;
     int stage = 0;
     uint32_t phase = 0;
     for (int it = 0; it < n_iters; ++it) {
       const bool with_v = !kTwoPass || it >= n_tiles;
       const int k0 = (kTwoPass && it >= n_tiles ? it - n_tiles : it) * kBlockN;
-      uint32_t word = 0;  // this lane's 4 mask bytes, read before the wait
+      Word w[4] = {};  // this lane's 4 words, read before the wait
       if (has_mask) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int key = k0 + 4 * lane + i;
-          if (key < S && vrow[key] != 0) word |= 1u << (8 * i);
-        }
+        for (int i = 0; i < 4; ++i) w[i] = policy.stage(b, k0 + 4 * lane + i, S);
+      }
+      int uniform = 0;
+      Word u = 0;
+      if constexpr (Policy::kRowIds) {
+        u = __shfl_sync(0xffffffffu, w[0], 0);
+        uniform = __all_sync(0xffffffffu, k0 + 4 * lane + 3 < S && w[0] == u && w[1] == u &&
+                                              w[2] == u && w[3] == u);
       }
       mbar_wait(&empty[stage], phase ^ 1);
       if (lane == 0) {
@@ -314,8 +431,11 @@ stream_kernel(const __grid_constant__ CUtensorMap q_map,
         }
       }
       if (has_mask) {
-        *reinterpret_cast<uint32_t*>(ms + stage * kBlockN + 4 * lane) = word;
-        __syncwarp();  // every lane's bytes are written before lane 0 arrives
+        store_words(words + stage * kBlockN + 4 * lane, w);
+        if constexpr (Policy::kRowIds) {
+          if (lane == 0) summary[stage] = make_int2(uniform, u);
+        }
+        __syncwarp();  // every lane's words are written before lane 0 arrives
         if (lane == 0) mbar_arrive(&full[stage]);
       }
       advance(stage, phase, kStages);
@@ -330,6 +450,8 @@ stream_kernel(const __grid_constant__ CUtensorMap q_map,
   const int wg_row0 = q0 + wg * 64;
   const int row0 = wg_row0 + (warp % 4) * 16 + lane / 4;  // this thread's rows: row0, row0 + 8
   const int row1 = row0 + 8;
+  const int id0 = policy.row_key(b, row0, S);
+  const int id1 = policy.row_key(b, row1, S);
   const uint32_t q_addr = smem_u32(qs) + wg * 64 * 32;
 
   float acc[DP / 2];
@@ -348,8 +470,24 @@ stream_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_wait(&full[stage], phase);
     float s[kBlockN / 2];
     tile_scores<DP>(s, q_addr, smem_u32(ks + stage * kTile));
-    if (has_mask || k0 + kBlockN > S || (causal && k0 + kBlockN - 1 > wg_row0)) {
-      mask_scores(s, ms + stage * kBlockN, has_mask, k0, S, causal, row0, row1, t);
+    bool mask = has_mask || k0 + kBlockN > S || (causal && k0 + kBlockN - 1 > wg_row0);
+    bool use_words = has_mask;
+    Word fill = 1;
+    if constexpr (Policy::kRowIds) {
+      // A tile whose keys all lie below S and carry one id: a row sees all of
+      // them or none, and no word is loaded; a thread whose two rows have
+      // that id and no causal cut skips the masking (K's main path: most
+      // tiles).
+      const int2 sum = summary[stage];
+      if (sum.x) {
+        use_words = false;
+        fill = sum.y;
+        mask = id0 != fill || id1 != fill || (causal && k0 + kBlockN - 1 > row0);
+      }
+    }
+    if (mask) {
+      mask_scores<Policy>(s, words + stage * kBlockN, use_words, fill, k0, S, causal, row0, row1,
+                          id0, id1, t);
     }
     if (first_pass || !kTwoPass) {
       float alpha0, alpha1;
@@ -378,16 +516,16 @@ stream_kernel(const __grid_constant__ CUtensorMap q_map,
     advance(stage, phase, kStages);
   }
 
-  // out row = acc / l (online) or acc (P already normalised); 0 for an
-  // invalid query row or a row with no visible valid key.
+  // out row = acc / l (online) or acc (P already normalised); 0 for a row
+  // with no visible key and for a row the policy does not keep (an invalid
+  // query row of the key mask; segment ids keep every row).
   float inv0 = 1.f, inv1 = 1.f;
   bool zero0 = false, zero1 = false;
   if (!kTwoPass) {
     inv0 = quad_sum(l0);
     inv1 = quad_sum(l1);
-    const uint8_t* vrow = has_mask ? valid + static_cast<size_t>(b) * S : nullptr;
-    zero0 = !(row0 < S && (vrow == nullptr || vrow[row0] != 0) && inv0 > 0.f);
-    zero1 = !(row1 < S && (vrow == nullptr || vrow[row1] != 0) && inv1 > 0.f);
+    zero0 = !(policy.keeps_row(b, row0, S) && inv0 > 0.f);
+    zero1 = !(policy.keeps_row(b, row1, S) && inv1 > 0.f);
   }
   store_rows<DP>(o + static_cast<size_t>(bh_q) * S * D, acc, row0, row1, inv0, inv1, zero0,
                  zero1, S, D, t);
@@ -509,7 +647,7 @@ resident_kernel(const __grid_constant__ CUtensorMap q_map,
       float s[kBlockN / 2];
       tile_scores<DP>(s, q_addr, k_addr + kt * kTile);
       if (kt * kBlockN + kBlockN > S) {
-        mask_scores(s, qs, false, kt * kBlockN, S, false, 0, 0, t);
+        mask_scores<KeyMask>(s, qs, false, 1, kt * kBlockN, S, false, 0, 0, 0, 0, t);
       }
       float alpha0, alpha1;
       online_softmax(s, m0, m1, l0, l1, alpha0, alpha1, scale_log2);
@@ -526,7 +664,7 @@ resident_kernel(const __grid_constant__ CUtensorMap q_map,
       tile_scores<DP>(s, q_addr, k_addr + kt * kTile);
       if (kt == n_tiles - 1 && lane == 0) mbar_arrive(&q_empty[qb]);  // Q read for the last time
       if (kt * kBlockN + kBlockN > S) {
-        mask_scores(s, qs, false, kt * kBlockN, S, false, 0, 0, t);
+        mask_scores<KeyMask>(s, qs, false, 1, kt * kBlockN, S, false, 0, 0, 0, 0, t);
       }
       normalised_p(s, m0, m1, r0, r1, scale_log2);
       mbar_wait(&full[stage], phase);
@@ -542,7 +680,7 @@ struct Args {
   const void* q;
   const void* k;
   const void* v;
-  const uint8_t* valid;  // [B, S] or null
+  const uint8_t* valid;  // [B, S] or null: the KeyMask of A, B, C
   void* o;
   int B, Hq, Hkv, S, D, causal;
   float scale_log2;
@@ -560,18 +698,20 @@ inline cudaError_t make_maps(const Args& a, CUtensorMap* q_map, CUtensorMap* k_m
   return err;
 }
 
-template <int DP, bool kTwoPass, bool kLse = false>
-cudaError_t launch_stream(const Args& a) {
+// Grid (Hq, ceil(S / 128), B): the q heads of a KV group are adjacent blocks
+// and read the same K and V tiles from L2.
+template <int DP, bool kTwoPass, bool kLse = false, class Policy = KeyMask>
+cudaError_t launch_stream(const Args& a, const Policy& policy) {
   CUtensorMap q_map, k_map, v_map;
   cudaError_t err = make_maps(a, &q_map, &k_map, &v_map);
   if (err != cudaSuccess) return err;
-  constexpr int smem = stream_smem_bytes<DP>();
-  err = cudaFuncSetAttribute(stream_kernel<DP, kTwoPass, kLse>,
+  constexpr int smem = stream_smem_bytes<DP, Policy>();
+  err = cudaFuncSetAttribute(stream_kernel<DP, kTwoPass, kLse, Policy>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(a.Hq, (a.S + kBlockM - 1) / kBlockM, a.B);
-  stream_kernel<DP, kTwoPass, kLse><<<grid, kThreads, smem, a.stream>>>(
-      q_map, k_map, v_map, a.valid, static_cast<__nv_bfloat16*>(a.o), a.Hq, a.Hkv, a.S, a.D,
+  stream_kernel<DP, kTwoPass, kLse, Policy><<<grid, kThreads, smem, a.stream>>>(
+      q_map, k_map, v_map, policy, static_cast<__nv_bfloat16*>(a.o), a.Hq, a.Hkv, a.S, a.D,
       a.causal, a.scale_log2, a.lse);
   return cudaGetLastError();
 }
@@ -580,7 +720,7 @@ cudaError_t launch_stream(const Args& a) {
 template <int DP>
 cudaError_t launch_two_pass(const Args& a) {
   const int n_tiles = (a.S + kBlockN - 1) / kBlockN;
-  if (n_tiles > resident_tiles<DP>()) return launch_stream<DP, true>(a);
+  if (n_tiles > resident_tiles<DP>()) return launch_stream<DP, true>(a, KeyMask{a.valid});
   CUtensorMap q_map, k_map, v_map;
   cudaError_t err = make_maps(a, &q_map, &k_map, &v_map);
   if (err != cudaSuccess) return err;

@@ -18,7 +18,8 @@
 // kDqConsumerRegs). The producer loads the block's Q and dO once by TMA,
 // then streams K and V tiles of kDqKeys keys through a ring of kDqStages
 // stages; its 32 lanes stage each tile's mask data beside it (the policy's
-// word per key: a valid byte, 0 past S, or the key's segment id). Each
+// word per key, hopper_attention.cuh: a valid byte, 0 past S, or the key's
+// segment id). Each
 // consumer thread reads its two rows' lse (log2 units, +inf past S) and
 // delta (0 past S) once into registers: a 1-D TMA box at (b Hq + h) S + q0
 // floats is 16-byte aligned only when S % 4 == 0.
@@ -65,55 +66,6 @@ constexpr int kDqConsumerRegs = 240;  // 24 + 2 x 240 = 504 of a lane's 512
 template <int DP>
 __host__ __device__ constexpr int dq_tile_bytes() {
   return DP / 16 * kDqKeys * 32;  // one tile of K or V
-}
-
-// Kernel D's policy: a key is seen iff it lies below S and its valid byte is
-// set (every key below S when `valid` is null). The caller zeroes dO on
-// invalid query rows, so their delta, ds and dq are exactly 0.
-struct KeyMask {
-  using Word = uint8_t;
-  const uint8_t* valid;  // [B, S] or null
-
-  __device__ __forceinline__ bool has_mask() const { return valid != nullptr; }
-  // The producer's word for key `key` of batch row b.
-  __device__ __forceinline__ Word stage(int b, int key, int S) const {
-    return key < S && (valid == nullptr || valid[static_cast<size_t>(b) * S + key] != 0);
-  }
-  // What a consumer keeps of its row (nothing here).
-  __device__ __forceinline__ int row_key(int, int, int) const { return 0; }
-  __device__ __forceinline__ static bool sees(Word w, int, int, int) { return w != 0; }
-};
-
-// Kernel J's policy: a key is seen iff it lies below S and its segment id
-// equals the row's. An id-0 row is computed like any other.
-struct SegmentIds {
-  using Word = int;
-  const int* q_ids;   // [B, S]
-  const int* kv_ids;  // [B, S]
-
-  __device__ __forceinline__ bool has_mask() const { return true; }
-  __device__ __forceinline__ Word stage(int b, int key, int S) const {
-    return key < S ? kv_ids[static_cast<size_t>(b) * S + key] : 0;
-  }
-  __device__ __forceinline__ int row_key(int b, int row, int S) const {
-    return row < S ? q_ids[static_cast<size_t>(b) * S + row] : 0;
-  }
-  __device__ __forceinline__ static bool sees(Word w, int key, int S, int id) {
-    return key < S && w == id;
-  }
-};
-
-// The two words of a thread's key pair (8 j + 2 t, + 1) in one shared load.
-__device__ __forceinline__ void load_word_pair(uint8_t (&w)[2], const uint8_t* p) {
-  const uint32_t pair = *reinterpret_cast<const uint16_t*>(p);
-  w[0] = static_cast<uint8_t>(pair & 0xFFu);
-  w[1] = static_cast<uint8_t>(pair >> 8);
-}
-
-__device__ __forceinline__ void load_word_pair(int (&w)[2], const int* p) {
-  const int2 pair = *reinterpret_cast<const int2*>(p);
-  w[0] = pair.x;
-  w[1] = pair.y;
 }
 
 template <int DP, class Policy>
@@ -340,19 +292,10 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUt
   store_scaled<DP>(dq + static_cast<size_t>(bh_q) * S * D, acc, row0, row1, sm_scale, S, D, t);
 }
 
-struct DqArgs {
-  const void *q, *k, *v, *dout;
-  const float *lse, *delta;
-  void* dq;
-  int B, Hq, Hkv, S, D, causal;
-  float sm_scale;
-  cudaStream_t stream;
-};
-
 // Q and dO in tensor maps of 128-row boxes, K and V of kDqKeys-row boxes;
 // grid (ceil(S / 128), Hq, B).
 template <int DP, class Policy>
-cudaError_t launch_dq(const DqArgs& a, const Policy& policy) {
+cudaError_t launch_dq(const BwdArgs& a, const Policy& policy) {
   CUtensorMap q_map, do_map, k_map, v_map;
   cudaError_t err = make_rows_map(&q_map, a.q, a.B * a.Hq, a.S, a.D, kBlockM);
   if (err == cudaSuccess) err = make_rows_map(&do_map, a.dout, a.B * a.Hq, a.S, a.D, kBlockM);

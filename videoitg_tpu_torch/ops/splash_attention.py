@@ -5,8 +5,8 @@ Counterpart of `_splash_lm` / `_make_splash_kernel` in
 videoitg_tpu/ops/attention.py, the A/B arm that sends the grounding LM's
 attention through jax's library splash MQA kernel instead of the in-tree
 flash kernel. The kernel here is csrc/splash_attention.cu, hand-written for
-Hopper; its source note gives the design and how it differs from
-csrc/flash_attention.cu.
+Hopper: kernel B's TMA + wgmma kernel (csrc/hopper_attention.cuh) with the
+segment-id mask policy; its source note gives the design.
 
 Three layers, as in the JAX package:
 
@@ -14,7 +14,8 @@ Three layers, as in the JAX package:
   [B, Hkv, S, D], int32 segment ids [B, S] for the queries and for the keys;
   a query attends a key iff their ids are equal; fp32 softmax; one KV head
   serves the Hq / Hkv query heads of its group. CPU tensors run
-  `splash_mqa_reference`, CUDA tensors launch the kernel or raise.
+  `splash_mqa_reference`, CUDA tensors launch the kernel or raise (q, k, v
+  contiguous and 16-byte aligned: the kernel reads them by TMA).
 * `splash_mqa_reference` — the plain PyTorch version of the same function.
 * `splash_lm` — what the LM calls: q scaled by D ** -0.5 in q's own dtype (in
   bf16 that is a rounding the flash arm does not make: it scales the fp32
@@ -62,24 +63,36 @@ def splash_mqa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, hq, s, d).to(q.dtype)
 
 
+def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Raise on the shapes the kernel refuses: Hq not a multiple of Hkv, k
+    and v not [B, Hkv, S, D] beside q, B or Hq above 65535 or B * S of 2^31
+    or more (the grid and the tensor maps). Returns (B, Hq, Hkv, S, D)."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    if hq % hkv:
+        raise ValueError(f"splash_mqa: Hq={hq} is not a multiple of Hkv={hkv}")
+    if k.shape != (b, hkv, s, d) or v.shape != k.shape:
+        raise ValueError(f"splash_mqa: k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if b > 65535 or hq > 65535 or b * s >= 2 ** 31:
+        raise ValueError(f"splash_mqa: q {tuple(q.shape)} is beyond the kernel's grid "
+                         f"(B, Hq <= 65535, B * S < 2^31)")
+    return b, hq, hkv, s, d
+
+
 def splash_mqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                q_segment_ids: torch.Tensor, kv_segment_ids: torch.Tensor) -> torch.Tensor:
     """Segment-masked MQA of an already-scaled q. Returns [B, Hq, S, D] in
     q.dtype.
 
     CPU tensors run `splash_mqa_reference`. CUDA tensors launch the kernel
-    (bf16, contiguous, D a multiple of 8 up to 128, int32 ids) or raise.
+    (bf16, contiguous, 16-byte aligned, D a multiple of 8 up to 128, int32
+    ids) or raise.
     """
     if q.device.type == "cpu":
         return splash_mqa_reference(q, k, v, q_segment_ids, kv_segment_ids)
-    b, hq, s, d = q.shape
-    hkv = k.shape[1]
     check_operands("splash_mqa", q, k, v)
-    if hq % hkv:
-        raise ValueError(f"splash_mqa: Hq={hq} is not a multiple of Hkv={hkv}")
-    if k.shape != (b, hkv, s, d) or v.shape != k.shape:
-        raise ValueError(f"splash_mqa: k {tuple(k.shape)} / v {tuple(v.shape)} do not "
-                         f"match q {tuple(q.shape)}")
+    b, hq, hkv, s, d = check_shapes(q, k, v)
     check_matrix("splash_mqa", "q_segment_ids", q_segment_ids, torch.int32, (b, s), q.device)
     check_matrix("splash_mqa", "kv_segment_ids", kv_segment_ids, torch.int32, (b, s), q.device)
     out = torch.empty_like(q)
