@@ -49,15 +49,21 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      post] layout's holes mid-sequence; the tower's [32, 16, 729 padded to
      1024, 72]; a ragged S = 4,101 with scattered ids; a causal hole over two
      batch rows; three ids other than 0 / 1; ids for q and kv apart with
-     queries that match no key (o exactly 0, lse +inf, dq exactly 0); nine
-     more head dims. Every row is compared, the id-0 rows included. The
+     queries that match no key (o exactly 0, lse +inf, dq exactly 0).
+     Every row is compared, the id-0 rows included. The
      backward like with like, as C, D, E; the same tolerances; two runs of
      dQ and of dK/dV bit-equal. Broken uses: ids ignored (forward, dQ, dK/dV), the pad
      keys left out of the invalid rows, delta dropped, causal dropped. Timed
      beside C, D, E on the same inputs and the library call with the same
-     boolean mask; bounds from the pairs this run's ids admit. J's dQ and
-     dK/dV run on D's and E's TMA + wgmma kernels with the segment-id
-     policy; `--only segment-kernels` prints ptxas' lines for them and E.
+     boolean mask; bounds from the pairs this run's ids admit. J's forward
+     runs on C's TMA + wgmma kernel (with a skip of the key tiles no row of
+     a block can see), its dQ and dK/dV on D's and E's, each with the
+     segment-id policy; `--only segment-kernels` prints ptxas' lines for
+     them and E, and the library must hold J's forward instance and not the
+     mma.sync kernel it replaced. Three uniform segments (1 / 2 / 0 over
+     [0, 1280) / [1280, 3000) / [3000, 3200)), causal and not, run both
+     the skip and the mixed tiles; the forward's o and lse are bit-equal
+     over two runs; every head dim from 8 to 128 runs causal and not.
    * A, B (attention, bf16, the TMA + wgmma kernels): plus a long case whose
      length is not a multiple of the 128-key tile, a small causal case and a
      fully-masked-row case; A at ragged S = 577 and 1,000, at S = 500 with
@@ -192,16 +198,19 @@ FRAME_HW = (360, 640)  # a video-like decode resolution
 # at a time (PERF.md section 6; NVIDIA H100 80GB HBM3 at 700.00 W). Printed
 # for comparison only: this run does not measure them.
 FIRST_VERSION_MS = {"flash_mha_short": 6.7473, "flash_mha": 27.5702}
+# The mangled name of J's forward: stream_kernel<DP, false, true, SegmentIds, ...>.
+J_FWD_INSTANCE = r"stream_kernelILi\d+ELb0ELb1ENS0_10SegmentIds"
 # Patterns of the mangled names of the kernel instances whose ptxas lines
 # each `--only` run prints.
 PTXAS = {
     "attention-kernels": (("A", r"resident_kernel|stream_kernelILi\d+ELb1E"),
                           ("B", r"stream_kernelILi\d+ELb0ELb0E.*KeyMask")),
-    "train-kernels": (("C", r"stream_kernelILi\d+ELb0ELb1E"), ("D", r"dq_kernel.*KeyMask"),
-                      ("E", r"dkv_kernel.*KeyMask"), ("J dq", r"dq_kernel.*SegmentIds")),
-    "splash-kernels": (("K", r"stream_kernel.*SegmentIds"),),
-    "segment-kernels": (("J dq", r"dq_kernel.*SegmentIds"), ("J dkv", r"dkv_kernel.*SegmentIds"),
-                        ("E", r"dkv_kernel.*KeyMask")),
+    "train-kernels": (("C", r"stream_kernelILi\d+ELb0ELb1E.*KeyMask"),
+                      ("D", r"dq_kernel.*KeyMask"), ("E", r"dkv_kernel.*KeyMask"),
+                      ("J dq", r"dq_kernel.*SegmentIds")),
+    "splash-kernels": (("K", r"stream_kernelILi\d+ELb0ELb0E.*SegmentIds"),),
+    "segment-kernels": (("J fwd", J_FWD_INSTANCE), ("J dq", r"dq_kernel.*SegmentIds"),
+                        ("J dkv", r"dkv_kernel.*SegmentIds"), ("E", r"dkv_kernel.*KeyMask")),
 }
 
 
@@ -1197,9 +1206,16 @@ def check_segment_kernels(dev) -> dict:
     import torch
     from torch.nn import functional as F
 
+    from videoitg_tpu_torch.ops import _build
     from videoitg_tpu_torch.ops import flash_attention_segment as fas
     from videoitg_tpu_torch.ops import flash_attention_train as fat
 
+    with open(_build.build(), "rb") as f:
+        lib = f.read()
+    if b"flash_segment_fwd_kernel" in lib or not re.search(J_FWD_INSTANCE.encode(), lib):
+        fail("the library does not hold J's forward as stream_kernel<DP, false, true, "
+             "SegmentIds, ...> alone")
+    del lib
     gen = torch.Generator(device=dev).manual_seed(SEED + 60)
 
     def randn(*shape):
@@ -1322,6 +1338,10 @@ def check_segment_kernels(dev) -> dict:
     ids = (torch.arange(s_pad, device=dev)[None] < n_valid).to(torch.int32)
     label = f"[1, 28, {s_pad} padded from {s}, 128] bf16, {n_valid} valid"
     c = run_case(label, q, k, v, ids, ids, False)
+    o2, lse2 = fas.flash_segment_fwd(q, k, v, ids, ids)
+    if not (torch.equal(o2, c["o"]) and torch.equal(lse2, c["lse"])):
+        fail("flash_segment_fwd: two runs differ")
+    del o2, lse2
     delta = fas.segment_delta(c["o"], c["do"])
     dk2, dv2 = fas.flash_segment_dkv(q, k, v, ids, ids, c["do"], c["lse"], delta)
     if not (torch.equal(dk2, c["dk"]) and torch.equal(dv2, c["dv"])):
@@ -1473,14 +1493,27 @@ def check_segment_kernels(dev) -> dict:
         fail(f"expected {2 * 8 * 40} rows that see no key, got {case['empty']}")
     widen(case)
 
-    # ---- the other head dims (each its own instantiation, padded to a
-    # multiple of 16 in shared memory only), at a small ragged length.
-    for d in (8, 16, 24, 40, 56, 72, 88, 104, 120):
+    # ---- three uniform segments, ids 1 / 2 / 0 over [0, 1280) / [1280, 3000)
+    # / [3000, 3200): the first edge on a tile edge, the second not. Blocks
+    # and tiles of one id skip the tiles of another; those across an edge
+    # take the per-key test.
+    s = 3200
+    q, k, v = (randn(1, 8, s, 128) for _ in range(3))
+    pos = torch.arange(s, device=dev)[None]
+    ids = torch.where(pos < 1280, 1, torch.where(pos < 3000, 2, 0)).to(torch.int32).contiguous()
+    for causal in (False, True):
+        widen(run_case(f"segments 1 / 2 / 0 over 1280 / 1720 / 200 [1, 8, {s}, 128] "
+                       f"causal={causal}", q, k, v, ids, ids, causal))
+
+    # ---- every head dim (each its own instantiation, padded to a multiple of
+    # 16 in shared memory only), causal and not, at a small ragged length.
+    for d in range(8, 129, 8):
         q, k, v = (randn(2, 3, 130, d) for _ in range(3))
         ids = (torch.arange(130, device=dev)[None] < torch.tensor([[100], [130]], device=dev)
                ).to(torch.int32).contiguous()
-        widen(run_case(f"[2, 3, 130, {d}], 100 and 130 valid", q, k, v, ids, ids,
-                       causal=d % 32 == 24))
+        for causal in (False, True):
+            widen(run_case(f"[2, 3, 130, {d}], 100 and 130 valid, causal={causal}", q, k, v,
+                           ids, ids, causal))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return records
@@ -1917,7 +1950,7 @@ def run_repro_script() -> dict:
     script = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(script)
     rk.double_literal.launches = rk.double_no_literal.launches = 0
-    if script.main() != 0:
+    if script.main([]) != 0:
         fail("scripts/torch_repro_kernels.py failed")
     launches = {"double_literal": rk.double_literal.launches,
                 "double_no_literal": rk.double_no_literal.launches}

@@ -24,17 +24,28 @@ dK/dV (training) timed outside chip_smoke.py.
         build/attention_probe/ with constants of a csrc header changed: the
         grid order of E's and J's dK/dV instances), in turns: others, this,
         the variants, this, the others in reverse.
+    python3 scripts/torch_probes/attention_probe.py --segment [OTHER_CHECKOUT ...]
+        J's forward as the `train-jax` arm hands it over at its three shapes
+        (the grounding step's [1, 28, 16896 padded from 16640, 128] with
+        16,500 id-1 tokens, causal at the VLM step's [1, 28, 17408, 128], the
+        tower's [32, 16, 1024 padded from 729, 72]) beside C on the same
+        tokens (4 KV heads, the ids as key mask); K at [1, 28/4, 13056, 128]
+        on prefix ids (12,840 valid) and on scattered ids (1% invalid) beside
+        B on the same inputs. In this checkout, in each other one and in a
+        variant with J's forward's grid order flipped (heads fastest), in
+        the same turns as --train.
 
 Each checkout runs in its own process, which builds its own library through
 its ops/_build.py and prints ptxas' lines for the DP = 128 instances of
 `hattn::stream_kernel` (and of `hattn::dkv_kernel` and `hattn::dq_kernel` with
 --train) when it built it, and a hash of the machine code (cuobjdump -sass)
-of every instance of A, B, C, D, E, K and J's dQ and dK/dV
+of every instance of A, B, C, D, E, K and J's forward, dQ and dK/dV
 (`resident_kernel`, `stream_kernel`, `dq_kernel`, `dkv_kernel`); the last
 lines say, instance by instance, whether each other checkout's hashes equal
 this one's. Times: chip_smoke.py's CUDA-event timer, over 20 launches (10 for
 B and K, 5 for C, 3 for D, E and J's dQ and dK/dV) after one warm-up; needs
-one card.
+one card. --segment times J's forward over 5 launches (20 at the tower's
+shape), K and B over 30.
 
 Read on an NVIDIA H100 80GB HBM3 at 700 W, ms:
   --shapes, with the first TMA version of A (K and V streamed in both
@@ -61,12 +72,17 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 VARIANT_ROOT = os.path.join(HERE, "build", "attention_probe")
 # tag -> (header under csrc/, {constant: value})
 VARIANTS = {
-    "J dK/dV heads fastest": ("hopper_attention_dkv.cuh", {"kDkvKeyTilesFirstJ": 0}),
-    "E key tiles fastest": ("hopper_attention_dkv.cuh", {"kDkvKeyTilesFirstE": 1}),
+    "--train": {
+        "J dK/dV heads fastest": ("hopper_attention_dkv.cuh", {"kDkvKeyTilesFirstJ": 0}),
+        "E key tiles fastest": ("hopper_attention_dkv.cuh", {"kDkvKeyTilesFirstE": 1}),
+    },
+    "--segment": {
+        "J fwd heads fastest": ("hopper_attention_dkv.cuh", {"kFwdQueryTilesFirstJ": 0}),
+    },
 }
 # The attention instances, by mangled name: the kernel, then its template
 # arguments (DP, stream_kernel's two-pass and lse flags, the mask policy,
-# dkv_kernel's grid order).
+# the grid order of stream_kernel and dkv_kernel).
 HASHED = re.compile(r"hattn\d+(resident_kernel|stream_kernel|dkv_kernel|dq_kernel)I(.+?)EEv")
 
 
@@ -109,7 +125,7 @@ def shapes() -> None:
 
 def instance_name(kernel: str, args: str) -> str:
     """'B DP 128', 'A two-pass DP 80', 'J dkv DP 128', ... from a mangled
-    instance (the grid order of dkv_kernel is left out of the name)."""
+    instance (the grid order is left out of the name)."""
     flags = re.findall(r"L[a-z]+(\d+)E", args)
     dp = flags[0]
     segment = "SegmentIds" in args
@@ -277,6 +293,63 @@ def segment_times(r, s, causal):
     return out
 
 
+def one_checkout_segment(tag: str) -> None:
+    import torch
+
+    sys.path.insert(0, os.getcwd())
+    from videoitg_tpu_torch.ops import flash_attention_segment as fas
+    from videoitg_tpu_torch.ops import flash_attention_train as fat
+    from videoitg_tpu_torch.ops import splash_attention as sa
+    from videoitg_tpu_torch.ops.flash_attention import flash_mha
+
+    code_report(tag, train=False)
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def r(*sh):
+        return torch.randn(*sh, generator=g, device="cuda").to(torch.bfloat16)
+
+    lines = []
+    for what, s, causal in (("", 16640, False), ("causal ", 64 + 16384 + 512, True)):
+        s_pad = -(-s // 512) * 512
+        pos = torch.arange(s_pad, device="cuda")
+        if causal:
+            ids = (pos < 30) | ((pos >= 64) & (pos < 64 + 16384 + 200))
+        else:
+            ids = pos < 16500
+        ids = ids.to(torch.int32)[None].contiguous()
+        q = r(1, 28, s_pad, 128)
+        k, v = (r(1, 4, s_pad, 128) for _ in range(2))
+        for x in (q, k, v):
+            x[:, :, s:] = 0
+        kr, vr = (x.repeat_interleave(7, dim=1) for x in (k, v))
+        j_ms = cuda_ms(lambda: fas.flash_segment_fwd(q, kr, vr, ids, ids, causal), 5)
+        del kr, vr
+        qc, kc, vc = (x[:, :, :s].contiguous() for x in (q, k, v))
+        valid = ids[:, :s].bool().contiguous()
+        c_ms = cuda_ms(lambda: fat.flash_train_fwd(qc, kc, vc, valid, causal), 5)
+        lines.append(f"{what}J-fwd {j_ms:.4f} C {c_ms:.4f}")
+        del q, k, v, qc, kc, vc
+        torch.cuda.empty_cache()
+    q, k, v = (r(32, 16, 1024, 72) for _ in range(3))
+    for x in (q, k, v):
+        x[:, :, 729:] = 0
+    ids = (torch.arange(1024, device="cuda")[None] < 729).to(torch.int32).expand(32, 1024)
+    ids = ids.contiguous()
+    lines.append("tower J-fwd %.4f" % cuda_ms(lambda: fas.flash_segment_fwd(q, k, v, ids, ids),
+                                              20))
+    s = 13056
+    q, k, v = r(1, 28, s, 128), r(1, 4, s, 128), r(1, 4, s, 128)
+    qs = sa.prescale(q)
+    pos = torch.arange(s, device="cuda")[None]
+    for what, valid in (("prefix", pos < 12840),
+                        ("scattered", torch.rand(1, s, generator=g, device="cuda") > 0.01)):
+        seg = valid.to(torch.int32).contiguous()
+        k_ms = cuda_ms(lambda: sa.splash_mqa(qs, k, v, seg, seg), 30)
+        b_ms = cuda_ms(lambda: flash_mha(q, k, v, valid=valid), 30)
+        lines.append(f"K-{what} {k_ms:.4f} B-{what} {b_ms:.4f}")
+    print(f"{tag}: " + "; ".join(lines), flush=True)
+
+
 def variant(tag: str, header: str, change: dict) -> str:
     """A copy of this checkout's package with `change` applied to the
     constants of csrc/`header`."""
@@ -302,20 +375,20 @@ def main(argv) -> int:
         shapes()
         return 0
     if argv[:1] == ["--one"]:
-        (one_checkout_train if argv[2:3] == ["--train"] else one_checkout)(argv[1])
+        runs = {"--train": one_checkout_train, "--segment": one_checkout_segment}
+        runs.get(argv[2] if len(argv) > 2 else None, one_checkout)(argv[1])
         return 0
-    train = argv[:1] == ["--train"]
-    others = [(os.path.abspath(p), "other " + p) for p in argv[train:]]
-    if not others and not train:
+    mode = argv[:1] if argv[:1] in (["--train"], ["--segment"]) else []
+    others = [(os.path.abspath(p), "other " + p) for p in argv[len(mode):]]
+    if not others and not mode:
         raise SystemExit(__doc__)
-    middle = ([(variant(tag, *change), tag) for tag, change in VARIANTS.items()]
-              if train else [])
+    variants = VARIANTS.get(mode[0], {}) if mode else {}
+    middle = [(variant(tag, *change), tag) for tag, change in variants.items()]
     order = others + [(HERE, "this")] + middle + [(HERE, "this")] + others[::-1]
     hashes = {}
     for root, tag in order:
-        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tag]
-                           + (["--train"] if train else []), cwd=root, capture_output=True,
-                           text=True, timeout=900)
+        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tag] + mode,
+                           cwd=root, capture_output=True, text=True, timeout=900)
         lines = p.stdout.strip().splitlines()
         for line in lines:
             if line.startswith("HASHES "):
@@ -324,7 +397,7 @@ def main(argv) -> int:
               p.stderr.strip()[-500:], flush=True)
     mine = hashes.get("this", {})
     for tag, theirs in hashes.items():
-        if tag == "this" or tag in VARIANTS:
+        if tag == "this" or tag in variants:
             continue
         same = sum(theirs.get(n) == h for n, h in mine.items())
         differ = sorted(n for n in mine if n in theirs and theirs[n] != mine[n])

@@ -49,7 +49,6 @@ GROUPS = (
     ("ln_qkv_kernel", "kernel G fused_ln_qkv_int8"),
     ("ln_mlp_kernel", "kernel H fused_ln_mlp_int8"),
     ("proj_res_kernel", "kernel I fused_proj_residual_int8"),
-    ("flash_segment_fwd_kernel", "kernel J flash_segment_fwd"),
     ("Memcpy", "copies"),
     ("Memset", "copies"),
     ("nvjet", "library GEMMs"),
@@ -62,12 +61,13 @@ TRACER_ROWS = ("Command Buffer Full", "Activity Buffer Request")
 
 
 def group_of(name: str) -> str:
-    # stream_kernel<DP, kTwoPass, kLse, Policy>: kernel K with segment ids;
-    # with the key mask kernel C with the lse store, A in its two-pass mode
-    # beyond resident K, else B.
+    # stream_kernel<DP, kTwoPass, kLse, Policy, order>: with segment ids J's
+    # forward (the lse store) or else kernel K; with the key mask kernel C
+    # with the lse store, A in its two-pass mode beyond resident K, else B.
     if "hattn::stream_kernel" in name:
         if "SegmentIds" in name:
-            return "kernel K splash_mqa"
+            return ("kernel J flash_segment_fwd" if ", false, true," in name
+                    else "kernel K splash_mqa")
         if ", false, true," in name:
             return "kernel C flash_train_fwd"
         return "kernel A flash_mha_short" if ", true, false," in name else "kernel B flash_mha"

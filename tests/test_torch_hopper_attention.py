@@ -34,7 +34,8 @@ def _scores(q, k, k0, sm_scale):
             sm_scale * math.log2(math.e))
 
 
-def tiled_online(q, k, v, valid=None, causal=False, with_lse=False, seen=None, sm_scale=None):
+def tiled_online(q, k, v, valid=None, causal=False, with_lse=False, seen=None, sm_scale=None,
+                 skip=None):
     """Kernel B's arithmetic: per 128-key tile the running max (a row with no
     visible key keeps -inf and takes base 0), p = exp2(s * scale - base *
     scale) rounded to v's type, O and the sum rescaled by alpha; O / sum at
@@ -43,7 +44,11 @@ def tiled_online(q, k, v, valid=None, causal=False, with_lse=False, seen=None, s
     +inf where the sum is 0: returns (o, lse). With `seen` (a mask policy of
     tests/test_torch_hopper_dq_attention.py: seen(rows, keys) -> [B, 1, R, K])
     and `sm_scale` 1 on a pre-scaled q, kernel K: the same kernel with the
-    segment-id policy, where only a row that sees no key is 0."""
+    segment-id policy, where only a row that sees no key is 0 (with
+    `with_lse` and the scale, J's forward). With `skip` (skip(k0) -> [B, 1, S]
+    bool) the rows it marks pass the tile at k0 by: their max, sum and O
+    stay as they are, as the segment-id policy's blocks pass a tile that no
+    row of theirs sees."""
     b, hq, s, d = q.shape
     scale = d ** -0.5 if sm_scale is None else sm_scale
     group = hq // k.shape[1]
@@ -67,9 +72,13 @@ def tiled_online(q, k, v, valid=None, causal=False, with_lse=False, seen=None, s
         base = torch.where(mn == -math.inf, 0.0, mn)
         alpha = torch.exp2((m - base) * sl)
         p = torch.exp2(sc * sl - (base * sl)[..., None])
-        l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + p.to(v.dtype).float() @ v[..., k0:k0 + BLOCK_N, :].float()
-        m = mn
+        ln = l * alpha + p.sum(-1)
+        accn = acc * alpha[..., None] + p.to(v.dtype).float() @ v[..., k0:k0 + BLOCK_N, :].float()
+        if skip is not None:
+            passed = skip(k0)
+            mn, ln = torch.where(passed, m, mn), torch.where(passed, l, ln)
+            accn = torch.where(passed[..., None], acc, accn)
+        m, l, acc = mn, ln, accn
     ok_rows = l > 0
     if valid is not None:
         ok_rows = ok_rows & valid[:, None, :]

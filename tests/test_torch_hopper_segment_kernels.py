@@ -1,8 +1,9 @@
-"""The order of sums of kernels K and J's dK/dV, held to the JAX kernels.
+"""The order of sums of kernels K and J's forward and dK/dV, held to the JAX
+kernels.
 
-Both run on the TMA + wgmma kernels of other callers with the segment-id mask
-policy (csrc/hopper_attention.cuh): a key is seen iff it lies below S and its
-int32 id equals the row's; every row is computed, whatever its id.
+All three run on the TMA + wgmma kernels of other callers with the segment-id
+mask policy (csrc/hopper_attention.cuh): a key is seen iff it lies below S and
+its int32 id equals the row's; every row is computed, whatever its id.
 
 * K (`splash_mqa`) is kernel B's stream kernel on a pre-scaled q (sm_scale 1):
   keys in tiles of 128, a running max and sum, only a row that sees no key
@@ -12,6 +13,15 @@ int32 id equals the row's; every row is computed, whatever its id.
   `_splash_lm` and to jax's library splash kernel with three segments, in
   interpret mode, groups of 2, 7 and 8, fp32, at tests/test_torch_splash.py's
   tolerance (atol 2e-5, rtol 1e-4).
+* J's forward (`flash_segment_fwd`) is kernel C's stream kernel with the lse
+  store: `tiled_online(..., with_lse=True, seen=segment_ids(...),
+  skip=tile_skip(...))`, where a 128-row block whose rows below S carry one
+  id passes by a 128-key tile whose keys all lie below S and carry another.
+  Held to the forward of the `train-jax` arm (`mha`, `use_flash="train-jax"`:
+  GQA repeated to MHA, ragged S padded to 512) and to jax's library flash
+  kernel's (o, l, m) with three segments and an id-0 tail, under
+  `pltpu.force_tpu_interpret_mode()`, fp32, atol 2e-5 / rtol 1e-4; lse on
+  the rows that see a key.
 * J's dK/dV (`flash_segment_dkv`) is kernel E's key-stationary kernel with a
   group of 1 (`tiled_dkv(..., seen=segment_ids(...))` of
   tests/test_torch_hopper_train_attention.py): 128 keys a block, 64-row query
@@ -22,7 +32,7 @@ int32 id equals the row's; every row is computed, whatever its id.
   fp32, at tests/test_torch_train_attention.py's tolerance for gradients (1e-3
   of the largest entry).
 
-In bf16 both are held to the plain versions the card is checked against, at
+In bf16 all three are held to the plain versions the card is checked against, at
 chip_smoke.py's tolerance. The wrappers' device-independent checks run on CPU
 and meta tensors.
 """
@@ -37,6 +47,7 @@ from jax.experimental.pallas import tpu as pltpu
 from jax.experimental.pallas.ops.tpu.flash_attention import (
     BlockSizes,
     SegmentIds,
+    _flash_attention as jax_library_flash_residuals,
     flash_attention as jax_library_flash,
 )
 
@@ -124,6 +135,129 @@ def test_stream_order_with_segment_ids_matches_the_plain_version_in_bf16():
     assert (got - ref).abs().max() <= _bf16_tol(ref)
     assert not got[1, :, 40:50].any()
     assert got[0, :, 260:].abs().max() > 0.1  # id-0 rows are computed, not zeroed
+
+
+# ------------------------------------------------------------- J's forward --
+
+ROWS = 128  # query rows per block and keys per tile (hattn::kBlockM, kBlockN)
+
+
+def tile_skip(q_ids, kv_ids):
+    """The segment-id policy's skip: skip(k0) -> [B, 1, S] bool, True on the
+    rows of each 128-row block whose rows below S carry one id while every
+    key of the tile at k0 lies below S and carries another."""
+    b, s = q_ids.shape
+
+    def skip(k0):
+        keys = kv_ids[:, k0:k0 + ROWS]
+        tile_one = (keys == keys[:, :1]).all(1) & (k0 + ROWS <= s)
+        out = torch.zeros(b, 1, s, dtype=torch.bool)
+        for q0 in range(0, s, ROWS):
+            rows = q_ids[:, q0:q0 + ROWS]
+            rows_one = (rows == rows[:, :1]).all(1)
+            out[:, 0, q0:q0 + ROWS] = (tile_one & rows_one & (rows[:, 0] != keys[:, 0]))[:, None]
+        return out
+    return skip
+
+
+def _port_segment_fwd(q, k, v, q_ids, kv_ids, causal):
+    """J's forward order on MHA inputs: (o, lse, tiles skipped)."""
+    skip = tile_skip(q_ids, kv_ids)
+    skipped = sum(int(skip(k0).sum()) for k0 in range(0, q.shape[2], ROWS)) // ROWS
+    o, lse = tiled_online(q, k, v, causal=causal, with_lse=True, seen=segment_ids(q_ids, kv_ids),
+                          skip=skip)
+    unskipped = tiled_online(q, k, v, causal=causal, with_lse=True,
+                             seen=segment_ids(q_ids, kv_ids))
+    # A tile no row of the block sees leaves its max, sum and O as they are.
+    assert torch.equal(o, unskipped[0]) and torch.equal(lse, unskipped[1])
+    return o, lse, skipped
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 6, 2, 300, 72), (1, 4, 4, 260, 128)],
+                         ids=["gqa6/2-s300-d72", "mha4-s260-d128"])
+def test_segment_fwd_order_matches_the_train_jax_arm(shape, causal):
+    """J's forward as the `train-jax` arm calls it: KV heads repeated, S
+    padded to 512 with zeros in segment 0, ids = valid; every row compared,
+    the invalid ones too. The padding's 128-row blocks pass by the valid
+    keys' tiles, and the valid blocks by the padding's."""
+    b, hq, hkv, s, d = shape
+    q, k, v, _, valid = _inputs(41, b, hq, hkv, s, d, (s, s - 83)[:b])
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_attention.mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                            valid=jnp.asarray(valid), causal=causal,
+                                            use_flash="train-jax"))
+    s_pad = -(-s // 512) * 512
+    pad = [(0, 0), (0, 0), (0, s_pad - s), (0, 0)]
+    group = hq // hkv
+    qp = np.pad(q, pad)
+    kp, vp = (np.pad(np.repeat(x, group, axis=1), pad) for x in (k, v))
+    ids = torch.from_numpy(np.pad(valid.astype(np.int32), [(0, 0), (0, s_pad - s)]))
+    o, lse, skipped = _port_segment_fwd(*(torch.from_numpy(x) for x in (qp, kp, vp)), ids, ids,
+                                        causal)
+    assert skipped > 0
+    np.testing.assert_allclose(o.numpy()[:, :, :s], want, **TOL)
+    assert np.abs(o.numpy()[:, :, :s][:, :, ~valid[-1]]).max() > 1e-3  # computed, not zeroed
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [72, 128])
+def test_segment_fwd_order_matches_jax_library_with_three_segments(d, causal):
+    """Three segments (ids 7, -2, 9: the first a whole block, the others in
+    runs with scattered ids) and an id-0 tail of zero padding, through jax's
+    library flash kernel directly (the kernel `mha_trainable` calls): o, and
+    lse = m + log l from its residuals on the rows that see a key."""
+    b, h, s = 1, 3, 512
+    rng = np.random.default_rng(42 + d)
+    q, k, v = (rng.standard_normal((b, h, s, d), dtype=np.float32) for _ in range(3))
+    ids = np.zeros((b, s), np.int32)
+    ids[:, :128], ids[:, 128:230], ids[:, 230:300] = 7, -2, 9
+    ids[:, 140:300:9] = rng.choice([7, -2, 9], size=ids[:, 140:300:9].shape)
+    for x in (q, k, v):
+        x[:, :, 300:] = 0
+    sizes = BlockSizes(block_q=512, block_k_major=512, block_k=512, block_b=1,
+                       block_q_major_dkv=512, block_k_major_dkv=512, block_k_dkv=512,
+                       block_q_dkv=512, block_k_major_dq=512, block_k_dq=512, block_q_dq=512)
+    jids = jnp.asarray(ids)
+    with pltpu.force_tpu_interpret_mode():
+        want_o, want_l, want_m = (np.asarray(x) for x in jax_library_flash_residuals(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None, SegmentIds(q=jids, kv=jids),
+            True, causal, d ** -0.5, sizes, False))
+    tids = torch.from_numpy(ids)
+    o, lse, skipped = _port_segment_fwd(*(torch.from_numpy(x) for x in (q, k, v)), tids, tids,
+                                        causal)
+    assert skipped > 0
+    np.testing.assert_allclose(o.numpy(), want_o, **TOL)
+    live = np.isfinite(lse.numpy())
+    assert live.all()  # with one id array a row always sees itself
+    np.testing.assert_allclose(lse.numpy(), want_m + np.log(want_l), **TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_segment_fwd_order_matches_the_plain_version_in_bf16(causal):
+    """In the kernel's operand type J's forward order agrees with
+    `flash_segment_fwd_reference` within chip_smoke.py's tolerances (o 4 bf16
+    half-ulps of max|ref|, lse 1e-3): three ids in uniform runs (1 / 2 / 0
+    over 256 / 144 / 112 tokens, so blocks pass by tiles) and scattered in
+    the second batch row, and query ids no key has (o exactly 0, lse +inf)."""
+    rng = np.random.default_rng(43)
+    s = 512
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 4, s, 72), dtype=np.float32)
+                                ).to(torch.bfloat16) for _ in range(3))
+    pos = torch.arange(s)
+    kv_ids = torch.where(pos < 256, 1, torch.where(pos < 400, 2, 0)).to(torch.int32)
+    kv_ids = torch.stack([kv_ids, kv_ids[torch.from_numpy(rng.permutation(s))]])
+    q_ids = kv_ids.clone()
+    q_ids[1, 40:50] = 77
+    ref_o, ref_lse = fas.flash_segment_fwd_reference(q, k, v, q_ids, kv_ids, causal)
+    o, lse, skipped = _port_segment_fwd(q, k, v, q_ids, kv_ids, causal)
+    assert skipped > 0
+    assert o.dtype == torch.bfloat16
+    assert (o.float() - ref_o.float()).abs().max() <= _bf16_tol(ref_o.float())
+    live = torch.isfinite(ref_lse)
+    assert torch.equal(live, torch.isfinite(lse)) and int((~live).sum()) == 4 * 10
+    assert (lse[live] - ref_lse[live]).abs().max() <= 1e-3
+    assert not o.transpose(1, 2)[~live.transpose(1, 2)].any()
 
 
 # --------------------------------------------------------------- J's dK/dV --
@@ -226,9 +360,9 @@ def test_segment_dkv_order_matches_the_plain_backward_in_bf16(causal):
 
 # ---------------------------------------------------------------- wrappers --
 
-@pytest.mark.parametrize("name", ["splash_mqa", "flash_segment_dkv"])
+@pytest.mark.parametrize("name", ["splash_mqa", "flash_segment_dkv", "flash_segment_fwd"])
 def test_wrappers_refuse_misaligned_and_noncontiguous_operands(name):
-    """K and J's dK/dV read q, k, v (and dO) through TMA tensor maps, which
+    """K and J's forward and dK/dV read q, k, v (and dO) through TMA tensor maps, which
     need contiguous, 16-byte-aligned bases: both are refused before any
     pointer reaches CUDA, as are tensors off the card on the kernel path."""
     base = torch.zeros(2 * 8 * 72 + 4, dtype=torch.bfloat16)
@@ -244,6 +378,8 @@ def test_wrappers_refuse_misaligned_and_noncontiguous_operands(name):
     with pytest.raises(ValueError, match="CUDA"):
         if name == "splash_mqa":
             sa.splash_mqa(q, q, q, ids, ids)
+        elif name == "flash_segment_fwd":
+            fas.flash_segment_fwd(q, q, q, ids, ids)
         else:
             stat = torch.empty(1, 2, 8, device="meta")
             fas.flash_segment_dkv(q, q, q, ids, ids, q, stat, stat)
@@ -269,3 +405,4 @@ def test_splash_wrapper_refuses_shapes_beyond_the_grid():
         sa.check_shapes(q, q[:, :3], q[:, :3])
     with pytest.raises(ValueError, match="do not match"):
         sa.check_shapes(q, kv[:, :, :4], kv[:, :, :4])
+

@@ -11,9 +11,8 @@
 // equal (and, when causal, key <= query); the scores are scaled by sm_scale in
 // fp32; fp32 softmax statistics.
 //
-// What differs from flash_attention_train.cu (kernels C, D, E), and why the
-// forward is a kernel of its own (dQ shares kernel D's kernel and dK/dV
-// kernel E's, each with another mask policy):
+// What differs from flash_attention_train.cu (kernels C, D, E): the three
+// kernels are C's, D's and E's kernels with another mask policy.
 // * The mask is id equality for both sides, not a key-valid mask. A query at
 //   a position the caller calls invalid (id 0) is computed like any other
 //   row: it attends the other id-0 keys (the caller's zero padding included),
@@ -46,12 +45,21 @@
 // lies wholly above the diagonal, in all three kernels, so they do about half
 // the work.
 //
-// Design.
-// * forward: one block of 4 warps per 64-row tile, mma.sync m16n8k16 bf16,
-//   one tile in flight (fragment helpers in attention_common.cuh). The block
-//   owns 64 query rows of one head, holds Q as A fragments, streams 64-key
-//   tiles of K and V (V transposed in shared memory) and the tile's 64 key
-//   ids.
+// Design: all three on TMA + wgmma, a producer warp and two consumer
+// warpgroups a block, with the segment-id policy (hopper_attention.cuh).
+// * forward: hattn::stream_kernel<DP, false, true, SegmentIds, true>
+//   (hopper_attention.cuh), kernel C's kernel: one block owns 128 query rows
+//   of one head, loads Q once by TMA, streams 128-key tiles of K and V
+//   through a ring of 3 stages with the tiles' kv ids staged by the
+//   producer's lanes, keeps each thread's two q ids in registers, and runs S
+//   = Q K^T and O += P V as wgmma (V read MN-major by the descriptor); it
+//   stores lse in nats. The producer decides once whether the block's rows
+//   below S carry one id, and per tile whether its keys do: a tile of
+//   another id is seen by no row of the block, so nothing is loaded for it
+//   and the consumers pass it by (the padding to 512 makes such tiles: 768
+//   of 17,424 tile pairs at the shape above, 20 of 64 at the tower's [32,
+//   16, 1024 padded from 729, 72]). The query tiles are the fastest grid
+//   index, so a wave's blocks read one head's K and V.
 // * dQ: hattn::dq_kernel<DP, SegmentIds> (hopper_attention_dq.cuh), the TMA +
 //   wgmma kernel of kernel D: one block owns 128 query rows of one head
 //   (producer warp, two consumer warpgroups), loads Q and dO once by TMA,
@@ -67,132 +75,13 @@
 //   from shared memory, dV += P^T dO and dK += dS^T Q with P^T, dS^T as the
 //   register operands. The key tiles are the fastest grid index, so a wave's
 //   blocks share one head's Q and dO stream.
-// The tensor maps of dQ and dK/dV need q, k, v and dout 16-byte aligned.
-// Lengths need not be a multiple of the tiles (or of the caller's 512): rows
-// beyond S are staged as zeros and masked. D is any multiple of 8 up to 128,
-// padded to a multiple of 16 in shared memory only (72 -> 80).
+// The tensor maps need q, k, v and dout 16-byte aligned. Lengths need not be
+// a multiple of the tiles (or of the caller's 512): rows beyond S are staged
+// as zeros and masked. D is any multiple of 8 up to 128, padded to a
+// multiple of 16 in shared memory only (72 -> 80).
 #include "hopper_attention_dq.cuh"
 
 namespace videoitg {
-
-// ---------------------------------------------------------------- forward --
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_segment_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, const int* __restrict__ q_ids,
-                         const int* __restrict__ kv_ids, __nv_bfloat16* __restrict__ o,
-                         float* __restrict__ lse, int H, int S, int D, int causal,
-                         float sm_scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kBlockQ * (DP + kPad);
-  __nv_bfloat16* vt = ks + kBlockK * (DP + kPad);
-  __shared__ int kid_s[kBlockK];
-
-  const float scale_log2 = sm_scale * kLog2e;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t base = (static_cast<size_t>(b) * H + h) * S * D;
-  const size_t stat_base = (static_cast<size_t>(b) * H + h) * S;
-  const int* qid_b = q_ids + static_cast<size_t>(b) * S;
-  const int* kid_b = kv_ids + static_cast<size_t>(b) * S;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
-  const int row1 = row0 + 8;
-  const int qid0 = row0 < S ? qid_b[row0] : 0;
-  const int qid1 = row1 < S ? qid_b[row1] : 0;
-
-  load_rows<kBlockQ, DP>(qs, q + base, q0, S, D);
-  __syncthreads();
-  uint32_t qa[DP / 16][4];
-  load_q_fragments<DP>(qa, qs, warp, g, t);
-
-  int n_tiles = (S + kBlockK - 1) / kBlockK;
-  // Causal: key tiles wholly above this query tile's diagonal are skipped.
-  if (causal) n_tiles = min(n_tiles, (min(q0 + kBlockQ, S) - 1) / kBlockK + 1);
-
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max of the raw scores
-  float l0 = 0.f, l1 = 0.f;              // this thread's share of the running sums
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int nb = 0; nb < DP / 8; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
-  float s[kBlockK / 8][4];
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();
-    load_rows<kBlockK, DP>(ks, k + base, k0, S, D);
-    load_rows_transposed<kBlockK, DP>(vt, v + base, k0, S, D);
-    if (threadIdx.x < kBlockK) {
-      const int key = k0 + threadIdx.x;
-      kid_s[threadIdx.x] = key < S ? kid_b[key] : 0;
-    }
-    __syncthreads();
-    tile_scores<DP>(s, qa, ks, g, t);
-
-    float tm0 = -INFINITY, tm1 = -INFINITY;
-#pragma unroll
-    for (int nb = 0; nb < kBlockK / 8; ++nb) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int local = nb * 8 + 2 * t + j;
-        const int key = k0 + local;
-        const int kid = kid_s[local];
-        const bool in = key < S;
-        if (!(in && kid == qid0 && !(causal && key > row0))) s[nb][j] = -INFINITY;
-        if (!(in && kid == qid1 && !(causal && key > row1))) s[nb][2 + j] = -INFINITY;
-        tm0 = fmaxf(tm0, s[nb][j]);
-        tm1 = fmaxf(tm1, s[nb][2 + j]);
-      }
-    }
-    const float mn0 = fmaxf(m0, quad_max(tm0));
-    const float mn1 = fmaxf(m1, quad_max(tm1));
-    // A row with nothing visible yet keeps max -inf; subtracting 0 then keeps
-    // every p (and alpha) at exp2(-inf) = 0 instead of NaN.
-    const float base0 = mn0 == -INFINITY ? 0.f : mn0;
-    const float base1 = mn1 == -INFINITY ? 0.f : mn1;
-    const float alpha0 = exp2f((m0 - base0) * scale_log2);
-    const float alpha1 = exp2f((m1 - base1) * scale_log2);
-    m0 = mn0;
-    m1 = mn1;
-    float ts0 = 0.f, ts1 = 0.f;
-#pragma unroll
-    for (int nb = 0; nb < kBlockK / 8; ++nb) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[nb][j] = exp2f((s[nb][j] - base0) * scale_log2);
-        s[nb][2 + j] = exp2f((s[nb][2 + j] - base1) * scale_log2);
-        ts0 += s[nb][j];
-        ts1 += s[nb][2 + j];
-      }
-    }
-    l0 = l0 * alpha0 + ts0;
-    l1 = l1 * alpha1 + ts1;
-#pragma unroll
-    for (int nb = 0; nb < DP / 8; ++nb) {
-      acc[nb][0] *= alpha0;
-      acc[nb][1] *= alpha0;
-      acc[nb][2] *= alpha1;
-      acc[nb][3] *= alpha1;
-    }
-    tile_pv<DP>(acc, s, vt, g, t);
-  }
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-
-  // Every row is stored as computed, whatever its id; only a row that saw no
-  // key at all is 0 (and +inf in lse, which zeroes its p in the backward).
-  store_rows<DP>(o + base, acc, row0, l0, !(l0 > 0.f), row1, l1, !(l1 > 0.f), S, D, t);
-  if (t == 0) {
-    if (row0 < S) lse[stat_base + row0] = l0 > 0.f ? m0 * sm_scale + logf(l0) : INFINITY;
-    if (row1 < S) lse[stat_base + row1] = l1 > 0.f ? m1 * sm_scale + logf(l1) : INFINITY;
-  }
-}
 
 // --------------------------------------------------------------- launches --
 
@@ -207,15 +96,17 @@ struct SegmentArgs {
   cudaStream_t stream;
 };
 
+// Forward: hattn::stream_kernel<DP, false, true, SegmentIds, true>
+// (hopper_attention.cuh), kernel C's kernel with the segment-id policy, grid
+// (ceil(S / 128), H, B), causal blocks with the most key tiles first.
 template <int DP>
 cudaError_t launch_segment_fwd(const SegmentArgs& a) {
-  constexpr int smem = smem_bytes<DP>();
-  cudaError_t err = allow_smem(flash_segment_fwd_kernel<DP>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.S + kBlockQ - 1) / kBlockQ, a.H, a.B);
-  flash_segment_fwd_kernel<DP><<<grid, kThreads, smem, a.stream>>>(
-      a.q, a.k, a.v, a.q_ids, a.kv_ids, a.o, a.lse_out, a.H, a.S, a.D, a.causal, a.sm_scale);
-  return cudaGetLastError();
+  hattn::Args h{a.q, a.k, a.v, nullptr, a.o, a.B, a.H, a.H, a.S, a.D, a.causal,
+                a.sm_scale * kLog2e, a.stream};
+  h.lse = a.lse_out;
+  return hattn::launch_stream<DP, false, true, hattn::SegmentIds,
+                              hattn::kFwdQueryTilesFirstJ != 0>(
+      h, hattn::SegmentIds{a.q_ids, a.kv_ids});
 }
 
 // The backward kernels' operands: as many KV heads as query heads.
@@ -247,10 +138,10 @@ static bool segment_shapes_ok(const SegmentArgs& a) {
 }  // namespace videoitg
 
 // Shapes for all three: q, k, v, out, dout, dq, dk, dv contiguous bf16
-// [B, H, S, D] (q, k, v, dout 16-byte aligned: dQ and dK/dV read them by
-// TMA); lse,
-// delta contiguous fp32 [B, H, S]; q_ids, kv_ids contiguous int32 [B, S]. D a
-// multiple of 8 and at most 128, B and H at most 65535, B * S below 2^31.
+// [B, H, S, D] (q, k, v, dout 16-byte aligned: the kernels read them by
+// TMA); lse, delta contiguous fp32 [B, H, S]; q_ids, kv_ids contiguous int32
+// [B, S]. D a multiple of 8 and at most 128, B and H at most 65535, B * S
+// below 2^31.
 // Each launches on `stream` and returns cudaGetLastError().
 
 extern "C" int videoitg_flash_segment_fwd_bf16(const void* q, const void* k, const void* v,

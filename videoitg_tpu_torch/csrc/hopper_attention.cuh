@@ -1,6 +1,6 @@
 // The TMA + wgmma attention kernels behind kernels A (flash_attention_short.cu),
-// B (flash_attention.cu), C (flash_attention_train.cu) and K
-// (splash_attention.cu). sm_90a.
+// B (flash_attention.cu), C (flash_attention_train.cu), K
+// (splash_attention.cu) and J's forward (flash_attention_segment.cu). sm_90a.
 //
 // A block is three warpgroups: two consumer warpgroups of 64 query rows each
 // (warps 0-7) and a producer warpgroup of which one warp works (warp 8). The
@@ -26,30 +26,38 @@
 // dq_kernel and dkv_kernel (hopper_attention_dq.cuh, hopper_attention_dkv.cuh):
 //  * `KeyMask` (A, B, C, D, E): a key-valid byte per key, 0 past S (every key
 //    below S when the mask is null); the forward zeroes invalid query rows.
-//  * `SegmentIds` (K, J's dQ and dK/dV): int32 ids for the queries and for
-//    the keys; a key is seen iff it lies below S and its id equals the
-//    row's. Every row is computed, whatever its id; only a row that saw no
-//    key is 0.
+//  * `SegmentIds` (K, J's forward, dQ and dK/dV): int32 ids for the queries
+//    and for the keys; a key is seen iff it lies below S and its id equals
+//    the row's. Every row is computed, whatever its id; only a row that saw
+//    no key is 0.
 // The side that streams (keys here and in dQ, query rows in dK/dV) has its
 // words staged per tile by the producer's lanes; the stationary side keeps
 // its own in registers. With segment ids stream_kernel also stages a
-// summary per tile (one id for every key below S, or not), which lets a
-// thread skip the per-key test on such a tile.
+// summary per tile: whether every key below S carries one id (then a thread
+// skips the per-key test), and whether, besides, the block's rows below S
+// carry one other id. No row of the block sees such a tile: the producer
+// loads nothing for it and every consumer thread passes it by, since a tile
+// with every key hidden leaves m, l and O as they are (alpha 1, p 0). Padding
+// to a multiple of 512 gives J whole tiles of id 0: 4.4% of the tile pairs at
+// the grounding LM's shape, 31% at the tower's.
 //
 // Two kernels:
 //  * `stream_kernel` owns 128 query rows of one (batch, q head) and streams
 //    K and V through a ring of kStages stages; the producer also stages each
 //    tile's 128 policy words (key-mask bytes or key ids, read by its 32
-//    lanes). Online mode (kTwoPass = false, kernels B, C, K): per tile the
-//    running row max and sum, the rescale of O by alpha, p rounded to bf16
-//    into P V; hidden keys (policy, causal, key >= S) are -inf scores, a
-//    row with no visible key keeps max -inf and takes base 0, so its p and
-//    alpha are 0. With kLse (kernel C) it also stores each row's logsumexp
-//    lse = sm_scale m + ln l in nats, +inf for a row with no visible valid
-//    key. Two-pass mode (kTwoPass = true, kernel A beyond
-//    `resident_tiles`): P is divided by its exact row sum before it is
-//    rounded to bf16, so pass 1 walks K for the row max and sum (online) and
-//    pass 2 walks K and V again; the producer loads K alone in pass 1.
+//    lanes). Online mode (kTwoPass = false, kernels B, C, K, J's forward):
+//    per tile the running row max and sum, the rescale of O by alpha, p
+//    rounded to bf16 into P V; hidden keys (policy, causal, key >= S) are
+//    -inf scores, a row with no visible key keeps max -inf and takes base 0,
+//    so its p and alpha are 0. With kLse (kernel C, J's forward) it also
+//    stores each row's logsumexp lse = sm_scale m + ln l in nats, +inf for a
+//    row with no visible valid key. Two-pass mode (kTwoPass = true, kernel A
+//    beyond `resident_tiles`): P is divided by its exact row sum before it
+//    is rounded to bf16, so pass 1 walks K for the row max and sum (online)
+//    and pass 2 walks K and V again; the producer loads K alone in pass 1.
+//    The grid is (Hq, query tiles, B), or with kQueryTilesFirst (J's
+//    forward, 28 heads after its caller's KV repeat) (query tiles, Hq, B),
+//    so that a wave's blocks read one head's K and V from L2.
 //  * `resident_kernel` (kernel A): one block owns a (frame, head), stages its
 //    whole K once, and walks its query tiles with two Q buffers; per query
 //    tile pass 1 reads K from shared memory only and pass 2 streams V through
@@ -341,7 +349,7 @@ __device__ __forceinline__ void advance(int& stage, uint32_t& phase, int n_stage
 
 // ------------------------------------------------------------ kernels --
 
-template <int DP, bool kTwoPass, bool kLse, class Policy>
+template <int DP, bool kTwoPass, bool kLse, class Policy, bool kQueryTilesFirst>
 __global__ void __launch_bounds__(kThreads, 1)
 stream_kernel(const __grid_constant__ CUtensorMap q_map,
               const __grid_constant__ CUtensorMap k_map,
@@ -349,6 +357,7 @@ stream_kernel(const __grid_constant__ CUtensorMap q_map,
               __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int S, int D, int causal,
               float scale_log2, float* __restrict__ lse) {
   static_assert(!(kTwoPass && kLse), "the logsumexp is stored in online mode only");
+  static_assert(!(kTwoPass && Policy::kRowIds), "segment ids run in online mode only");
   using Word = typename Policy::Word;
   constexpr int kTile = tile_bytes<DP>();
   extern __shared__ uint8_t smem_raw[];
@@ -359,14 +368,16 @@ stream_kernel(const __grid_constant__ CUtensorMap q_map,
   uint8_t* ks = qs + q_bytes<DP>();
   uint8_t* vs = ks + kStages * kTile;
   Word* words = reinterpret_cast<Word*>(vs + kStages * kTile);
-  // With row ids, per stage: whether every key of the tile lies below S and
-  // carries one id, and that id.
+  // With row ids, per stage: 1 where every key of the tile lies below S and
+  // carries one id, 2 where besides no row of the block has that id (the
+  // tile is skipped), else 0; and that id.
   int2* summary = reinterpret_cast<int2*>(words + kStages * kBlockN);
 
-  const int h = blockIdx.x;
+  const int h = kQueryTilesFirst ? blockIdx.y : blockIdx.x;
   const int b = blockIdx.z;
   // Causal blocks with the most tiles start first.
-  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int qt = kQueryTilesFirst ? (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x)
+                                  : (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y);
   const int q0 = qt * kBlockM;
   const int bh_q = b * Hq + h;
   const int bh_kv = b * Hkv + h / (Hq / Hkv);
@@ -399,6 +410,20 @@ stream_kernel(const __grid_constant__ CUtensorMap q_map,
         tma_load_3d(qs + c * kBlockM * 32, &q_map, &q_full, 16 * c, q0, bh_q);
       }
     }
+    // With row ids: whether the block's rows below S carry one id, and that
+    // id (row q0's), decided once.
+    int rows_uniform = 0;
+    int row_id = 0;
+    if constexpr (Policy::kRowIds) {
+      row_id = __shfl_sync(0xffffffffu, policy.row_key(b, q0 + 4 * lane, S), 0);
+      bool same = true;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + 4 * lane + i;
+        same &= (row >= S) | (policy.row_key(b, row, S) == row_id);
+      }
+      rows_uniform = __all_sync(0xffffffffu, same);
+    }
     int stage = 0;
     uint32_t phase = 0;
     for (int it = 0; it < n_iters; ++it) {
@@ -415,9 +440,12 @@ stream_kernel(const __grid_constant__ CUtensorMap q_map,
         u = __shfl_sync(0xffffffffu, w[0], 0);
         uniform = __all_sync(0xffffffffu, k0 + 4 * lane + 3 < S && w[0] == u && w[1] == u &&
                                               w[2] == u && w[3] == u);
+        if (uniform && rows_uniform && u != row_id) uniform = 2;
       }
       mbar_wait(&empty[stage], phase ^ 1);
-      if (lane == 0) {
+      if (Policy::kRowIds && uniform > 1) {
+        if (lane == 0) mbar_arrive(&full[stage]);  // no bytes: the tile is skipped
+      } else if (lane == 0) {
         mbar_arrive_expect_tx(&full[stage], kTile * (with_v ? 2 : 1));
 #pragma unroll
         for (int c = 0; c < DP / 16; ++c) {
@@ -468,6 +496,13 @@ stream_kernel(const __grid_constant__ CUtensorMap q_map,
     const bool first_pass = kTwoPass && it < n_tiles;
     const int k0 = (kTwoPass && !first_pass ? it - n_tiles : it) * kBlockN;
     mbar_wait(&full[stage], phase);
+    if constexpr (Policy::kRowIds) {
+      if (summary[stage].x > 1) {  // seen by no row of the block: nothing was loaded
+        if (lane == 0) mbar_arrive(&empty[stage]);
+        advance(stage, phase, kStages);
+        continue;
+      }
+    }
     float s[kBlockN / 2];
     tile_scores<DP>(s, q_addr, smem_u32(ks + stage * kTile));
     bool mask = has_mask || k0 + kBlockN > S || (causal && k0 + kBlockN - 1 > wg_row0);
@@ -685,7 +720,7 @@ struct Args {
   int B, Hq, Hkv, S, D, causal;
   float scale_log2;
   cudaStream_t stream;
-  float* lse = nullptr;  // [B, Hq, S] fp32, stream_kernel<DP, false, true> (kernel C) only
+  float* lse = nullptr;  // [B, Hq, S] fp32, stream_kernel<DP, false, true, ...> (C, J) only
 };
 
 // Encodes the tensor maps of this call (a few microseconds each): Q in boxes
@@ -699,20 +734,24 @@ inline cudaError_t make_maps(const Args& a, CUtensorMap* q_map, CUtensorMap* k_m
 }
 
 // Grid (Hq, ceil(S / 128), B): the q heads of a KV group are adjacent blocks
-// and read the same K and V tiles from L2.
-template <int DP, bool kTwoPass, bool kLse = false, class Policy = KeyMask>
+// and read the same K and V tiles from L2. With kQueryTilesFirst (ceil(S /
+// 128), Hq, B): a head's query tiles are adjacent blocks.
+template <int DP, bool kTwoPass, bool kLse = false, class Policy = KeyMask,
+          bool kQueryTilesFirst = false>
 cudaError_t launch_stream(const Args& a, const Policy& policy) {
   CUtensorMap q_map, k_map, v_map;
   cudaError_t err = make_maps(a, &q_map, &k_map, &v_map);
   if (err != cudaSuccess) return err;
   constexpr int smem = stream_smem_bytes<DP, Policy>();
-  err = cudaFuncSetAttribute(stream_kernel<DP, kTwoPass, kLse, Policy>,
+  err = cudaFuncSetAttribute(stream_kernel<DP, kTwoPass, kLse, Policy, kQueryTilesFirst>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(a.Hq, (a.S + kBlockM - 1) / kBlockM, a.B);
-  stream_kernel<DP, kTwoPass, kLse, Policy><<<grid, kThreads, smem, a.stream>>>(
-      q_map, k_map, v_map, policy, static_cast<__nv_bfloat16*>(a.o), a.Hq, a.Hkv, a.S, a.D,
-      a.causal, a.scale_log2, a.lse);
+  const int q_tiles = (a.S + kBlockM - 1) / kBlockM;
+  const dim3 grid = kQueryTilesFirst ? dim3(q_tiles, a.Hq, a.B) : dim3(a.Hq, q_tiles, a.B);
+  stream_kernel<DP, kTwoPass, kLse, Policy, kQueryTilesFirst>
+      <<<grid, kThreads, smem, a.stream>>>(q_map, k_map, v_map, policy,
+                                           static_cast<__nv_bfloat16*>(a.o), a.Hq, a.Hkv, a.S,
+                                           a.D, a.causal, a.scale_log2, a.lse);
   return cudaGetLastError();
 }
 

@@ -74,6 +74,9 @@ constexpr int kDkvConsumerRegs = 240;  // 24 + 2 x 240 = 504 of a lane's 512
 // heads after the KV repeat) puts the key tiles fastest.
 constexpr int kDkvKeyTilesFirstE = 0;
 constexpr int kDkvKeyTilesFirstJ = 1;
+// J's forward likewise (stream_kernel's kQueryTilesFirst, hopper_attention.cuh):
+// the query tiles fastest, so that a wave's blocks read one head's K and V.
+constexpr int kFwdQueryTilesFirstJ = 1;
 
 template <int DP>
 __host__ __device__ constexpr int dkv_rows_bytes() {

@@ -4,16 +4,20 @@ Counterpart of the kernels behind `mha_trainable` in
 videoitg_tpu/ops/attention.py (the `use_flash="train-jax"` arm): jax's
 library flash attention for the TPU, forward, dq and dkv under one custom
 VJP. The kernels here are launched from csrc/flash_attention_segment.cu,
-hand-written for Hopper: the forward on mma.sync; dQ on the query-stationary
-TMA + wgmma kernel of csrc/hopper_attention_dq.cuh that kernel D shares, and
-dK/dV on the key-stationary TMA + wgmma kernel of
-csrc/hopper_attention_dkv.cuh that kernel E shares, each with the segment-id
-mask policy. The source notes give their design and how they differ from
+hand-written for Hopper, each a TMA + wgmma kernel of another caller with the
+segment-id mask policy: the forward on the streaming kernel of
+csrc/hopper_attention.cuh that kernels B, C and K share, dQ on the
+query-stationary kernel of csrc/hopper_attention_dq.cuh that kernel D shares,
+and dK/dV on the key-stationary kernel of csrc/hopper_attention_dkv.cuh that
+kernel E shares. The source notes give their design and how they differ from
 csrc/flash_attention_train.cu. Three wrappers launch them, each with a
 `.launches` count:
 
 * `flash_segment_fwd`  -> (o, lse): online-softmax forward plus the per-row
-  logsumexp (natural log, fp32) that the backward needs.
+  logsumexp (natural log, fp32) that the backward needs. A key tile that no
+  row of a 128-row block can see (both carry one id each, and the ids
+  differ) is neither loaded nor computed: it would leave the block's
+  running max, sum and output as they are.
 * `flash_segment_dq`   -> dq; no atomics, two runs give the same bits.
 * `flash_segment_dkv`  -> (dk, dv); a block owns 128 keys of one head, so
   there are no atomics and two runs give the same bits.
@@ -146,7 +150,8 @@ def flash_mha_segment_backward_reference(q, k, v, q_ids, kv_ids, o, lse, do, cau
 def check_shapes(name, q, k, v, extra=()):
     """Raise on what the kernels refuse beyond `check_operands`: k, v (and
     dO) not q's shape, and B or H above 65535 or B * S of 2^31 or more (the
-    grid, and the tensor maps of dQ and dK/dV). Returns (B, H, S, D)."""
+    grids, whose tiles of 128 rows are the fastest index and heads the next,
+    and the tensor maps). Returns (B, H, S, D)."""
     b, h, s, d = q.shape
     for what, x in (("k", k), ("v", v), *(("dO", x) for x in extra)):
         if x.shape != q.shape:
