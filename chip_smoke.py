@@ -90,17 +90,27 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    * L (`double_literal`, `double_no_literal`) on [8, 128] fp32: bit-equal to
      each other and to their plain versions (8 KiB moved: the launch is the
      floor).
-   * F (act8 GEMM) at the LM's four shapes, M = 13,056, plus a ragged M with
-     a zero row. The integer sums are exact and the epilogue has the plain
-     version's operation order: tolerance 1 bf16 ulp of max|reference|.
+   * F (act8 GEMM: a row quantisation, then the TMA + s8 wgmma GEMM of
+     csrc/hopper_int8_gemm.cuh with the `Act8Out` epilogue) at the LM's four
+     shapes, M = 13,056, with the row scale made inside (the main path), plus
+     a ragged M with a zero row. The integer sums are exact and the epilogue
+     has the plain version's operation order: tolerance 1 bf16 ulp of
+     max|reference| (0 expected).
    * G, H (both activations), I (fused int8 encoder kernels) at [93,312,
      1152] and at a ragged row count. LN sums run in another order, which
      flips a few int8 roundings: tolerance 4 max|ref| / 127 + 1e-5, the JAX
-     package's own bound for these kernels.
+     package's own bound for these kernels. H runs on the same GEMM in four
+     launches (LN + quantise; fc1 with the `RowAmax` epilogue; fc1 with
+     `QuantStore`; fc2 with `BiasResidual`); two runs must be bit-equal, and
+     its broken uses include an amax from fc1's first n tile only and the
+     padded columns of fc1's last tile counted. `--only int8-kernels` prints
+     ptxas' lines for F's and H's instances, and the library must hold them
+     and not the mma.sync kernels they replaced.
    At each main-path shape, deliberately broken uses (keys dropped, the key
    mask or the segment ids ignored, q not pre-scaled, a head of the group
    left out, a bias, the LN bias or the residual dropped, the last k tile of
-   fc2 dropped) must exceed the tolerance, which shows that it discriminates.
+   fc2 dropped, H's row amax from one n tile or with padded columns) must
+   exceed the tolerance, which shows that it discriminates.
 4. Agreement: the engine's kernel path against its plain path on a small
    input at the full widths of VideoITG-8B (videoitg-8b-shallow: 3 vision,
    2 LM layers), in bf16, and under the act8 tier with both int8 switches
@@ -194,12 +204,18 @@ PEAK_BF16 = 989e12   # FLOP/s
 PEAK_INT8 = 1979e12  # OP/s
 PEAK_HBM = 3.35e12   # bytes/s
 FRAME_HW = (360, 640)  # a video-like decode resolution
-# Kernels A and B before their TMA + wgmma redesign: mma.sync, one tile staged
+# Kernels A, B, F and H before their TMA + wgmma redesign: mma.sync, one tile staged
 # at a time (PERF.md section 6; NVIDIA H100 80GB HBM3 at 700.00 W). Printed
 # for comparison only: this run does not measure them.
-FIRST_VERSION_MS = {"flash_mha_short": 6.7473, "flash_mha": 27.5702}
+FIRST_VERSION_MS = {"flash_mha_short": 6.7473, "flash_mha": 27.5702,
+                    # F (the 7 launches of one LM layer) and H (gelu_tanh) on
+                    # mma.sync fed by cp.async
+                    "act8_gemm": 28.6371, "fused_ln_mlp_int8": 14.8783}
 # The mangled name of J's forward: stream_kernel<DP, false, true, SegmentIds, ...>.
 J_FWD_INSTANCE = r"stream_kernelILi\d+ELb0ELb1ENS0_10SegmentIds"
+# F's and H's launches: hgemm::gemm_kernel<BN, policy> and the quantisers.
+F_INSTANCES = r"row_quant_kernel|gemm_kernel.*7Act8Out"
+H_INSTANCES = r"ln_quant_kernel|gemm_kernel.*(RowAmax|QuantStore|BiasResidual)"
 # Patterns of the mangled names of the kernel instances whose ptxas lines
 # each `--only` run prints.
 PTXAS = {
@@ -209,6 +225,7 @@ PTXAS = {
                       ("D", r"dq_kernel.*KeyMask"), ("E", r"dkv_kernel.*KeyMask"),
                       ("J dq", r"dq_kernel.*SegmentIds")),
     "splash-kernels": (("K", r"stream_kernelILi\d+ELb0ELb0E.*SegmentIds"),),
+    "int8-kernels": (("F", F_INSTANCES), ("H", H_INSTANCES)),
     "segment-kernels": (("J fwd", J_FWD_INSTANCE), ("J dq", r"dq_kernel.*SegmentIds"),
                         ("J dkv", r"dkv_kernel.*SegmentIds"), ("E", r"dkv_kernel.*KeyMask")),
 }
@@ -531,6 +548,7 @@ def check_int8_kernels(dev) -> dict:
     import torch
 
     from videoitg_tpu_torch.models.common import Linear, Norm
+    from videoitg_tpu_torch.ops import _build
     from videoitg_tpu_torch.ops import fused_encoder as fe
     from videoitg_tpu_torch.ops import quant_gemm as qg
     from videoitg_tpu_torch.ops.quant import QuantLinear, quantize_linear_int8, row_quant
@@ -549,71 +567,94 @@ def check_int8_kernels(dev) -> dict:
         return q.to(torch.bfloat16)  # the bias in the model dtype; int8 and scales stay
 
     records = {}
+    with open(_build.build(), "rb") as f:
+        lib = f.read()
+    for old in (b"act8_gemm_kernel", b"ln_mlp_kernel"):
+        if old in lib:
+            fail(f"the library still holds the mma.sync kernel {old.decode()}")
+    for pattern in (F_INSTANCES, H_INSTANCES) + tuple(
+            rf"gemm_kernel.*{p}" for p in ("Act8Out", "RowAmax", "QuantStore", "BiasResidual")):
+        if not re.search(pattern.encode(), lib):
+            fail(f"the library does not hold {pattern}")
+    del lib
+    library = _build.library()
 
-    # ---- F: the LM's four linears at 13,056 tokens. ----
+    # ---- F: the LM's four linears at 13,056 tokens, the row scale made
+    # inside (act8_linear's call). ----
     m = 512 * 25 + 256
     per_layer = {(3584, 3584): 2, (3584, 512): 2, (3584, 18944): 2, (18944, 3584): 1}
-    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0)
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0, int_mm_ms=0.0)
     worst, shapes = 0.0, []
     for (k, n), count in per_layer.items():
         lin = int8_linear(k, n)
         x = randn(m, k).to(torch.bfloat16)
-        xs = qg.row_scale(x)
-        ref = qg.act8_gemm_reference(x, xs, lin.w_qt, lin.scale)
-        out = qg.act8_gemm(x, xs, lin.w_qt, lin.scale)
+        ref = qg.act8_gemm_reference(x, None, lin.w_qt, lin.scale)
+        out = qg.act8_gemm(x, None, lin.w_qt, lin.scale)
         # One ulp of bf16 (8 significant bits) at max|ref|.
         tol = 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)
         err, mean = err_stats(out, ref)
         equal = bool(torch.equal(out, ref))
-        ms = cuda_ms(lambda: qg.act8_gemm(x, xs, lin.w_qt, lin.scale), 10)
-        plain_ms = cuda_ms(lambda: qg.act8_gemm_reference(x, xs, lin.w_qt, lin.scale), 3)
-        x_q, _ = row_quant(x.float())
+        ms = cuda_ms(lambda: qg.act8_gemm(x, None, lin.w_qt, lin.scale), 10)
+        plain_ms = cuda_ms(lambda: qg.act8_gemm_reference(x, None, lin.w_qt, lin.scale), 3)
+        x_q, xs = row_quant(x.float())
+        xs = xs.contiguous()
+        x_q8 = torch.empty_like(x_q)
+        stream = torch.cuda.current_stream().cuda_stream
+        quant_ms = cuda_ms(lambda: library.videoitg_row_quant_int8_bf16(
+            x.data_ptr(), xs.data_ptr(), x_q8.data_ptr(), m, k, 1, stream), 10)
         int_mm_ms = cuda_ms(lambda: torch._int_mm(x_q, lin.w_qt.t()), 10)
-        bnd = bound(2 * m * k * n, PEAK_INT8, m * k * 2 + m * 4 + n * k + n * 4 + m * n * 2)
+        bnd = bound(2 * m * k * n, PEAK_INT8, m * k * 2 + n * k + n * 4 + m * n * 2)
         print(f"kernel act8_gemm [{m}, {k}] x [{k}, {n}]: max_abs_err {err:.6g} mean {mean:.3g} "
               f"(tol {tol:.6g} = 1 bf16 ulp, bit-equal {equal}); {ms:.4f} ms "
-              f"({2 * m * k * n / ms / 1e9:.1f} TOP/s), plain {plain_ms:.4f} ms, bound "
-              f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}; for orientation, the bare "
-              f"torch._int_mm product alone {int_mm_ms:.4f} ms", flush=True)
+              f"({2 * m * k * n / ms / 1e9:.1f} TOP/s; of it the row quantisation alone "
+              f"{quant_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by "
+              f"{bnd['bound_by']}; for orientation, the bare torch._int_mm product alone "
+              f"{int_mm_ms:.4f} ms", flush=True)
         if not err <= tol:
             fail(f"act8_gemm [{k} -> {n}] error {err} > {tol}")
         worst = max(worst, err)
-        shapes.append(dict(k=k, n=n, per_layer=count, ms=ms, plain_ms=plain_ms,
-                           int_mm_ms=int_mm_ms, **bnd))
+        shapes.append(dict(k=k, n=n, per_layer=count, ms=ms, quant_ms=quant_ms,
+                           plain_ms=plain_ms, int_mm_ms=int_mm_ms, bit_equal=equal, **bnd))
         total["ms"] += count * ms
         total["plain_ms"] += count * plain_ms
+        total["int_mm_ms"] += count * int_mm_ms
         total["bound_ms"] += count * bnd["bound_ms"]
         total["ops_ms"] += count * 1e3 * 2 * m * k * n / PEAK_INT8
         total["bytes_ms"] += count * 1e3 * (m * k * 2 + n * k + m * n * 2) / PEAK_HBM
         if (k, n) == (3584, 512):
             # A ragged M (not a multiple of the 128-row tile) with a zero row,
-            # and what a use that forgot the column scales would give.
+            # the scale made inside and given; and what a use that forgot the
+            # column scales would give.
             xr = x[:1001].clone()
             xr[5] = 0
             xsr = qg.row_scale(xr)
             refr = qg.act8_gemm_reference(xr, xsr, lin.w_qt, lin.scale)
-            outr = qg.act8_gemm(xr, xsr, lin.w_qt, lin.scale)
+            outr = qg.act8_gemm(xr, None, lin.w_qt, lin.scale)
             errr, _ = err_stats(outr, refr)
+            errg, _ = err_stats(qg.act8_gemm(xr, xsr, lin.w_qt, lin.scale), refr)
             zero_row = outr[5].abs().max().item()
             broken, _ = err_stats(qg.act8_gemm(xr, xsr, lin.w_qt, torch.ones_like(lin.scale)),
                                   refr)
             print(f"kernel act8_gemm ragged [1001, {k}] x [{k}, {n}], row 5 zero: max_abs_err "
-                  f"{errr:.6g} (tol {tol:.6g}); zero row max {zero_row}; broken: column scales "
-                  f"dropped {broken:.6g}", flush=True)
-            if not errr <= tol or zero_row != 0.0 or xsr[5].item() != 1.0:
+                  f"{errr:.6g}, scale given {errg:.6g} (tol {tol:.6g}); zero row max {zero_row}; "
+                  f"broken: column scales dropped {broken:.6g}", flush=True)
+            if not (errr <= tol and errg <= tol) or zero_row != 0.0 or xsr[5].item() != 1.0:
                 fail("act8_gemm ragged / zero-row case")
             if not broken > tol:
                 fail(f"act8_gemm tolerance {tol} does not catch dropped scales ({broken})")
-            worst = max(worst, errr)
-        del lin, x, xs, ref, out, x_q
+            worst = max(worst, errr, errg)
+        del lin, x, xs, ref, out, x_q, x_q8
     records["act8_gemm"] = dict(
         name="act8_gemm", route="cuda", source="videoitg_tpu_torch/csrc/quant_gemm.cu",
         replaces="videoitg_tpu/ops/quant_gemm.py:32", max_abs_err=worst, ms=total["ms"],
         plain_ms=total["plain_ms"], bound_ms=total["bound_ms"],
         bound_by="operations" if total["ops_ms"] >= total["bytes_ms"] else "bytes",
-        library_ms=None, per="the 7 launches of one LM layer at 13,056 tokens", shapes=shapes)
+        library_ms=None, int_mm_ms=total["int_mm_ms"],
+        per="the 7 launches of one LM layer at 13,056 tokens", shapes=shapes)
     print(f"kernel act8_gemm, one LM layer (7 launches): {total['ms']:.4f} ms, plain "
-          f"{total['plain_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms", flush=True)
+          f"{total['plain_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms, bare torch._int_mm "
+          f"{total['int_mm_ms']:.4f} ms; the mma.sync version {FIRST_VERSION_MS['act8_gemm']} "
+          f"ms (PERF.md, not this run)", flush=True)
 
     # ---- G, H, I: one tower chunk, 128 frames x 729 patches, H = 1152. ----
     rows, h, inter = 128 * 729, 1152, 4304
@@ -703,10 +744,12 @@ def check_int8_kernels(dev) -> dict:
     fc1.b.data[-16:] += 4.0
     fc2_cut = QuantLinear(w_qt=fc2.w_qt.clone(), scale=fc2.scale, b=fc2.b, act_q=True)
     fc2_cut.w_qt[:, -16:] = 0
+    asked, done = 4 * rows * h * inter, 6 * rows * h * inter  # fc1 runs twice
     worst, worst_mean, times = 0.0, 0.0, {}
     for act in ("gelu_tanh", "quick_gelu"):
         ref = fe.fused_ln_mlp_int8_reference(x, ln, fc1, fc2, eps, act)
         out = fe.fused_ln_mlp_int8(x, ln, fc1, fc2, eps, act)
+        again = fe.fused_ln_mlp_int8(x, ln, fc1, fc2, eps, act)
         tol = int8_tol(ref.float())
         err, mean = err_stats(out, ref)
         no_tile, _ = err_stats(out[:sub], fe.fused_ln_mlp_int8_reference(
@@ -717,30 +760,83 @@ def check_int8_kernels(dev) -> dict:
         err_r, _ = err_stats(fe.fused_ln_mlp_int8(x[:1000], ln, fc1, fc2, eps, act), ref[:1000])
         ms = cuda_ms(lambda: fe.fused_ln_mlp_int8(x, ln, fc1, fc2, eps, act), 5)
         plain_ms = cuda_ms(lambda: fe.fused_ln_mlp_int8_reference(x, ln, fc1, fc2, eps, act), 2)
+        yq, ys = fe.mlp_ln_quant(x, ln, eps)
+        amax = fe.mlp_fc1_amax(yq, ys, fc1, act)
+        gq = fe.mlp_fc1_quant(yq, ys, fc1, amax, act)
+        stage_ms = [cuda_ms(lambda: fe.mlp_ln_quant(x, ln, eps), 5),
+                    cuda_ms(lambda: fe.mlp_fc1_amax(yq, ys, fc1, act), 5),
+                    cuda_ms(lambda: fe.mlp_fc1_quant(yq, ys, fc1, amax, act), 5),
+                    cuda_ms(lambda: fe.mlp_fc2_residual(x, gq, amax, fc2), 5)]
+        del yq, ys, amax, gq
         print(f"kernel fused_ln_mlp_int8 {act} [{rows}, {h}] via {inter}: max_abs_err {err:.6g} "
-              f"mean {mean:.3g} (tol {tol:.6g}); ragged 1000 rows {err_r:.6g}; broken: last k "
-              f"tile of fc2 dropped {no_tile:.6g}, LN bias ignored {no_lnb:.6g}, residual "
-              f"dropped {no_res:.6g}; {ms:.4f} ms ({4 * rows * h * inter / ms / 1e9:.1f} TOP/s "
-              f"of the 2 products asked for), plain {plain_ms:.4f} ms", flush=True)
+              f"mean {mean:.3g} (tol {tol:.6g}); ragged 1000 rows {err_r:.6g}; two runs "
+              f"bit-equal {bool(torch.equal(out, again))}; broken: last k tile of fc2 dropped "
+              f"{no_tile:.6g}, LN bias ignored {no_lnb:.6g}, residual dropped {no_res:.6g}; "
+              f"{ms:.4f} ms ({asked / ms / 1e9:.1f} TOP/s of the 2 products asked for, "
+              f"{done / ms / 1e9:.1f} of the 3 done); launches: LN + quantise "
+              f"{stage_ms[0]:.4f}, fc1 amax {stage_ms[1]:.4f}, fc1 quantise {stage_ms[2]:.4f}, "
+              f"fc2 {stage_ms[3]:.4f} ms; plain {plain_ms:.4f} ms", flush=True)
         if not (err <= tol and err_r <= tol):
             fail(f"fused_ln_mlp_int8 {act} error {err} / {err_r} > {tol}")
+        if not torch.equal(out, again):
+            fail(f"fused_ln_mlp_int8 {act}: two runs differ")
         if not (no_tile > tol and no_lnb > tol and no_res > tol):
             fail(f"fused_ln_mlp_int8 {act} tolerance {tol} does not catch a broken use "
                  f"({no_tile}, {no_lnb}, {no_res})")
         worst, worst_mean = max(worst, err, err_r), max(worst_mean, mean)
-        times[act] = (ms, plain_ms)
-        del ref, out
+        times[act] = (ms, plain_ms, stage_ms)
+        del ref, out, again
+
+    # H's row amax, broken: from fc1's first n tile only, and with the 48
+    # padded columns of fc1's last tile (4304 = 16 x 256 + 208) counted, as
+    # a kernel that read a bias there would. The last 16 channels run hot
+    # (+32) so that the tile that holds them sets each row's amax; the padded
+    # columns carry a bias of 1024.
+    act = "gelu_tanh"
+    fc1_hot = QuantLinear(w_qt=fc1.w_qt, scale=fc1.scale, b=fc1.b.clone(), act_q=True)
+    fc1_hot.b.data[-16:] += 28.0
+    xs_ = x[:sub]
+    ref = fe.fused_ln_mlp_int8_reference(xs_, ln, fc1_hot, fc2, eps, act)
+    tol = int8_tol(ref.float())
+    yq, ys = fe.mlp_ln_quant(xs_, ln, eps)
+    good, _ = err_stats(fe.fused_ln_mlp_int8(xs_, ln, fc1_hot, fc2, eps, act), ref)
+
+    def with_amax(amax):
+        return fe.mlp_fc2_residual(xs_, fe.mlp_fc1_quant(yq, ys, fc1_hot, amax, act), amax, fc2)
+
+    tile = fe.FC1_TILE
+    first = QuantLinear(w_qt=fc1_hot.w_qt[:tile], scale=fc1_hot.scale[:tile],
+                        b=fc1_hot.b[:tile], act_q=True)
+    one_tile, _ = err_stats(with_amax(fe.mlp_fc1_amax(yq, ys, first, act)), ref)
+    pad = -inter % tile
+    padded = QuantLinear(
+        w_qt=torch.cat([fc1_hot.w_qt, fc1_hot.w_qt.new_zeros(pad, h)]),
+        scale=torch.cat([fc1_hot.scale, fc1_hot.scale.new_ones(pad)]),
+        b=torch.cat([fc1_hot.b, fc1_hot.b.new_full((pad,), 1024.0)]), act_q=True)
+    counted, _ = err_stats(with_amax(fe.mlp_fc1_amax(yq, ys, padded, act)), ref)
+    print(f"kernel fused_ln_mlp_int8 {act} [{sub}, {h}], last 16 channels +32: max_abs_err "
+          f"{good:.6g} (tol {tol:.6g}); broken: amax from fc1's first n tile only "
+          f"{one_tile:.6g}, the {pad} padded columns counted {counted:.6g}", flush=True)
+    if not good <= tol:
+        fail(f"fused_ln_mlp_int8 hot channels error {good} > {tol}")
+    if not (one_tile > tol and counted > tol):
+        fail(f"fused_ln_mlp_int8 tolerance {tol} does not catch a broken row amax "
+             f"({one_tile}, {counted})")
+    worst = max(worst, good)
+    del yq, ys, ref, padded, first
     # fc1 and fc2 once each; x read, out written, both weights read.
-    bnd = bound(4 * rows * h * inter, PEAK_INT8,
+    bnd = bound(asked, PEAK_INT8,
                 2 * rows * h * 2 + 2 * h * inter + 2 * (inter + h) * 4 + 2 * h * 4)
-    print(f"kernel fused_ln_mlp_int8: bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}",
-          flush=True)
+    print(f"kernel fused_ln_mlp_int8: bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}; the "
+          f"mma.sync version {FIRST_VERSION_MS['fused_ln_mlp_int8']} ms (gelu_tanh; PERF.md, "
+          f"not this run)", flush=True)
     records["fused_ln_mlp_int8"] = dict(
         name="fused_ln_mlp_int8", route="cuda",
         source="videoitg_tpu_torch/csrc/fused_encoder.cu",
         replaces="videoitg_tpu/ops/fused_encoder.py:105", max_abs_err=worst,
         mean_abs_err=worst_mean, ms=times["gelu_tanh"][0], plain_ms=times["gelu_tanh"][1],
-        quick_gelu_ms=times["quick_gelu"][0], library_ms=None, **bnd)
+        quick_gelu_ms=times["quick_gelu"][0], stage_ms=times["gelu_tanh"][2],
+        library_ms=None, **bnd)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return records

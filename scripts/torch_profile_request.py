@@ -42,12 +42,18 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-# Kernel-name fragments -> group, first match wins.
+# Kernel-name fragments -> group, first match wins: the int8 GEMM's instances
+# (hgemm::gemm_kernel<BN, policy>) by their epilogue policy, before the
+# "gemm" fragment of the library's kernels.
 GROUPS = (
     ("hattn::resident_kernel", "kernel A flash_mha_short"),
-    ("act8_gemm_kernel", "kernel F act8_gemm"),
+    ("row_quant_kernel", "kernel F act8_gemm"),
+    ("Act8Out", "kernel F act8_gemm"),
+    ("ln_quant_kernel", "kernel H fused_ln_mlp_int8"),
+    ("RowAmax", "kernel H fused_ln_mlp_int8"),
+    ("QuantStore", "kernel H fused_ln_mlp_int8"),
+    ("BiasResidual", "kernel H fused_ln_mlp_int8"),
     ("ln_qkv_kernel", "kernel G fused_ln_qkv_int8"),
-    ("ln_mlp_kernel", "kernel H fused_ln_mlp_int8"),
     ("proj_res_kernel", "kernel I fused_proj_residual_int8"),
     ("Memcpy", "copies"),
     ("Memset", "copies"),

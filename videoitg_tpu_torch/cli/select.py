@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import torch
@@ -42,11 +43,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-frames", type=int, default=512)
     p.add_argument("--target-fps", type=float, default=2.0)
     p.add_argument("--sampling", choices=["infer", "eval"], default="infer")
+    p.add_argument("--save-frames", metavar="DIR",
+                   help="save selected frames as JPEGs to DIR")
     p.add_argument("--json", action="store_true",
                    help="print the full results.jsonl-style record")
     p.add_argument("--device", default=None, choices=[None, "cuda", "cpu"],
                    help="default: cuda; without a CUDA device this is an error "
-                        "unless --device cpu is given")
+                        "unless --device cpu (or --cpu) is given")
+    p.add_argument("--cpu", action="store_true", help="run on the CPU (= --device cpu)")
     p.add_argument("--dtype", default=None, choices=[None, "bfloat16", "float32"],
                    help="default: bfloat16 on cuda, float32 on cpu")
     p.add_argument("--quantize", default=None, choices=[None, "int8", "int4", "act8"],
@@ -70,7 +74,8 @@ def main(argv=None) -> int:
     from videoitg_tpu_torch.engine import SelectionEngine
 
     try:
-        device = resolve_device(args.device == "cpu", "videoitg-torch-select", "--device cpu")
+        device = resolve_device(args.cpu or args.device == "cpu", "videoitg-torch-select",
+                                "--cpu or --device cpu")
     except SystemExit as e:
         print(e, file=sys.stderr)
         return 2
@@ -87,11 +92,29 @@ def main(argv=None) -> int:
                              num_frames=args.num_frames, target_fps=args.target_fps,
                              transfer=args.transfer)
     result = engine.select_from_file(args.video, args.prompt, sampling=args.sampling)
+    selected = result.topk(args.topk)
     if args.json:
         print(json.dumps(result.to_reference_json(), ensure_ascii=False))
     else:
-        print(result.topk(args.topk))
+        print(selected)
+    if args.save_frames:
+        save_frames(args.video, selected, args.save_frames)
+        print(f"saved {len(selected)} frames to {args.save_frames}", file=sys.stderr)
     return 0
+
+
+def save_frames(video: str, selected, out_dir: str) -> None:
+    """Write each selected frame as `frame_{i:03d}_idx{frame_idx}.jpg`, the
+    JAX CLI's names, in the order of `selected`."""
+    from PIL import Image
+
+    from videoitg_tpu_torch.data.video import VideoReader
+
+    os.makedirs(out_dir, exist_ok=True)
+    with VideoReader(video) as vr:
+        for i, frame_idx in enumerate(selected):
+            Image.fromarray(vr[frame_idx]).save(
+                os.path.join(out_dir, f"frame_{i:03d}_idx{frame_idx}.jpg"), "JPEG")
 
 
 if __name__ == "__main__":

@@ -19,10 +19,11 @@
 // ridge is ~590 operations per byte: G and H are bound by the tensor cores,
 // I by device memory. The unfused path writes and re-reads the LN output,
 // the int8 copies and the [rows][4304] intermediate (0.8 GB in bf16 alone);
-// here x is read and the outputs are written, nothing else.
+// G and I read x and write the outputs, nothing else; H writes and reads
+// int8 copies of its two activations besides (0.5 GB).
 //
-// Design. A block takes a tile of rows, quantises them once into an int8
-// tile in shared memory (one warp per row, the row held in registers for the
+// Design of G and I. A block takes a tile of rows, quantises them once into
+// an int8 tile in shared memory (one warp per row, the row held in registers for the
 // mean, variance, amax and quantise passes), and streams the whole [N][K]
 // weight past it in [128][128] tiles through a two-stage cp.async ring with
 // one barrier per tile, i.e. per 4 MMA k steps (int8_common.cuh,
@@ -32,7 +33,7 @@
 // 64 rows (75 KB) and use 32 x 32 warp tiles, two blocks to an SM, so that
 // one block's row quantisation overlaps the other's products.
 //
-// How it got here (NVIDIA H100 80GB HBM3, 700 W, the tower's shape). The
+// How G and I got here (NVIDIA H100 80GB HBM3, 700 W, the tower's shape). The
 // first version (128-row tiles, [128][64] weight tiles in a two-stage ring
 // with two barriers a tile, every address worked out per tile, rows re-read
 // from L1/L2 in four passes, a division per quantised value) took G 3.43,
@@ -44,40 +45,43 @@
 // held in registers (one global pass, all loads in flight), a reciprocal
 // quantiser that is exact (`quant8_chunk`), tile positions kept by counters,
 // and per-thread source pointers set once per n tile (`WeightTileLoader`):
-// G 2.58, I 1.29, H 17.1 ms. 64-row tiles and two blocks per SM: I 1.02 ms,
-// G unchanged. 128-byte k tiles (half the barriers): G 2.39, I 0.98, H
-// 14.96 ms. Ring depth never mattered (two stages as good as four). The bare
+// G 2.58, I 1.29 ms. 64-row tiles and two blocks per SM: I 1.02 ms,
+// G unchanged. 128-byte k tiles (half the barriers): G 2.39, I 0.98 ms. Ring
+// depth never mattered (two stages as good as four). The bare
 // product loop reaches ~1,080 TOP/s on this card
 // (scripts/torch_probes/mma_s8_rate.cu: mma.sync s8 from shared-memory
 // fragments, no loads or barriers) and these kernels 124 to 311, so what is
 // left is feeding it: more warps per SM, TMA and wgmma.
 //
-// H's intermediate. The second quantisation needs the amax of the whole
-// 4304-wide row before any of it is quantised, and 16 rows of it in fp32
-// (275 KB) exceed a block's 227 KB. H therefore computes fc1 twice: pass A
-// only takes each row's max |GELU(fc1)|, pass B computes the same values
-// again and quantises them straight into an int8 [32][4352 + 16] tile
-// (140 KB) that fc2 then reads; nothing of the intermediate goes to device
-// memory and nothing is rounded to bf16 before it is quantised. The cost:
-// 1.5x the MLP's tensor-core work, and tiles of only 32 rows (1 x 8 warps of
-// 32 x 16, one block of 8 warps to an SM), so each block pulls fc1 twice and
-// fc2 once (15 MB) from L2 for 32 rows of output, 43 GB a call at the
-// tower's shape, and a warp has 16 products between barriers. Tried and not
-// kept: [256][64] tiles (16.7 against 17.1 ms then), a cheaper tanh from the
-// hardware exp2 (20.9 against 21.3 ms then, and more roundings flipped
-// against the plain version). A later version has to give an SM more warps
-// and feed several row tiles from one weight read (a cluster sharing tiles,
-// or TMA multicast). M = 4304 is no multiple of the k tile: the int8 tile is
-// zero-padded to 4352 in shared memory and the loads of fc2's rows are
-// masked (exact).
+// Design of H. The second quantisation needs the amax of the whole 4304-wide
+// row before any of it is quantised, and a block of 128 rows cannot hold its
+// intermediate (550 KB in int8). H is four launches, three of them the TMA +
+// s8 wgmma GEMM of hopper_int8_gemm.cuh (128 x 256 tiles) with an epilogue
+// policy each:
+//   1. `ln_quant_kernel`: LN + row quantisation of x into yq [rows][1152], ys.
+//   2. fc1 with `RowAmax`: act(acc * (ys * s1) + b1), each row's max |.|
+//      into amax [rows] by one atomicMax per row and block.
+//   3. fc1 again with `QuantStore`: the same values, quantised with the full
+//      row's scale, stored as int8 gq [rows][4304] (402 MB at the tower's
+//      shape, written and read once: ~0.24 ms of traffic).
+//   4. fc2 with `BiasResidual`: x + acc * (gs * s2) + b2.
+// Nothing of the intermediate is rounded to bf16 before it is quantised, and
+// fc1 is computed twice (1.5x the MLP's tensor-core work). The first
+// versions held the int8 intermediate of 32 rows in shared memory and
+// computed all three passes there on mma.sync (14.9 ms at the tower's shape:
+// each block pulled 15 MB of weights from L2 for 32 rows of output); this one
+// takes 4.9 ms (NVIDIA H100 80GB HBM3 at 700 W), of which the activation,
+// computed in fc1's two epilogues while the tensor cores wait, is most of
+// the gap to the 0.94 ms bound. TMA's zero fill covers the 48 columns past
+// 4304 of fc1's last tile (their act(b) is skipped by both fc1 policies) and
+// the half k32 step past 4304 of fc2.
+#include "hopper_int8_gemm.cuh"
 #include "int8_common.cuh"
 
 namespace videoitg {
 
 constexpr int kGBM = 64;   // rows per block, G and I (2 x 4 warps of 32 x 32)
 constexpr int kGBN = 128;
-constexpr int kHBM = 32;   // rows per block, H (1 x 8 warps of 32 x 16)
-constexpr int kHBN = 128;
 constexpr int kBK = 128;     // bytes of k per weight tile: one barrier per 4 MMA k steps
 constexpr int kStages = 2;   // weight tiles in the cp.async ring
 constexpr int kBStride = kBK + kI8Pad;
@@ -150,8 +154,9 @@ proj_res_kernel(const __nv_bfloat16* __restrict__ attn, const __nv_bfloat16* __r
 }
 
 // ---- H ----
-// Every product and sum rounded on its own, so that pass A and pass B of H
-// compute the same bits whatever the compiler does around them.
+// Every product and sum rounded on its own, so that fc1's two passes
+// (`RowAmax`, `QuantStore`) compute the same bits whatever the compiler does
+// around them.
 __device__ __forceinline__ float activation(float h, int act) {
   if (act == 0) {  // gelu, tanh form: 0.5 h (1 + tanh(sqrt(2/pi) (h + 0.044715 h^3)))
     const float cube = __fmul_rn(__fmul_rn(h, h), h);
@@ -162,82 +167,154 @@ __device__ __forceinline__ float activation(float h, int act) {
   return __fmul_rn(h, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-__fmul_rn(1.702f, h)))));
 }
 
+constexpr int kLnRows = 64;  // rows per block of H's LN + quantise launch (8 per warp)
+
+// H, launch 1: LN + row quantisation of x into yq [rows][H] and ys [rows].
 __global__ void __launch_bounds__(kI8Threads)
-ln_mlp_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ lns,
-              const float* __restrict__ lnb, const int8_t* __restrict__ w1,
-              const float* __restrict__ s1, const float* __restrict__ b1,
-              const int8_t* __restrict__ w2, const float* __restrict__ s2,
-              const float* __restrict__ b2, __nv_bfloat16* __restrict__ out, int rows, int H,
-              int M, float eps, int act) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int a1_stride = pad_k(H) + kI8Pad;
-  const int a2_stride = pad_k(M) + kI8Pad;
-  int8_t* a1 = reinterpret_cast<int8_t*>(smem_raw);
-  int8_t* a2 = a1 + kHBM * a1_stride;
-  int8_t* bs = a2 + kHBM * a2_stride;
-  float* rs1 = reinterpret_cast<float*>(bs + kStages * kHBN * kBStride);
-  float* gs = rs1 + kHBM;
-  unsigned int* amax_bits = reinterpret_cast<unsigned int*>(gs + kHBM);
-  const int row0 = blockIdx.x * kHBM;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-
-  if (threadIdx.x < kHBM) amax_bits[threadIdx.x] = 0u;
-  // The k padding of the intermediate tile, bytes [M, pad_k(M)) of each row.
-  const int pad_bytes = pad_k(M) - M;
-  for (int idx = threadIdx.x; idx < kHBM * pad_bytes; idx += kI8Threads) {
-    a2[(idx / pad_bytes) * a2_stride + M + idx % pad_bytes] = 0;
-  }
-  quantize_rows<true>(a1, a1_stride, rs1, x, lns, lnb, eps, row0, kHBM, rows, H, pad_k(H));
-  __syncthreads();
-
-  // Pass A: each row's max |act(fc1)|. A thread meets rows g, g + 8, g + 16,
-  // g + 24 of the tile (slots 0..3).
-  float amax[4] = {0.f, 0.f, 0.f, 0.f};
-  stream_gemm<1, 8, 2, 2, kStages, kBK>(a1, a1_stride, w1, M, H, bs, blockIdx.x,
-                          [&](int row, int col, int v0, int v1, int slot) {
-    const float ys = rs1[row];
-    const float g0 = activation(scale_bias(v0, ys, s1[col], b1[col]), act);
-    const float g1 = activation(scale_bias(v1, ys, s1[col + 1], b1[col + 1]), act);
-    amax[slot] = fmaxf(amax[slot], fmaxf(fabsf(g0), fabsf(g1)));
-  });
-#pragma unroll
-  for (int slot = 0; slot < 4; ++slot) {
-    float m = amax[slot];
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-    // Non-negative floats order like their bit patterns.
-    if (t == 0) atomicMax(&amax_bits[slot * 8 + g], __float_as_uint(m));
-  }
-  __syncthreads();
-  if (threadIdx.x < kHBM) gs[threadIdx.x] = row_scale_of(__uint_as_float(amax_bits[threadIdx.x]));
-  __syncthreads();
-
-  // Pass B: the same values again, quantised into the int8 tile.
-  stream_gemm<1, 8, 2, 2, kStages, kBK>(a1, a1_stride, w1, M, H, bs, blockIdx.x,
-                          [&](int row, int col, int v0, int v1, int) {
-    const float ys = rs1[row];
-    const float scale = gs[row];
-    const int q0 = quant8(activation(scale_bias(v0, ys, s1[col], b1[col]), act), scale);
-    const int q1 = quant8(activation(scale_bias(v1, ys, s1[col + 1], b1[col + 1]), act), scale);
-    *reinterpret_cast<uint16_t*>(a2 + row * a2_stride + col) =
-        static_cast<uint16_t>((q0 & 0xff) | ((q1 & 0xff) << 8));
-  });
-
-  // fc2 over the int8 intermediate, + bias, + the residual x.
-  stream_gemm<1, 8, 2, 2, kStages, kBK>(a2, a2_stride, w2, H, M, bs, blockIdx.x,
-                          [&](int row, int col, int v0, int v1, int) {
-    const int grow = row0 + row;
-    if (grow >= rows) return;
-    const float scale = gs[row];
-    const size_t at = static_cast<size_t>(grow) * H + col;
-    const float2 xf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + at));
-    *reinterpret_cast<uint32_t*>(out + at) =
-        pack_bf16x2(__fadd_rn(xf.x, scale_bias(v0, scale, s2[col], b2[col])),
-                    __fadd_rn(xf.y, scale_bias(v1, scale, s2[col + 1], b2[col + 1])));
-  });
+ln_quant_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ lns,
+                const float* __restrict__ lnb, int8_t* __restrict__ yq, float* __restrict__ ys,
+                int rows, int H, float eps) {
+  const int row0 = blockIdx.x * kLnRows;
+  quantize_rows<true>(yq + static_cast<size_t>(row0) * H, H, ys + row0, x, lns, lnb, eps, row0,
+                      min(kLnRows, rows - row0), rows, H, H);
 }
+
+// fc1's value of (row, col): act(acc * (ys * s1) + b1).
+template <int ACT>
+__device__ __forceinline__ float fc1_value(int acc, float ys, float s, float b) {
+  return activation(scale_bias(acc, ys, s, b), ACT);
+}
+
+// The intermediate row scale of a row whose max |act(fc1)| has these bits.
+__device__ __forceinline__ float mlp_scale(const unsigned int* amax_bits, int row) {
+  return row_scale_of(__uint_as_float(amax_bits[row]));
+}
+
+// fc1's 8 values of (row, col..col + 7): act(acc * (ys * s1) + b1).
+template <int ACT>
+__device__ __forceinline__ void fc1_values(float (&g)[8], const int (&v)[8], float ys,
+                                           const float* s1, const float* b1, int col) {
+  const float4 s0 = *reinterpret_cast<const float4*>(s1 + col);
+  const float4 s4 = *reinterpret_cast<const float4*>(s1 + col + 4);
+  const float4 c0 = *reinterpret_cast<const float4*>(b1 + col);
+  const float4 c4 = *reinterpret_cast<const float4*>(b1 + col + 4);
+  const float s[8] = {s0.x, s0.y, s0.z, s0.w, s4.x, s4.y, s4.z, s4.w};
+  const float b[8] = {c0.x, c0.y, c0.z, c0.w, c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) g[e] = fc1_value<ACT>(v[e], ys, s[e], b[e]);
+}
+
+// H, launch 2 (fc1, first pass): each row's max |act(fc1)| over the tile's
+// columns below N, taken in registers where wgmma left the sums, reduced
+// over the quad that holds the row, then one atomicMax on the float's bits
+// per row and block into amax_bits [rows] (zeroed by the caller).
+// Non-negative floats order like their bits and max does not depend on
+// order: the result is deterministic. The columns past N of the last tile
+// (act of the bias of no channel) are skipped. (Staged through shared memory
+// it took 1.63 against 1.35 ms at the tower's shape, int8_gemm_probe.py on
+// an NVIDIA H100 80GB HBM3 at 700 W: a row reduction stores nothing to
+// coalesce.)
+template <int ACT>
+struct RowAmax {
+  const float* ys;
+  const float* s1;
+  const float* b1;
+  unsigned int* amax_bits;
+  int M, N;
+  static constexpr bool kStaged = false;
+
+  template <int BN>
+  __device__ __forceinline__ void apply(const int (&acc)[BN / 2], int row0, int n0,
+                                        int t) const {
+    const int row1 = row0 + 8;
+    const float ys0 = row0 < M ? ys[row0] : 1.f;
+    const float ys1 = row1 < M ? ys[row1] : 1.f;
+    float m0 = 0.f, m1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * t;
+      if (col >= N) continue;  // N % 8 == 0: col + 1 < N too
+      const float2 s = *reinterpret_cast<const float2*>(s1 + col);
+      const float2 b = *reinterpret_cast<const float2*>(b1 + col);
+      m0 = fmaxf(m0, fmaxf(fabsf(fc1_value<ACT>(acc[4 * j], ys0, s.x, b.x)),
+                           fabsf(fc1_value<ACT>(acc[4 * j + 1], ys0, s.y, b.y))));
+      m1 = fmaxf(m1, fmaxf(fabsf(fc1_value<ACT>(acc[4 * j + 2], ys1, s.x, b.x)),
+                           fabsf(fc1_value<ACT>(acc[4 * j + 3], ys1, s.y, b.y))));
+    }
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+    if (t == 0) {
+      if (row0 < M) atomicMax(&amax_bits[row0], __float_as_uint(m0));
+      if (row1 < M) atomicMax(&amax_bits[row1], __float_as_uint(m1));
+    }
+  }
+};
+
+// H, launch 3 (fc1, second pass): the same values again, quantised with the
+// full row's scale and stored as int8 gq [rows][N].
+template <int ACT>
+struct QuantStore {
+  const float* ys;
+  const float* s1;
+  const float* b1;
+  const unsigned int* amax_bits;
+  int8_t* gq;
+  int M, N;
+  static constexpr bool kStaged = true;
+
+  template <int LANES>
+  __device__ __forceinline__ void chunk(int row, int col, const int (&v)[8]) const {
+    if (row >= M || col >= N) return;
+    float g[8];
+    fc1_values<ACT>(g, v, ys[row], s1, b1, col);
+    const float scale = mlp_scale(amax_bits, row);
+    *reinterpret_cast<uint2*>(gq + static_cast<size_t>(row) * N + col) =
+        quant8_chunk(g, scale, __fdiv_rn(1.f, scale));
+  }
+};
+
+// H, launch 4 (fc2): out = bf16(x + (acc * (gs * s2) + b2)).
+struct BiasResidual {
+  const unsigned int* amax_bits;
+  const float* s2;
+  const float* b2;
+  const __nv_bfloat16* x;
+  __nv_bfloat16* out;
+  int M, N;
+  static constexpr bool kStaged = true;
+
+  template <int LANES>
+  __device__ __forceinline__ void chunk(int row, int col, const int (&v)[8]) const {
+    if (row >= M || col >= N) return;
+    const float scale = mlp_scale(amax_bits, row);
+    const size_t at = static_cast<size_t>(row) * N + col;
+    float xf[8];
+    unpack_bf16x8(*reinterpret_cast<const uint4*>(x + at), xf);
+    const float4 s0 = *reinterpret_cast<const float4*>(s2 + col);
+    const float4 s4 = *reinterpret_cast<const float4*>(s2 + col + 4);
+    const float4 c0 = *reinterpret_cast<const float4*>(b2 + col);
+    const float4 c4 = *reinterpret_cast<const float4*>(b2 + col + 4);
+    const float s[8] = {s0.x, s0.y, s0.z, s0.w, s4.x, s4.y, s4.z, s4.w};
+    const float b[8] = {c0.x, c0.y, c0.z, c0.w, c4.x, c4.y, c4.z, c4.w};
+    uint32_t packed[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 2 * e;
+      packed[e] =
+          pack_bf16x2(__fadd_rn(xf[i], scale_bias(v[i], scale, s[i], b[i])),
+                      __fadd_rn(xf[i + 1], scale_bias(v[i + 1], scale, s[i + 1], b[i + 1])));
+    }
+    *reinterpret_cast<uint4*>(out + at) = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+  }
+};
+
+// Tile widths (fc1: 4304 = 16 x 256 + 208; fc2: 1152 = 4.5 x 256). fc2 in
+// tiles of 128 or 192 took 1.59 / 1.40 against 1.33 ms at the tower's shape
+// (scripts/torch_probes/int8_gemm_probe.py, NVIDIA H100 80GB HBM3 at 700 W).
+constexpr int kFc1BN = 256;
+constexpr int kFc2BN = 256;
 
 template <class Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
@@ -272,29 +349,74 @@ extern "C" int videoitg_fused_ln_qkv_int8_bf16(const void* x, const void* lns, c
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, out: bf16 [rows][H]; w1: int8 [M][H]; s1, b1: fp32 [M]; w2: int8 [H][M];
-// s2, b2: fp32 [H]; act 0 = gelu (tanh form), 1 = quick_gelu. H and M
-// multiples of 16.
-extern "C" int videoitg_fused_ln_mlp_int8_bf16(const void* x, const void* lns, const void* lnb,
-                                               const void* w1, const void* s1, const void* b1,
-                                               const void* w2, const void* s2, const void* b2,
-                                               void* out, int rows, int H, int M, float eps,
-                                               int act, void* stream) {
+// H in four launches, each on `stream`, each returning cudaGetLastError().
+// x: bf16 [rows][H]; lns, lnb: fp32 [H]; w1: int8 [M][H]; s1, b1: fp32 [M];
+// w2: int8 [H][M]; s2, b2: fp32 [H]; act 0 = gelu (tanh form), 1 =
+// quick_gelu. Scratch (the caller's): yq int8 [rows][H], ys fp32 [rows],
+// amax (fp32 bits) [rows], zeroed before launch 2; gq int8 [rows][M]. All
+// contiguous and 16-byte aligned, H and M multiples of 16, H at most 2048.
+extern "C" int videoitg_mlp_ln_quant_int8_bf16(const void* x, const void* lns, const void* lnb,
+                                               void* yq, void* ys, int rows, int H, float eps,
+                                               void* stream) {
   using namespace videoitg;
-  if (rows <= 0 || H <= 0 || M <= 0 || H % 16 || H > kMaxRowK || M % 16 || act < 0 || act > 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int smem = kHBM * (pad_k(H) + kI8Pad) + kHBM * (pad_k(M) + kI8Pad) +
-                   kStages * kHBN * kBStride + 3 * kHBM * 4;
-  cudaError_t err = allow_smem(ln_mlp_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ln_mlp_kernel<<<(rows + kHBM - 1) / kHBM, kI8Threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  if (rows <= 0 || H <= 0 || H % 16 || H > kMaxRowK) return static_cast<int>(cudaErrorInvalidValue);
+  ln_quant_kernel<<<(rows + kLnRows - 1) / kLnRows, kI8Threads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(lns),
-      static_cast<const float*>(lnb), static_cast<const int8_t*>(w1),
-      static_cast<const float*>(s1), static_cast<const float*>(b1),
-      static_cast<const int8_t*>(w2), static_cast<const float*>(s2),
-      static_cast<const float*>(b2), static_cast<__nv_bfloat16*>(out), rows, H, M, eps, act);
+      static_cast<const float*>(lnb), static_cast<int8_t*>(yq), static_cast<float*>(ys), rows,
+      H, eps);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int videoitg_mlp_fc1_amax_s8(const void* yq, const void* ys, const void* w1,
+                                        const void* s1, const void* b1, void* amax, int rows,
+                                        int H, int M, int act, void* stream) {
+  using namespace videoitg;
+  if (M % 16 || act < 0 || act > 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* ysf = static_cast<const float*>(ys);
+  const auto* s = static_cast<const float*>(s1);
+  const auto* b = static_cast<const float*>(b1);
+  auto* bits = static_cast<unsigned int*>(amax);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      act == 0 ? hgemm::launch<kFc1BN>(yq, w1, RowAmax<0>{ysf, s, b, bits, rows, M}, rows, M, H,
+                                       st)
+               : hgemm::launch<kFc1BN>(yq, w1, RowAmax<1>{ysf, s, b, bits, rows, M}, rows, M, H,
+                                       st);
+  return static_cast<int>(err);
+}
+
+extern "C" int videoitg_mlp_fc1_quant_s8(const void* yq, const void* ys, const void* w1,
+                                         const void* s1, const void* b1, const void* amax,
+                                         void* gq, int rows, int H, int M, int act,
+                                         void* stream) {
+  using namespace videoitg;
+  if (M % 16 || act < 0 || act > 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* ysf = static_cast<const float*>(ys);
+  const auto* s = static_cast<const float*>(s1);
+  const auto* b = static_cast<const float*>(b1);
+  const auto* bits = static_cast<const unsigned int*>(amax);
+  auto* q = static_cast<int8_t*>(gq);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      act == 0
+          ? hgemm::launch<kFc1BN>(yq, w1, QuantStore<0>{ysf, s, b, bits, q, rows, M}, rows, M, H,
+                                  st)
+          : hgemm::launch<kFc1BN>(yq, w1, QuantStore<1>{ysf, s, b, bits, q, rows, M}, rows, M, H,
+                                  st);
+  return static_cast<int>(err);
+}
+
+extern "C" int videoitg_mlp_fc2_residual_s8(const void* gq, const void* amax, const void* w2,
+                                            const void* s2, const void* b2, const void* x,
+                                            void* out, int rows, int M, int H, void* stream) {
+  using namespace videoitg;
+  if (H % 16 || M % 16) return static_cast<int>(cudaErrorInvalidValue);
+  const BiasResidual epi{static_cast<const unsigned int*>(amax), static_cast<const float*>(s2),
+                         static_cast<const float*>(b2), static_cast<const __nv_bfloat16*>(x),
+                         static_cast<__nv_bfloat16*>(out), rows, H};
+  return static_cast<int>(
+      hgemm::launch<kFc2BN>(gq, w2, epi, rows, H, M, static_cast<cudaStream_t>(stream)));
 }
 
 // attn: bf16 [rows][D]; res, out: bf16 [rows][H]; w: int8 [H][D]; s, b: fp32

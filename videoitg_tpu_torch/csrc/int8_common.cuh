@@ -1,7 +1,9 @@
-// Shared core of the four int8 kernels of the act8 serving tier
-// (quant_gemm.cu: F; fused_encoder.cu: G, H, I): the s8 tensor-core product
-// of a warp tile, the weight-tile loader, per-row quantisation, and the loop
-// that streams a weight matrix past an activation tile held in shared memory.
+// Shared core of the two int8 kernels of the act8 serving tier that still
+// run on mma.sync (fused_encoder.cu: G, I; F and H run on the TMA + s8 wgmma
+// GEMM of hopper_int8_gemm.cuh and use the quantisers here): the s8
+// tensor-core product of a warp tile, the weight-tile loader, per-row
+// quantisation, and the loop that streams a weight matrix past an activation
+// tile held in shared memory.
 //
 // Operands. Activations are int8 [rows][k] in shared memory and weights are
 // int8 [n][k] in device memory, both with k contiguous: that is what
@@ -13,9 +15,9 @@
 //   C (16 x 8 int32): c0, c1 = (row g, n 2t, 2t+1), c2, c3 = (row g+8, same n)
 // Integer sums are exact, so the order of the k loop does not matter.
 //
-// Shared-memory rows are padded by 16 bytes. With k tiles of 64 bytes every
-// row stride is 16 (mod 64) or 16 + 64 bytes (mod 128), i.e. 4 or 20 words
-// (mod 32): the 8 x 4 words of a fragment load fall into 32 different banks.
+// Shared-memory rows are padded by 16 bytes. With k tiles of 128 bytes every
+// row stride is 16 (mod 128) bytes, i.e. 4 words (mod 32): the 8 x 4 words of
+// a fragment load fall into 32 different banks.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -25,9 +27,7 @@
 namespace videoitg {
 
 constexpr int kI8Threads = 256;   // 8 warps
-constexpr int kI8BK = 64;         // bytes of k per weight tile (128 where a kernel says so)
 constexpr int kI8Pad = 16;        // bytes of row padding in shared memory
-constexpr int kI8BStride = kI8BK + kI8Pad;
 
 __device__ __forceinline__ void mma_s8_16832(int c[4], const uint32_t a[4], const uint32_t b[2]) {
   asm volatile(
@@ -54,7 +54,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // so that a tile costs a few instructions per chunk: with the addresses
 // worked out per tile, this arithmetic alone took a third of kernel G's time
 // (8 warps a block cannot hide it).
-template <int BN, int BK = kI8BK>
+template <int BN, int BK>
 struct WeightTileLoader {
   static constexpr int kRowChunks = BK / 16;                      // chunks of a tile row
   static constexpr int kPassRows = kI8Threads / kRowChunks;       // rows copied per pass
@@ -97,7 +97,7 @@ struct WeightTileLoader {
 // acc[mt][nt] += A(16*MT rows x BK k) * B(BK k x 8*NT n) for one warp.
 // a: the warp's first row at the tile's first k, rows `a_stride` bytes apart;
 // b: the warp's first n row of the weight tile (rows BK + kI8Pad bytes apart).
-template <int MT, int NT, int BK = kI8BK>
+template <int MT, int NT, int BK>
 __device__ __forceinline__ void warp_mma(int acc[MT][NT][4], const int8_t* a, int a_stride,
                                          const int8_t* b, int g, int t) {
 #pragma unroll
@@ -131,21 +131,16 @@ __device__ __forceinline__ void warp_mma(int acc[MT][NT][4], const int8_t* a, in
   }
 }
 
-// round(v / s) clipped to +-127, as the JAX package quantises: a true IEEE
-// division and round-half-to-even.
-__device__ __forceinline__ int quant8(float v, float s) {
-  const float q = fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f), 127.f);
-  return static_cast<int>(q);
-}
-
 __device__ __forceinline__ uint32_t pack4_s8(int a, int b, int c, int d) {
   return (static_cast<uint32_t>(a) & 0xffu) | ((static_cast<uint32_t>(b) & 0xffu) << 8) |
          ((static_cast<uint32_t>(c) & 0xffu) << 16) | ((static_cast<uint32_t>(d) & 0xffu) << 24);
 }
 
-// Eight values quantised like quant8(y[e], s), given inv_s = 1 / s, without a
-// division for almost every chunk. p = y * inv_s is within 3 ulp of the true
-// quotient (|quotient| <= 127, so within 2.3e-5), and p - rint(p) is exact;
+// Eight values quantised as the JAX package quantises, round(y[e] / s) with a
+// true IEEE division, round-half-to-even and clipped to +-127, given inv_s =
+// 1 / s, without a division for almost every chunk. p = y * inv_s is within 3
+// ulp of the true quotient (|quotient| <= 127, so within 2.3e-5), and p -
+// rint(p) is exact;
 // unless p lies within 1e-4 of a rounding boundary it rounds to the integer
 // the true quotient rounds to. If any of the eight does lie that close (or p
 // is not finite), the true division decides for the chunk: one rarely taken

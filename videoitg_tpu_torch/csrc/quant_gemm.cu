@@ -1,11 +1,11 @@
-// act8 GEMM with the activation quantisation fused in (sm_90a).
+// act8 GEMM: dynamic per-row int8 quantisation of x, then an int8 GEMM
+// (sm_90a).
 //
 // Replaces the TPU kernel `_kernel` in videoitg_tpu/ops/quant_gemm.py (entry
 // `act8_gemm`): out[m][n] = (sum_k q(x[m][k]) * w[n][k]) * xs[m] * ws[n] with
-// q(v) = clip(round(v / xs[m]), +-127), an exact int32 sum, the product
-// `(acc * xs) * ws` in fp32 and one rounding to bf16. The row scales xs come
-// from outside (one reduction over the full row), so quantising a k tile at a
-// time equals quantising the whole row.
+// q(v) = clip(round(v / xs[m]), +-127), xs[m] = max_k |x[m][k]| / 127 (1 for
+// a zero row) unless the caller gives it, an exact int32 sum, the product
+// `(acc * xs) * ws` in fp32 and one rounding to bf16.
 //
 // What bounds it on an H100, at the LM's shapes (M = 13,056 tokens; (K, N) =
 // (3584, 3584), (3584, 512), (3584, 18944), (18944, 3584)): 2 M K N is 0.34
@@ -13,164 +13,119 @@
 // operations per byte, far above the card's ~590 ridge (1,979 TOP/s over
 // 3.35 TB/s). The tensor cores bound it, not device memory.
 //
-// Design. A 128 x 256 output tile per block, 8 warps of 64 x 64, mma.sync
-// m16n8k32 s8 with int32 accumulators. The weight is stored [N][K] (k
-// contiguous), the operand layout of the s8 MMA, so weight tiles go global ->
-// shared with cp.async (a three-stage ring, one barrier per k tile of 64) and
-// no byte transpose; x tiles go through registers, where they are quantised
-// and packed to int8 before they reach shared memory (double-buffered; the
-// global loads of the next tile are in flight during the products). Every
-// one of the N / 256 blocks of a row tile quantises the same x tile again,
-// and that, not the MMA pipe, was the first version's limit (128 x 128
-// tiles, a true division per element: ~110 TOP/s; this version ~212 TOP/s,
-// NVIDIA H100 80GB HBM3 at 700 W). Hence the wide tile, and
-// `quant8_chunk`: a multiply by 1 / xs that is checked against the rounding
-// boundary and falls back to the true division where the two could differ,
-// so the int8 values are those of `round(x / xs)` bit for bit. The
-// last row tile is masked (rows >= M quantise to zeros and are never
-// stored), so nothing is padded in device memory. Left on the table: no TMA,
-// wgmma or persistent scheduling yet, one block (8 warps) per SM.
+// Design. Two launches. `row_quant_kernel` reads x once (a block per row: a
+// pass for the row's amax, a pass that quantises it from L1 / L2) and writes
+// the int8 copy and the row scale: 47 MB at K = 3584, 247 MB at K = 18,944.
+// Then the TMA + s8 wgmma GEMM of hopper_int8_gemm.cuh with the `Act8Out`
+// epilogue, 128 x 256 output tiles. The first versions quantised x on its way
+// into shared memory, inside the GEMM, so that every one of the N / 256
+// blocks of a row tile quantised the same x tile again, on mma.sync fed by
+// cp.async with one block of 8 warps per SM (~212 TOP/s, 28.64 ms for the 7
+// products of one LM layer, NVIDIA H100 80GB HBM3 at 700 W); quantising once
+// costs a pass over x and its int8 copy (0.66 of the layer's 5.3 ms now, the
+// GEMM 1,190 to 1,570 TOP/s at the large shapes).
+#include "hopper_int8_gemm.cuh"
 #include "int8_common.cuh"
 
 namespace videoitg {
 
-constexpr int kFBM = 128;
-constexpr int kFBN = 256;
-constexpr int kFStages = 3;
-constexpr int kFSmem = 2 * kFBM * kI8BStride + kFStages * kFBN * kI8BStride;
+constexpr int kRowQuantThreads = 256;
 
-// This thread's share of the x tile [kFBM][64] at k0: 4 chunks of 8 bf16,
-// rows (tid / 8) + 32 i, columns (tid % 8) * 8.
-__device__ __forceinline__ void load_x_chunks(uint4 regs[4], const __nv_bfloat16* __restrict__ x,
-                                              int m0, int k0, int M, int K) {
-  const int r = threadIdx.x / 8;
-  const int c = (threadIdx.x % 8) * 8;
+// One block per row of x [M][K] (bf16): xs[row] = row_scale_of(amax) when
+// `compute_scale`, else read; xq[row] = round(x / xs) clipped to +-127, bit
+// for bit (`quant8_chunk`). K % 8 == 0.
+__global__ void __launch_bounds__(kRowQuantThreads)
+row_quant_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ xs,
+                 int8_t* __restrict__ xq, int K, int compute_scale) {
+  __shared__ float warp_amax[kRowQuantThreads / 32];
+  const int row = blockIdx.x;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + static_cast<size_t>(row) * K);
+  const int chunks = K / 8;
+  float s;
+  if (compute_scale) {
+    float amax = 0.f;
+    for (int c = threadIdx.x; c < chunks; c += kRowQuantThreads) {
+      float v[8];
+      unpack_bf16x8(xr[c], v);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + r + 32 * i;
-    regs[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (row < M && k0 + c < K) {
-      regs[i] = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(row) * K + k0 + c);
+      for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
     }
-  }
-}
-
-__device__ __forceinline__ void store_x_chunks(int8_t* as, const uint4 regs[4],
-                                               const float scale[4], const float inv[4]) {
-  const int r = threadIdx.x / 8;
-  const int c = (threadIdx.x % 8) * 8;
+    amax = warp_max(amax);
+    if (threadIdx.x % 32 == 0) warp_amax[threadIdx.x / 32] = amax;
+    __syncthreads();
+    amax = warp_amax[0];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+    for (int w = 1; w < kRowQuantThreads / 32; ++w) amax = fmaxf(amax, warp_amax[w]);
+    s = row_scale_of(amax);
+    if (threadIdx.x == 0) xs[row] = s;
+  } else {
+    s = xs[row];
+  }
+  const float inv_s = __fdiv_rn(1.f, s);
+  uint2* qr = reinterpret_cast<uint2*>(xq + static_cast<size_t>(row) * K);
+  for (int c = threadIdx.x; c < chunks; c += kRowQuantThreads) {
     float v[8];
-    unpack_bf16x8(regs[i], v);
-    *reinterpret_cast<uint2*>(as + (r + 32 * i) * kI8BStride + c) = quant8_chunk(v, scale[i], inv[i]);
+    unpack_bf16x8(xr[c], v);
+    qr[c] = quant8_chunk(v, s, inv_s);
   }
 }
 
-__global__ void __launch_bounds__(kI8Threads)
-act8_gemm_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ xs,
-                 const int8_t* __restrict__ w, const float* __restrict__ ws,
-                 __nv_bfloat16* __restrict__ out, int M, int K, int N) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int8_t* as = reinterpret_cast<int8_t*>(smem_raw);   // [2][kFBM][kI8BStride]
-  int8_t* bs = as + 2 * kFBM * kI8BStride;            // [kFStages][kFBN][kI8BStride]
-  constexpr int kATile = kFBM * kI8BStride;
-  constexpr int kBTile = kFBN * kI8BStride;
+// F's epilogue: out = bf16((acc * xs) * ws), each product rounded on its own.
+struct Act8Out {
+  const float* xs;  // [M]
+  const float* ws;  // [N]
+  __nv_bfloat16* out;  // [M][N]
+  int M, N;
+  static constexpr bool kStaged = true;
 
-  const int m0 = blockIdx.y * kFBM;
-  const int n0 = blockIdx.x * kFBN;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int wm = warp / 4;  // 2 x 4 warps of 64 x 64
-  const int wn = warp % 4;
-  const int nk = (K + kI8BK - 1) / kI8BK;
-
-  float scale[4], inv[4];
+  template <int LANES>
+  __device__ __forceinline__ void chunk(int row, int col, const int (&v)[8]) const {
+    if (row >= M || col >= N) return;
+    const float s = xs[row];
+    const float4 w0 = *reinterpret_cast<const float4*>(ws + col);
+    const float4 w1 = *reinterpret_cast<const float4*>(ws + col + 4);
+    const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    uint32_t packed[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + threadIdx.x / 8 + 32 * i;
-    scale[i] = row < M ? xs[row] : 1.f;
-    inv[i] = __fdiv_rn(1.f, scale[i]);
-  }
-
-  int acc[4][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0;
-
-  WeightTileLoader<kFBN> loader(bs);
-  loader.set_n_tile(w, n0, N, K);
-  auto fetch_w = [&](int kt) {
-    if (kt < nk) loader.fetch(kt % kFStages, kt * kI8BK, K);
-    cp_async_commit();  // an empty group past the end keeps the count uniform
-  };
-  uint4 regs[4];
-#pragma unroll
-  for (int kt = 0; kt < kFStages - 1; ++kt) fetch_w(kt);
-  load_x_chunks(regs, x, m0, 0, M, K);
-  store_x_chunks(as, regs, scale, inv);
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const bool more = kt + 1 < nk;
-    cp_async_wait<kFStages - 2>();  // weight tile kt has landed
-    __syncthreads();  // ... for every thread; x tile kt is stored; tile kt - 1 is consumed
-    fetch_w(kt + kFStages - 1);
-    if (more) load_x_chunks(regs, x, m0, (kt + 1) * kI8BK, M, K);
-    warp_mma<4, 8>(acc, as + (kt & 1) * kATile + wm * 64 * kI8BStride, kI8BStride,
-                       bs + (kt % kFStages) * kBTile + wn * 64 * kI8BStride, g, t);
-    if (more) store_x_chunks(as + ((kt + 1) & 1) * kATile, regs, scale, inv);
-  }
-  cp_async_wait<0>();
-
-  // (acc * xs) * ws -> bf16; rows >= M and columns >= N are not stored.
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    const int r0 = m0 + wm * 64 + mt * 16 + g;
-    const int r1 = r0 + 8;
-    const float s0 = r0 < M ? xs[r0] : 1.f;
-    const float s1 = r1 < M ? xs[r1] : 1.f;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int col = n0 + wn * 64 + nt * 8 + 2 * t;
-      if (col >= N) continue;
-      const float w0 = ws[col], w1 = ws[col + 1];
-      if (r0 < M) {
-        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(r0) * N + col) = pack_bf16x2(
-            __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][0]), s0), w0),
-            __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][1]), s0), w1));
-      }
-      if (r1 < M) {
-        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(r1) * N + col) = pack_bf16x2(
-            __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2]), s1), w0),
-            __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][3]), s1), w1));
-      }
+    for (int e = 0; e < 4; ++e) {
+      const int i = 2 * e;
+      packed[e] = pack_bf16x2(__fmul_rn(__fmul_rn(__int2float_rn(v[i]), s), w[i]),
+                              __fmul_rn(__fmul_rn(__int2float_rn(v[i + 1]), s), w[i + 1]));
     }
+    *reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * N + col) =
+        make_uint4(packed[0], packed[1], packed[2], packed[3]);
   }
-}
+};
+
+constexpr int kFBN = 256;
 
 }  // namespace videoitg
 
-// x: bf16 [M][K]; xs: fp32 [M] row scales; w: int8 [N][K]; ws: fp32 [N];
-// out: bf16 [M][N]; all contiguous and 16-byte aligned on the current device,
-// K a multiple of 16, N of 8. Launches on `stream`; returns cudaGetLastError().
-extern "C" int videoitg_act8_gemm_bf16(const void* x, const void* xs, const void* w,
-                                       const void* ws, void* out, int M, int K, int N,
-                                       void* stream) {
+// x: bf16 [M][K]; xs: fp32 [M] row scales, written when compute_scale != 0,
+// else read; xq: int8 [M][K]. Contiguous, 16-byte aligned, K a multiple of
+// 16. Launches on `stream`; returns cudaGetLastError().
+extern "C" int videoitg_row_quant_int8_bf16(const void* x, void* xs, void* xq, int M, int K,
+                                            int compute_scale, void* stream) {
+  using namespace videoitg;
+  if (M <= 0 || K <= 0 || K % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  row_quant_kernel<<<M, kRowQuantThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<float*>(xs), static_cast<int8_t*>(xq),
+      K, compute_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// xq: int8 [M][K]; xs: fp32 [M]; w: int8 [N][K]; ws: fp32 [N]; out: bf16
+// [M][N]; contiguous and 16-byte aligned on the current device, K a multiple
+// of 16, N of 8. Launches on `stream`; returns cudaGetLastError().
+extern "C" int videoitg_act8_gemm_s8(const void* xq, const void* xs, const void* w,
+                                     const void* ws, void* out, int M, int K, int N,
+                                     void* stream) {
   using namespace videoitg;
   if (M <= 0 || K <= 0 || N <= 0 || K % 16 != 0 || N % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaFuncSetAttribute(act8_gemm_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kFSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((N + kFBN - 1) / kFBN, (M + kFBM - 1) / kFBM);
-  act8_gemm_kernel<<<grid, kI8Threads, kFSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(xs),
-      static_cast<const int8_t*>(w), static_cast<const float*>(ws),
-      static_cast<__nv_bfloat16*>(out), M, K, N);
-  return static_cast<int>(cudaGetLastError());
+  const Act8Out epi{static_cast<const float*>(xs), static_cast<const float*>(ws),
+                    static_cast<__nv_bfloat16*>(out), M, N};
+  return static_cast<int>(
+      hgemm::launch<kFBN>(xq, w, epi, M, N, K, static_cast<cudaStream_t>(stream)));
 }

@@ -1,17 +1,20 @@
 """Fused encoder-layer kernels for the full-int8 (act8) serving tier.
 
 Counterpart of videoitg_tpu/ops/fused_encoder.py. Each function keeps a whole
-non-attention sub-block of a vision encoder layer inside one kernel
-(csrc/fused_encoder.cu, hand-written for Hopper), so the LayerNorm output,
-the int8 activation copies and the [rows, intermediate] MLP tensor never go
-to device memory:
+non-attention sub-block of a vision encoder layer in hand-written Hopper
+kernels (csrc/fused_encoder.cu), so the LayerNorm output and the
+[rows, intermediate] MLP tensor never go to device memory in bf16 or fp32:
 
   * fused_ln_qkv_int8:        LN -> per-row int8 quant -> one packed
                               [H, dq+dk+dv] int8 product -> scale + bias ->
-                              three dense outputs q, k, v.
+                              three dense outputs q, k, v (one launch).
   * fused_ln_mlp_int8:        LN -> quant -> fc1 -> GELU -> quant of the
-                              whole intermediate row -> fc2 -> + residual.
-  * fused_proj_residual_int8: quant -> o_proj -> + residual.
+                              whole intermediate row -> fc2 -> + residual,
+                              in four launches (`mlp_ln_quant`,
+                              `mlp_fc1_amax`, `mlp_fc1_quant`,
+                              `mlp_fc2_residual`) through int8 copies of
+                              the two activations.
+  * fused_proj_residual_int8: quant -> o_proj -> + residual (one launch).
 
 All work is row-local (LN statistics, per-row scales), so a ragged last row
 tile is masked in the kernels. Numerics: fp32 LN (two-pass) and scales,
@@ -132,37 +135,158 @@ def fused_ln_mlp_int8_reference(x, ln: Norm, fc1, fc2, eps: float, act: str = "g
     return (xf + o).to(x.dtype)
 
 
+# ---- H's four launches, each beside its plain version ----
+# The kernel computes fc1 twice: once for each row's amax (reduced over the
+# GEMM's n tiles of FC1_TILE columns), once to quantise with the full row's
+# scale. The stage functions take the plain version for CPU tensors and
+# launch the kernel for CUDA tensors; `fused_ln_mlp_int8` chains them.
+FC1_TILE = 256  # columns of one fc1 tile of the kernel
+
+
+def _fc1_act(yq, ys, fc1, act: str) -> torch.Tensor:
+    h = _scaled(int8_matmul(yq, fc1.w_qt), ys, fc1.scale,
+                _vec(fc1.b, fc1.out_features, yq.device))
+    return _activation_f32(h, act)
+
+
+def _scale_of(amax: torch.Tensor) -> torch.Tensor:
+    """[N] row amax -> [N, 1] row scale, `ops/quant.row_quant`'s formula."""
+    amax = amax[:, None]
+    return torch.where(amax == 0, torch.ones_like(amax), amax / 127.0)
+
+
+def mlp_ln_quant_reference(x, ln: Norm, eps: float):
+    """Launch 1's plain version: (int8 yq [N, H], fp32 ys [N, 1])."""
+    return row_quant(_layer_norm_f32(x.float(), ln, eps))
+
+
+def mlp_fc1_amax_reference(yq, ys, fc1, act: str) -> torch.Tensor:
+    """Launch 2's plain version: each row's max |act(fc1)|, fp32 [N], taken
+    per tile of FC1_TILE columns and then over the tiles."""
+    g = _fc1_act(yq, ys, fc1, act).abs()
+    return torch.stack([t.amax(dim=-1) for t in g.split(FC1_TILE, dim=-1)]).amax(dim=0)
+
+
+def mlp_fc1_quant_reference(yq, ys, fc1, amax, act: str) -> torch.Tensor:
+    """Launch 3's plain version: act(fc1) quantised with the scale of the
+    full row's amax, int8 [N, M]."""
+    g = _fc1_act(yq, ys, fc1, act)
+    return torch.clamp(torch.round(g / _scale_of(amax)), -127, 127).to(torch.int8)
+
+
+def mlp_fc2_residual_reference(x, gq, amax, fc2) -> torch.Tensor:
+    """Launch 4's plain version: x + fc2(gq) in x.dtype."""
+    o = _scaled(int8_matmul(gq, fc2.w_qt), _scale_of(amax), fc2.scale,
+                _vec(fc2.b, fc2.out_features, x.device))
+    return (x.float() + o).to(x.dtype)
+
+
+def _run(err: int, what: str) -> None:
+    _build.check(err, f"fused_ln_mlp_int8 ({what})")
+
+
+def mlp_ln_quant(x: torch.Tensor, ln: Norm, eps: float):
+    """Launch 1: LN + row quantisation. x: bf16 [N, H] -> (yq, ys)."""
+    if x.device.type == "cpu":
+        return mlp_ln_quant_reference(x, ln, eps)
+    n, h = x.shape
+    dev = x.device
+    check_matrix("fused_ln_mlp_int8", "x", x, torch.bfloat16, (n, h), dev)
+    if n <= 0 or h % 16 or h > MAX_ROW_WIDTH:
+        raise ValueError(f"fused_ln_mlp_int8: H={h} must be a multiple of 16, at most "
+                         f"{MAX_ROW_WIDTH}")
+    lns, lnb = _vec(ln.scale, h, dev), _vec(ln.bias, h, dev)
+    yq = torch.empty((n, h), device=dev, dtype=torch.int8)
+    ys = torch.empty((n, 1), device=dev, dtype=torch.float32)
+    _run(_build.library().videoitg_mlp_ln_quant_int8_bf16(
+        x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), yq.data_ptr(), ys.data_ptr(), n, h,
+        float(eps), stream_handle(x)), "LN + quantise")
+    return yq, ys
+
+
+def _fc1_args(yq, ys, fc1):
+    """Checks and pointers of fc1's two launches; the fp32 bias is returned
+    too, so that the caller holds it until its launch is enqueued."""
+    n, h = yq.shape
+    m = fc1.out_features
+    dev = yq.device
+    check_matrix("fused_ln_mlp_int8", "yq", yq, torch.int8, (n, h), dev)
+    check_matrix("fused_ln_mlp_int8", "ys", ys, torch.float32, (n, 1), dev)
+    check_matrix("fused_ln_mlp_int8", "fc1 weight", fc1.w_qt, torch.int8, (m, h), dev)
+    check_matrix("fused_ln_mlp_int8", "fc1 scale", fc1.scale, torch.float32, (m,), dev)
+    if m % 16:
+        raise ValueError(f"fused_ln_mlp_int8: M={m} must be a multiple of 16")
+    b1 = _vec(fc1.b, m, dev)
+    return (yq.data_ptr(), ys.data_ptr(), fc1.w_qt.data_ptr(), fc1.scale.data_ptr(),
+            b1.data_ptr()), (n, h, m), b1
+
+
+def mlp_fc1_amax(yq: torch.Tensor, ys: torch.Tensor, fc1: QuantLinear, act: str):
+    """Launch 2: fc1 with the `RowAmax` epilogue -> fp32 [N] row amax."""
+    if yq.device.type == "cpu":
+        return mlp_fc1_amax_reference(yq, ys, fc1, act)
+    ptrs, (n, h, m), _b1 = _fc1_args(yq, ys, fc1)
+    amax = torch.zeros(n, device=yq.device, dtype=torch.float32)
+    _run(_build.library().videoitg_mlp_fc1_amax_s8(
+        *ptrs, amax.data_ptr(), n, h, m, ACTIVATIONS.index(act), stream_handle(yq)), "fc1 amax")
+    return amax
+
+
+def mlp_fc1_quant(yq: torch.Tensor, ys: torch.Tensor, fc1: QuantLinear, amax: torch.Tensor,
+                  act: str) -> torch.Tensor:
+    """Launch 3: fc1 again with the `QuantStore` epilogue -> int8 [N, M]."""
+    if yq.device.type == "cpu":
+        return mlp_fc1_quant_reference(yq, ys, fc1, amax, act)
+    ptrs, (n, h, m), _b1 = _fc1_args(yq, ys, fc1)
+    check_matrix("fused_ln_mlp_int8", "amax", amax, torch.float32, (n,), yq.device)
+    gq = torch.empty((n, m), device=yq.device, dtype=torch.int8)
+    _run(_build.library().videoitg_mlp_fc1_quant_s8(
+        *ptrs, amax.data_ptr(), gq.data_ptr(), n, h, m, ACTIVATIONS.index(act),
+        stream_handle(yq)), "fc1 quantise")
+    return gq
+
+
+def mlp_fc2_residual(x: torch.Tensor, gq: torch.Tensor, amax: torch.Tensor,
+                     fc2: QuantLinear) -> torch.Tensor:
+    """Launch 4: fc2 with the `BiasResidual` epilogue -> [N, H] in x.dtype."""
+    if x.device.type == "cpu":
+        return mlp_fc2_residual_reference(x, gq, amax, fc2)
+    n, h = x.shape
+    m = gq.shape[1]
+    dev = x.device
+    check_matrix("fused_ln_mlp_int8", "x", x, torch.bfloat16, (n, h), dev)
+    check_matrix("fused_ln_mlp_int8", "gq", gq, torch.int8, (n, m), dev)
+    check_matrix("fused_ln_mlp_int8", "amax", amax, torch.float32, (n,), dev)
+    check_matrix("fused_ln_mlp_int8", "fc2 weight", fc2.w_qt, torch.int8, (h, m), dev)
+    check_matrix("fused_ln_mlp_int8", "fc2 scale", fc2.scale, torch.float32, (h,), dev)
+    if h % 16 or m % 16:
+        raise ValueError(f"fused_ln_mlp_int8: H={h} and M={m} must be multiples of 16")
+    b2 = _vec(fc2.b, h, dev)
+    out = torch.empty_like(x)
+    _run(_build.library().videoitg_mlp_fc2_residual_s8(
+        gq.data_ptr(), amax.data_ptr(), fc2.w_qt.data_ptr(), fc2.scale.data_ptr(),
+        b2.data_ptr(), x.data_ptr(), out.data_ptr(), n, m, h, stream_handle(x)), "fc2")
+    return out
+
+
 def fused_ln_mlp_int8(x: torch.Tensor, ln: Norm, fc1: QuantLinear, fc2: QuantLinear,
                       eps: float, act: str = "gelu_tanh") -> torch.Tensor:
-    """x + fc2(act(fc1(quant(LN(x))))) with the [N, M] intermediate kept out
-    of device memory. x: [N, H]. Returns [N, H] in x.dtype.
+    """x + fc2(act(fc1(quant(LN(x))))) with the intermediate quantised to int8
+    before it reaches device memory. x: [N, H]. Returns [N, H] in x.dtype.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel (bf16,
-    H a multiple of 16, M a multiple of 16) or raise.
+    CPU tensors run the plain version; CUDA tensors launch the kernel's four
+    launches (bf16, H a multiple of 16 up to 2048, M a multiple of 16) or
+    raise.
     """
     _check_int8("fused_ln_mlp_int8", fc1, fc2)
     if act not in ACTIVATIONS:
         raise ValueError(f"unknown activation {act!r} (one of {ACTIVATIONS})")
     if x.device.type == "cpu":
         return fused_ln_mlp_int8_reference(x, ln, fc1, fc2, eps, act)
-    n, h = x.shape
-    m = fc1.out_features
-    dev = x.device
-    check_matrix("fused_ln_mlp_int8", "x", x, torch.bfloat16, (n, h), dev)
-    check_matrix("fused_ln_mlp_int8", "fc1 weight", fc1.w_qt, torch.int8, (m, h), dev)
-    check_matrix("fused_ln_mlp_int8", "fc2 weight", fc2.w_qt, torch.int8, (h, m), dev)
-    if n <= 0 or h % 16 or h > MAX_ROW_WIDTH or m % 16:
-        raise ValueError(f"fused_ln_mlp_int8: H={h} (at most {MAX_ROW_WIDTH}) and M={m} must "
-                         "be multiples of 16")
-    lns, lnb = _vec(ln.scale, h, dev), _vec(ln.bias, h, dev)
-    b1, b2 = _vec(fc1.b, m, dev), _vec(fc2.b, h, dev)
-    out = torch.empty_like(x)
-    err = _build.library().videoitg_fused_ln_mlp_int8_bf16(
-        x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), fc1.w_qt.data_ptr(),
-        fc1.scale.data_ptr(), b1.data_ptr(), fc2.w_qt.data_ptr(), fc2.scale.data_ptr(),
-        b2.data_ptr(), out.data_ptr(), n, h, m, float(eps), ACTIVATIONS.index(act),
-        stream_handle(x))
-    _build.check(err, "fused_ln_mlp_int8")
+    yq, ys = mlp_ln_quant(x, ln, eps)
+    amax = mlp_fc1_amax(yq, ys, fc1, act)
+    gq = mlp_fc1_quant(yq, ys, fc1, amax, act)
+    out = mlp_fc2_residual(x, gq, amax, fc2)
     fused_ln_mlp_int8.launches += 1
     return out
 
