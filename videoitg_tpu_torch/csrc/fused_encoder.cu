@@ -315,6 +315,12 @@ struct BiasResidual {
 // (scripts/torch_probes/int8_gemm_probe.py, NVIDIA H100 80GB HBM3 at 700 W).
 constexpr int kFc1BN = 256;
 constexpr int kFc2BN = 256;
+// Consumer warpgroups a block (hopper_int8_gemm.cuh). One, two blocks an SM
+// so that one's epilogue runs beside the other's wgmmas, took fc1 1.74 / 2.15
+// against 1.34 / 1.92 ms (amax / quantise) and fc2 2.09 against 1.31 in the
+// probe: 64-row tiles load twice the bytes per operation.
+constexpr int kFc1Wgs = 2;
+constexpr int kFc2Wgs = 2;
 
 template <class Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
@@ -379,9 +385,9 @@ extern "C" int videoitg_mlp_fc1_amax_s8(const void* yq, const void* ys, const vo
   auto* bits = static_cast<unsigned int*>(amax);
   const auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      act == 0 ? hgemm::launch<kFc1BN>(yq, w1, RowAmax<0>{ysf, s, b, bits, rows, M}, rows, M, H,
+      act == 0 ? hgemm::launch<kFc1BN, kFc1Wgs>(yq, w1, RowAmax<0>{ysf, s, b, bits, rows, M}, rows, M, H,
                                        st)
-               : hgemm::launch<kFc1BN>(yq, w1, RowAmax<1>{ysf, s, b, bits, rows, M}, rows, M, H,
+               : hgemm::launch<kFc1BN, kFc1Wgs>(yq, w1, RowAmax<1>{ysf, s, b, bits, rows, M}, rows, M, H,
                                        st);
   return static_cast<int>(err);
 }
@@ -400,9 +406,9 @@ extern "C" int videoitg_mlp_fc1_quant_s8(const void* yq, const void* ys, const v
   const auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       act == 0
-          ? hgemm::launch<kFc1BN>(yq, w1, QuantStore<0>{ysf, s, b, bits, q, rows, M}, rows, M, H,
+          ? hgemm::launch<kFc1BN, kFc1Wgs>(yq, w1, QuantStore<0>{ysf, s, b, bits, q, rows, M}, rows, M, H,
                                   st)
-          : hgemm::launch<kFc1BN>(yq, w1, QuantStore<1>{ysf, s, b, bits, q, rows, M}, rows, M, H,
+          : hgemm::launch<kFc1BN, kFc1Wgs>(yq, w1, QuantStore<1>{ysf, s, b, bits, q, rows, M}, rows, M, H,
                                   st);
   return static_cast<int>(err);
 }
@@ -416,7 +422,7 @@ extern "C" int videoitg_mlp_fc2_residual_s8(const void* gq, const void* amax, co
                          static_cast<const float*>(b2), static_cast<const __nv_bfloat16*>(x),
                          static_cast<__nv_bfloat16*>(out), rows, H};
   return static_cast<int>(
-      hgemm::launch<kFc2BN>(gq, w2, epi, rows, H, M, static_cast<cudaStream_t>(stream)));
+      hgemm::launch<kFc2BN, kFc2Wgs>(gq, w2, epi, rows, H, M, static_cast<cudaStream_t>(stream)));
 }
 
 // attn: bf16 [rows][D]; res, out: bf16 [rows][H]; w: int8 [H][D]; s, b: fp32

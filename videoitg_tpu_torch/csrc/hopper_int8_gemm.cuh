@@ -1,12 +1,13 @@
 // The TMA + s8 wgmma GEMM behind kernels F (quant_gemm.cu) and H
 // (fused_encoder.cu). sm_90a.
 //
-// out tile [128][BN] of A (int8 [M][K]) x B^T (int8 [N][K]), both K-major in
-// device memory, an exact int32 sum, handed to an epilogue policy. A block is
-// three warpgroups: two consumer warpgroups of 64 rows each (warps 0-7) and a
-// producer warpgroup of which one warp works (warp 8), as in the attention
-// kernels (hopper_attention.cuh). The producer keeps a ring of stages in
-// flight by TMA, each stage 128 bytes of k of A [128][128] and B [BN][128].
+// out tile [64 WGS][BN] of A (int8 [M][K]) x B^T (int8 [N][K]), both K-major
+// in device memory, an exact int32 sum, handed to an epilogue policy. A block
+// is WGS consumer warpgroups of 64 rows each and a producer of which one warp
+// works, as in the attention kernels (hopper_attention.cuh): with WGS = 2 a
+// 128-row tile, one block an SM; with WGS = 1 a 64-row tile, two blocks an SM
+// (see rows_per_block). The producer keeps a ring of stages in flight by TMA,
+// each stage 128 bytes of k of A [64 WGS][128] and B [BN][128].
 // Consumers wait on a stage's `full` barrier, issue its four
 // m64nBNk32.s32.s8.s8 wgmmas (a k32 step is 32 bytes), commit, and release
 // the stage before (its wgmmas have completed once at most one group is in
@@ -22,16 +23,18 @@
 // half zeros in both operands); with 32-byte boxes a k32 step wholly past K
 // is neither loaded nor multiplied.
 //
-// Registers: a consumer holds BN / 2 int32 accumulators (128 at BN = 256),
-// so the producer gives its registers up (setmaxnreg 24) and the consumers
-// take them (240): 24 + 2 x 240 = 504 of the 512 a lane has per register
-// file. ptxas allocates within the launch bound's 168 all the same (two
-// blocks an SM, 80 at entry, cannot hold m64n128k32's operands).
+// Registers: a consumer holds BN / 2 int32 accumulators (128 at BN = 256).
+// With WGS = 2 the producer warpgroup gives its registers up (setmaxnreg 24)
+// and the consumers take them (240): 24 + 2 x 240 = 504 of the 512 a lane has
+// per register file; ptxas allocates within the launch bound's 168 all the
+// same (two such blocks an SM, 80 at entry, cannot hold m64n128k32's
+// operands). With WGS = 1, 160 threads a block and two blocks an SM leave
+// 200 a thread.
 //
-// Tile order: blocks walk the [M / 128] x [N / BN] tile grid in groups of
-// kGroupM row tiles, row tiles the fastest within a group, so that the ~132
-// blocks in flight share ~16 row tiles of A and ~8 column tiles of B in L2
-// instead of re-reading all of B for every row tile. F and H use BN = 256;
+// Tile order: blocks walk the [M / 64 WGS] x [N / BN] tile grid in groups of
+// kGroupM row tiles, row tiles the fastest within a group, so that the blocks
+// in flight share ~16 row tiles of A and ~8 column tiles of B in L2 instead
+// of re-reading all of B for every row tile. F and H use BN = 256;
 // 128 and 192 are the probe's alternatives (both slower there).
 //
 // The epilogue is a policy, as the attention kernels' mask is, in one of
@@ -58,56 +61,75 @@
 namespace videoitg {
 namespace hgemm {
 
-constexpr int kBM = 128;                  // rows per block (two consumer warpgroups)
 constexpr int kBK = 128;                  // bytes of k per stage: four k32 steps
 constexpr int kSubs = kBK / 32;
 // TMA box width and swizzle, 128 or 32 bytes. 32 is the probe's alternative
 // (scripts/torch_probes/int8_gemm_probe.py): F took 10.6 against 5.3 ms a LM
 // layer with it, NVIDIA H100 80GB HBM3 at 700 W.
 constexpr int kBoxBytes = 128;
-constexpr int kConsumerWarps = 8;
-constexpr int kThreads = 32 * kConsumerWarps + 128;  // + the producer warpgroup
 constexpr int kGroupM = 16;               // row tiles per group of the tile order
 constexpr int kPad = 8;                   // int32s of row padding in the epilogue's tile
 
-// The two consumer warpgroups alone (named barrier 1; the producer has left).
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kConsumerWarps) : "memory");
+// A block of WGS consumer warpgroups (64 rows each) and a producer. WGS = 2:
+// 128-row tiles, one block an SM, a producer warpgroup that hands its
+// registers to the consumers (setmaxnreg 24 / 240). WGS = 1: 64-row tiles and a
+// producer warp alone (no setmaxnreg: 160 threads of at most 200 registers),
+// two blocks an SM, so that one block's epilogue runs while the other's
+// wgmmas keep the tensor cores busy.
+template <int WGS>
+__host__ __device__ constexpr int rows_per_block() {
+  return 64 * WGS;
 }
 
-template <int BN>
-__host__ __device__ constexpr int stages() {
-  return BN == 128 ? 6 : 4;  // 32, 40 or 48 KB a stage: at most 192 KB of ring
+template <int WGS>
+__host__ __device__ constexpr int consumer_warps() {
+  return 4 * WGS;
 }
 
-template <int BN>
+template <int WGS>
+__host__ __device__ constexpr int threads() {
+  return 32 * consumer_warps<WGS>() + (WGS == 2 ? 128 : 32);
+}
+
+template <int BN, int WGS>
 __host__ __device__ constexpr int stage_bytes() {
-  return (kBM + BN) * kBK;
+  return (rows_per_block<WGS>() + BN) * kBK;
 }
 
-template <int BN>
+// Ring stages: at most 192 KB at one block an SM, 96 KB at two.
+template <int BN, int WGS>
+__host__ __device__ constexpr int stages() {
+  return (WGS == 2 ? 196608 : 98304) / stage_bytes<BN, WGS>();
+}
+
+template <int BN, int WGS>
 __host__ __device__ constexpr int smem_bytes() {
-  return stages<BN>() * stage_bytes<BN>() + 1024;  // + slack to align the base to 1024
+  return stages<BN, WGS>() * stage_bytes<BN, WGS>() + 1024;  // + slack to align to 1024
 }
 
-static_assert(kBM * (256 + kPad) * 4 <= stages<256>() * stage_bytes<256>() &&
-                  kBM * (192 + kPad) * 4 <= stages<192>() * stage_bytes<192>() &&
-                  kBM * (128 + kPad) * 4 <= stages<128>() * stage_bytes<128>(),
-              "the epilogue's int32 tile fits the ring");
+// The consumer warpgroups alone (named barrier 1; the producer has left).
+template <int WGS>
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * consumer_warps<WGS>()) : "memory");
+}
 
 __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // Blocks needed for an M x N output.
-template <int BN>
+template <int BN, int WGS>
 inline int grid_blocks(int M, int N) {
-  return ((M + kBM - 1) / kBM) * ((N + BN - 1) / BN);
+  return ((M + rows_per_block<WGS>() - 1) / rows_per_block<WGS>()) * ((N + BN - 1) / BN);
 }
 
-template <int BN, class Epi>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int BN, int WGS, class Epi>
+__global__ void __launch_bounds__(threads<WGS>(), 3 - WGS)
 gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap b_map,
             const Epi epi, int M, int N, int K) {
-  constexpr int kStages = stages<BN>();
+  constexpr int kBM = rows_per_block<WGS>();
+  constexpr int kConsumerWarps = consumer_warps<WGS>();
+  constexpr int kStages = stages<BN, WGS>();
+  static_assert(kStages >= 2 && kBM * (BN + kPad) * 4 <= kStages * stage_bytes<BN, WGS>(),
+                "a ring of two stages or more, and the epilogue's int32 tile fits it");
   constexpr int kATile = kBM * kBK;  // bytes of A in a stage
   constexpr int kBTile = BN * kBK;
   constexpr int kABox = kBM * kBoxBytes;  // bytes of one box
@@ -144,7 +166,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
 
   if (warp >= kConsumerWarps) {
     // ------------------------------------------------------------ producer --
-    hopper::setmaxnreg_dec<24>();
+    if constexpr (WGS == 2) hopper::setmaxnreg_dec<24>();
     if (warp != kConsumerWarps || lane != 0) return;
     int stage = 0;
     uint32_t phase = 0;
@@ -167,7 +189,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
   }
 
   // -------------------------------------------------------------- consumers --
-  hopper::setmaxnreg_inc<240>();
+  if constexpr (WGS == 2) hopper::setmaxnreg_inc<240>();
   const int wg = warp / 4;
   int acc[BN / 2];
 #pragma unroll
@@ -216,7 +238,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
     // Both warpgroups past their last wgmma, the ring holds the tile's sums
     // as int32 [kBM][BN + kPad]; then each thread hands the policy 8
     // consecutive sums of a row at a time, kLanes lanes to a row.
-    consumer_sync();
+    consumer_sync<WGS>();
     int* tile = reinterpret_cast<int*>(as);
     const int r = wg * 64 + (warp % 4) * 16 + lane / 4;
     const int t = lane % 4;
@@ -227,7 +249,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
       *reinterpret_cast<int2*>(tile + (r + 8) * (BN + kPad) + 8 * j + 2 * t) =
           make_int2(acc[4 * j + 2], acc[4 * j + 3]);
     }
-    consumer_sync();
+    consumer_sync<WGS>();
     constexpr int kLanes = BN / 8;
     const int c = (threadIdx.x % kLanes) * 8;
     for (int rr = threadIdx.x / kLanes; rr < kBM; rr += 32 * kConsumerWarps / kLanes) {
@@ -239,22 +261,23 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
   }
 }
 
-// Encodes the maps of A [M][K] and B [N][K] and launches gemm_kernel<BN> with
-// the policy `epi` on `stream`. M, N, K > 0, K % 16 == 0, both bases 16-byte
-// aligned.
-template <int BN, class Epi>
+// Encodes the maps of A [M][K] and B [N][K] and launches gemm_kernel<BN, WGS>
+// with the policy `epi` on `stream`. M, N, K > 0, K % 16 == 0, both bases
+// 16-byte aligned.
+template <int BN, int WGS, class Epi>
 cudaError_t launch(const void* a, const void* b, const Epi& epi, int M, int N, int K,
                    cudaStream_t stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0) return cudaErrorInvalidValue;
   CUtensorMap a_map, b_map;
-  cudaError_t err = hopper::make_rows_map_u8(&a_map, a, M, K, kBM, kBoxBytes);
+  cudaError_t err = hopper::make_rows_map_u8(&a_map, a, M, K, rows_per_block<WGS>(), kBoxBytes);
   if (err != cudaSuccess) return err;
   err = hopper::make_rows_map_u8(&b_map, b, N, K, BN, kBoxBytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(gemm_kernel<BN, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes<BN>());
+  err = cudaFuncSetAttribute(gemm_kernel<BN, WGS, Epi>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<BN, WGS>());
   if (err != cudaSuccess) return err;
-  gemm_kernel<BN, Epi><<<grid_blocks<BN>(M, N), kThreads, smem_bytes<BN>(), stream>>>(
+  gemm_kernel<BN, WGS, Epi><<<grid_blocks<BN, WGS>(M, N), threads<WGS>(), smem_bytes<BN, WGS>(),
+                            stream>>>(
       a_map, b_map, epi, M, N, K);
   return cudaGetLastError();
 }
