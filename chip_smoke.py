@@ -94,8 +94,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      csrc/hopper_int8_gemm.cuh with the `Act8Out` epilogue) at the LM's four
      shapes, M = 13,056, with the row scale made inside (the main path), plus
      a ragged M with a zero row. The integer sums are exact and the epilogue
-     has the plain version's operation order: tolerance 1 bf16 ulp of
-     max|reference| (0 expected).
+     has the plain version's operation order; the kernel's row scale is a
+     true division, the plain version's on the card a multiply by 1 / 127,
+     an ulp apart for some rows: tolerance 1 bf16 ulp of max|reference|, and
+     the line says whether the result is bit-equal.
    * G, H (both activations), I (fused int8 encoder kernels) at [93,312,
      1152] and at a ragged row count. LN sums run in another order, which
      flips a few int8 roundings: tolerance 4 max|ref| / 127 + 1e-5, the JAX
@@ -213,7 +215,7 @@ FIRST_VERSION_MS = {"flash_mha_short": 6.7473, "flash_mha": 27.5702,
                     "act8_gemm": 28.6371, "fused_ln_mlp_int8": 14.8783}
 # The mangled name of J's forward: stream_kernel<DP, false, true, SegmentIds, ...>.
 J_FWD_INSTANCE = r"stream_kernelILi\d+ELb0ELb1ENS0_10SegmentIds"
-# F's and H's launches: hgemm::gemm_kernel<BN, policy> and the quantisers.
+# F's and H's launches: hgemm::gemm_kernel<policy> and the quantisers.
 F_INSTANCES = r"row_quant_kernel|gemm_kernel.*7Act8Out"
 H_INSTANCES = r"ln_quant_kernel|gemm_kernel.*(RowAmax|QuantStore|BiasResidual)"
 # Patterns of the mangled names of the kernel instances whose ptxas lines

@@ -32,14 +32,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 VARIANT_ROOT = os.path.join(HERE, "build", "int8_gemm_probe")
 # tag -> (header under csrc/, {constant: value})
 VARIANTS = {
-    "32-byte boxes": ("hopper_int8_gemm.cuh", {"kBoxBytes": 32}),
-    "fc2 tiles of 128": ("fused_encoder.cu", {"kFc2BN": 128}),
-    "fc2 tiles of 192": ("fused_encoder.cu", {"kFc2BN": 192}),
-    "F tiles of 128": ("quant_gemm.cu", {"kFBN": 128}),
     "groups of 8 row tiles": ("hopper_int8_gemm.cuh", {"kGroupM": 8}),
-    "fc1 one warpgroup a block": ("fused_encoder.cu", {"kFc1Wgs": 1}),
-    "fc2 one warpgroup a block": ("fused_encoder.cu", {"kFc2Wgs": 1}),
-    "F one warpgroup a block": ("quant_gemm.cu", {"kFWgs": 1}),
 }
 F_SHAPES = {(3584, 3584): 2, (3584, 512): 2, (3584, 18944): 2, (18944, 3584): 1}
 TOKENS = 512 * 25 + 256

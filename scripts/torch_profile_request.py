@@ -43,7 +43,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 # Kernel-name fragments -> group, first match wins: the int8 GEMM's instances
-# (hgemm::gemm_kernel<BN, policy>) by their epilogue policy, before the
+# (hgemm::gemm_kernel<policy>) by their epilogue policy, before the
 # "gemm" fragment of the library's kernels.
 GROUPS = (
     ("hattn::resident_kernel", "kernel A flash_mha_short"),

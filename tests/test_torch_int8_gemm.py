@@ -240,15 +240,15 @@ def _group_of():
 
 # Demangled names as torch.profiler reports them for the new instances.
 F_NAMES = ["void videoitg::row_quant_kernel(__nv_bfloat16 const*, float*, signed char*, int, int)",
-           "void videoitg::hgemm::gemm_kernel<256, 2, videoitg::Act8Out>(CUtensorMap_st, "
+           "void videoitg::hgemm::gemm_kernel<videoitg::Act8Out>(CUtensorMap_st, "
            "CUtensorMap_st, videoitg::Act8Out, int, int, int)"]
 H_NAMES = ["void videoitg::ln_quant_kernel(__nv_bfloat16 const*, float const*, float const*, "
            "signed char*, float*, int, int, float)",
-           "void videoitg::hgemm::gemm_kernel<256, 2, videoitg::RowAmax<0> >(CUtensorMap_st, "
+           "void videoitg::hgemm::gemm_kernel<videoitg::RowAmax<0> >(CUtensorMap_st, "
            "CUtensorMap_st, videoitg::RowAmax<0>, int, int, int)",
-           "void videoitg::hgemm::gemm_kernel<256, 2, videoitg::QuantStore<1> >(CUtensorMap_st, "
+           "void videoitg::hgemm::gemm_kernel<videoitg::QuantStore<1> >(CUtensorMap_st, "
            "CUtensorMap_st, videoitg::QuantStore<1>, int, int, int)",
-           "void videoitg::hgemm::gemm_kernel<256, 2, videoitg::BiasResidual>(CUtensorMap_st, "
+           "void videoitg::hgemm::gemm_kernel<videoitg::BiasResidual>(CUtensorMap_st, "
            "CUtensorMap_st, videoitg::BiasResidual, int, int, int)"]
 
 

@@ -223,15 +223,14 @@ struct RowAmax {
   int M, N;
   static constexpr bool kStaged = false;
 
-  template <int BN>
-  __device__ __forceinline__ void apply(const int (&acc)[BN / 2], int row0, int n0,
+  __device__ __forceinline__ void apply(const int (&acc)[hgemm::kBN / 2], int row0, int n0,
                                         int t) const {
     const int row1 = row0 + 8;
     const float ys0 = row0 < M ? ys[row0] : 1.f;
     const float ys1 = row1 < M ? ys[row1] : 1.f;
     float m0 = 0.f, m1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
+    for (int j = 0; j < hgemm::kBN / 8; ++j) {
       const int col = n0 + 8 * j + 2 * t;
       if (col >= N) continue;  // N % 8 == 0: col + 1 < N too
       const float2 s = *reinterpret_cast<const float2*>(s1 + col);
@@ -264,7 +263,6 @@ struct QuantStore {
   int M, N;
   static constexpr bool kStaged = true;
 
-  template <int LANES>
   __device__ __forceinline__ void chunk(int row, int col, const int (&v)[8]) const {
     if (row >= M || col >= N) return;
     float g[8];
@@ -285,7 +283,6 @@ struct BiasResidual {
   int M, N;
   static constexpr bool kStaged = true;
 
-  template <int LANES>
   __device__ __forceinline__ void chunk(int row, int col, const int (&v)[8]) const {
     if (row >= M || col >= N) return;
     const float scale = mlp_scale(amax_bits, row);
@@ -309,18 +306,6 @@ struct BiasResidual {
     *reinterpret_cast<uint4*>(out + at) = make_uint4(packed[0], packed[1], packed[2], packed[3]);
   }
 };
-
-// Tile widths (fc1: 4304 = 16 x 256 + 208; fc2: 1152 = 4.5 x 256). fc2 in
-// tiles of 128 or 192 took 1.59 / 1.40 against 1.33 ms at the tower's shape
-// (scripts/torch_probes/int8_gemm_probe.py, NVIDIA H100 80GB HBM3 at 700 W).
-constexpr int kFc1BN = 256;
-constexpr int kFc2BN = 256;
-// Consumer warpgroups a block (hopper_int8_gemm.cuh). One, two blocks an SM
-// so that one's epilogue runs beside the other's wgmmas, took fc1 1.74 / 2.15
-// against 1.34 / 1.92 ms (amax / quantise) and fc2 2.09 against 1.31 in the
-// probe: 64-row tiles load twice the bytes per operation.
-constexpr int kFc1Wgs = 2;
-constexpr int kFc2Wgs = 2;
 
 template <class Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
@@ -385,10 +370,8 @@ extern "C" int videoitg_mlp_fc1_amax_s8(const void* yq, const void* ys, const vo
   auto* bits = static_cast<unsigned int*>(amax);
   const auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      act == 0 ? hgemm::launch<kFc1BN, kFc1Wgs>(yq, w1, RowAmax<0>{ysf, s, b, bits, rows, M}, rows, M, H,
-                                       st)
-               : hgemm::launch<kFc1BN, kFc1Wgs>(yq, w1, RowAmax<1>{ysf, s, b, bits, rows, M}, rows, M, H,
-                                       st);
+      act == 0 ? hgemm::launch(yq, w1, RowAmax<0>{ysf, s, b, bits, rows, M}, rows, M, H, st)
+               : hgemm::launch(yq, w1, RowAmax<1>{ysf, s, b, bits, rows, M}, rows, M, H, st);
   return static_cast<int>(err);
 }
 
@@ -405,11 +388,8 @@ extern "C" int videoitg_mlp_fc1_quant_s8(const void* yq, const void* ys, const v
   auto* q = static_cast<int8_t*>(gq);
   const auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      act == 0
-          ? hgemm::launch<kFc1BN, kFc1Wgs>(yq, w1, QuantStore<0>{ysf, s, b, bits, q, rows, M}, rows, M, H,
-                                  st)
-          : hgemm::launch<kFc1BN, kFc1Wgs>(yq, w1, QuantStore<1>{ysf, s, b, bits, q, rows, M}, rows, M, H,
-                                  st);
+      act == 0 ? hgemm::launch(yq, w1, QuantStore<0>{ysf, s, b, bits, q, rows, M}, rows, M, H, st)
+               : hgemm::launch(yq, w1, QuantStore<1>{ysf, s, b, bits, q, rows, M}, rows, M, H, st);
   return static_cast<int>(err);
 }
 
@@ -421,8 +401,8 @@ extern "C" int videoitg_mlp_fc2_residual_s8(const void* gq, const void* amax, co
   const BiasResidual epi{static_cast<const unsigned int*>(amax), static_cast<const float*>(s2),
                          static_cast<const float*>(b2), static_cast<const __nv_bfloat16*>(x),
                          static_cast<__nv_bfloat16*>(out), rows, H};
-  return static_cast<int>(
-      hgemm::launch<kFc2BN, kFc2Wgs>(gq, w2, epi, rows, H, M, static_cast<cudaStream_t>(stream)));
+  const auto st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(hgemm::launch(gq, w2, epi, rows, H, M, st));
 }
 
 // attn: bf16 [rows][D]; res, out: bf16 [rows][H]; w: int8 [H][D]; s, b: fp32

@@ -1,54 +1,46 @@
 // The TMA + s8 wgmma GEMM behind kernels F (quant_gemm.cu) and H
 // (fused_encoder.cu). sm_90a.
 //
-// out tile [64 WGS][BN] of A (int8 [M][K]) x B^T (int8 [N][K]), both K-major
+// out tile [128][256] of A (int8 [M][K]) x B^T (int8 [N][K]), both K-major
 // in device memory, an exact int32 sum, handed to an epilogue policy. A block
-// is WGS consumer warpgroups of 64 rows each and a producer of which one warp
-// works, as in the attention kernels (hopper_attention.cuh): with WGS = 2 a
-// 128-row tile, one block an SM; with WGS = 1 a 64-row tile, two blocks an SM
-// (see rows_per_block). The producer keeps a ring of stages in flight by TMA,
-// each stage 128 bytes of k of A [64 WGS][128] and B [BN][128].
-// Consumers wait on a stage's `full` barrier, issue its four
-// m64nBNk32.s32.s8.s8 wgmmas (a k32 step is 32 bytes), commit, and release
-// the stage before (its wgmmas have completed once at most one group is in
-// flight) on its `empty` barrier. Nothing is transposed: TMA writes the
-// swizzled layout wgmma reads, K-major for both operands (the only layout
-// the s8 MMA takes). Two layouts (kBoxBytes):
-//   * 128: one box of [rows][128 bytes] per operand and stage, 128-byte
-//     swizzle; a k32 step advances the descriptor's start by 32 bytes.
-//   * 32: four boxes of [rows][32 bytes], the 32-byte swizzle of the
-//     attention kernels (hopper_common.cuh): a k32 step is one sub-tile.
-// TMA's zero fill covers the rows past M, the rows past N and the bytes past
-// K (K % 32 may be 16: fc2's K = 4304 is 134.5 k32 steps, and the last one is
-// half zeros in both operands); with 32-byte boxes a k32 step wholly past K
-// is neither loaded nor multiplied.
+// is two consumer warpgroups of 64 rows each and a producer warpgroup of
+// which one warp works, as in the attention kernels (hopper_attention.cuh),
+// one block an SM. The producer keeps a ring of stages in flight by TMA, each
+// stage 128 bytes of k of A [128][128] and B [256][128], one box per operand
+// with the 128-byte swizzle. Consumers wait on a stage's `full` barrier,
+// issue its four m64n256k32.s32.s8.s8 wgmmas (a k32 step is 32 bytes: it
+// advances the descriptor's start by 32 bytes inside the 1024-byte-aligned
+// swizzle atom), commit, and release the stage before (its wgmmas have
+// completed once at most one group is in flight) on its `empty` barrier.
+// Nothing is transposed: TMA writes the swizzled layout wgmma reads, K-major
+// for both operands (the only layout the s8 MMA takes). TMA's zero fill
+// covers the rows past M, the rows past N and the bytes past K (K % 32 may be
+// 16: fc2's K = 4304 is 134.5 k32 steps, and the last one is half zeros in
+// both operands). Four 32-byte boxes a stage with the 32-byte swizzle of the
+// attention kernels, 64-row tiles (two blocks an SM) and tiles of 128 or 192
+// columns were each slower (PERF.md, PR 11).
 //
-// Registers: a consumer holds BN / 2 int32 accumulators (128 at BN = 256).
-// With WGS = 2 the producer warpgroup gives its registers up (setmaxnreg 24)
-// and the consumers take them (240): 24 + 2 x 240 = 504 of the 512 a lane has
-// per register file; ptxas allocates within the launch bound's 168 all the
-// same (two such blocks an SM, 80 at entry, cannot hold m64n128k32's
-// operands). With WGS = 1, 160 threads a block and two blocks an SM leave
-// 200 a thread.
+// Registers: a consumer holds 128 int32 accumulators. The producer warpgroup
+// gives its registers up (setmaxnreg 24) and the consumers take them (240):
+// 24 + 2 x 240 = 504 of the 512 a lane has per register file.
 //
-// Tile order: blocks walk the [M / 64 WGS] x [N / BN] tile grid in groups of
+// Tile order: blocks walk the [M / 128] x [N / 256] tile grid in groups of
 // kGroupM row tiles, row tiles the fastest within a group, so that the blocks
 // in flight share ~16 row tiles of A and ~8 column tiles of B in L2 instead
-// of re-reading all of B for every row tile. F and H use BN = 256;
-// 128 and 192 are the probe's alternatives (both slower there).
+// of re-reading all of B for every row tile.
 //
 // The epilogue is a policy, as the attention kernels' mask is, in one of
 // two forms (Epi::kStaged):
 //   * staged: the consumers write their accumulators to the ring (free by
 //     then) as an int32 tile, and every consumer thread calls
-//     Epi::chunk<LANES>(row, col, v) with 8 consecutive sums v of row `row`
-//     at columns col..col + 7 (col % 8 == 0), the LANES = BN / 8 lanes of a
-//     row side by side in one warp: the policy's loads and stores are 16
-//     bytes a thread and coalesced. The row padding (kPad) keeps the
-//     fragment stores free of bank conflicts.
-//   * in registers: Epi::apply<BN>(acc, row0, n0, t) gets the thread's sums
+//     Epi::chunk(row, col, v) with 8 consecutive sums v of row `row` at
+//     columns col..col + 7 (col % 8 == 0), the 32 lanes of a warp side by
+//     side along one row: the policy's loads and stores are 16 bytes a thread
+//     and coalesced. The row padding (kPad) keeps the fragment stores free of
+//     bank conflicts.
+//   * in registers: Epi::apply(acc, row0, n0, t) gets the thread's sums
 //     where wgmma left them: rows row0 and row0 + 8 (registers 4j, 4j + 1 and
-//     4j + 2, 4j + 3) at columns n0 + 8j + 2t + {0, 1}, j < BN / 8. For a
+//     4j + 2, 4j + 3) at columns n0 + 8j + 2t + {0, 1}, j < kBN / 8. For a
 //     policy that stores nothing per element (a row reduction).
 // Rows past M and columns past N hold sums over zeros; the policy skips them
 // (N % 8 == 0). The policies live with their kernels: `Act8Out` in
@@ -61,79 +53,33 @@
 namespace videoitg {
 namespace hgemm {
 
-constexpr int kBK = 128;                  // bytes of k per stage: four k32 steps
+constexpr int kBM = 128;                  // rows of a tile: two consumer warpgroups
+constexpr int kBN = 256;                  // columns of a tile
+constexpr int kBK = 128;                  // bytes of k per stage (one box): four k32 steps
 constexpr int kSubs = kBK / 32;
-// TMA box width and swizzle, 128 or 32 bytes. 32 is the probe's alternative
-// (scripts/torch_probes/int8_gemm_probe.py): F took 10.6 against 5.3 ms a LM
-// layer with it, NVIDIA H100 80GB HBM3 at 700 W.
-constexpr int kBoxBytes = 128;
+constexpr int kConsumerWarps = 8;
+constexpr int kThreads = 32 * kConsumerWarps + 128;  // + the producer warpgroup
+constexpr int kStageBytes = (kBM + kBN) * kBK;
+constexpr int kStages = 196608 / kStageBytes;        // a ring of at most 192 KB
+constexpr int kSmemBytes = kStages * kStageBytes + 1024;  // + slack to align to 1024
 constexpr int kGroupM = 16;               // row tiles per group of the tile order
 constexpr int kPad = 8;                   // int32s of row padding in the epilogue's tile
-
-// A block of WGS consumer warpgroups (64 rows each) and a producer. WGS = 2:
-// 128-row tiles, one block an SM, a producer warpgroup that hands its
-// registers to the consumers (setmaxnreg 24 / 240). WGS = 1: 64-row tiles and a
-// producer warp alone (no setmaxnreg: 160 threads of at most 200 registers),
-// two blocks an SM, so that one block's epilogue runs while the other's
-// wgmmas keep the tensor cores busy.
-template <int WGS>
-__host__ __device__ constexpr int rows_per_block() {
-  return 64 * WGS;
-}
-
-template <int WGS>
-__host__ __device__ constexpr int consumer_warps() {
-  return 4 * WGS;
-}
-
-template <int WGS>
-__host__ __device__ constexpr int threads() {
-  return 32 * consumer_warps<WGS>() + (WGS == 2 ? 128 : 32);
-}
-
-template <int BN, int WGS>
-__host__ __device__ constexpr int stage_bytes() {
-  return (rows_per_block<WGS>() + BN) * kBK;
-}
-
-// Ring stages: at most 192 KB at one block an SM, 96 KB at two.
-template <int BN, int WGS>
-__host__ __device__ constexpr int stages() {
-  return (WGS == 2 ? 196608 : 98304) / stage_bytes<BN, WGS>();
-}
-
-template <int BN, int WGS>
-__host__ __device__ constexpr int smem_bytes() {
-  return stages<BN, WGS>() * stage_bytes<BN, WGS>() + 1024;  // + slack to align to 1024
-}
+static_assert(kStages >= 2 && kBM * (kBN + kPad) * 4 <= kStages * kStageBytes,
+              "a ring of two stages or more, and the epilogue's int32 tile fits it");
 
 // The consumer warpgroups alone (named barrier 1; the producer has left).
-template <int WGS>
 __device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * consumer_warps<WGS>()) : "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kConsumerWarps) : "memory");
 }
 
-__device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// Blocks needed for an M x N output.
-template <int BN, int WGS>
-inline int grid_blocks(int M, int N) {
-  return ((M + rows_per_block<WGS>() - 1) / rows_per_block<WGS>()) * ((N + BN - 1) / BN);
-}
-
-template <int BN, int WGS, class Epi>
-__global__ void __launch_bounds__(threads<WGS>(), 3 - WGS)
+template <class Epi>
+__global__ void __launch_bounds__(kThreads, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap b_map,
             const Epi epi, int M, int N, int K) {
-  constexpr int kBM = rows_per_block<WGS>();
-  constexpr int kConsumerWarps = consumer_warps<WGS>();
-  constexpr int kStages = stages<BN, WGS>();
-  static_assert(kStages >= 2 && kBM * (BN + kPad) * 4 <= kStages * stage_bytes<BN, WGS>(),
-                "a ring of two stages or more, and the epilogue's int32 tile fits it");
   constexpr int kATile = kBM * kBK;  // bytes of A in a stage
-  constexpr int kBTile = BN * kBK;
-  constexpr int kABox = kBM * kBoxBytes;  // bytes of one box
-  constexpr int kBBox = BN * kBoxBytes;
+  constexpr int kBTile = kBN * kBK;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ __align__(8) uint64_t empty[kStages];
@@ -143,12 +89,12 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
 
   // This block's tile in the grouped order.
   const int mm = cdiv(M, kBM);
-  const int per_group = kGroupM * cdiv(N, BN);
+  const int per_group = kGroupM * cdiv(N, kBN);
   const int first_m = static_cast<int>(blockIdx.x) / per_group * kGroupM;
   const int gm = min(kGroupM, mm - first_m);
   const int in_group = static_cast<int>(blockIdx.x) % per_group;
   const int m0 = (first_m + in_group % gm) * kBM;
-  const int n0 = in_group / gm * BN;
+  const int n0 = in_group / gm * kBN;
   const int n_k32 = cdiv(K, 32);
   const int n_iters = cdiv(K, kBK);
 
@@ -166,20 +112,16 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
 
   if (warp >= kConsumerWarps) {
     // ------------------------------------------------------------ producer --
-    if constexpr (WGS == 2) hopper::setmaxnreg_dec<24>();
+    hopper::setmaxnreg_dec<24>();
     if (warp != kConsumerWarps || lane != 0) return;
     int stage = 0;
     uint32_t phase = 0;
     for (int it = 0; it < n_iters; ++it) {
-      // boxes this stage loads: a 128-byte box is loaded whole (zeros past K)
-      const int boxes = kBoxBytes == kBK ? 1 : min(kSubs, n_k32 - it * kSubs);
+      // one box of each operand, zeros past K
       hopper::mbar_wait(&empty[stage], phase ^ 1);
-      hopper::mbar_arrive_expect_tx(&full[stage], boxes * (kABox + kBBox));
-      for (int c = 0; c < boxes; ++c) {
-        const int k0 = it * kBK + c * kBoxBytes;
-        hopper::tma_load_3d(as + stage * kATile + c * kABox, &a_map, &full[stage], k0, m0, 0);
-        hopper::tma_load_3d(bs + stage * kBTile + c * kBBox, &b_map, &full[stage], k0, n0, 0);
-      }
+      hopper::mbar_arrive_expect_tx(&full[stage], kATile + kBTile);
+      hopper::tma_load_3d(as + stage * kATile, &a_map, &full[stage], it * kBK, m0, 0);
+      hopper::tma_load_3d(bs + stage * kBTile, &b_map, &full[stage], it * kBK, n0, 0);
       if (++stage == kStages) {
         stage = 0;
         phase ^= 1;
@@ -189,14 +131,13 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
   }
 
   // -------------------------------------------------------------- consumers --
-  if constexpr (WGS == 2) hopper::setmaxnreg_inc<240>();
+  hopper::setmaxnreg_inc<240>();
   const int wg = warp / 4;
-  int acc[BN / 2];
+  int acc[kBN / 2];
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
-  // This warpgroup's 64 rows of A: 64 rows into the stage's tile (or into
-  // each of its four 32-byte sub-tiles).
-  const uint32_t a_base = hopper::smem_u32(as) + wg * 64 * kBoxBytes;
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0;
+  // This warpgroup's 64 rows of A: 64 rows into the stage's tile.
+  const uint32_t a_base = hopper::smem_u32(as) + wg * 64 * kBK;
   const uint32_t b_base = hopper::smem_u32(bs);
 
   int stage = 0, prev = 0;
@@ -210,13 +151,8 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
       if (c < subs) {
         const uint32_t a = a_base + stage * kATile;
         const uint32_t b = b_base + stage * kBTile;
-        if constexpr (kBoxBytes == kBK) {
-          hopper::wgmma_s8<BN>(acc, hopper::desc_b128(a + c * 32, 1024),
-                               hopper::desc_b128(b + c * 32, 1024), 1);
-        } else {
-          hopper::wgmma_s8<BN>(acc, hopper::desc_b32(a + c * kABox, 16, 256),
-                               hopper::desc_b32(b + c * kBBox, 16, 256), 1);
-        }
+        hopper::wgmma_s8<kBN>(acc, hopper::desc_b128(a + c * 32, 1024),
+                              hopper::desc_b128(b + c * 32, 1024), 1);
       }
     }
     hopper::wgmma_commit();
@@ -233,51 +169,50 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
   hopper::fence_operands(acc);
 
   if constexpr (!Epi::kStaged) {
-    epi.template apply<BN>(acc, m0 + wg * 64 + (warp % 4) * 16 + lane / 4, n0, lane % 4);
+    epi.apply(acc, m0 + wg * 64 + (warp % 4) * 16 + lane / 4, n0, lane % 4);
   } else {
     // Both warpgroups past their last wgmma, the ring holds the tile's sums
-    // as int32 [kBM][BN + kPad]; then each thread hands the policy 8
-    // consecutive sums of a row at a time, kLanes lanes to a row.
-    consumer_sync<WGS>();
+    // as int32 [kBM][kBN + kPad]; then each thread hands the policy 8
+    // consecutive sums of a row at a time, a warp to a row.
+    consumer_sync();
     int* tile = reinterpret_cast<int*>(as);
     const int r = wg * 64 + (warp % 4) * 16 + lane / 4;
     const int t = lane % 4;
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      *reinterpret_cast<int2*>(tile + r * (BN + kPad) + 8 * j + 2 * t) =
+    for (int j = 0; j < kBN / 8; ++j) {
+      *reinterpret_cast<int2*>(tile + r * (kBN + kPad) + 8 * j + 2 * t) =
           make_int2(acc[4 * j], acc[4 * j + 1]);
-      *reinterpret_cast<int2*>(tile + (r + 8) * (BN + kPad) + 8 * j + 2 * t) =
+      *reinterpret_cast<int2*>(tile + (r + 8) * (kBN + kPad) + 8 * j + 2 * t) =
           make_int2(acc[4 * j + 2], acc[4 * j + 3]);
     }
-    consumer_sync<WGS>();
-    constexpr int kLanes = BN / 8;
+    consumer_sync();
+    constexpr int kLanes = kBN / 8;  // 32: a warp covers a row
     const int c = (threadIdx.x % kLanes) * 8;
     for (int rr = threadIdx.x / kLanes; rr < kBM; rr += 32 * kConsumerWarps / kLanes) {
-      const int4* src = reinterpret_cast<const int4*>(tile + rr * (BN + kPad) + c);
+      const int4* src = reinterpret_cast<const int4*>(tile + rr * (kBN + kPad) + c);
       const int4 lo = src[0], hi = src[1];
       const int v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-      epi.template chunk<kLanes>(m0 + rr, n0 + c, v);
+      epi.chunk(m0 + rr, n0 + c, v);
     }
   }
 }
 
-// Encodes the maps of A [M][K] and B [N][K] and launches gemm_kernel<BN, WGS>
+// Encodes the maps of A [M][K] and B [N][K] and launches gemm_kernel<Epi>
 // with the policy `epi` on `stream`. M, N, K > 0, K % 16 == 0, both bases
 // 16-byte aligned.
-template <int BN, int WGS, class Epi>
+template <class Epi>
 cudaError_t launch(const void* a, const void* b, const Epi& epi, int M, int N, int K,
                    cudaStream_t stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0) return cudaErrorInvalidValue;
   CUtensorMap a_map, b_map;
-  cudaError_t err = hopper::make_rows_map_u8(&a_map, a, M, K, rows_per_block<WGS>(), kBoxBytes);
+  cudaError_t err = hopper::make_rows_map_u8(&a_map, a, M, K, kBM);
   if (err != cudaSuccess) return err;
-  err = hopper::make_rows_map_u8(&b_map, b, N, K, BN, kBoxBytes);
+  err = hopper::make_rows_map_u8(&b_map, b, N, K, kBN);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(gemm_kernel<BN, WGS, Epi>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<BN, WGS>());
+  err = cudaFuncSetAttribute(gemm_kernel<Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes);
   if (err != cudaSuccess) return err;
-  gemm_kernel<BN, WGS, Epi><<<grid_blocks<BN, WGS>(M, N), threads<WGS>(), smem_bytes<BN, WGS>(),
-                            stream>>>(
+  gemm_kernel<Epi><<<cdiv(M, kBM) * cdiv(N, kBN), kThreads, kSmemBytes, stream>>>(
       a_map, b_map, epi, M, N, K);
   return cudaGetLastError();
 }

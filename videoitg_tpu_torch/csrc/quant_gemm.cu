@@ -78,7 +78,6 @@ struct Act8Out {
   int M, N;
   static constexpr bool kStaged = true;
 
-  template <int LANES>
   __device__ __forceinline__ void chunk(int row, int col, const int (&v)[8]) const {
     if (row >= M || col >= N) return;
     const float s = xs[row];
@@ -96,11 +95,6 @@ struct Act8Out {
         make_uint4(packed[0], packed[1], packed[2], packed[3]);
   }
 };
-
-constexpr int kFBN = 256;
-// Consumer warpgroups a block (hopper_int8_gemm.cuh); with one (64-row tiles,
-// two blocks an SM) F took 9.06 against 5.30 ms a layer in the probe.
-constexpr int kFWgs = 2;
 
 }  // namespace videoitg
 
@@ -130,5 +124,5 @@ extern "C" int videoitg_act8_gemm_s8(const void* xq, const void* xs, const void*
   const Act8Out epi{static_cast<const float*>(xs), static_cast<const float*>(ws),
                     static_cast<__nv_bfloat16*>(out), M, N};
   return static_cast<int>(
-      hgemm::launch<kFBN, kFWgs>(xq, w, epi, M, N, K, static_cast<cudaStream_t>(stream)));
+      hgemm::launch(xq, w, epi, M, N, K, static_cast<cudaStream_t>(stream)));
 }

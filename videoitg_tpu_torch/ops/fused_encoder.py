@@ -34,7 +34,7 @@ from torch.nn import functional as F
 from videoitg_tpu_torch.models.common import Norm
 from videoitg_tpu_torch.ops import _build
 from videoitg_tpu_torch.ops._kernel_args import check_matrix, stream_handle
-from videoitg_tpu_torch.ops.quant import QuantLinear, int8_matmul, row_quant
+from videoitg_tpu_torch.ops.quant import QuantLinear, int8_matmul, row_quant, row_scale_of
 
 ACTIVATIONS = ("gelu_tanh", "quick_gelu")
 MAX_ROW_WIDTH = 2048  # widest row the kernels quantise (a warp holds it in registers)
@@ -137,10 +137,10 @@ def fused_ln_mlp_int8_reference(x, ln: Norm, fc1, fc2, eps: float, act: str = "g
 
 # ---- H's four launches, each beside its plain version ----
 # The kernel computes fc1 twice: once for each row's amax (reduced over the
-# GEMM's n tiles of FC1_TILE columns), once to quantise with the full row's
-# scale. The stage functions take the plain version for CPU tensors and
-# launch the kernel for CUDA tensors; `fused_ln_mlp_int8` chains them.
-FC1_TILE = 256  # columns of one fc1 tile of the kernel
+# GEMM's n tiles), once to quantise with the full row's scale. The stage
+# functions take the plain version for CPU tensors and launch the kernel for
+# CUDA tensors; `fused_ln_mlp_int8` chains them.
+FC1_TILE = 256  # columns of one fc1 tile of the kernel, where the broken-use checks cut
 
 
 def _fc1_act(yq, ys, fc1, act: str) -> torch.Tensor:
@@ -149,34 +149,27 @@ def _fc1_act(yq, ys, fc1, act: str) -> torch.Tensor:
     return _activation_f32(h, act)
 
 
-def _scale_of(amax: torch.Tensor) -> torch.Tensor:
-    """[N] row amax -> [N, 1] row scale, `ops/quant.row_quant`'s formula."""
-    amax = amax[:, None]
-    return torch.where(amax == 0, torch.ones_like(amax), amax / 127.0)
-
-
 def mlp_ln_quant_reference(x, ln: Norm, eps: float):
     """Launch 1's plain version: (int8 yq [N, H], fp32 ys [N, 1])."""
     return row_quant(_layer_norm_f32(x.float(), ln, eps))
 
 
 def mlp_fc1_amax_reference(yq, ys, fc1, act: str) -> torch.Tensor:
-    """Launch 2's plain version: each row's max |act(fc1)|, fp32 [N], taken
-    per tile of FC1_TILE columns and then over the tiles."""
-    g = _fc1_act(yq, ys, fc1, act).abs()
-    return torch.stack([t.amax(dim=-1) for t in g.split(FC1_TILE, dim=-1)]).amax(dim=0)
+    """Launch 2's plain version: each row's max |act(fc1)|, fp32 [N] (the
+    kernel takes it per n tile, then over the tiles: max has no order)."""
+    return _fc1_act(yq, ys, fc1, act).abs().amax(dim=-1)
 
 
 def mlp_fc1_quant_reference(yq, ys, fc1, amax, act: str) -> torch.Tensor:
     """Launch 3's plain version: act(fc1) quantised with the scale of the
     full row's amax, int8 [N, M]."""
     g = _fc1_act(yq, ys, fc1, act)
-    return torch.clamp(torch.round(g / _scale_of(amax)), -127, 127).to(torch.int8)
+    return torch.clamp(torch.round(g / row_scale_of(amax[:, None])), -127, 127).to(torch.int8)
 
 
 def mlp_fc2_residual_reference(x, gq, amax, fc2) -> torch.Tensor:
     """Launch 4's plain version: x + fc2(gq) in x.dtype."""
-    o = _scaled(int8_matmul(gq, fc2.w_qt), _scale_of(amax), fc2.scale,
+    o = _scaled(int8_matmul(gq, fc2.w_qt), row_scale_of(amax[:, None]), fc2.scale,
                 _vec(fc2.b, fc2.out_features, x.device))
     return (x.float() + o).to(x.dtype)
 

@@ -98,11 +98,18 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     return torch.cat([lo, hi], dim=-2)
 
 
+def row_scale_of(amax: torch.Tensor) -> torch.Tensor:
+    """Row amax -> the symmetric int8 row scale: amax / 127, 1 where amax is
+    0. The one formula of every activation-side scale (`row_quant`,
+    ops/quant_gemm.row_scale, ops/fused_encoder's MLP stages)."""
+    return torch.where(amax == 0, torch.ones_like(amax), amax / 127.0)
+
+
 def row_quant(y: torch.Tensor):
     """fp32 [..., K] -> (int8 [..., K], fp32 [..., 1] scale): dynamic per-row
     symmetric quantisation, the activation side of every act8 product."""
     amax = y.abs().amax(dim=-1, keepdim=True)
-    scale = torch.where(amax == 0, torch.ones_like(amax), amax / 127.0)
+    scale = row_scale_of(amax)
     q = torch.clamp(torch.round(y / scale), -127, 127).to(torch.int8)
     return q, scale
 

@@ -21,7 +21,7 @@ import torch
 
 from videoitg_tpu_torch.ops import _build
 from videoitg_tpu_torch.ops._kernel_args import check_matrix, stream_handle
-from videoitg_tpu_torch.ops.quant import QuantLinear, int8_matmul
+from videoitg_tpu_torch.ops.quant import QuantLinear, int8_matmul, row_scale_of
 
 # The block sizes of the TPU kernel decide which linears it serves
 # (`shapes_supported`); the port keeps the rule so both packages route alike.
@@ -30,13 +30,11 @@ BLOCK_K = 512
 
 
 def row_scale(x2: torch.Tensor) -> torch.Tensor:
-    """[M, K] -> fp32 [M, 1] row scales: amax / 127 (a true division), 1 for
-    a zero row. The divisor is a 0-d tensor on x's device: PyTorch's CUDA
-    division by a Python number multiplies by its reciprocal instead, which
-    is an ulp off amax / 127 for some rows."""
+    """[M, K] -> fp32 [M, 1] row scales: amax / 127, 1 for a zero row
+    (`ops/quant.row_scale_of`)."""
     amax = torch.linalg.vector_norm(x2, ord=float("inf"), dim=-1, keepdim=True,
                                     dtype=torch.float32)
-    return torch.where(amax == 0, torch.ones_like(amax), amax / amax.new_tensor(127.0))
+    return row_scale_of(amax)
 
 
 def quantize_rows(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
