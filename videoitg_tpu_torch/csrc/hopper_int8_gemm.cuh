@@ -18,7 +18,7 @@
 // 16: fc2's K = 4304 is 134.5 k32 steps, and the last one is half zeros in
 // both operands). Four 32-byte boxes a stage with the 32-byte swizzle of the
 // attention kernels, 64-row tiles (two blocks an SM) and tiles of 128 or 192
-// columns were each slower (PERF.md, PR 11).
+// columns were each slower (PERF.md, section 6).
 //
 // Registers: a consumer holds 128 int32 accumulators. The producer warpgroup
 // gives its registers up (setmaxnreg 24) and the consumers take them (240):
