@@ -94,10 +94,13 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      csrc/hopper_int8_gemm.cuh with the `Act8Out` epilogue) at the LM's four
      shapes, M = 13,056, with the row scale made inside (the main path), plus
      a ragged M with a zero row. The integer sums are exact and the epilogue
-     has the plain version's operation order; the kernel's row scale is a
-     true division, the plain version's on the card a multiply by 1 / 127,
-     an ulp apart for some rows: tolerance 1 bf16 ulp of max|reference|, and
-     the line says whether the result is bit-equal.
+     has the plain version's operation order; the row scale is a true
+     division in both: tolerance 1 bf16 ulp of max|reference|, and the line
+     says whether the result is bit-equal. Before F, the plain scales
+     (`ops/quant.symmetric_scale`: row scales and int8 / int4 weight scales)
+     are held bit for bit to numpy's float32 division on amax values whose
+     product with the reciprocal is an ulp off; the line also counts the
+     values that `amax / 127.0` (a Python divisor) misses on the card.
    * G, H (both activations), I (fused int8 encoder kernels) at [93,312,
      1152] and at a ragged row count. LN sums run in another order, which
      flips a few int8 roundings: tolerance 4 max|ref| / 127 + 1e-5, the JAX
@@ -553,7 +556,9 @@ def check_int8_kernels(dev) -> dict:
     from videoitg_tpu_torch.ops import _build
     from videoitg_tpu_torch.ops import fused_encoder as fe
     from videoitg_tpu_torch.ops import quant_gemm as qg
-    from videoitg_tpu_torch.ops.quant import QuantLinear, quantize_linear_int8, row_quant
+    from videoitg_tpu_torch.ops.quant import (QuantLinear, quantize_linear_int8,
+                                              quantize_weight_int4, quantize_weight_int8,
+                                              row_quant, row_scale_of)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
 
@@ -580,6 +585,27 @@ def check_int8_kernels(dev) -> dict:
             fail(f"the library does not hold {pattern}")
     del lib
     library = _build.library()
+
+    # The plain scales divide exactly on the card: amax values whose product
+    # with the float32 reciprocal misses the quotient, as scales of rows
+    # (row_scale_of) and of weight columns (int8, int4), against numpy.
+    import numpy as np
+
+    a = np.random.default_rng(SEED + 11).uniform(1e-3, 8.0, 100_000).astype(np.float32)
+    amax = torch.from_numpy(a).to(dev)
+    w = torch.stack([amax, -0.5 * amax])  # [in = 2, out]: column amax = a
+    for qmax, scales in ((127.0, (row_scale_of(amax), quantize_weight_int8(w)[1])),
+                         (7.0, (quantize_weight_int4(w)[1],))):
+        want = a / np.float32(qmax)
+        misses = int(np.sum(want != a * (np.float32(1.0) / np.float32(qmax))))
+        wrong = [int(np.sum(t.cpu().numpy() != want)) for t in scales]
+        recip = int(np.sum((amax / qmax).cpu().numpy() != want))
+        print(f"plain scales / {qmax:g} on the card: {a.size} amax values, {misses} of them an "
+              f"ulp off under the reciprocal; scales unequal to numpy's division: {wrong}; "
+              f"broken: `amax / {qmax:g}` by a Python number {recip}", flush=True)
+        if any(wrong) or not misses:
+            fail(f"the plain scales / {qmax:g} do not divide exactly on the card ({wrong})")
+    del amax, w
 
     # ---- F: the LM's four linears at 13,056 tokens, the row scale made
     # inside (act8_linear's call). ----

@@ -81,6 +81,38 @@ def test_quantize_int8_bit_for_bit(shape):
     assert np.all(scale.numpy()[..., 3] == 1.0)
 
 
+def _reciprocal_misses(qmax: float, n: int) -> np.ndarray:
+    """n float32 amax values whose quotient by qmax differs from their
+    product with the float32 reciprocal of qmax (what PyTorch's CUDA division
+    by a Python number computes)."""
+    a = np.random.default_rng(7).uniform(1e-3, 8.0, 100_000).astype(np.float32)
+    q = np.float32(qmax)
+    picked = a[a / q != a * (np.float32(1.0) / q)][:n]
+    assert len(picked) == n
+    return picked
+
+
+@pytest.mark.parametrize("qmax", [127.0, 7.0], ids=["int8", "int4"])
+def test_symmetric_scales_divide_exactly(qmax):
+    amax = np.concatenate([_reciprocal_misses(qmax, 40), [0.0, 1.0, 3.5]]).astype(np.float32)
+    want = np.where(amax == 0, np.float32(1.0), amax / np.float32(qmax)).astype(np.float32)
+    got = quant.symmetric_scale(torch.from_numpy(amax), qmax)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the weight quantisers: one column per amax, its largest entry negative
+    # in every other column, the column's other entries below it
+    rng = np.random.default_rng(8)
+    w = (rng.uniform(-0.5, 0.5, (6, amax.size)) * amax).astype(np.float32)
+    w[2] = amax * np.where(np.arange(amax.size) % 2, -1, 1).astype(np.float32)
+    if qmax == 127.0:
+        w_q, scale = quant.quantize_weight_int8(torch.from_numpy(w))
+        np.testing.assert_array_equal(quant.row_scale_of(torch.from_numpy(amax)).numpy(), want)
+        np.testing.assert_array_equal(np.abs(w_q.numpy()[2])[amax > 0], 127)
+    else:
+        _, scale = quant.quantize_weight_int4(torch.from_numpy(w))
+    np.testing.assert_array_equal(scale.numpy(), want)
+
+
 @pytest.mark.parametrize("shape", [(64, 48), (3, 64, 48)], ids=["dense", "stacked"])
 def test_quantize_int4_and_unpack_bit_for_bit(shape):
     w = _weights(1, *shape)

@@ -32,6 +32,7 @@ int32 matmul on the CPU), the counterpart of XLA's integer einsum.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import NamedTuple, Optional
 
@@ -65,11 +66,26 @@ class Act8Switches(NamedTuple):
 # input axis -2, never a stacked-layer axis) ----
 
 
+@functools.lru_cache(maxsize=None)
+def _divisor(device: torch.device, value: float) -> torch.Tensor:
+    """`value` as a 0-d fp32 tensor on `device`, made once per device."""
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
+def symmetric_scale(amax: torch.Tensor, qmax: float) -> torch.Tensor:
+    """amax / qmax by a true division, 1 where amax is 0: the one formula of
+    every symmetric scale (weights per output channel, activations per row).
+    The divisor is a 0-d tensor on amax's device, kept per device, so a call
+    copies nothing to the card: PyTorch's CUDA division by a Python number
+    multiplies by its reciprocal, an ulp off the quotient for some amax, where
+    the kernels (`__fdiv_rn`) and the JAX package divide."""
+    return torch.where(amax == 0, torch.ones_like(amax), amax / _divisor(amax.device, qmax))
+
+
 def quantize_weight_int8(w: torch.Tensor):
     """[..., in, out] float -> (w_q int8 [..., in, out], scale fp32 [..., out])."""
     w = w.float()
-    amax = w.abs().amax(dim=-2)
-    scale = torch.where(amax == 0, torch.ones_like(amax), amax / 127.0)
+    scale = symmetric_scale(w.abs().amax(dim=-2), 127.0)
     w_q = torch.clamp(torch.round(w / scale[..., None, :]), -127, 127).to(torch.int8)
     return w_q, scale
 
@@ -81,8 +97,7 @@ def quantize_weight_int4(w: torch.Tensor):
     in_dim = w.shape[-2]
     if in_dim % 2:
         raise ValueError(f"int4 packing needs an even input dim, got {in_dim}")
-    amax = w.abs().amax(dim=-2)
-    scale = torch.where(amax == 0, torch.ones_like(amax), amax / 7.0)
+    scale = symmetric_scale(w.abs().amax(dim=-2), 7.0)
     w_q = torch.clamp(torch.round(w / scale[..., None, :]), -7, 7).to(torch.int8)
     lo = w_q[..., : in_dim // 2, :]
     hi = w_q[..., in_dim // 2:, :]
@@ -102,7 +117,7 @@ def row_scale_of(amax: torch.Tensor) -> torch.Tensor:
     """Row amax -> the symmetric int8 row scale: amax / 127, 1 where amax is
     0. The one formula of every activation-side scale (`row_quant`,
     ops/quant_gemm.row_scale, ops/fused_encoder's MLP stages)."""
-    return torch.where(amax == 0, torch.ones_like(amax), amax / 127.0)
+    return symmetric_scale(amax, 127.0)
 
 
 def row_quant(y: torch.Tensor):
