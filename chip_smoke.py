@@ -95,26 +95,33 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      shapes, M = 13,056, with the row scale made inside (the main path), plus
      a ragged M with a zero row. The integer sums are exact and the epilogue
      has the plain version's operation order; the row scale is a true
-     division in both: tolerance 1 bf16 ulp of max|reference|, and the line
-     says whether the result is bit-equal. Before F, the plain scales
+     division in both: the result must be bit-equal (the line also gives the
+     error against 1 bf16 ulp of max|reference|). Before F, the plain scales
      (`ops/quant.symmetric_scale`: row scales and int8 / int4 weight scales)
      are held bit for bit to numpy's float32 division on amax values whose
      product with the reciprocal is an ulp off; the line also counts the
      values that `amax / 127.0` (a Python divisor) misses on the card.
    * G, H (both activations), I (fused int8 encoder kernels) at [93,312,
-     1152] and at a ragged row count. LN sums run in another order, which
-     flips a few int8 roundings: tolerance 4 max|ref| / 127 + 1e-5, the JAX
-     package's own bound for these kernels. H runs on the same GEMM in four
-     launches (LN + quantise; fc1 with the `RowAmax` epilogue; fc1 with
-     `QuantStore`; fc2 with `BiasResidual`); two runs must be bit-equal, and
-     its broken uses include an amax from fc1's first n tile only and the
-     padded columns of fc1's last tile counted. `--only int8-kernels` prints
-     ptxas' lines for F's and H's instances, and the library must hold them
-     and not the mma.sync kernels they replaced.
+     1152], at a ragged row count and with a zero row. LN sums run in
+     another order, which flips a few int8 roundings: tolerance 4 max|ref| /
+     127 + 1e-5, the JAX package's own bound for these kernels. All three
+     run on the same GEMM after a row quantisation launch: G in two (LN +
+     quantise; the packed QKV product with `QkvOut`, split into q, k, v), H
+     in four (LN + quantise; fc1 with the `RowAmax` epilogue; fc1 with
+     `QuantStore`; fc2 with `BiasResidual`), I in two (F's row quantisation;
+     o_proj with `BiasResidual`). H's two runs must be bit-equal, and its
+     broken uses include an amax from fc1's first n tile only and the padded
+     columns of fc1's last tile counted; G's include its k held to the plain
+     q (a wrong split). I has no LN: it must be bit-equal in every case. Each
+     line times the launches one by one and, for orientation, the bare
+     `torch._int_mm` product. `--only int8-kernels` prints ptxas' lines for
+     F's, G's, H's and I's instances, and the library must hold them and not
+     the mma.sync kernels they replaced.
    At each main-path shape, deliberately broken uses (keys dropped, the key
    mask or the segment ids ignored, q not pre-scaled, a head of the group
    left out, a bias, the LN bias or the residual dropped, the last k tile of
-   fc2 dropped, H's row amax from one n tile or with padded columns) must
+   fc2 dropped, H's row amax from one n tile or with padded columns, G's
+   outputs split at the wrong place) must
    exceed the tolerance, which shows that it discriminates.
 4. Agreement: the engine's kernel path against its plain path on a small
    input at the full widths of VideoITG-8B (videoitg-8b-shallow: 3 vision,
@@ -209,18 +216,22 @@ PEAK_BF16 = 989e12   # FLOP/s
 PEAK_INT8 = 1979e12  # OP/s
 PEAK_HBM = 3.35e12   # bytes/s
 FRAME_HW = (360, 640)  # a video-like decode resolution
-# Kernels A, B, F and H before their TMA + wgmma redesign: mma.sync, one tile staged
+# Kernels A, B, F-I before their TMA + wgmma redesign: mma.sync, one tile staged
 # at a time (PERF.md section 6; NVIDIA H100 80GB HBM3 at 700.00 W). Printed
 # for comparison only: this run does not measure them.
 FIRST_VERSION_MS = {"flash_mha_short": 6.7473, "flash_mha": 27.5702,
-                    # F (the 7 launches of one LM layer) and H (gelu_tanh) on
-                    # mma.sync fed by cp.async
-                    "act8_gemm": 28.6371, "fused_ln_mlp_int8": 14.8783}
+                    # F (the 7 launches of one LM layer), G, H (gelu_tanh) and I
+                    # on mma.sync fed by cp.async
+                    "act8_gemm": 28.6371, "fused_ln_qkv_int8": 2.4690,
+                    "fused_ln_mlp_int8": 14.8783, "fused_proj_residual_int8": 0.9550}
 # The mangled name of J's forward: stream_kernel<DP, false, true, SegmentIds, ...>.
 J_FWD_INSTANCE = r"stream_kernelILi\d+ELb0ELb1ENS0_10SegmentIds"
-# F's and H's launches: hgemm::gemm_kernel<policy> and the quantisers.
+# F's, G's, H's and I's launches: hgemm::gemm_kernel<policy> and the two
+# row quantisers (F and I share `row_quant_kernel`, G and H `ln_quant_kernel`).
 F_INSTANCES = r"row_quant_kernel|gemm_kernel.*7Act8Out"
-H_INSTANCES = r"ln_quant_kernel|gemm_kernel.*(RowAmax|QuantStore|BiasResidual)"
+G_INSTANCES = r"ln_quant_kernel|gemm_kernel.*6QkvOut"
+H_INSTANCES = r"ln_quant_kernel|gemm_kernel.*(RowAmax|QuantStore|ScaleOfAmax)"
+I_INSTANCES = r"row_quant_kernel|gemm_kernel.*ScaleGiven"
 # Patterns of the mangled names of the kernel instances whose ptxas lines
 # each `--only` run prints.
 PTXAS = {
@@ -230,7 +241,8 @@ PTXAS = {
                       ("D", r"dq_kernel.*KeyMask"), ("E", r"dkv_kernel.*KeyMask"),
                       ("J dq", r"dq_kernel.*SegmentIds")),
     "splash-kernels": (("K", r"stream_kernelILi\d+ELb0ELb0E.*SegmentIds"),),
-    "int8-kernels": (("F", F_INSTANCES), ("H", H_INSTANCES)),
+    "int8-kernels": (("F", F_INSTANCES), ("G", G_INSTANCES), ("H", H_INSTANCES),
+                     ("I", I_INSTANCES)),
     "segment-kernels": (("J fwd", J_FWD_INSTANCE), ("J dq", r"dq_kernel.*SegmentIds"),
                         ("J dkv", r"dkv_kernel.*SegmentIds"), ("E", r"dkv_kernel.*KeyMask")),
 }
@@ -576,11 +588,13 @@ def check_int8_kernels(dev) -> dict:
     records = {}
     with open(_build.build(), "rb") as f:
         lib = f.read()
-    for old in (b"act8_gemm_kernel", b"ln_mlp_kernel"):
+    for old in (b"act8_gemm_kernel", b"ln_mlp_kernel", b"ln_qkv_kernel", b"proj_res_kernel",
+                b"stream_gemm", b"WeightTileLoader"):
         if old in lib:
-            fail(f"the library still holds the mma.sync kernel {old.decode()}")
-    for pattern in (F_INSTANCES, H_INSTANCES) + tuple(
-            rf"gemm_kernel.*{p}" for p in ("Act8Out", "RowAmax", "QuantStore", "BiasResidual")):
+            fail(f"the library still holds the mma.sync code {old.decode()}")
+    for pattern in (F_INSTANCES, G_INSTANCES, H_INSTANCES, I_INSTANCES) + tuple(
+            rf"gemm_kernel.*{p}" for p in ("Act8Out", "QkvOut", "RowAmax", "QuantStore",
+                                           "ScaleOfAmax", "ScaleGiven")):
         if not re.search(pattern.encode(), lib):
             fail(f"the library does not hold {pattern}")
     del lib
@@ -638,8 +652,8 @@ def check_int8_kernels(dev) -> dict:
               f"{quant_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by "
               f"{bnd['bound_by']}; for orientation, the bare torch._int_mm product alone "
               f"{int_mm_ms:.4f} ms", flush=True)
-        if not err <= tol:
-            fail(f"act8_gemm [{k} -> {n}] error {err} > {tol}")
+        if not (err <= tol and equal):
+            fail(f"act8_gemm [{k} -> {n}] error {err} (tol {tol}), bit-equal {equal}")
         worst = max(worst, err)
         shapes.append(dict(k=k, n=n, per_layer=count, ms=ms, quant_ms=quant_ms,
                            plain_ms=plain_ms, int_mm_ms=int_mm_ms, bit_equal=equal, **bnd))
@@ -666,8 +680,8 @@ def check_int8_kernels(dev) -> dict:
             print(f"kernel act8_gemm ragged [1001, {k}] x [{k}, {n}], row 5 zero: max_abs_err "
                   f"{errr:.6g}, scale given {errg:.6g} (tol {tol:.6g}); zero row max {zero_row}; "
                   f"broken: column scales dropped {broken:.6g}", flush=True)
-            if not (errr <= tol and errg <= tol) or zero_row != 0.0 or xsr[5].item() != 1.0:
-                fail("act8_gemm ragged / zero-row case")
+            if errr != 0.0 or errg != 0.0 or zero_row != 0.0 or xsr[5].item() != 1.0:
+                fail("act8_gemm ragged / zero-row case: not bit-equal")
             if not broken > tol:
                 fail(f"act8_gemm tolerance {tol} does not catch dropped scales ({broken})")
             worst = max(worst, errr, errg)
@@ -698,7 +712,8 @@ def check_int8_kernels(dev) -> dict:
     def without_bias(lin):
         return QuantLinear(w_qt=lin.w_qt, scale=lin.scale, b=None, act_q=True)
 
-    # G
+    # G. A zero row: LN of it is the LN bias, so without one it quantises to
+    # zeros with scale 1 and each output row is its linear's bias.
     q_lin, k_lin, v_lin = (int8_linear(h, h, bias_std=0.5) for _ in range(3))
     refs = fe.fused_ln_qkv_int8_reference(x, ln, q_lin, k_lin, v_lin, eps)
     outs = fe.fused_ln_qkv_int8(x, ln, q_lin, k_lin, v_lin, eps)
@@ -709,52 +724,90 @@ def check_int8_kernels(dev) -> dict:
                                                        (q_lin, k_lin, v_lin)), eps)
     broken_lnb = max(err_stats(o[:sub], r)[0] for o, r in zip(outs, no_lnb))
     broken_b = max(err_stats(o[:sub], r)[0] for o, r in zip(outs, no_b))
+    broken_split = err_stats(outs[1][:sub], refs[0][:sub])[0]  # k held to the plain q
     ragged = fe.fused_ln_qkv_int8(x[:1000], ln, q_lin, k_lin, v_lin, eps)
     err_r = max(err_stats(o, r[:1000])[0] for o, r in zip(ragged, refs))
+    xz = x[:1000].clone()
+    xz[7] = 0
+    zero = fe.fused_ln_qkv_int8(xz, ln_no_bias, q_lin, k_lin, v_lin, eps)
+    refs_z = fe.fused_ln_qkv_int8_reference(xz, ln_no_bias, q_lin, k_lin, v_lin, eps)
+    err_z = max(err_stats(o, r)[0] for o, r in zip(zero, refs_z))
+    zero_ok = all(torch.equal(o[7], lin.b) for o, lin in zip(zero, (q_lin, k_lin, v_lin)))
     ms = cuda_ms(lambda: fe.fused_ln_qkv_int8(x, ln, q_lin, k_lin, v_lin, eps), 5)
     plain_ms = cuda_ms(lambda: fe.fused_ln_qkv_int8_reference(x, ln, q_lin, k_lin, v_lin, eps), 2)
+    yq, ys = fe.ln_row_quant(x, ln, eps)
+    stage_ms = [cuda_ms(lambda: fe.ln_row_quant(x, ln, eps), 5),
+                cuda_ms(lambda: fe.qkv_project(yq, ys, q_lin, k_lin, v_lin), 5)]
+    w_qkv = fe._packed_qkv(q_lin, k_lin, v_lin, dev)[0]
+    int_mm_ms = cuda_ms(lambda: torch._int_mm(yq, w_qkv.t()), 5)
+    del yq, ys, w_qkv
     n_out = 3 * h
     bnd = bound(2 * rows * h * n_out, PEAK_INT8,
                 rows * h * 2 + n_out * h + rows * n_out * 2 + 2 * n_out * 4 + 2 * h * 4)
     print(f"kernel fused_ln_qkv_int8 [{rows}, {h}] -> 3 x [{rows}, {h}]: max_abs_err {err:.6g} "
-          f"mean {mean:.3g} (tol {tol:.6g}); ragged 1000 rows {err_r:.6g}; broken: LN bias "
-          f"ignored {broken_lnb:.6g}, bias dropped {broken_b:.6g}; {ms:.4f} ms "
-          f"({2 * rows * h * n_out / ms / 1e9:.1f} TOP/s), plain {plain_ms:.4f} ms, bound "
-          f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}", flush=True)
-    if not (err <= tol and err_r <= tol):
-        fail(f"fused_ln_qkv_int8 error {err} / {err_r} > {tol}")
-    if not (broken_lnb > tol and broken_b > tol):
+          f"mean {mean:.3g} (tol {tol:.6g}); ragged 1000 rows {err_r:.6g}; the same, no LN bias, "
+          f"row 7 zero {err_z:.6g}, zero row = bias {zero_ok}; broken: LN bias ignored {broken_lnb:.6g}, bias dropped "
+          f"{broken_b:.6g}, k held to the plain q {broken_split:.6g}; {ms:.4f} ms "
+          f"({2 * rows * h * n_out / ms / 1e9:.1f} TOP/s); launches: LN + quantise "
+          f"{stage_ms[0]:.4f}, QKV product {stage_ms[1]:.4f} ms "
+          f"({2 * rows * h * n_out / stage_ms[1] / 1e9:.1f} TOP/s); plain {plain_ms:.4f} ms, "
+          f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}; for orientation, the bare "
+          f"torch._int_mm product alone {int_mm_ms:.4f} ms; the mma.sync version "
+          f"{FIRST_VERSION_MS['fused_ln_qkv_int8']} ms (PERF.md, not this run)", flush=True)
+    if not (err <= tol and err_r <= tol and err_z <= tol and zero_ok):
+        fail(f"fused_ln_qkv_int8 error {err} / {err_r} / {err_z} > {tol}, or zero row {zero_ok}")
+    if not (broken_lnb > tol and broken_b > tol and broken_split > tol):
         fail(f"fused_ln_qkv_int8 tolerance {tol} does not catch a broken use "
-             f"({broken_lnb}, {broken_b})")
+             f"({broken_lnb}, {broken_b}, {broken_split})")
     records["fused_ln_qkv_int8"] = dict(
         name="fused_ln_qkv_int8", route="cuda",
         source="videoitg_tpu_torch/csrc/fused_encoder.cu",
-        replaces="videoitg_tpu/ops/fused_encoder.py:84", max_abs_err=max(err, err_r),
-        mean_abs_err=mean, ms=ms, plain_ms=plain_ms, library_ms=None, **bnd)
-    del refs, outs, no_lnb, no_b, ragged
+        replaces="videoitg_tpu/ops/fused_encoder.py:84", max_abs_err=max(err, err_r, err_z),
+        mean_abs_err=mean, ms=ms, plain_ms=plain_ms, stage_ms=stage_ms, int_mm_ms=int_mm_ms,
+        library_ms=None, **bnd)
+    del refs, outs, no_lnb, no_b, ragged, zero, refs_z
 
-    # I
+    # I. No LN: the quantiser is order-free and its division exact, so the
+    # kernel must be bit-equal to its plain version, zero row included.
     o_lin = int8_linear(h, h, bias_std=0.5)
     attn = randn(rows, h).to(torch.bfloat16)
     ref = fe.fused_proj_residual_int8_reference(attn, x, o_lin)
     out = fe.fused_proj_residual_int8(attn, x, o_lin)
     tol = int8_tol(ref.float())
     err, mean = err_stats(out, ref)
+    equal = bool(torch.equal(out, ref))
     no_res, _ = err_stats(out[:sub], fe.fused_proj_residual_int8_reference(
         attn[:sub], torch.zeros_like(x[:sub]), o_lin))
     no_b, _ = err_stats(out[:sub], fe.fused_proj_residual_int8_reference(
         attn[:sub], x[:sub], without_bias(o_lin)))
-    err_r, _ = err_stats(fe.fused_proj_residual_int8(attn[:1000], x[:1000], o_lin), ref[:1000])
+    ar = attn[:1000].clone()
+    ar[7] = 0
+    out_r = fe.fused_proj_residual_int8(ar, x[:1000], o_lin)
+    ref_r = fe.fused_proj_residual_int8_reference(ar, x[:1000], o_lin)
+    err_r, _ = err_stats(out_r, ref_r)
+    equal_r = bool(torch.equal(out_r, ref_r))
+    zero_ok = bool(torch.equal(out_r[7], (x[7].float() + o_lin.b.float()).to(x.dtype)))
     ms = cuda_ms(lambda: fe.fused_proj_residual_int8(attn, x, o_lin), 5)
     plain_ms = cuda_ms(lambda: fe.fused_proj_residual_int8_reference(attn, x, o_lin), 2)
+    aq, a_scale = qg.row_quant_int8(attn)
+    stage_ms = [cuda_ms(lambda: qg.row_quant_int8(attn), 5),
+                cuda_ms(lambda: fe.proj_residual(aq, a_scale, x, o_lin), 5)]
+    int_mm_ms = cuda_ms(lambda: torch._int_mm(aq, o_lin.w_qt.t()), 5)
+    del aq, a_scale
     bnd = bound(2 * rows * h * h, PEAK_INT8, 3 * rows * h * 2 + h * h + 2 * h * 4)
     print(f"kernel fused_proj_residual_int8 [{rows}, {h}]: max_abs_err {err:.6g} mean "
-          f"{mean:.3g} (tol {tol:.6g}); ragged 1000 rows {err_r:.6g}; broken: residual dropped "
-          f"{no_res:.6g}, bias dropped {no_b:.6g}; {ms:.4f} ms "
-          f"({2 * rows * h * h / ms / 1e9:.1f} TOP/s), plain {plain_ms:.4f} ms, bound "
-          f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}", flush=True)
-    if not (err <= tol and err_r <= tol):
-        fail(f"fused_proj_residual_int8 error {err} / {err_r} > {tol}")
+          f"{mean:.3g} (tol {tol:.6g}), bit-equal {equal}; ragged 1000 rows, row 7 zero "
+          f"{err_r:.6g}, bit-equal {equal_r}, zero row = residual + bias {zero_ok}; broken: "
+          f"residual dropped {no_res:.6g}, bias dropped {no_b:.6g}; {ms:.4f} ms "
+          f"({2 * rows * h * h / ms / 1e9:.1f} TOP/s); launches: row quantisation "
+          f"{stage_ms[0]:.4f}, o_proj {stage_ms[1]:.4f} ms; plain {plain_ms:.4f} ms, bound "
+          f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}; for orientation, the bare "
+          f"torch._int_mm product alone {int_mm_ms:.4f} ms; the mma.sync version "
+          f"{FIRST_VERSION_MS['fused_proj_residual_int8']} ms (PERF.md, not this run)",
+          flush=True)
+    if not (equal and equal_r and zero_ok):
+        fail(f"fused_proj_residual_int8 not bit-equal to its plain version: error {err} / "
+             f"{err_r} (tol {tol}), zero row {zero_ok}")
     if not (no_res > tol and no_b > tol):
         fail(f"fused_proj_residual_int8 tolerance {tol} does not catch a broken use "
              f"({no_res}, {no_b})")
@@ -762,8 +815,9 @@ def check_int8_kernels(dev) -> dict:
         name="fused_proj_residual_int8", route="cuda",
         source="videoitg_tpu_torch/csrc/fused_encoder.cu",
         replaces="videoitg_tpu/ops/fused_encoder.py:121", max_abs_err=max(err, err_r),
-        mean_abs_err=mean, ms=ms, plain_ms=plain_ms, library_ms=None, **bnd)
-    del attn, ref, out
+        mean_abs_err=mean, ms=ms, plain_ms=plain_ms, stage_ms=stage_ms, int_mm_ms=int_mm_ms,
+        library_ms=None, **bnd)
+    del attn, ref, out, out_r, ref_r
 
     # H, both activations. The last 16 intermediate channels get a large
     # fc1 bias, so that a kernel which dropped the last (ragged) k tile of
@@ -788,10 +842,10 @@ def check_int8_kernels(dev) -> dict:
         err_r, _ = err_stats(fe.fused_ln_mlp_int8(x[:1000], ln, fc1, fc2, eps, act), ref[:1000])
         ms = cuda_ms(lambda: fe.fused_ln_mlp_int8(x, ln, fc1, fc2, eps, act), 5)
         plain_ms = cuda_ms(lambda: fe.fused_ln_mlp_int8_reference(x, ln, fc1, fc2, eps, act), 2)
-        yq, ys = fe.mlp_ln_quant(x, ln, eps)
+        yq, ys = fe.ln_row_quant(x, ln, eps)
         amax = fe.mlp_fc1_amax(yq, ys, fc1, act)
         gq = fe.mlp_fc1_quant(yq, ys, fc1, amax, act)
-        stage_ms = [cuda_ms(lambda: fe.mlp_ln_quant(x, ln, eps), 5),
+        stage_ms = [cuda_ms(lambda: fe.ln_row_quant(x, ln, eps), 5),
                     cuda_ms(lambda: fe.mlp_fc1_amax(yq, ys, fc1, act), 5),
                     cuda_ms(lambda: fe.mlp_fc1_quant(yq, ys, fc1, amax, act), 5),
                     cuda_ms(lambda: fe.mlp_fc2_residual(x, gq, amax, fc2), 5)]
@@ -826,7 +880,7 @@ def check_int8_kernels(dev) -> dict:
     xs_ = x[:sub]
     ref = fe.fused_ln_mlp_int8_reference(xs_, ln, fc1_hot, fc2, eps, act)
     tol = int8_tol(ref.float())
-    yq, ys = fe.mlp_ln_quant(xs_, ln, eps)
+    yq, ys = fe.ln_row_quant(xs_, ln, eps)
     good, _ = err_stats(fe.fused_ln_mlp_int8(xs_, ln, fc1_hot, fc2, eps, act), ref)
 
     def with_amax(amax):

@@ -44,17 +44,20 @@ sys.path.insert(0, REPO)
 
 # Kernel-name fragments -> group, first match wins: the int8 GEMM's instances
 # (hgemm::gemm_kernel<policy>) by their epilogue policy, before the
-# "gemm" fragment of the library's kernels.
+# "gemm" fragment of the library's kernels. The two row quantisers serve two
+# kernels each (`row_quant_kernel` F and I, `ln_quant_kernel` G and H): they
+# are a group of their own, and the top-kernels list gives each one's time
+# and launches.
 GROUPS = (
     ("hattn::resident_kernel", "kernel A flash_mha_short"),
-    ("row_quant_kernel", "kernel F act8_gemm"),
+    ("row_quant_kernel", "int8 row quantisation (F, G, H, I)"),
+    ("ln_quant_kernel", "int8 row quantisation (F, G, H, I)"),
     ("Act8Out", "kernel F act8_gemm"),
-    ("ln_quant_kernel", "kernel H fused_ln_mlp_int8"),
+    ("QkvOut", "kernel G fused_ln_qkv_int8"),
     ("RowAmax", "kernel H fused_ln_mlp_int8"),
     ("QuantStore", "kernel H fused_ln_mlp_int8"),
-    ("BiasResidual", "kernel H fused_ln_mlp_int8"),
-    ("ln_qkv_kernel", "kernel G fused_ln_qkv_int8"),
-    ("proj_res_kernel", "kernel I fused_proj_residual_int8"),
+    ("ScaleOfAmax", "kernel H fused_ln_mlp_int8"),
+    ("ScaleGiven", "kernel I fused_proj_residual_int8"),
     ("Memcpy", "copies"),
     ("Memset", "copies"),
     ("nvjet", "library GEMMs"),

@@ -2,7 +2,7 @@
 //
 // Replace the TPU kernels of videoitg_tpu/ops/fused_encoder.py:
 //   G `_ln_qkv_kernel`   (entry `fused_ln_qkv_int8`):        LN -> row quant ->
-//     packed [H][dq+dk+dv] product -> acc * (ys * s) + b -> q, k, v
+//     packed [dq+dk+dv][H] product -> acc * (ys * s) + b -> q, k, v
 //   H `_ln_mlp_kernel`   (entry `fused_ln_mlp_int8`):        LN -> row quant ->
 //     fc1 -> + b -> GELU -> quant of the whole intermediate row -> fc2 -> + b
 //     -> + x
@@ -17,102 +17,82 @@
 // q, k, v (~860 operations per byte), I 0.25 TOP against 0.65 GB (~380), H
 // 1.85 TOP (2.78 as run here, see below) against 0.44 GB. The card's int8
 // ridge is ~590 operations per byte: G and H are bound by the tensor cores,
-// I by device memory. The unfused path writes and re-reads the LN output,
-// the int8 copies and the [rows][4304] intermediate (0.8 GB in bf16 alone);
-// G and I read x and write the outputs, nothing else; H writes and reads
-// int8 copies of its two activations besides (0.5 GB).
+// I by device memory.
 //
-// Design of G and I. A block takes a tile of rows, quantises them once into
-// an int8 tile in shared memory (one warp per row, the row held in registers for the
-// mean, variance, amax and quantise passes), and streams the whole [N][K]
-// weight past it in [128][128] tiles through a two-stage cp.async ring with
-// one barrier per tile, i.e. per 4 MMA k steps (int8_common.cuh,
-// `stream_gemm`); weights are stored [N][K], the operand layout of mma.sync
-// m16n8k32 s8, and stay in L2 across blocks, which start at different n
-// tiles so that they do not all ask for the same lines at once. G and I hold
-// 64 rows (75 KB) and use 32 x 32 warp tiles, two blocks to an SM, so that
-// one block's row quantisation overlaps the other's products.
-//
-// How G and I got here (NVIDIA H100 80GB HBM3, 700 W, the tower's shape). The
-// first version (128-row tiles, [128][64] weight tiles in a two-stage ring
-// with two barriers a tile, every address worked out per tile, rows re-read
-// from L1/L2 in four passes, a division per quantised value) took G 3.43,
-// I 1.61, H 21.80 ms. With 8 warps a block (2 per scheduler) every dependent
-// chain is paid in full: an ablation of G on the card
-// (scripts/torch_probes/ln_qkv_ablation.cu; 3.86 ms: ~0.95 ms row
-// quantisation, ~1.1 ms the address arithmetic of the weight loads, not the
-// loads themselves, ~1.4 ms the product loop, ~0.25 ms barriers) led to rows
-// held in registers (one global pass, all loads in flight), a reciprocal
-// quantiser that is exact (`quant8_chunk`), tile positions kept by counters,
-// and per-thread source pointers set once per n tile (`WeightTileLoader`):
-// G 2.58, I 1.29 ms. 64-row tiles and two blocks per SM: I 1.02 ms,
-// G unchanged. 128-byte k tiles (half the barriers): G 2.39, I 0.98 ms. Ring
-// depth never mattered (two stages as good as four). The bare
-// product loop reaches ~1,080 TOP/s on this card
-// (scripts/torch_probes/mma_s8_rate.cu: mma.sync s8 from shared-memory
-// fragments, no loads or barriers) and these kernels 124 to 311, so what is
-// left is feeding it: more warps per SM, TMA and wgmma.
-//
-// Design of H. The second quantisation needs the amax of the whole 4304-wide
-// row before any of it is quantised, and a block of 128 rows cannot hold its
-// intermediate (550 KB in int8). H is four launches, three of them the TMA +
-// s8 wgmma GEMM of hopper_int8_gemm.cuh (128 x 256 tiles) with an epilogue
-// policy each:
-//   1. `ln_quant_kernel`: LN + row quantisation of x into yq [rows][1152], ys.
-//   2. fc1 with `RowAmax`: act(acc * (ys * s1) + b1), each row's max |.|
-//      into amax [rows] by one atomicMax per row and block.
-//   3. fc1 again with `QuantStore`: the same values, quantised with the full
-//      row's scale, stored as int8 gq [rows][4304] (402 MB at the tower's
-//      shape, written and read once: ~0.24 ms of traffic).
-//   4. fc2 with `BiasResidual`: x + acc * (gs * s2) + b2.
-// Nothing of the intermediate is rounded to bf16 before it is quantised, and
-// fc1 is computed twice (1.5x the MLP's tensor-core work). The first
-// versions held the int8 intermediate of 32 rows in shared memory and
-// computed all three passes there on mma.sync (14.9 ms at the tower's shape:
-// each block pulled 15 MB of weights from L2 for 32 rows of output); this one
-// takes 4.9 ms (NVIDIA H100 80GB HBM3 at 700 W), of which the activation,
-// computed in fc1's two epilogues while the tensor cores wait, is most of
-// the gap to the 0.94 ms bound. TMA's zero fill covers the 48 columns past
-// 4304 of fc1's last tile (their act(b) is skipped by both fc1 policies) and
+// Design. Every product runs on the TMA + s8 wgmma GEMM of
+// hopper_int8_gemm.cuh (128 x 256 tiles) with an epilogue policy, after a
+// launch that quantises the rows once and writes their int8 copy and fp32
+// scales (the GEMM's blocks of one row tile would otherwise each quantise
+// it again):
+//   G: 1. `ln_quant_kernel`: LN + row quantisation of x into yq [rows][H], ys.
+//      2. the packed QKV product with `QkvOut`, which writes each chunk of 8
+//         columns to q, k or v. dq and dk are multiples of 8, so a chunk lies
+//         in one output; a 256-column tile does not (1152 / 256 = 4.5: tiles
+//         cross q|k and k|v). TMA's zero fill covers the last tile's half
+//         past 3456, which the policy skips.
+//   H: 1. `ln_quant_kernel`, as G's.
+//      2. fc1 with `RowAmax`: act(acc * (ys * s1) + b1), each row's max |.|
+//         into amax [rows] by one atomicMax per row and block.
+//      3. fc1 again with `QuantStore`: the same values, quantised with the
+//         full row's scale, stored as int8 gq [rows][4304] (402 MB at the
+//         tower's shape, written and read once).
+//      4. fc2 with `BiasResidual<ScaleOfAmax>`: x + acc * (gs * s2) + b2.
+//   I: 1. F's `row_quant_kernel` (quant_gemm.cu): aq [rows][D], as.
+//      2. o_proj with `BiasResidual<ScaleGiven>`: res + acc * (as * s) + b.
+// H's second quantisation needs the amax of the whole 4304-wide row before
+// any of it is quantised, and a block cannot hold 128 rows of its
+// intermediate (550 KB in int8): hence fc1 twice (1.5x the MLP's tensor-core
+// work), and its activation, computed in two epilogues while the tensor
+// cores wait, is most of H's gap to its bound. TMA's zero fill covers the 48
+// columns past 4304 of fc1's last tile (skipped by both fc1 policies) and
 // the half k32 step past 4304 of fc2.
+//
+// History (NVIDIA H100 80GB HBM3 at 700 W, the tower's shape): G and I ran
+// on mma.sync fed by a cp.async ring, 8 warps a block with rows quantised
+// into shared memory, at 124 to 311 TOP/s (G 2.47, I 0.96 ms; the bare
+// mma.sync loop reaches ~1,080 TOP/s); H held 32 rows of its intermediate
+// in shared memory on mma.sync (14.9 ms) before its four launches (4.8 ms).
+// PERF.md, section 6, has the steps and their times.
 #include "hopper_int8_gemm.cuh"
 #include "int8_common.cuh"
 
 namespace videoitg {
 
-constexpr int kGBM = 64;   // rows per block, G and I (2 x 4 warps of 32 x 32)
-constexpr int kGBN = 128;
-constexpr int kBK = 128;     // bytes of k per weight tile: one barrier per 4 MMA k steps
-constexpr int kStages = 2;   // weight tiles in the cp.async ring
-constexpr int kBStride = kBK + kI8Pad;
-constexpr int kMaxSmem = 232448;
+constexpr int kLnRows = 64;  // rows per block of `ln_quant_kernel` (8 per warp)
 
-__host__ __device__ constexpr int pad_k(int k) { return (k + kBK - 1) / kBK * kBK; }
+// G and H, launch 1: LN + row quantisation of x into yq [rows][H] and ys [rows].
+__global__ void __launch_bounds__(kI8Threads)
+ln_quant_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ lns,
+                const float* __restrict__ lnb, int8_t* __restrict__ yq, float* __restrict__ ys,
+                int rows, int H, float eps) {
+  const int row0 = blockIdx.x * kLnRows;
+  quantize_rows(yq + static_cast<size_t>(row0) * H, ys + row0, x, lns, lnb, eps, row0,
+                min(kLnRows, rows - row0), H);
+}
+
+// Eight consecutive fp32 values from p (16-byte aligned).
+__device__ __forceinline__ void load_f32x8(const float* p, float (&v)[8]) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
 
 // ---- G ----
-__global__ void __launch_bounds__(kI8Threads, 2)
-ln_qkv_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ lns,
-              const float* __restrict__ lnb, const int8_t* __restrict__ w,
-              const float* __restrict__ s, const float* __restrict__ b,
-              __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ k,
-              __nv_bfloat16* __restrict__ v, int rows, int H, int dq, int dk, int dv,
-              float eps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int a_stride = pad_k(H) + kI8Pad;
-  int8_t* as = reinterpret_cast<int8_t*>(smem_raw);
-  int8_t* bs = as + kGBM * a_stride;
-  float* rs = reinterpret_cast<float*>(bs + kStages * kGBN * kBStride);
-  const int row0 = blockIdx.x * kGBM;
+// Launch 2: the packed product's 8 columns col..col + 7 of row `row`,
+// acc * (ys * s) + b rounded once to bf16, stored as 16 bytes into q, k or v.
+struct QkvOut {
+  const float* ys;  // [M]
+  const float* s;   // [dq + dk + dv]
+  const float* b;   // [dq + dk + dv]
+  __nv_bfloat16* q;
+  __nv_bfloat16* k;
+  __nv_bfloat16* v;
+  int M, dq, dk, dv;
+  static constexpr bool kStaged = true;
 
-  quantize_rows<true>(as, a_stride, rs, x, lns, lnb, eps, row0, kGBM, rows, H, pad_k(H));
-  __syncthreads();
-  stream_gemm<2, 4, 2, 4, kStages, kBK>(as, a_stride, w, dq + dk + dv, H, bs, blockIdx.x,
-                          [&](int row, int col, int v0, int v1, int) {
-    const int grow = row0 + row;
-    if (grow >= rows) return;
-    const float ys = rs[row];
-    const float h0 = scale_bias(v0, ys, s[col], b[col]);
-    const float h1 = scale_bias(v1, ys, s[col + 1], b[col + 1]);
+  __device__ __forceinline__ void chunk(int row, int col, const int (&acc)[8]) const {
+    if (row >= M || col >= dq + dk + dv) return;
     __nv_bfloat16* dst = q;
     int c = col, ld = dq;
     if (col >= dq + dk) {
@@ -120,38 +100,21 @@ ln_qkv_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ lns
     } else if (col >= dq) {
       dst = k; c = col - dq; ld = dk;
     }
-    *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(grow) * ld + c) = pack_bf16x2(h0, h1);
-  });
-}
-
-// ---- I ----
-__global__ void __launch_bounds__(kI8Threads, 2)
-proj_res_kernel(const __nv_bfloat16* __restrict__ attn, const __nv_bfloat16* __restrict__ res,
-                const int8_t* __restrict__ w, const float* __restrict__ s,
-                const float* __restrict__ b, __nv_bfloat16* __restrict__ out, int rows, int D,
-                int H) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int a_stride = pad_k(D) + kI8Pad;
-  int8_t* as = reinterpret_cast<int8_t*>(smem_raw);
-  int8_t* bs = as + kGBM * a_stride;
-  float* rs = reinterpret_cast<float*>(bs + kStages * kGBN * kBStride);
-  const int row0 = blockIdx.x * kGBM;
-
-  quantize_rows<false>(as, a_stride, rs, attn, nullptr, nullptr, 0.f, row0, kGBM, rows, D,
-                       pad_k(D));
-  __syncthreads();
-  stream_gemm<2, 4, 2, 4, kStages, kBK>(as, a_stride, w, H, D, bs, blockIdx.x,
-                                   [&](int row, int col, int v0, int v1, int) {
-    const int grow = row0 + row;
-    if (grow >= rows) return;
-    const float a_scale = rs[row];
-    const size_t at = static_cast<size_t>(grow) * H + col;
-    const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(res + at));
-    *reinterpret_cast<uint32_t*>(out + at) =
-        pack_bf16x2(__fadd_rn(r.x, scale_bias(v0, a_scale, s[col], b[col])),
-                    __fadd_rn(r.y, scale_bias(v1, a_scale, s[col + 1], b[col + 1])));
-  });
-}
+    const float scale = ys[row];
+    float sc[8], bi[8];
+    load_f32x8(s + col, sc);
+    load_f32x8(b + col, bi);
+    uint32_t packed[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 2 * e;
+      packed[e] = pack_bf16x2(scale_bias(acc[i], scale, sc[i], bi[i]),
+                              scale_bias(acc[i + 1], scale, sc[i + 1], bi[i + 1]));
+    }
+    *reinterpret_cast<uint4*>(dst + static_cast<size_t>(row) * ld + c) =
+        make_uint4(packed[0], packed[1], packed[2], packed[3]);
+  }
+};
 
 // ---- H ----
 // Every product and sum rounded on its own, so that fc1's two passes
@@ -165,18 +128,6 @@ __device__ __forceinline__ float activation(float h, int act) {
   }
   // quick_gelu: h * sigmoid(1.702 h)
   return __fmul_rn(h, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-__fmul_rn(1.702f, h)))));
-}
-
-constexpr int kLnRows = 64;  // rows per block of H's LN + quantise launch (8 per warp)
-
-// H, launch 1: LN + row quantisation of x into yq [rows][H] and ys [rows].
-__global__ void __launch_bounds__(kI8Threads)
-ln_quant_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ lns,
-                const float* __restrict__ lnb, int8_t* __restrict__ yq, float* __restrict__ ys,
-                int rows, int H, float eps) {
-  const int row0 = blockIdx.x * kLnRows;
-  quantize_rows<true>(yq + static_cast<size_t>(row0) * H, H, ys + row0, x, lns, lnb, eps, row0,
-                      min(kLnRows, rows - row0), rows, H, H);
 }
 
 // fc1's value of (row, col): act(acc * (ys * s1) + b1).
@@ -273,9 +224,23 @@ struct QuantStore {
   }
 };
 
-// H, launch 4 (fc2): out = bf16(x + (acc * (gs * s2) + b2)).
-struct BiasResidual {
+// H, launch 4 (fc2), and I, launch 2: out = bf16(x + (acc * (scale * s2) +
+// b2)), the row's scale from `RowScale`: H's from the bits of the row's
+// amax of launch 2 (`ScaleOfAmax`), I's as its row quantisation wrote it
+// (`ScaleGiven`).
+struct ScaleOfAmax {
   const unsigned int* amax_bits;
+  __device__ __forceinline__ float operator()(int row) const { return mlp_scale(amax_bits, row); }
+};
+
+struct ScaleGiven {
+  const float* scales;
+  __device__ __forceinline__ float operator()(int row) const { return scales[row]; }
+};
+
+template <class RowScale>
+struct BiasResidual {
+  RowScale row_scale;
   const float* s2;
   const float* b2;
   const __nv_bfloat16* x;
@@ -285,7 +250,7 @@ struct BiasResidual {
 
   __device__ __forceinline__ void chunk(int row, int col, const int (&v)[8]) const {
     if (row >= M || col >= N) return;
-    const float scale = mlp_scale(amax_bits, row);
+    const float scale = row_scale(row);
     const size_t at = static_cast<size_t>(row) * N + col;
     float xf[8];
     unpack_bf16x8(*reinterpret_cast<const uint4*>(x + at), xf);
@@ -307,46 +272,13 @@ struct BiasResidual {
   }
 };
 
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 }  // namespace videoitg
 
-// x: bf16 [rows][H]; lns, lnb: fp32 [H]; w: int8 [dq+dk+dv][H]; s, b: fp32
-// [dq+dk+dv]; q, k, v: bf16 [rows][dq], [rows][dk], [rows][dv]. Contiguous,
-// 16-byte aligned, H a multiple of 16, dq, dk, dv of 8. Launches on
-// `stream`; returns cudaGetLastError().
-extern "C" int videoitg_fused_ln_qkv_int8_bf16(const void* x, const void* lns, const void* lnb,
-                                               const void* w, const void* s, const void* b,
-                                               void* q, void* k, void* v, int rows, int H,
-                                               int dq, int dk, int dv, float eps, void* stream) {
-  using namespace videoitg;
-  if (rows <= 0 || H <= 0 || H % 16 || H > kMaxRowK || dq <= 0 || dk <= 0 || dv <= 0 ||
-      dq % 8 || dk % 8 || dv % 8) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int smem = kGBM * (pad_k(H) + kI8Pad) + kStages * kGBN * kBStride + kGBM * 4;
-  cudaError_t err = allow_smem(ln_qkv_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ln_qkv_kernel<<<(rows + kGBM - 1) / kGBM, kI8Threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(lns),
-      static_cast<const float*>(lnb), static_cast<const int8_t*>(w),
-      static_cast<const float*>(s), static_cast<const float*>(b),
-      static_cast<__nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(k),
-      static_cast<__nv_bfloat16*>(v), rows, H, dq, dk, dv, eps);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// H in four launches, each on `stream`, each returning cudaGetLastError().
-// x: bf16 [rows][H]; lns, lnb: fp32 [H]; w1: int8 [M][H]; s1, b1: fp32 [M];
-// w2: int8 [H][M]; s2, b2: fp32 [H]; act 0 = gelu (tanh form), 1 =
-// quick_gelu. Scratch (the caller's): yq int8 [rows][H], ys fp32 [rows],
-// amax (fp32 bits) [rows], zeroed before launch 2; gq int8 [rows][M]. All
-// contiguous and 16-byte aligned, H and M multiples of 16, H at most 2048.
-extern "C" int videoitg_mlp_ln_quant_int8_bf16(const void* x, const void* lns, const void* lnb,
+// LN + row quantisation, launch 1 of G and of H. x: bf16 [rows][H]; lns,
+// lnb: fp32 [H]; yq: int8 [rows][H]; ys: fp32 [rows]. Contiguous, 16-byte
+// aligned, H a multiple of 16 and at most 2048 (a warp holds a row in
+// registers). Launches on `stream`; returns cudaGetLastError().
+extern "C" int videoitg_ln_row_quant_int8_bf16(const void* x, const void* lns, const void* lnb,
                                                void* yq, void* ys, int rows, int H, float eps,
                                                void* stream) {
   using namespace videoitg;
@@ -359,6 +291,30 @@ extern "C" int videoitg_mlp_ln_quant_int8_bf16(const void* x, const void* lns, c
   return static_cast<int>(cudaGetLastError());
 }
 
+// G, launch 2. yq: int8 [rows][H]; ys: fp32 [rows]; w: int8 [dq+dk+dv][H];
+// s, b: fp32 [dq+dk+dv]; q, k, v: bf16 [rows][dq], [rows][dk], [rows][dv].
+// Contiguous, 16-byte aligned, H a multiple of 16, dq, dk, dv of 8.
+extern "C" int videoitg_qkv_gemm_s8(const void* yq, const void* ys, const void* w, const void* s,
+                                    const void* b, void* q, void* k, void* v, int rows, int H,
+                                    int dq, int dk, int dv, void* stream) {
+  using namespace videoitg;
+  if (dq <= 0 || dk <= 0 || dv <= 0 || dq % 8 || dk % 8 || dv % 8) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const QkvOut epi{static_cast<const float*>(ys), static_cast<const float*>(s),
+                   static_cast<const float*>(b), static_cast<__nv_bfloat16*>(q),
+                   static_cast<__nv_bfloat16*>(k), static_cast<__nv_bfloat16*>(v),
+                   rows, dq, dk, dv};
+  return static_cast<int>(
+      hgemm::launch(yq, w, epi, rows, dq + dk + dv, H, static_cast<cudaStream_t>(stream)));
+}
+
+// H's launches 2 to 4, each on `stream`, each returning cudaGetLastError()
+// (launch 1 is `videoitg_ln_row_quant_int8_bf16`). yq int8 [rows][H], ys
+// fp32 [rows]; w1: int8 [M][H]; s1, b1: fp32 [M]; w2: int8 [H][M]; s2, b2:
+// fp32 [H]; act 0 = gelu (tanh form), 1 = quick_gelu. Scratch (the
+// caller's): amax (fp32 bits) [rows], zeroed before launch 2; gq int8
+// [rows][M]. All contiguous and 16-byte aligned, H and M multiples of 16.
 extern "C" int videoitg_mlp_fc1_amax_s8(const void* yq, const void* ys, const void* w1,
                                         const void* s1, const void* b1, void* amax, int rows,
                                         int H, int M, int act, void* stream) {
@@ -398,29 +354,28 @@ extern "C" int videoitg_mlp_fc2_residual_s8(const void* gq, const void* amax, co
                                             void* out, int rows, int M, int H, void* stream) {
   using namespace videoitg;
   if (H % 16 || M % 16) return static_cast<int>(cudaErrorInvalidValue);
-  const BiasResidual epi{static_cast<const unsigned int*>(amax), static_cast<const float*>(s2),
-                         static_cast<const float*>(b2), static_cast<const __nv_bfloat16*>(x),
-                         static_cast<__nv_bfloat16*>(out), rows, H};
+  const BiasResidual<ScaleOfAmax> epi{{static_cast<const unsigned int*>(amax)},
+                                      static_cast<const float*>(s2),
+                                      static_cast<const float*>(b2),
+                                      static_cast<const __nv_bfloat16*>(x),
+                                      static_cast<__nv_bfloat16*>(out), rows, H};
   const auto st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(hgemm::launch(gq, w2, epi, rows, H, M, st));
 }
 
-// attn: bf16 [rows][D]; res, out: bf16 [rows][H]; w: int8 [H][D]; s, b: fp32
-// [H]. D a multiple of 16, H of 8.
-extern "C" int videoitg_fused_proj_residual_int8_bf16(const void* attn, const void* res,
-                                                      const void* w, const void* s,
-                                                      const void* b, void* out, int rows, int D,
-                                                      int H, void* stream) {
+// I, launch 2 (launch 1 is F's row quantisation,
+// `videoitg_row_quant_int8_bf16`, with the scale made). aq: int8 [rows][D];
+// a_scale: fp32 [rows]; w: int8 [H][D]; s, b: fp32 [H]; res, out: bf16
+// [rows][H]. Contiguous, 16-byte aligned, D a multiple of 16, H of 8.
+extern "C" int videoitg_proj_residual_s8(const void* aq, const void* a_scale, const void* w,
+                                         const void* s, const void* b, const void* res, void* out,
+                                         int rows, int D, int H, void* stream) {
   using namespace videoitg;
-  if (rows <= 0 || D <= 0 || H <= 0 || D % 16 || D > kMaxRowK || H % 8) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int smem = kGBM * (pad_k(D) + kI8Pad) + kStages * kGBN * kBStride + kGBM * 4;
-  cudaError_t err = allow_smem(proj_res_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  proj_res_kernel<<<(rows + kGBM - 1) / kGBM, kI8Threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(attn), static_cast<const __nv_bfloat16*>(res),
-      static_cast<const int8_t*>(w), static_cast<const float*>(s),
-      static_cast<const float*>(b), static_cast<__nv_bfloat16*>(out), rows, D, H);
-  return static_cast<int>(cudaGetLastError());
+  if (H % 8) return static_cast<int>(cudaErrorInvalidValue);
+  const BiasResidual<ScaleGiven> epi{{static_cast<const float*>(a_scale)},
+                                     static_cast<const float*>(s), static_cast<const float*>(b),
+                                     static_cast<const __nv_bfloat16*>(res),
+                                     static_cast<__nv_bfloat16*>(out), rows, H};
+  return static_cast<int>(
+      hgemm::launch(aq, w, epi, rows, H, D, static_cast<cudaStream_t>(stream)));
 }

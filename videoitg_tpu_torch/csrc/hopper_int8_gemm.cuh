@@ -1,5 +1,5 @@
-// The TMA + s8 wgmma GEMM behind kernels F (quant_gemm.cu) and H
-// (fused_encoder.cu). sm_90a.
+// The TMA + s8 wgmma GEMM behind every int8 product of the act8 tier: kernels
+// F (quant_gemm.cu) and G, H, I (fused_encoder.cu). sm_90a.
 //
 // out tile [128][256] of A (int8 [M][K]) x B^T (int8 [N][K]), both K-major
 // in device memory, an exact int32 sum, handed to an epilogue policy. A block
@@ -44,8 +44,13 @@
 //     policy that stores nothing per element (a row reduction).
 // Rows past M and columns past N hold sums over zeros; the policy skips them
 // (N % 8 == 0). The policies live with their kernels: `Act8Out` in
-// quant_gemm.cu, `RowAmax`, `QuantStore` and `BiasResidual` in
-// fused_encoder.cu.
+// quant_gemm.cu; `QkvOut` (G), `RowAmax`, `QuantStore` (H) and
+// `BiasResidual` (H's fc2 and I, the row scale's source a template
+// parameter) in fused_encoder.cu.
+//
+// A block computes one tile and exits: a tile's ring fill and its epilogue
+// are not overlapped with another tile's main loop. At K = 1152 (G, I: nine
+// stages) that costs more than at the LM's K = 3584 (PERF.md, section 7).
 #pragma once
 
 #include "hopper_common.cuh"

@@ -47,20 +47,22 @@ SIGNATURES = {
     "videoitg_row_quant_int8_bf16": (_P, _P, _P, _I, _I, _I, _P),
     # x_q, x_scale, w_qt, w_scale, out, M, K, N, stream
     "videoitg_act8_gemm_s8": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # x, ln scale, ln bias, packed w_qt, scale, bias, q, k, v, rows, H, dq, dk,
-    # dv, eps, stream
-    "videoitg_fused_ln_qkv_int8_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                        _I, _I, _I, _I, _I, _F, _P),
-    # H's four launches. x, ln scale, ln bias, yq, ys, rows, H, eps, stream
-    "videoitg_mlp_ln_quant_int8_bf16": (_P, _P, _P, _P, _P, _I, _I, _F, _P),
+    # LN + row quantisation, launch 1 of G and of H. x, ln scale, ln bias, yq,
+    # ys, rows, H, eps, stream
+    "videoitg_ln_row_quant_int8_bf16": (_P, _P, _P, _P, _P, _I, _I, _F, _P),
+    # G's launch 2. yq, ys, packed w_qt, scale, bias, q, k, v, rows, H, dq,
+    # dk, dv, stream
+    "videoitg_qkv_gemm_s8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # H's launches 2 to 4.
     # yq, ys, fc1 w_qt, scale, bias, amax, rows, H, M, activation, stream
     "videoitg_mlp_fc1_amax_s8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # yq, ys, fc1 w_qt, scale, bias, amax, gq, rows, H, M, activation, stream
     "videoitg_mlp_fc1_quant_s8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # gq, amax, fc2 w_qt, scale, bias, x, out, rows, M, H, stream
     "videoitg_mlp_fc2_residual_s8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # attn, residual, o w_qt, scale, bias, out, rows, D, H, stream
-    "videoitg_fused_proj_residual_int8_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # I's launch 2 (launch 1: videoitg_row_quant_int8_bf16). aq, a_scale,
+    # o w_qt, scale, bias, residual, out, rows, D, H, stream
+    "videoitg_proj_residual_s8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # q, k, v, valid (nullable), out, lse, B, Hq, Hkv, S, D, causal, sm_scale, stream
     "videoitg_flash_train_fwd_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     # q, k, v, valid (nullable), dout, lse, delta, dq, B, Hq, Hkv, S, D, causal,

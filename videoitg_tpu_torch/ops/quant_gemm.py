@@ -10,9 +10,10 @@ exact int32 sum, and its epilogue applies `(acc * x_scale) * w_scale`.
 
 `act8_gemm_reference` repeats that arithmetic in plain PyTorch with an exact
 integer product; the CPU tests use it, and hold the two launches' plain
-versions (`row_quant_reference`, `act8_gemm_s8_reference`) to it. Served
-behind `Act8Switches.qgemm` (VIDEOITG_QGEMM=1) through
-ops/quant.quantized_linear.
+versions (`row_quant_reference`, `act8_gemm_s8_reference`) to it. The first
+launch, `row_quant_int8`, is also kernel I's first
+(ops/fused_encoder.fused_proj_residual_int8). Served behind
+`Act8Switches.qgemm` (VIDEOITG_QGEMM=1) through ops/quant.quantized_linear.
 """
 
 from __future__ import annotations
@@ -66,6 +67,34 @@ def act8_gemm_s8_reference(x_q: torch.Tensor, x_scale: torch.Tensor, w_qt: torch
     return (int8_matmul(x_q, w_qt).float() * x_scale * w_scale).to(out_dtype)
 
 
+def row_quant_int8(x: torch.Tensor, x_scale=None, name: str = "act8_gemm"):
+    """The first launch, `row_quant_kernel`: x bf16 [M, K] -> (int8 x_q
+    [M, K], fp32 x_scale [M, 1]), the scale made from x where none is given.
+    Kernel I (ops/fused_encoder.py) starts with it too; `name` is the kernel
+    whose launch this is, for its errors.
+
+    CPU tensors run `row_quant_reference`. CUDA tensors launch the kernel
+    (K a multiple of 16) or raise.
+    """
+    if x.device.type == "cpu":
+        return row_quant_reference(x, x_scale)
+    m, k = x.shape
+    dev = x.device
+    check_matrix(name, "x", x, torch.bfloat16, (m, k), dev)
+    if x_scale is not None:
+        check_matrix(name, "x_scale", x_scale, torch.float32, (m, 1), dev)
+    if m <= 0 or k % 16:
+        raise ValueError(f"{name}: M={m}, K={k}: K must be a multiple of 16")
+    x_q = torch.empty((m, k), device=dev, dtype=torch.int8)
+    made = x_scale is None
+    if made:
+        x_scale = torch.empty((m, 1), device=dev, dtype=torch.float32)
+    _build.check(_build.library().videoitg_row_quant_int8_bf16(
+        x.data_ptr(), x_scale.data_ptr(), x_q.data_ptr(), m, k, int(made), stream_handle(x)),
+        f"{name} (row quantisation)")
+    return x_q, x_scale
+
+
 def act8_gemm(x: torch.Tensor, x_scale, w_qt: torch.Tensor,
               w_scale: torch.Tensor) -> torch.Tensor:
     """x [M, K]; x_scale fp32 [M, 1], or None to make it from x (`row_scale`);
@@ -80,26 +109,16 @@ def act8_gemm(x: torch.Tensor, x_scale, w_qt: torch.Tensor,
     n = w_qt.shape[0]
     dev = x.device
     check_matrix("act8_gemm", "x", x, torch.bfloat16, (m, k), dev)
-    if x_scale is not None:
-        check_matrix("act8_gemm", "x_scale", x_scale, torch.float32, (m, 1), dev)
     check_matrix("act8_gemm", "w_qt", w_qt, torch.int8, (n, k), dev)
     check_matrix("act8_gemm", "w_scale", w_scale, torch.float32, (n,), dev)
     if m <= 0 or k % 16 or n % 8:
         raise ValueError(f"act8_gemm: M={m}, K={k}, N={n}: K must be a multiple of 16 "
                          "and N of 8")
-    lib = _build.library()
-    stream = stream_handle(x)
-    x_q = torch.empty((m, k), device=dev, dtype=torch.int8)
-    made = x_scale is None
-    if made:
-        x_scale = torch.empty((m, 1), device=dev, dtype=torch.float32)
-    _build.check(lib.videoitg_row_quant_int8_bf16(x.data_ptr(), x_scale.data_ptr(),
-                                                  x_q.data_ptr(), m, k, int(made), stream),
-                 "act8_gemm (row quantisation)")
+    x_q, x_scale = row_quant_int8(x, x_scale)
     out = torch.empty((m, n), device=dev, dtype=torch.bfloat16)
-    _build.check(lib.videoitg_act8_gemm_s8(x_q.data_ptr(), x_scale.data_ptr(), w_qt.data_ptr(),
-                                           w_scale.data_ptr(), out.data_ptr(), m, k, n, stream),
-                 "act8_gemm")
+    _build.check(_build.library().videoitg_act8_gemm_s8(
+        x_q.data_ptr(), x_scale.data_ptr(), w_qt.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
+        m, k, n, stream_handle(x)), "act8_gemm")
     act8_gemm.launches += 1
     return out
 
