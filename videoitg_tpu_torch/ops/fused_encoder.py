@@ -99,22 +99,23 @@ def ln_row_quant_reference(x, ln: Norm, eps: float):
     return row_quant(_layer_norm_f32(x.float(), ln, eps))
 
 
-def ln_row_quant(x: torch.Tensor, ln: Norm, eps: float, name: str = "ln_row_quant"):
+def ln_row_quant(x: torch.Tensor, ln: Norm, eps: float):
     """LN + per-row int8 quantisation, `ln_quant_kernel`. x: bf16 [N, H] ->
-    (yq, ys). `name` is the kernel whose launch this is, for its errors."""
+    (yq, ys)."""
     if x.device.type == "cpu":
         return ln_row_quant_reference(x, ln, eps)
     n, h = x.shape
     dev = x.device
-    check_matrix(name, "x", x, torch.bfloat16, (n, h), dev)
+    check_matrix("ln_row_quant", "x", x, torch.bfloat16, (n, h), dev)
     if n <= 0 or h % 16 or h > MAX_ROW_WIDTH:
-        raise ValueError(f"{name}: H={h} must be a multiple of 16, at most {MAX_ROW_WIDTH}")
+        raise ValueError(f"ln_row_quant: H={h} must be a multiple of 16, at most "
+                         f"{MAX_ROW_WIDTH}")
     lns, lnb = _vec(ln.scale, h, dev), _vec(ln.bias, h, dev)
     yq = torch.empty((n, h), device=dev, dtype=torch.int8)
     ys = torch.empty((n, 1), device=dev, dtype=torch.float32)
     _build.check(_build.library().videoitg_ln_row_quant_int8_bf16(
         x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), yq.data_ptr(), ys.data_ptr(), n, h,
-        float(eps), stream_handle(x)), f"{name} (LN + quantise)")
+        float(eps), stream_handle(x)), "ln_row_quant")
     return yq, ys
 
 
@@ -181,7 +182,7 @@ def fused_ln_qkv_int8(x: torch.Tensor, ln: Norm, q_lin: QuantLinear, k_lin: Quan
     _check_int8("fused_ln_qkv_int8", q_lin, k_lin, v_lin)
     if x.device.type == "cpu":
         return fused_ln_qkv_int8_reference(x, ln, q_lin, k_lin, v_lin, eps)
-    yq, ys = ln_row_quant(x, ln, eps, "fused_ln_qkv_int8")
+    yq, ys = ln_row_quant(x, ln, eps)
     out = qkv_project(yq, ys, q_lin, k_lin, v_lin)
     fused_ln_qkv_int8.launches += 1
     return out
@@ -320,7 +321,7 @@ def fused_ln_mlp_int8(x: torch.Tensor, ln: Norm, fc1: QuantLinear, fc2: QuantLin
         raise ValueError(f"unknown activation {act!r} (one of {ACTIVATIONS})")
     if x.device.type == "cpu":
         return fused_ln_mlp_int8_reference(x, ln, fc1, fc2, eps, act)
-    yq, ys = ln_row_quant(x, ln, eps, "fused_ln_mlp_int8")
+    yq, ys = ln_row_quant(x, ln, eps)
     amax = mlp_fc1_amax(yq, ys, fc1, act)
     gq = mlp_fc1_quant(yq, ys, fc1, amax, act)
     out = mlp_fc2_residual(x, gq, amax, fc2)
@@ -389,7 +390,7 @@ def fused_proj_residual_int8(attn: torch.Tensor, residual: torch.Tensor,
     _check_int8("fused_proj_residual_int8", o_lin)
     if attn.device.type == "cpu":
         return fused_proj_residual_int8_reference(attn, residual, o_lin)
-    aq, a_scale = row_quant_int8(attn, name="fused_proj_residual_int8")
+    aq, a_scale = row_quant_int8(attn)
     out = proj_residual(aq, a_scale, residual, o_lin)
     fused_proj_residual_int8.launches += 1
     return out

@@ -67,11 +67,10 @@ def act8_gemm_s8_reference(x_q: torch.Tensor, x_scale: torch.Tensor, w_qt: torch
     return (int8_matmul(x_q, w_qt).float() * x_scale * w_scale).to(out_dtype)
 
 
-def row_quant_int8(x: torch.Tensor, x_scale=None, name: str = "act8_gemm"):
+def row_quant_int8(x: torch.Tensor, x_scale=None):
     """The first launch, `row_quant_kernel`: x bf16 [M, K] -> (int8 x_q
     [M, K], fp32 x_scale [M, 1]), the scale made from x where none is given.
-    Kernel I (ops/fused_encoder.py) starts with it too; `name` is the kernel
-    whose launch this is, for its errors.
+    Kernel I (ops/fused_encoder.py) starts with it too.
 
     CPU tensors run `row_quant_reference`. CUDA tensors launch the kernel
     (K a multiple of 16) or raise.
@@ -80,18 +79,18 @@ def row_quant_int8(x: torch.Tensor, x_scale=None, name: str = "act8_gemm"):
         return row_quant_reference(x, x_scale)
     m, k = x.shape
     dev = x.device
-    check_matrix(name, "x", x, torch.bfloat16, (m, k), dev)
+    check_matrix("row_quant_int8", "x", x, torch.bfloat16, (m, k), dev)
     if x_scale is not None:
-        check_matrix(name, "x_scale", x_scale, torch.float32, (m, 1), dev)
+        check_matrix("row_quant_int8", "x_scale", x_scale, torch.float32, (m, 1), dev)
     if m <= 0 or k % 16:
-        raise ValueError(f"{name}: M={m}, K={k}: K must be a multiple of 16")
+        raise ValueError(f"row_quant_int8: M={m}, K={k}: K must be a multiple of 16")
     x_q = torch.empty((m, k), device=dev, dtype=torch.int8)
     made = x_scale is None
     if made:
         x_scale = torch.empty((m, 1), device=dev, dtype=torch.float32)
     _build.check(_build.library().videoitg_row_quant_int8_bf16(
         x.data_ptr(), x_scale.data_ptr(), x_q.data_ptr(), m, k, int(made), stream_handle(x)),
-        f"{name} (row quantisation)")
+        "row_quant_int8")
     return x_q, x_scale
 
 
