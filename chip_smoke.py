@@ -66,7 +66,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      over two runs; every head dim from 8 to 128 runs causal and not.
    * A, B (attention, bf16, the TMA + wgmma kernels): plus a long case whose
      length is not a multiple of the 128-key tile, a small causal case and a
-     fully-masked-row case; A at ragged S = 577 and 1,000, at S = 500 with
+     fully-masked-row case; A at the clip tower's [8, 16, 577, 64] (timed
+     beside its plain version, the library call and its bound), at ragged
+     S = 577 and 1,000, at S = 500 with
      D = 128 (both past K resident: the two-pass kernel) and at every
      head-dim instantiation (D = 8 ... 128); B at every head-dim
      instantiation with a key mask, causal and not, and at GQA
@@ -114,9 +116,12 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      columns of fc1's last tile counted; G's include its k held to the plain
      q (a wrong split). I has no LN: it must be bit-equal in every case. Each
      line times the launches one by one and, for orientation, the bare
-     `torch._int_mm` product. `--only int8-kernels` prints ptxas' lines for
-     F's, G's, H's and I's instances, and the library must hold them and not
-     the mma.sync kernels they replaced.
+     `torch._int_mm` product. G, H with quick_gelu and I run again at the
+     clip tower's widths, [73,856, 1024] via 4096 (128 frames x 577 tokens),
+     at the same tolerances, timed beside their plain versions and bounds.
+     `--only int8-kernels` prints ptxas' lines for F's, G's, H's and I's
+     instances, and the library must hold them and not the mma.sync kernels
+     they replaced.
    At each main-path shape, deliberately broken uses (keys dropped, the key
    mask or the segment ids ignored, q not pre-scaled, a head of the group
    left out, a bias, the LN bias or the residual dropped, the last k tile of
@@ -136,6 +141,16 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    and read right after it; every kernel of the path must have launched.
    Scores must be finite in [0, 1], and each `index` a permutation of the
    sampled frames.
+   Checkpoints: HF-format directories written by `save_hf_checkpoint` (fp32
+   safetensors) into a temporary directory and read back in bf16 by
+   `load_grounding_model`, bit-equal to the model written: videoitg-8b-shallow
+   (one 512-frame select through the written and the loaded model: the same
+   scores and Top-K index), the same LM under CLIP ViT-L/14-336's tower (3
+   layers; a 512-frame select, then act8 with the int8 kernels on against
+   off within E2E_ATOL) and that tower with the mlp2x_gelu projector (8
+   frames, 4,608 image tokens). Each prints its file bytes, write and load
+   seconds and GB/s, and the load's device memory peak; the launch counts of
+   each select are exact (A, B, and F-I under act8).
 6. Serving daemon: VideoITG-8B bf16 behind `cli/serve.SelectionServer` and
    a `ThreadingHTTPServer` on port 0 in this process, 512-frame 640x360
    requests sent over HTTP. The machine has no libav, so the port's file
@@ -191,7 +206,8 @@ after checking them (a short first run after editing them),
 `--only train-kernels` after C, D, E, `--only splash-kernels` after K and L
 `--only segment-kernels` after J (a short first run for a new kernel);
 `--only serve` runs phase 6 alone, `--only train` phase 7, `--only vlm` phase
-8. None of them prints a result line.
+8, `--only checkpoint` the checkpoint part of phase 5. None of them prints a
+result line.
 
 The last two lines are the per-kernel JSON record and
 {"ok": true, "device": {...}}.
@@ -375,6 +391,33 @@ def check_kernels(dev) -> dict:
         source="videoitg_tpu_torch/csrc/flash_attention_short.cu",
         replaces="videoitg_tpu/ops/flash_attention_short.py:81",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bnd)
+    del q, k, v, ref
+
+    # Kernel A at the clip tower's shape (CLIP ViT-L/14-336: 576 patches and
+    # the CLS token, 16 heads x 64), eight frames.
+    q, k, v = (randn(8, 16, 577, 64) for _ in range(3))
+    ref = flash_mha_short_reference(q.float(), k.float(), v.float())
+    tol = bf16_tol(ref)
+    err = max_err(flash_mha_short(q, k, v), ref)
+    drop = max_err(flash_mha_short_reference(q.float(), k[:, :, :513].float(),
+                                             v[:, :, :513].float()), ref)
+    ms = cuda_ms(lambda: flash_mha_short(q, k, v), 20)
+    plain_ms = cuda_ms(lambda: flash_mha_short_reference(q, k, v), 5)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
+    bnd = bound(4 * 577 * 577 * 64 * 8 * 16, PEAK_BF16, 4 * q.numel() * 2)
+    print(f"kernel flash_mha_short clip [8, 16, 577, 64] bf16: max_abs_err {err:.6g} (tol "
+          f"{tol:.6g}); broken: last 64 keys dropped {drop:.6g}; {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library (sdpa) {library_ms:.4f} ms, bound {bnd['bound_ms']:.4f} "
+          f"ms by {bnd['bound_by']}", flush=True)
+    if not err <= tol:
+        fail(f"flash_mha_short clip shape: error {err} > {tol}")
+    if not drop > tol:
+        fail(f"flash_mha_short clip tolerance {tol} does not catch dropped keys ({drop})")
+    records["flash_mha_short"]["max_abs_err"] = max(records["flash_mha_short"]["max_abs_err"],
+                                                    err)
+    records["flash_mha_short"].update(clip_ms=ms, clip_plain_ms=plain_ms,
+                                      clip_library_ms=library_ms,
+                                      clip_bound_ms=bnd["bound_ms"])
     del q, k, v, ref
 
     # Kernel B at the LM's shape: 512 frames x 25 slots + 256 text slots
@@ -919,6 +962,80 @@ def check_int8_kernels(dev) -> dict:
         mean_abs_err=worst_mean, ms=times["gelu_tanh"][0], plain_ms=times["gelu_tanh"][1],
         quick_gelu_ms=times["quick_gelu"][0], stage_ms=times["gelu_tanh"][2],
         library_ms=None, **bnd)
+    del x, ln, ln_no_bias, fc1, fc2, fc2_cut, fc1_hot, q_lin, k_lin, v_lin, o_lin
+    torch.cuda.empty_cache()
+
+    # ---- G, H (quick_gelu) and I at the clip tower's widths (CLIP
+    # ViT-L/14-336): one chunk of 128 frames x 577 tokens, hidden 1024, MLP
+    # 4096, LN eps 1e-5. The same checks at the same tolerances. ----
+    rows, h, inter, eps = 128 * 577, 1024, 4096, 1e-5
+    ln = Norm(h, bias=True, device=dev, dtype=torch.bfloat16)
+    ln.scale.data = (1.0 + randn(h, std=0.1)).to(torch.bfloat16)
+    ln.bias.data = randn(h, std=0.3).to(torch.bfloat16)
+    x = (randn(rows, h) * (1.0 + randn(1, h).abs()) + randn(1, h, std=0.5)).to(torch.bfloat16)
+    q_lin, k_lin, v_lin = (int8_linear(h, h, bias_std=0.5) for _ in range(3))
+    refs = fe.fused_ln_qkv_int8_reference(x, ln, q_lin, k_lin, v_lin, eps)
+    outs = fe.fused_ln_qkv_int8(x, ln, q_lin, k_lin, v_lin, eps)
+    tol = min(int8_tol(r.float()) for r in refs)
+    err = max(err_stats(o, r)[0] for o, r in zip(outs, refs))
+    ms = cuda_ms(lambda: fe.fused_ln_qkv_int8(x, ln, q_lin, k_lin, v_lin, eps), 5)
+    plain_ms = cuda_ms(lambda: fe.fused_ln_qkv_int8_reference(x, ln, q_lin, k_lin, v_lin, eps), 2)
+    bnd = bound(2 * rows * h * 3 * h, PEAK_INT8,
+                rows * h * 2 + 3 * h * h + rows * 3 * h * 2 + 2 * 3 * h * 4 + 2 * h * 4)
+    print(f"kernel fused_ln_qkv_int8 clip [{rows}, {h}] -> 3 x [{rows}, {h}]: max_abs_err "
+          f"{err:.6g} (tol {tol:.6g}); {ms:.4f} ms ({2 * rows * h * 3 * h / ms / 1e9:.1f} TOP/s), "
+          f"plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}",
+          flush=True)
+    if not err <= tol:
+        fail(f"fused_ln_qkv_int8 at the clip width: error {err} > {tol}")
+    records["fused_ln_qkv_int8"]["max_abs_err"] = max(
+        records["fused_ln_qkv_int8"]["max_abs_err"], err)
+    records["fused_ln_qkv_int8"].update(clip_ms=ms, clip_plain_ms=plain_ms,
+                                        clip_bound_ms=bnd["bound_ms"])
+    del refs, outs
+
+    o_lin = int8_linear(h, h, bias_std=0.5)
+    attn = randn(rows, h).to(torch.bfloat16)
+    ref = fe.fused_proj_residual_int8_reference(attn, x, o_lin)
+    out = fe.fused_proj_residual_int8(attn, x, o_lin)
+    err, _ = err_stats(out, ref)
+    equal = bool(torch.equal(out, ref))
+    ms = cuda_ms(lambda: fe.fused_proj_residual_int8(attn, x, o_lin), 5)
+    plain_ms = cuda_ms(lambda: fe.fused_proj_residual_int8_reference(attn, x, o_lin), 2)
+    bnd = bound(2 * rows * h * h, PEAK_INT8, 3 * rows * h * 2 + h * h + 2 * h * 4)
+    print(f"kernel fused_proj_residual_int8 clip [{rows}, {h}]: max_abs_err {err:.6g}, "
+          f"bit-equal {equal}; {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}", flush=True)
+    if not equal:
+        fail(f"fused_proj_residual_int8 at the clip width not bit-equal: error {err}")
+    records["fused_proj_residual_int8"].update(clip_ms=ms, clip_plain_ms=plain_ms,
+                                               clip_bound_ms=bnd["bound_ms"])
+    del attn, ref, out
+
+    act = "quick_gelu"
+    fc1, fc2 = int8_linear(h, inter, bias_std=0.1), int8_linear(inter, h, bias_std=0.5)
+    ref = fe.fused_ln_mlp_int8_reference(x, ln, fc1, fc2, eps, act)
+    out = fe.fused_ln_mlp_int8(x, ln, fc1, fc2, eps, act)
+    tol = int8_tol(ref.float())
+    err, _ = err_stats(out, ref)
+    again = bool(torch.equal(out, fe.fused_ln_mlp_int8(x, ln, fc1, fc2, eps, act)))
+    ms = cuda_ms(lambda: fe.fused_ln_mlp_int8(x, ln, fc1, fc2, eps, act), 5)
+    plain_ms = cuda_ms(lambda: fe.fused_ln_mlp_int8_reference(x, ln, fc1, fc2, eps, act), 2)
+    asked = 4 * rows * h * inter
+    bnd = bound(asked, PEAK_INT8, 2 * rows * h * 2 + 2 * h * inter + 2 * (inter + h) * 4
+                + 2 * h * 4)
+    print(f"kernel fused_ln_mlp_int8 {act} clip [{rows}, {h}] via {inter}: max_abs_err "
+          f"{err:.6g} (tol {tol:.6g}); two runs bit-equal {again}; {ms:.4f} ms "
+          f"({asked / ms / 1e9:.1f} TOP/s of the 2 products asked for), plain {plain_ms:.4f} "
+          f"ms, bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}", flush=True)
+    if not (err <= tol and again):
+        fail(f"fused_ln_mlp_int8 {act} at the clip width: error {err} > {tol} or two runs "
+             f"differ ({again})")
+    records["fused_ln_mlp_int8"]["max_abs_err"] = max(
+        records["fused_ln_mlp_int8"]["max_abs_err"], err)
+    records["fused_ln_mlp_int8"].update(clip_ms=ms, clip_plain_ms=plain_ms,
+                                        clip_bound_ms=bnd["bound_ms"])
+    del x, ref, out
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return records
@@ -1904,6 +2021,155 @@ def run_slices(dev, card: str) -> dict:
     return {**launches, **{k: launches[k] + v for k, v in bf16_launches.items()}}
 
 
+def checkpoint_cells() -> list:
+    """(name, config, frames) of the checkpoint phase: VideoITG-8B's widths
+    with 2 LM and 3 tower layers; the same LM under CLIP ViT-L/14-336's tower
+    (openai/clip-vit-large-patch14-336's vision config, LLaVA-1.5's tower),
+    3 layers, seq_mlp 1024 -> 3584; and that tower with LLaVA-1.5's
+    mlp2x_gelu projector, one LM token per patch."""
+    import dataclasses
+
+    from videoitg_tpu_torch.config import GroundingConfig, VisionConfig
+
+    shallow = GroundingConfig.videoitg_8b_shallow()
+    clip_tower = VisionConfig(hidden_size=1024, intermediate_size=4096, num_layers=3,
+                              num_heads=16, image_size=336, patch_size=14, layer_norm_eps=1e-5,
+                              select_layer=-2, arch="clip", select_feature="patch")
+    clip = dataclasses.replace(shallow, vision=clip_tower, projector=dataclasses.replace(
+        shallow.projector, input_dim=1024))
+    mlp2x = dataclasses.replace(clip, projector=dataclasses.replace(
+        clip.projector, projector_type="mlp2x_gelu"))
+    return [("videoitg-8b-shallow", shallow, 512), ("clip", clip, 512),
+            ("clip + mlp2x_gelu", mlp2x, 8)]
+
+
+def run_checkpoints(dev, card: str) -> dict:
+    """HF-format checkpoints written and read by the port on the card, in a
+    temporary directory, then driven through `SelectionEngine.select`: per
+    cell, a bf16 model from SEED is written by `save_hf_checkpoint` (fp32
+    safetensors) and read back by `load_grounding_model` in bf16, which must
+    be bit-equal to it. videoitg-8b-shallow: one 512-frame select through
+    both models gives the same scores and Top-K index. clip: one 512-frame
+    select in bf16 (kernel A at S = 577, D = 64), then the act8 tier with the
+    int8 kernels on (F, G, H with quick_gelu, I at 1024 / 4096) against the
+    same model with them off, within E2E_ATOL. clip + mlp2x_gelu: 8 frames,
+    4,608 image tokens, through kernel B. Launch counts are zeroed before
+    each select of a loaded model and read after it. Returns the counts
+    summed over the phase."""
+    import resource
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from videoitg_tpu_torch.checkpoint import load_grounding_model, save_hf_checkpoint
+    from videoitg_tpu_torch.engine import SelectionEngine
+    from videoitg_tpu_torch.models.grounding import init_grounding
+    from videoitg_tpu_torch.ops.quant import apply_quantization_tier
+    from videoitg_tpu_torch.utils.common import CharTokenizer
+
+    counted = wrappers()
+    total = {name: 0 for name in counted}
+    rng = np.random.default_rng(SEED + 6)
+
+    def bits(t):
+        return t.reshape(-1).view(torch.uint8)
+
+    def select(tag, engine, frames, sampled, expect):
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.select(frames, sampled, QUESTIONS[0])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counted.items()}
+        check_result(res, sampled)
+        print(f"checkpoint {tag}: select {len(sampled)} frames {wall:.4f} s, top8 "
+              f"{res.topk(8)}; launches {dict((k, v) for k, v in launches.items() if v)} "
+              f"[{card}]", flush=True)
+        for name, n in expect.items():
+            if launches[name] != n:
+                fail(f"checkpoint {tag}: {name} launched {launches[name]} times, expected {n}")
+        for name, n in launches.items():
+            total[name] += n
+        return res
+
+    for name, cfg, t in checkpoint_cells():
+        tok = CharTokenizer(cfg.lm.vocab_size)
+        model = init_grounding(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                               dtype=torch.bfloat16)
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            rss_write = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+            t0 = time.perf_counter()
+            path = save_hf_checkpoint(model, cfg, tmp)
+            write_s = time.perf_counter() - t0
+            nbytes = os.path.getsize(path)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+            t0 = time.perf_counter()
+            loaded, got_cfg = load_grounding_model(tmp, device=dev, dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - before
+            rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        want, got = model.state_dict(), loaded.state_dict()
+        unequal = sorted(k for k in want if not torch.equal(bits(want[k]), bits(got[k])))
+        weights = sum(v.numel() * v.element_size() for v in got.values())
+        print(f"checkpoint {name}: {nbytes} bytes of fp32 safetensors written in {write_s:.4f} "
+              f"s ({nbytes / write_s / 1e9:.3f} GB/s), read into bf16 on the card in "
+              f"{load_s:.4f} s ({nbytes / load_s / 1e9:.3f} GB/s of file); device memory peak "
+              f"of the load {peak / 2**30:.4f} GiB for {weights / 2**30:.4f} GiB of weights; "
+              f"host max RSS {rss_write / 2**20:.3f} GiB before the write, "
+              f"{rss0 / 2**20:.3f} after it, {rss1 / 2**20:.3f} after the load; "
+              f"{len(want)} tensors, bit-equal {not unequal} [{card}]", flush=True)
+        if got_cfg != cfg or set(got) != set(want) or unequal:
+            fail(f"checkpoint {name}: the loaded model differs from the written one "
+                 f"({unequal[:5]})")
+        frames = frames_u8(rng, t)
+        sampled = [2 * i for i in range(t)]
+        chunks = max(1, t // 128)
+        expect = {"flash_mha_short": cfg.vision.num_effective_layers * chunks,
+                  "flash_mha": cfg.lm.num_layers}
+        engine = SelectionEngine(loaded, cfg, tok, device=dev, dtype=torch.bfloat16)
+        got_res = select(f"{name}, loaded", engine, frames, sampled, expect)
+        if name == "videoitg-8b-shallow":
+            written = SelectionEngine(model, cfg, tok, device=dev, dtype=torch.bfloat16)
+            want_res = select(f"{name}, as written", written, frames, sampled, expect)
+            same = (np.array_equal(got_res.raw_scores, want_res.raw_scores)
+                    and got_res.index == want_res.index)
+            print(f"checkpoint {name}: loaded vs written model, scores and Top-K index equal "
+                  f"{same}", flush=True)
+            if not same:
+                fail(f"checkpoint {name}: the loaded model selects otherwise")
+            del written
+        if name == "clip":
+            apply_quantization_tier(loaded, "act8")
+            on = SelectionEngine(loaded, cfg, tok, device=dev, dtype=torch.bfloat16,
+                                 qgemm=True, fused=True)
+            layers, lm_layers = cfg.vision.num_effective_layers * chunks, cfg.lm.num_layers
+            on_res = select(f"{name}, act8, int8 kernels on", on, frames, sampled, dict(
+                expect, act8_gemm=7 * lm_layers, fused_ln_qkv_int8=layers,
+                fused_ln_mlp_int8=layers, fused_proj_residual_int8=layers))
+            off = SelectionEngine(loaded, cfg, tok, device=dev, dtype=torch.bfloat16,
+                                  qgemm=False, fused=False)
+            off_res = select(f"{name}, act8, int8 kernels off", off, frames, sampled, dict(
+                expect, act8_gemm=0, fused_ln_qkv_int8=0, fused_ln_mlp_int8=0,
+                fused_proj_residual_int8=0))
+            diff = float(np.abs(on_res.raw_scores - off_res.raw_scores).max())
+            print(f"checkpoint {name}: act8, int8 kernels on vs off: max |score diff| "
+                  f"{diff:.6g} (atol {E2E_ATOL})", flush=True)
+            if not diff <= E2E_ATOL:
+                fail(f"checkpoint {name}: act8 kernels on vs off {diff} > {E2E_ATOL}")
+            del on, off
+        del model, loaded, engine, want, got
+        torch.cuda.empty_cache()
+    return total
+
+
 def run_serving(dev, card: str) -> dict:
     """The serving daemon at full width: VideoITG-8B bf16 behind
     `SelectionServer` and `ThreadingHTTPServer` on port 0 in this process,
@@ -2613,14 +2879,15 @@ def main(argv=None) -> int:
     parser.add_argument("--only", choices=["attention-kernels", "int8-kernels", "train-kernels",
                                           "splash-kernels",
                                           "segment-kernels", "vlm",
-                                          "serve", "train"],
+                                          "serve", "train", "checkpoint"],
                         default=None,
                         help="build, then only: check kernels A, B (attention-kernels), F-I "
                              "(int8-kernels), C, D, E (train-kernels), K, L (splash-kernels) "
                              "or J (segment-kernels) against their plain versions, with "
                              "ptxas' lines for the TMA + wgmma instances among them; or run "
                              "the daemon phase (serve), "
-                             "the training phases (train) or the causal-VLM phases (vlm)")
+                             "the training phases (train), the causal-VLM phases (vlm) or "
+                             "the HF-checkpoint phase (checkpoint)")
     args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "videoitg_tpu_torch")):
         fail("run from a checkout of the repository (videoitg_tpu_torch/ not found)")
@@ -2689,6 +2956,10 @@ def main(argv=None) -> int:
         run_vlm(dev, card)
         print("causal-VLM phases passed", flush=True)
         return 0
+    if args.only == "checkpoint":
+        run_checkpoints(dev, card)
+        print("checkpoint phase passed", flush=True)
+        return 0
     records = check_kernels(dev)
     records.update(check_train_kernels(dev))
     records.update(check_int8_kernels(dev))
@@ -2697,6 +2968,8 @@ def main(argv=None) -> int:
     check_agreement(dev)
     launches = run_slices(dev, card)
     torch.cuda.empty_cache()
+    for name, n in run_checkpoints(dev, card).items():
+        launches[name] = launches.get(name, 0) + n
     for name, n in run_serving(dev, card).items():
         launches[name] = launches.get(name, 0) + n
     launches.update(run_repro_script())

@@ -1,5 +1,5 @@
-"""Helpers shared by tests/test_torch_train*.py, tests/test_torch_lora.py and
-tests/test_torch_vlm*.py:
+"""Helpers shared by tests/test_torch_train*.py, tests/test_torch_lora.py,
+tests/test_torch_vlm*.py, tests/test_torch_checkpoint.py and tests/test_torch_clip.py:
 models on bridged weights, batches from numpy seeds in both packages' forms,
 and JAX trees (parameters, gradients) flattened to the port's parameter names."""
 
@@ -34,6 +34,27 @@ def causal_cfgs(tie=True):
             vision=base.vision, projector=base.projector,
             lm=mod.LMConfig(**{**base.lm.__dict__, "causal": True, "tie_word_embeddings": tie}),
             max_text_len=base.max_text_len))
+    return out
+
+
+def family_cfgs(ptype="seq_mlp"):
+    """(jax cfg, port cfg): tiny with the projector family `ptype`; identity
+    keeps the tower's width, so the LM runs at it."""
+    import dataclasses
+
+    from videoitg_tpu import config as jax_config
+    from videoitg_tpu_torch import config as port_config
+
+    out = []
+    for mod in (jax_config, port_config):
+        cfg = mod.GroundingConfig.tiny()
+        cfg = dataclasses.replace(cfg, projector=dataclasses.replace(
+            cfg.projector, projector_type=ptype))
+        if ptype == "identity":
+            cfg = dataclasses.replace(cfg, lm=dataclasses.replace(
+                cfg.lm, hidden_size=cfg.vision.hidden_size, head_dim=8, num_heads=4,
+                num_kv_heads=2, intermediate_size=64))
+        out.append(cfg)
     return out
 
 

@@ -1,6 +1,8 @@
 """The port's `select` CLI takes the JAX CLI's flags: `--cpu` and
 `--save-frames DIR`, which writes each selected frame as
-`frame_{i:03d}_idx{frame_idx}.jpg` (videoitg_tpu/cli/select.py)."""
+`frame_{i:03d}_idx{frame_idx}.jpg` (videoitg_tpu/cli/select.py).
+`--export-serving` and a serving checkpoint as `--model` are refused with
+their ROADMAP item."""
 
 import io
 import json
@@ -10,7 +12,7 @@ import sys
 
 from PIL import Image
 
-from videoitg_tpu_torch.cli.select import build_parser
+from videoitg_tpu_torch.cli.select import build_parser, main
 from videoitg_tpu_torch.data.video import VideoReader, write_test_video
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -47,3 +49,12 @@ def test_select_cpu_saves_the_selected_frames_in_a_child_process(tmp_path):
             buf = io.BytesIO()
             Image.fromarray(vr[frame_idx]).save(buf, "JPEG")
             assert (out_dir / name).read_bytes() == buf.getvalue(), name
+
+
+def test_serving_checkpoints_are_refused_naming_their_item(tmp_path, capsys):
+    (tmp_path / "serving_config.json").write_text("{}")
+    for flags in (["--preset", "tiny", "--random-init", "--export-serving", str(tmp_path)],
+                  ["--model", str(tmp_path)]):
+        assert main([*flags, "--cpu", "--video", "v.mp4", "--prompt", "q"]) == 2
+        err = capsys.readouterr().err
+        assert "not ported" in err and "ROADMAP queue 1, item 4" in err, err

@@ -342,7 +342,7 @@ def _cli(*flags, cwd):
 
 
 REFUSED = [
-    (("--model", "/no/such/dir"), "--model", "ROADMAP queue 1, item 3"),
+    (("--model", "{serving}"), "--model", "ROADMAP queue 1, item 4"),
     (("--tp", "2"), "--dp / --tp / --sp / --pp", "ROADMAP queue 1, item 8"),
     (("--dp", "4"), "--dp / --tp / --sp / --pp", "ROADMAP queue 1, item 8"),
     (("--sp", "2"), "--dp / --tp / --sp / --pp", "ROADMAP queue 1, item 8"),
@@ -352,6 +352,12 @@ REFUSED = [
 
 @pytest.mark.parametrize("flags,named,item", REFUSED)
 def test_cli_refuses_what_is_not_ported(tmp_path, flags, named, item):
+    """A serving checkpoint (a directory with serving_config.json) as
+    `--model` and a mesh above one device are refused, each with its
+    ROADMAP item; HF-format `--model` directories are ported."""
+    (tmp_path / "serving").mkdir()
+    (tmp_path / "serving" / "serving_config.json").write_text("{}")
+    flags = [f.format(serving=tmp_path / "serving") for f in flags]
     proc = _cli("--preset", "tiny", "--random-init", "--cpu", "--port", "0", *flags, cwd=tmp_path)
     assert proc.returncode == 2
     assert named in proc.stderr and item in proc.stderr and "not ported" in proc.stderr

@@ -179,14 +179,14 @@ REFUSED = [
 ]
 
 
-NOW_PORTED = ("--objective vlm", "--offload-optimizer")
+NOW_PORTED = ("--model", "--objective vlm", "--offload-optimizer")
 
 
 @pytest.mark.parametrize("flags,named", REFUSED)
 def test_cli_refuses_what_is_not_ported(capsys, flags, named):
-    """`--model` and a mesh above one device are refused before anything is
-    loaded, each with its ROADMAP item. The VLM objective and the optimizer
-    offload were refused once and are ported: the same check lets them by."""
+    """A mesh above one device is refused before anything is loaded, with its
+    ROADMAP item. `--model`, the VLM objective and the optimizer offload were
+    refused once and are ported: the same check lets them by."""
     from videoitg_tpu_torch.cli.train import _refusal, build_parser, main
 
     argv = ["--random-init", "--data-path", "x.json", "--image-folder", ".", "--cpu", *flags]

@@ -24,25 +24,36 @@ def resolve_device(cpu_requested: bool, tool: str, cpu_flag: str) -> torch.devic
 def load_grounding_components(model: str | None, preset_name: str, random_init: bool,
                               dtype: torch.dtype, device: torch.device, seed: int = 0,
                               quantize: str | None = None, tool: str = "videoitg-torch"):
-    """(model, cfg, tokenizer) for a random-init preset, with the optional
-    serving quantisation tier ('int8', 'int4', 'act8') applied in place. HF
-    checkpoints and pre-quantised serving checkpoints are not ported yet
-    (ROADMAP queue 1, item 3; they need no released weights)."""
-    from videoitg_tpu_torch.config import preset as get_preset
-    from videoitg_tpu_torch.models.grounding import init_grounding
-    from videoitg_tpu_torch.utils.common import CharTokenizer
-
+    """(model, cfg, tokenizer) from an HF-format checkpoint directory (its
+    tokenizer through transformers' AutoTokenizer) or a random-init preset,
+    with the optional serving quantisation tier ('int8', 'int4', 'act8')
+    applied in place. Pre-quantised serving checkpoints are refused (ROADMAP
+    queue 1, item 4)."""
     if model:
-        raise SystemExit(
-            f"error: {tool}: --model (HF weights) is not ported yet; use --random-init")
-    if not random_init:
-        raise SystemExit(f"error: {tool}: pass --random-init (HF weights are not ported yet)")
-    cfg = get_preset(preset_name)
-    generator = torch.Generator(device=device).manual_seed(seed)
-    params = init_grounding(cfg, generator, device=device, dtype=dtype)
-    print(f"[{tool}] WARNING: random weights — scores are noise", file=sys.stderr)
+        from videoitg_tpu_torch.checkpoint import is_serving_checkpoint, load_grounding_model
+
+        if is_serving_checkpoint(model):
+            raise SystemExit(
+                f"error: {tool}: --model {model} is a serving checkpoint (serving_config.json); "
+                "serving checkpoints are not ported to PyTorch yet (ROADMAP queue 1, item 4)")
+        from transformers import AutoTokenizer
+
+        params, cfg = load_grounding_model(model, device=device, dtype=dtype)
+        tokenizer = AutoTokenizer.from_pretrained(model)
+    elif random_init:
+        from videoitg_tpu_torch.config import preset as get_preset
+        from videoitg_tpu_torch.models.grounding import init_grounding
+        from videoitg_tpu_torch.utils.common import CharTokenizer
+
+        cfg = get_preset(preset_name)
+        generator = torch.Generator(device=device).manual_seed(seed)
+        params = init_grounding(cfg, generator, device=device, dtype=dtype)
+        tokenizer = CharTokenizer(cfg.lm.vocab_size)
+        print(f"[{tool}] WARNING: random weights — scores are noise", file=sys.stderr)
+    else:
+        raise SystemExit(f"error: {tool}: pass --model DIR or --random-init")
     if quantize:
         from videoitg_tpu_torch.ops.quant import apply_quantization_tier
 
         params = apply_quantization_tier(params, quantize)
-    return params, cfg, CharTokenizer(cfg.lm.vocab_size)
+    return params, cfg, tokenizer

@@ -5,9 +5,14 @@ rounding, score them against the prompt, print the Top-K original frame
 indices in ascending order (or the full results.jsonl-style record with
 --json).
 
-Example:
+Examples:
+  python -m videoitg_tpu_torch.cli.select --model ckpt/ \\
+      --video clip.mp4 --prompt "Which scene shows the rocket launch?"
   python -m videoitg_tpu_torch.cli.select --preset tiny --random-init \\
       --video clip.mp4 --prompt "Which scene shows the rocket launch?" --device cpu
+
+--model DIR reads an HF-format VideoITG checkpoint (safetensors or .bin,
+videoitg_tpu_config.json, a tokenizer for transformers' AutoTokenizer).
 
 --quantize int8 | int4 | act8 applies a serving tier (ops/quant.py). Under
 act8, VIDEOITG_QGEMM=1 and VIDEOITG_FUSED=1 send the int8 products of the LM
@@ -25,14 +30,13 @@ import sys
 import torch
 
 _NOT_PORTED = {
-    "model": "--model (HF weights)",
-    "export_serving": "--export-serving",
+    "export_serving": "--export-serving (serving checkpoints; ROADMAP queue 1, item 4)",
 }
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("videoitg-torch-select", description=__doc__)
-    p.add_argument("--model", help="HF-format checkpoint directory (not ported yet)")
+    p.add_argument("--model", help="HF-format VideoITG checkpoint directory")
     p.add_argument("--preset", default="videoitg-8b", help="model preset name")
     p.add_argument("--random-init", action="store_true",
                    help="random weights from --seed (no checkpoint needed)")
@@ -56,7 +60,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quantize", default=None, choices=[None, "int8", "int4", "act8"],
                    help="serving quantization of the LM: int8 / int4 weights, "
                         "act8 = int8 weights + dynamic int8 activations (LM + vision)")
-    p.add_argument("--export-serving", metavar="DIR", help="not ported yet")
+    p.add_argument("--export-serving", metavar="DIR",
+                   help="a serving checkpoint: not ported yet (ROADMAP queue 1, item 4)")
     p.add_argument("--transfer", default="rgb", choices=["rgb", "yuv420"],
                    help="yuv420: ship the decoder's native YUV planes (half the "
                         "host-to-device bytes) and convert on the device")
@@ -67,7 +72,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     for key, flag in _NOT_PORTED.items():
         if getattr(args, key):
-            print(f"error: {flag} is not ported to PyTorch yet (ROADMAP queue 1)",
+            print(f"error: {flag} is not ported to PyTorch yet",
                   file=sys.stderr)
             return 2
     from videoitg_tpu_torch.cli._model_loading import load_grounding_components, resolve_device

@@ -27,16 +27,18 @@ API:
 It runs on the card; `--cpu` is the only way onto the CPU, and with neither a
 CUDA device nor `--cpu` it stops with an error.
 
-Start:  python -m videoitg_tpu_torch.cli.serve --random-init --quantize act8 \\
+Start:  python -m videoitg_tpu_torch.cli.serve --model ckpt/ --quantize act8 \\
             --num-frames 512 --target-fps 1 --warmup --port 8080
 Smoke:  python -m videoitg_tpu_torch.cli.serve --preset tiny --random-init \\
             --cpu --port 8080
         curl -s localhost:8080/select -d '{"video_path": "clip.mp4",
             "prompt": "when does the car turn left?", "topk": 8}'
 
-Flags of the JAX daemon that are refused here, each with the ROADMAP item
-that covers it: `--model` (HF weights and tokenizer files are not in the
-repository) and `--dp/--tp/--sp/--pp` (multi-device).
+`--model DIR` reads an HF-format VideoITG checkpoint (safetensors or .bin,
+videoitg_tpu_config.json, a tokenizer for transformers' AutoTokenizer).
+Refused here, each with the ROADMAP item that covers it: a serving
+checkpoint (a directory with serving_config.json) as `--model`, and
+`--dp/--tp/--sp/--pp` above 1 (multi-device).
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("videoitg-torch-serve", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--model", help="HF-format checkpoint directory (not ported yet)")
+    p.add_argument("--model", help="HF-format VideoITG checkpoint directory")
     p.add_argument("--preset", default="videoitg-8b")
     p.add_argument("--random-init", action="store_true")
     p.add_argument("--num-frames", type=int, default=512)
@@ -268,9 +270,6 @@ def make_handler(server: SelectionServer):
 
 def _refusal(args) -> str | None:
     """The message for a flag of the JAX daemon that the port does not run."""
-    if args.model:
-        return ("--model (HF weights and tokenizer files are not in the repository; "
-                "ROADMAP queue 1, item 3): use --random-init")
     if any(n is not None and n > 1 for n in (args.dp, args.tp, args.sp, args.pp)):
         return "--dp / --tp / --sp / --pp above 1 (multi-device; ROADMAP queue 1, item 8)"
     return None

@@ -9,8 +9,15 @@ layers, checkpoints with auto-resume. Full finetune, `--lora RANK` and QLoRA
   {"video", "question", "clip_num"} records.
 --objective vlm: next-token CE over assistant spans on
   {"video" | "image", "conversations"} records, plain or ChatML template
-  (`--conv-template`; `--fps -1` draws the rate per video). With
-  `--random-init` the LM is the preset's causal variant with tied embeddings.
+  (`--conv-template`; `--fps -1` draws the rate per video). The LM is the
+  preset's causal variant: with `--model` the checkpoint's weights (its
+  `lm_head` when the preset is untied), with `--random-init` tied
+  embeddings.
+
+`--model DIR` finetunes an HF-format VideoITG checkpoint (safetensors or
+.bin); the tokenizer comes from `--tokenizer`, else from DIR, through
+transformers' AutoTokenizer. The grounding objective reads the checkpoint's
+videoitg_tpu_config.json; `--objective vlm` the preset's causal variant.
 
 It runs on the card; `--cpu` asks for the CPU. With neither a CUDA device
 nor `--cpu` it stops with an error.
@@ -19,9 +26,8 @@ Smoke run (random weights, synthetic-capable):
   python -m videoitg_tpu_torch.cli.train --preset tiny --random-init \\
       --data-path data.json --image-folder vids/ --total-steps 20 --cpu
 
-Flags of the JAX CLI that are refused here, each with the ROADMAP item that
-covers it: `--model` (HF weights are not in the repository) and
-`--dp/--tp/--sp/--pp` above 1 (multi-device).
+Flags of the JAX CLI that are refused here, with the ROADMAP item that
+covers them: `--dp/--tp/--sp/--pp` above 1 (multi-device).
 """
 
 from __future__ import annotations
@@ -35,10 +41,10 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("videoitg-torch-train", description=__doc__)
     # model
-    p.add_argument("--model", help="HF-format checkpoint dir to finetune (not ported yet)")
+    p.add_argument("--model", help="HF-format checkpoint dir to finetune")
     p.add_argument("--preset", default="videoitg-8b")
     p.add_argument("--random-init", action="store_true")
-    p.add_argument("--tokenizer", help="tokenizer path (with --model; not ported yet)")
+    p.add_argument("--tokenizer", help="tokenizer path (defaults to --model)")
     p.add_argument("--objective", default="grounding", choices=["grounding", "vlm"])
     p.add_argument("--conv-template", default="plain", choices=["plain", "chatml"],
                    help="vlm objective: conversation template")
@@ -111,9 +117,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refusal(args) -> str | None:
     """The message for a flag of the JAX CLI that the port does not run."""
-    if args.model or args.tokenizer:
-        return ("--model / --tokenizer (HF weights are not in the repository; ROADMAP "
-                "queue 1, item 3): use --random-init")
     if any(n is not None and n > 1 for n in (args.dp, args.tp, args.sp, args.pp)):
         return "--dp / --tp / --sp / --pp above 1 (multi-device; ROADMAP queue 1, item 8)"
     return None
@@ -150,18 +153,39 @@ def main(argv=None) -> int:
     from videoitg_tpu_torch.utils.metrics_logger import MetricsLogger
 
     # ---- model + tokenizer ----
-    if not args.random_init:
-        print("error: pass --random-init (--model is not ported yet)", file=sys.stderr)
+    def causal_variant(c, tie=None):
+        # tie=True only for random init, which has no lm_head to load; a
+        # checkpoint keeps the preset's setting (Qwen2-7B is untied, and
+        # forcing a tie would drop its lm_head).
+        lm = dataclasses.replace(c.lm, causal=True)
+        if tie is not None:
+            lm = dataclasses.replace(lm, tie_word_embeddings=tie)
+        return dataclasses.replace(c, lm=lm)
+
+    if args.model:
+        from transformers import AutoTokenizer
+
+        if args.objective == "vlm":
+            from videoitg_tpu_torch.checkpoint import convert_vlm_checkpoint, load_hf_state_dict
+
+            cfg = causal_variant(preset(args.preset))
+            model = convert_vlm_checkpoint(load_hf_state_dict(args.model), cfg, device=device,
+                                           dtype=dtype)
+        else:
+            from videoitg_tpu_torch.checkpoint import load_grounding_model
+
+            model, cfg = load_grounding_model(args.model, device=device, dtype=dtype)
+        tokenizer = AutoTokenizer.from_pretrained(args.tokenizer or args.model)
+    elif args.random_init:
+        cfg = preset(args.preset)
+        if args.objective == "vlm":
+            cfg = causal_variant(cfg, tie=True)
+        model = init_grounding(cfg, torch.Generator(device=device).manual_seed(args.seed),
+                               device=device, dtype=dtype)
+        tokenizer = CharTokenizer(cfg.lm.vocab_size)
+    else:
+        print("error: pass --model or --random-init", file=sys.stderr)
         return 2
-    cfg = preset(args.preset)
-    if args.objective == "vlm":
-        # Random init has no lm_head to load, so the embeddings are tied (a
-        # pretrained Qwen2-7B is untied and would keep its own head).
-        cfg = dataclasses.replace(cfg, lm=dataclasses.replace(
-            cfg.lm, causal=True, tie_word_embeddings=True))
-    model = init_grounding(cfg, torch.Generator(device=device).manual_seed(args.seed),
-                           device=device, dtype=dtype)
-    tokenizer = CharTokenizer(cfg.lm.vocab_size)
 
     if args.vision_token_num is not None or args.vision_min_num is not None:
         # Training projector-budget overrides, copied into the config so that

@@ -134,6 +134,11 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(1.702 x) — CLIP's activation."""
+    return x * torch.sigmoid(1.702 * x)
+
+
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     """The erf GELU — the seq_mlp projector's activation."""
     return F.gelu(x)

@@ -1,17 +1,20 @@
-"""seq_mlp projector: fp32 bilinear pool of each frame's patch grid + 2-layer MLP.
+"""The projector families: tower features -> LM-space tokens.
 
-Counterpart of videoitg_tpu/models/projector.py. [T, P, C] tower features
-are viewed as T grids of sqrt(P)^2, resized to hw x hw exactly like torch
+Counterpart of videoitg_tpu/models/projector.py (the reference's projector factory
+families). seq_mlp, VideoITG's own: [T, P, C] tower features are viewed as
+T grids of sqrt(P)^2, resized to hw x hw exactly like torch
 `F.interpolate(mode="bilinear", align_corners=False)` through the numpy
-matrix `bilinear_resize_matrix` (ops/resize.py), in fp32, then Linear / GELU(erf) /
-Linear. Only the seq_mlp family is ported: every preset and path of the port,
-the causal VLM included, uses it. The linear, mlpNx_gelu and identity
-families come with HF checkpoints that name them (ROADMAP queue 1, item 3).
+matrix `bilinear_resize_matrix` (ops/resize.py), in fp32, then Linear /
+GELU(erf) / Linear. The per-token families keep one token per patch:
+"linear" (one Linear), "mlpNx_gelu" (N Linears with GELU(erf) between) and
+"identity" (no parameters). Every preset uses seq_mlp; the other families
+come from a checkpoint's videoitg_tpu_config.json.
 """
 
 from __future__ import annotations
 
 import math
+import re
 from typing import Optional
 
 import torch
@@ -26,13 +29,23 @@ class Projector(nn.Module):
     def __init__(self, cfg: ProjectorConfig, *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.projector_type != "seq_mlp":
-            raise NotImplementedError(
-                f"projector type {cfg.projector_type!r}: only seq_mlp is ported "
-                "(the other families come with HF checkpoints, ROADMAP queue 1, item 3)")
         kw = dict(device=device, dtype=dtype, generator=generator)
+        t = cfg.projector_type
+        if t == "identity":
+            return
         self.fc1 = Linear(cfg.input_dim, cfg.output_dim, **kw)
-        self.fc2 = Linear(cfg.output_dim, cfg.output_dim, **kw)
+        for i in range(2, _depth(t) + 1):
+            setattr(self, f"fc{i}", Linear(cfg.output_dim, cfg.output_dim, **kw))
+
+
+def _depth(projector_type: str) -> int:
+    """Linears of a family with parameters: linear 1, seq_mlp 2, mlpNx_gelu N."""
+    if projector_type in ("linear", "seq_mlp"):
+        return 1 if projector_type == "linear" else 2
+    m = re.fullmatch(r"mlp(\d+)x_gelu", projector_type)
+    if not m:
+        raise ValueError(f"unknown projector type {projector_type!r}")
+    return int(m.group(1))
 
 
 def pool_frame_grid(feats: torch.Tensor, hw: int) -> torch.Tensor:
@@ -57,11 +70,19 @@ def project_frames(p: Projector, feats: torch.Tensor, hw: int) -> torch.Tensor:
 
 def apply_projector(p: Projector, feats: torch.Tensor, cfg: ProjectorConfig,
                     hw: Optional[int] = None) -> torch.Tensor:
-    """Projector application; seq_mlp (the only family `Projector` builds)
-    pools to the per-video hw."""
-    if hw is None:
-        raise ValueError("seq_mlp needs the per-video hw")
-    return project_frames(p, feats, hw)
+    """The family's map: seq_mlp pools to the per-video hw (required); the
+    per-token families ignore hw."""
+    t = cfg.projector_type
+    if t == "seq_mlp":
+        if hw is None:
+            raise ValueError("seq_mlp needs the per-video hw")
+        return project_frames(p, feats, hw)
+    if t == "identity":
+        return feats
+    x = linear(p.fc1, feats)
+    for i in range(2, _depth(t) + 1):
+        x = linear(getattr(p, f"fc{i}"), gelu_exact(x))
+    return x
 
 
 def frame_token_count(cfg: ProjectorConfig, hw: int, num_patches: int) -> int:

@@ -1,4 +1,4 @@
-"""SigLIP vision tower (ViT-SO400M-14/384) in PyTorch.
+"""SigLIP vision tower (ViT-SO400M-14/384) in PyTorch, and its CLIP variant.
 
 Counterpart of videoitg_tpu/models/siglip.py: NHWC frames [T, H, W, 3] in,
 patch features [T, 729, 1152] out, taken from the output of the
@@ -7,8 +7,12 @@ the post-layernorm never does. The patch embedding is an unfold + matmul with
 the (kh, kw, c) patch order of the JAX package. Under the act8 tier
 (ops/quant.py) with the `fused` switch on, the non-attention part of each
 layer runs as three fused int8 kernels (ops/fused_encoder.py). `remat=True`
-recomputes each layer in the backward pass. Only arch="siglip" is ported;
-"clip" waits (ROADMAP queue 1).
+recomputes each layer in the backward pass.
+
+arch="clip" is HF CLIP's tower (e.g. LLaVA-1.5's ViT-L/14-336): a biasless
+patch embedding, a CLS token prepended before the positions (a table of
+num_patches + 1 rows), a pre-layernorm, quick_gelu in the MLP, and the CLS
+position dropped from the output when select_feature == "patch".
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from videoitg_tpu_torch.config import VisionConfig
-from videoitg_tpu_torch.models.common import Linear, Norm, fused_qkv, gelu_tanh, layer_norm, linear
+from videoitg_tpu_torch.models.common import (Linear, Norm, fused_qkv, gelu_tanh, layer_norm,
+                                              linear, quick_gelu)
 from videoitg_tpu_torch.ops.attention import mha
 from videoitg_tpu_torch.ops.fused_encoder import can_fuse_encoder_layer
 from videoitg_tpu_torch.ops.quant import Act8Switches
@@ -48,20 +53,27 @@ class SiglipTower(nn.Module):
     def __init__(self, cfg: VisionConfig, *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.arch != "siglip":
-            raise NotImplementedError(
-                f"vision arch {cfg.arch!r}: only 'siglip' is ported (the clip "
-                "arch is ROADMAP queue 1)")
+        if cfg.arch not in ("siglip", "clip"):
+            raise ValueError(f"unknown vision arch {cfg.arch!r}")
+        clip = cfg.arch == "clip"
         kw = dict(device=device, dtype=dtype)
         patch_dim = cfg.patch_size * cfg.patch_size * 3
-        self.patch_embed = Linear(patch_dim, cfg.hidden_size, generator=generator, **kw)
-        pos = torch.empty(cfg.num_patches, cfg.hidden_size, device=device,
-                          dtype=torch.float32 if generator is not None else dtype)
-        if generator is not None:
-            pos = (pos.normal_(0.0, 1.0, generator=generator) * 0.02).to(dtype)
-        self.pos_embed = nn.Parameter(pos, requires_grad=False)
+        self.patch_embed = Linear(patch_dim, cfg.hidden_size, bias=not clip,
+                                  generator=generator, **kw)
+        self.pos_embed = _embedding((cfg.num_patches + clip, cfg.hidden_size), generator, **kw)
+        if clip:
+            self.cls_embed = _embedding((cfg.hidden_size,), generator, **kw)
+            self.pre_ln = Norm(cfg.hidden_size, bias=True, **kw)
         self.layers = nn.ModuleList(
             SiglipLayer(cfg, generator=generator, **kw) for _ in range(cfg.num_layers))
+
+
+def _embedding(shape, generator: Optional[torch.Generator], *, device, dtype) -> nn.Parameter:
+    """A learned embedding: N(0, 0.02^2) from `generator`, or uninitialised."""
+    x = torch.empty(shape, device=device, dtype=torch.float32 if generator is not None else dtype)
+    if generator is not None:
+        x = (x.normal_(0.0, 1.0, generator=generator) * 0.02).to(dtype)
+    return nn.Parameter(x, requires_grad=False)
 
 
 def _patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
@@ -120,7 +132,8 @@ def _encoder_layer(p: SiglipLayer, x: torch.Tensor, cfg: VisionConfig,
     attn = attn.transpose(1, 2).reshape(t, n, heads * d)
     x = x + linear(p.o, attn, act8)
     y = layer_norm(p.ln2, x, cfg.layer_norm_eps)
-    return x + linear(p.fc2, gelu_tanh(linear(p.fc1, y, act8)), act8)
+    act = quick_gelu if cfg.arch == "clip" else gelu_tanh
+    return x + linear(p.fc2, act(linear(p.fc1, y, act8)), act8)
 
 
 def siglip_features(tower: SiglipTower, images: torch.Tensor, cfg: VisionConfig,
@@ -130,9 +143,18 @@ def siglip_features(tower: SiglipTower, images: torch.Tensor, cfg: VisionConfig,
     """[T, H, W, 3] preprocessed frames -> [T, tokens, hidden] features from
     cfg.num_effective_layers encoder layers, no post-layernorm. `act8` says
     which act8 products run in the hand-written int8 kernels; `remat` (with
-    gradients on) recomputes each layer in the backward pass."""
+    gradients on) recomputes each layer in the backward pass. For
+    arch="clip" the CLS token is prepended, the embeddings pass through the
+    pre-layernorm, and the CLS position is dropped again when
+    select_feature == "patch"."""
     x = linear(tower.patch_embed, _patchify(images, cfg.patch_size))
+    clip = cfg.arch == "clip"
+    if clip:
+        cls = tower.cls_embed.to(x.dtype).expand(x.shape[0], 1, -1)
+        x = torch.cat([cls, x], dim=1)
     x = x + tower.pos_embed.to(x.dtype)[None]
+    if clip:
+        x = layer_norm(tower.pre_ln, x, cfg.layer_norm_eps)
     remat = remat and torch.is_grad_enabled()
     for layer in tower.layers[: cfg.num_effective_layers]:
         if remat:
@@ -140,6 +162,8 @@ def siglip_features(tower: SiglipTower, images: torch.Tensor, cfg: VisionConfig,
                            use_reentrant=False, preserve_rng_state=False)
         else:
             x = _encoder_layer(layer, x, cfg, use_flash, act8)
+    if clip and cfg.select_feature == "patch":
+        x = x[:, 1:]
     return x
 
 
