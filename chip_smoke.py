@@ -66,8 +66,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      over two runs; every head dim from 8 to 128 runs causal and not.
    * A, B (attention, bf16, the TMA + wgmma kernels): plus a long case whose
      length is not a multiple of the 128-key tile, a small causal case and a
-     fully-masked-row case; A at the clip tower's [8, 16, 577, 64] (timed
-     beside its plain version, the library call and its bound), at ragged
+     fully-masked-row case; A at the CLIP tower's chunk [128, 16, 577, 64]
+     and at the 8 frames [8, 16, 577, 64] of the mlp2x_gelu checkpoint cell
+     (each with the broken use, timed beside its plain version, the library
+     call and its bound, as at SigLIP's chunk), at ragged
      S = 577 and 1,000, at S = 500 with
      D = 128 (both past K resident: the two-pass kernel) and at every
      head-dim instantiation (D = 8 ... 128); B at every head-dim
@@ -116,16 +118,17 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      columns of fc1's last tile counted; G's include its k held to the plain
      q (a wrong split). I has no LN: it must be bit-equal in every case. Each
      line times the launches one by one and, for orientation, the bare
-     `torch._int_mm` product. G, H with quick_gelu and I run again at the
-     clip tower's widths, [73,856, 1024] via 4096 (128 frames x 577 tokens),
-     at the same tolerances, timed beside their plain versions and bounds.
+     `torch._int_mm` product. G, H with quick_gelu and I run again, every
+     check and broken use included, at the CLIP tower's widths: [73,856,
+     1024] via 4096 (128 frames x 577 tokens), LN eps 1e-5 (fc1's last n
+     tile is whole there, so the padded-columns use has nothing to count).
      `--only int8-kernels` prints ptxas' lines for F's, G's, H's and I's
      instances, and the library must hold them and not the mma.sync kernels
      they replaced.
    At each main-path shape, deliberately broken uses (keys dropped, the key
    mask or the segment ids ignored, q not pre-scaled, a head of the group
-   left out, a bias, the LN bias or the residual dropped, the last k tile of
-   fc2 dropped, H's row amax from one n tile or with padded columns, G's
+   left out, a bias, the LN bias or the residual dropped, fc2's last 16 k
+   channels dropped, H's row amax from one n tile or with padded columns, G's
    outputs split at the wrong place) must
    exceed the tolerance, which shows that it discriminates.
 4. Agreement: the engine's kernel path against its plain path on a small
@@ -149,7 +152,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    layers; a 512-frame select, then act8 with the int8 kernels on against
    off within E2E_ATOL) and that tower with the mlp2x_gelu projector (8
    frames, 4,608 image tokens). Each prints its file bytes, write and load
-   seconds and GB/s, and the load's device memory peak; the launch counts of
+   seconds and GB/s, the load's device memory peak, and the host's peak
+   resident set over the write and over the load (/proc/self/statm read
+   every 2 ms by a thread); the launch counts of
    each select are exact (A, B, and F-I under act8).
 6. Serving daemon: VideoITG-8B bf16 behind `cli/serve.SelectionServer` and
    a `ThreadingHTTPServer` on port 0 in this process, 512-frame 640x360
@@ -222,7 +227,9 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
+from typing import Optional
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -359,66 +366,54 @@ def check_kernels(dev) -> dict:
 
     records = {}
 
-    # Kernel A at the tower's shape: 128 frames x 16 heads x 729 x 72.
-    q, k, v = (randn(128, 16, 729, 72) for _ in range(3))
-    ref = torch.cat([flash_mha_short_reference(q[i:i + 32].float(), k[i:i + 32].float(),
-                                               v[i:i + 32].float())
-                     for i in range(0, 128, 32)])
-    tol = bf16_tol(ref)
-    err = max_err(flash_mha_short(q, k, v), ref)
-    # What a kernel that dropped the last 64 keys would give (the kernel
-    # takes k/v of q's length only, so the plain version stands in for it).
-    drop = max(max_err(flash_mha_short_reference(q[i:i + 32].float(), k[i:i + 32, :, :665].float(),
-                                                 v[i:i + 32, :, :665].float()), ref[i:i + 32])
-               for i in range(0, 128, 32))
-    ms = cuda_ms(lambda: flash_mha_short(q, k, v), 20)
-    plain_ms = cuda_ms(lambda: [flash_mha_short_reference(q[i:i + 32], k[i:i + 32], v[i:i + 32])
-                                for i in range(0, 128, 32)], 3)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)
-    # 4 S^2 D operations per (frame, head); q, k, v read and o written once.
-    bnd = bound(4 * 729 * 729 * 72 * 128 * 16, PEAK_BF16, 4 * q.numel() * 2)
-    print(f"kernel flash_mha_short [128, 16, 729, 72] bf16: max_abs_err {err:.6g} "
-          f"(tol {tol:.6g}, max|ref| {ref.abs().max().item():.6g}); broken: last 64 keys "
-          f"dropped {drop:.6g}; {ms:.4f} ms, plain {plain_ms:.4f} ms, library (sdpa) "
-          f"{library_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}; first "
-          f"version {FIRST_VERSION_MS['flash_mha_short']} ms (PERF.md, not this run)", flush=True)
-    if not err <= tol:
-        fail(f"flash_mha_short error {err} > {tol}")
-    if not drop > tol:
-        fail(f"flash_mha_short tolerance {tol} does not catch dropped keys ({drop})")
+    def check_short(shape) -> dict:
+        """A at `shape` against its plain version (32 frames at a time, in
+        fp32), with a broken use; its times beside sdpa's and its bound."""
+        t, heads, s, d = shape
+        q, k, v = (randn(*shape) for _ in range(3))
+        parts = [slice(i, i + 32) for i in range(0, t, 32)]
+        ref = torch.cat([flash_mha_short_reference(q[p].float(), k[p].float(), v[p].float())
+                         for p in parts])
+        tol = bf16_tol(ref)
+        err = max_err(flash_mha_short(q, k, v), ref)
+        # What a kernel that dropped the last 64 keys would give (the kernel
+        # takes k/v of q's length only, so the plain version stands in for it).
+        drop = max(max_err(flash_mha_short_reference(q[p].float(), k[p, :, :s - 64].float(),
+                                                     v[p, :, :s - 64].float()), ref[p])
+                   for p in parts)
+        ms = cuda_ms(lambda: flash_mha_short(q, k, v), 20)
+        plain_ms = cuda_ms(lambda: [flash_mha_short_reference(q[p], k[p], v[p]) for p in parts], 3)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)
+        # 4 S^2 D operations per (frame, head); q, k, v read and o written once.
+        bnd = bound(4 * s * s * d * t * heads, PEAK_BF16, 4 * q.numel() * 2)
+        print(f"kernel flash_mha_short {list(shape)} bf16: max_abs_err {err:.6g} "
+              f"(tol {tol:.6g}, max|ref| {ref.abs().max().item():.6g}); broken: last 64 keys "
+              f"dropped {drop:.6g}; {ms:.4f} ms, plain {plain_ms:.4f} ms, library (sdpa) "
+              f"{library_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}",
+              flush=True)
+        if not err <= tol:
+            fail(f"flash_mha_short {list(shape)}: error {err} > {tol}")
+        if not drop > tol:
+            fail(f"flash_mha_short {list(shape)}: tolerance {tol} does not catch dropped keys "
+                 f"({drop})")
+        return dict(shape=list(shape), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    library_ms=library_ms, **bnd)
+
+    # Kernel A at the towers' shapes: a chunk of 128 frames x 16 heads of
+    # SigLIP (729 x 72, the record's own numbers) and of CLIP ViT-L/14-336
+    # (576 patches and the CLS token, x 64), and the 8 CLIP frames of the
+    # mlp2x_gelu checkpoint cell.
+    siglip = check_short((128, 16, 729, 72))
+    print(f"kernel flash_mha_short: first version {FIRST_VERSION_MS['flash_mha_short']} ms at "
+          f"{siglip['shape']} (PERF.md, not this run)", flush=True)
+    clip, clip8 = check_short((128, 16, 577, 64)), check_short((8, 16, 577, 64))
     records["flash_mha_short"] = dict(
         name="flash_mha_short", route="cuda",
         source="videoitg_tpu_torch/csrc/flash_attention_short.cu",
         replaces="videoitg_tpu/ops/flash_attention_short.py:81",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bnd)
-    del q, k, v, ref
-
-    # Kernel A at the clip tower's shape (CLIP ViT-L/14-336: 576 patches and
-    # the CLS token, 16 heads x 64), eight frames.
-    q, k, v = (randn(8, 16, 577, 64) for _ in range(3))
-    ref = flash_mha_short_reference(q.float(), k.float(), v.float())
-    tol = bf16_tol(ref)
-    err = max_err(flash_mha_short(q, k, v), ref)
-    drop = max_err(flash_mha_short_reference(q.float(), k[:, :, :513].float(),
-                                             v[:, :, :513].float()), ref)
-    ms = cuda_ms(lambda: flash_mha_short(q, k, v), 20)
-    plain_ms = cuda_ms(lambda: flash_mha_short_reference(q, k, v), 5)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
-    bnd = bound(4 * 577 * 577 * 64 * 8 * 16, PEAK_BF16, 4 * q.numel() * 2)
-    print(f"kernel flash_mha_short clip [8, 16, 577, 64] bf16: max_abs_err {err:.6g} (tol "
-          f"{tol:.6g}); broken: last 64 keys dropped {drop:.6g}; {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, library (sdpa) {library_ms:.4f} ms, bound {bnd['bound_ms']:.4f} "
-          f"ms by {bnd['bound_by']}", flush=True)
-    if not err <= tol:
-        fail(f"flash_mha_short clip shape: error {err} > {tol}")
-    if not drop > tol:
-        fail(f"flash_mha_short clip tolerance {tol} does not catch dropped keys ({drop})")
-    records["flash_mha_short"]["max_abs_err"] = max(records["flash_mha_short"]["max_abs_err"],
-                                                    err)
-    records["flash_mha_short"].update(clip_ms=ms, clip_plain_ms=plain_ms,
-                                      clip_library_ms=library_ms,
-                                      clip_bound_ms=bnd["bound_ms"])
-    del q, k, v, ref
+        **{k: v for k, v in siglip.items() if k != "shape"},
+        clip=clip, clip_8_frames=clip8)
+    records["flash_mha_short"]["max_abs_err"] = max(r["max_abs_err"] for r in (siglip, clip, clip8))
 
     # Kernel B at the LM's shape: 512 frames x 25 slots + 256 text slots
     # (13,056 = 204 x 64 keys), ~1% invalid keys plus the padded text tail.
@@ -741,303 +736,255 @@ def check_int8_kernels(dev) -> dict:
           f"{total['int_mm_ms']:.4f} ms; the mma.sync version {FIRST_VERSION_MS['act8_gemm']} "
           f"ms (PERF.md, not this run)", flush=True)
 
-    # ---- G, H, I: one tower chunk, 128 frames x 729 patches, H = 1152. ----
-    rows, h, inter = 128 * 729, 1152, 4304
-    sub = 8192  # rows on which the broken uses are compared
-    eps = 1e-6
-    ln = Norm(h, bias=True, device=dev, dtype=torch.bfloat16)
-    ln.scale.data = (1.0 + randn(h, std=0.1)).to(torch.bfloat16)
-    ln.bias.data = randn(h, std=0.3).to(torch.bfloat16)
-    ln_no_bias = Norm(h, bias=True, device=dev, dtype=torch.bfloat16)
-    ln_no_bias.scale.data = ln.scale.data
-    x = (randn(rows, h) * (1.0 + randn(1, h).abs()) + randn(1, h, std=0.5)).to(torch.bfloat16)
-
     def without_bias(lin):
         return QuantLinear(w_qt=lin.w_qt, scale=lin.scale, b=None, act_q=True)
 
-    # G. A zero row: LN of it is the LN bias, so without one it quantises to
-    # zeros with scale 1 and each output row is its linear's bias.
-    q_lin, k_lin, v_lin = (int8_linear(h, h, bias_std=0.5) for _ in range(3))
-    refs = fe.fused_ln_qkv_int8_reference(x, ln, q_lin, k_lin, v_lin, eps)
-    outs = fe.fused_ln_qkv_int8(x, ln, q_lin, k_lin, v_lin, eps)
-    tol = min(int8_tol(r.float()) for r in refs)
-    err, mean = (max(v) for v in zip(*(err_stats(o, r) for o, r in zip(outs, refs))))
-    no_lnb = fe.fused_ln_qkv_int8_reference(x[:sub], ln_no_bias, q_lin, k_lin, v_lin, eps)
-    no_b = fe.fused_ln_qkv_int8_reference(x[:sub], ln, *(without_bias(p) for p in
-                                                       (q_lin, k_lin, v_lin)), eps)
-    broken_lnb = max(err_stats(o[:sub], r)[0] for o, r in zip(outs, no_lnb))
-    broken_b = max(err_stats(o[:sub], r)[0] for o, r in zip(outs, no_b))
-    broken_split = err_stats(outs[1][:sub], refs[0][:sub])[0]  # k held to the plain q
-    ragged = fe.fused_ln_qkv_int8(x[:1000], ln, q_lin, k_lin, v_lin, eps)
-    err_r = max(err_stats(o, r[:1000])[0] for o, r in zip(ragged, refs))
-    xz = x[:1000].clone()
-    xz[7] = 0
-    zero = fe.fused_ln_qkv_int8(xz, ln_no_bias, q_lin, k_lin, v_lin, eps)
-    refs_z = fe.fused_ln_qkv_int8_reference(xz, ln_no_bias, q_lin, k_lin, v_lin, eps)
-    err_z = max(err_stats(o, r)[0] for o, r in zip(zero, refs_z))
-    zero_ok = all(torch.equal(o[7], lin.b) for o, lin in zip(zero, (q_lin, k_lin, v_lin)))
-    ms = cuda_ms(lambda: fe.fused_ln_qkv_int8(x, ln, q_lin, k_lin, v_lin, eps), 5)
-    plain_ms = cuda_ms(lambda: fe.fused_ln_qkv_int8_reference(x, ln, q_lin, k_lin, v_lin, eps), 2)
-    yq, ys = fe.ln_row_quant(x, ln, eps)
-    stage_ms = [cuda_ms(lambda: fe.ln_row_quant(x, ln, eps), 5),
-                cuda_ms(lambda: fe.qkv_project(yq, ys, q_lin, k_lin, v_lin), 5)]
-    w_qkv = fe._packed_qkv(q_lin, k_lin, v_lin, dev)[0]
-    int_mm_ms = cuda_ms(lambda: torch._int_mm(yq, w_qkv.t()), 5)
-    del yq, ys, w_qkv
-    n_out = 3 * h
-    bnd = bound(2 * rows * h * n_out, PEAK_INT8,
-                rows * h * 2 + n_out * h + rows * n_out * 2 + 2 * n_out * 4 + 2 * h * 4)
-    print(f"kernel fused_ln_qkv_int8 [{rows}, {h}] -> 3 x [{rows}, {h}]: max_abs_err {err:.6g} "
-          f"mean {mean:.3g} (tol {tol:.6g}); ragged 1000 rows {err_r:.6g}; the same, no LN bias, "
-          f"row 7 zero {err_z:.6g}, zero row = bias {zero_ok}; broken: LN bias ignored {broken_lnb:.6g}, bias dropped "
-          f"{broken_b:.6g}, k held to the plain q {broken_split:.6g}; {ms:.4f} ms "
-          f"({2 * rows * h * n_out / ms / 1e9:.1f} TOP/s); launches: LN + quantise "
-          f"{stage_ms[0]:.4f}, QKV product {stage_ms[1]:.4f} ms "
-          f"({2 * rows * h * n_out / stage_ms[1] / 1e9:.1f} TOP/s); plain {plain_ms:.4f} ms, "
-          f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}; for orientation, the bare "
-          f"torch._int_mm product alone {int_mm_ms:.4f} ms; the mma.sync version "
-          f"{FIRST_VERSION_MS['fused_ln_qkv_int8']} ms (PERF.md, not this run)", flush=True)
-    if not (err <= tol and err_r <= tol and err_z <= tol and zero_ok):
-        fail(f"fused_ln_qkv_int8 error {err} / {err_r} / {err_z} > {tol}, or zero row {zero_ok}")
-    if not (broken_lnb > tol and broken_b > tol and broken_split > tol):
-        fail(f"fused_ln_qkv_int8 tolerance {tol} does not catch a broken use "
-             f"({broken_lnb}, {broken_b}, {broken_split})")
-    records["fused_ln_qkv_int8"] = dict(
-        name="fused_ln_qkv_int8", route="cuda",
-        source="videoitg_tpu_torch/csrc/fused_encoder.cu",
-        replaces="videoitg_tpu/ops/fused_encoder.py:84", max_abs_err=max(err, err_r, err_z),
-        mean_abs_err=mean, ms=ms, plain_ms=plain_ms, stage_ms=stage_ms, int_mm_ms=int_mm_ms,
-        library_ms=None, **bnd)
-    del refs, outs, no_lnb, no_b, ragged, zero, refs_z
+    def tower(tag, rows, h, inter, eps, acts) -> dict:
+        """G, H (each activation of `acts`) and I over one tower chunk of
+        `rows` tokens at width `h`, MLP `inter`, LN eps `eps`, each against
+        its plain version and its broken uses; returns name -> record."""
+        out_records = {}
+        sub = 8192  # rows on which the broken uses are compared
+        ln = Norm(h, bias=True, device=dev, dtype=torch.bfloat16)
+        ln.scale.data = (1.0 + randn(h, std=0.1)).to(torch.bfloat16)
+        ln.bias.data = randn(h, std=0.3).to(torch.bfloat16)
+        ln_no_bias = Norm(h, bias=True, device=dev, dtype=torch.bfloat16)
+        ln_no_bias.scale.data = ln.scale.data
+        x = (randn(rows, h) * (1.0 + randn(1, h).abs()) + randn(1, h, std=0.5)).to(torch.bfloat16)
 
-    # I. No LN: the quantiser is order-free and its division exact, so the
-    # kernel must be bit-equal to its plain version, zero row included.
-    o_lin = int8_linear(h, h, bias_std=0.5)
-    attn = randn(rows, h).to(torch.bfloat16)
-    ref = fe.fused_proj_residual_int8_reference(attn, x, o_lin)
-    out = fe.fused_proj_residual_int8(attn, x, o_lin)
-    tol = int8_tol(ref.float())
-    err, mean = err_stats(out, ref)
-    equal = bool(torch.equal(out, ref))
-    no_res, _ = err_stats(out[:sub], fe.fused_proj_residual_int8_reference(
-        attn[:sub], torch.zeros_like(x[:sub]), o_lin))
-    no_b, _ = err_stats(out[:sub], fe.fused_proj_residual_int8_reference(
-        attn[:sub], x[:sub], without_bias(o_lin)))
-    ar = attn[:1000].clone()
-    ar[7] = 0
-    out_r = fe.fused_proj_residual_int8(ar, x[:1000], o_lin)
-    ref_r = fe.fused_proj_residual_int8_reference(ar, x[:1000], o_lin)
-    err_r, _ = err_stats(out_r, ref_r)
-    equal_r = bool(torch.equal(out_r, ref_r))
-    zero_ok = bool(torch.equal(out_r[7], (x[7].float() + o_lin.b.float()).to(x.dtype)))
-    ms = cuda_ms(lambda: fe.fused_proj_residual_int8(attn, x, o_lin), 5)
-    plain_ms = cuda_ms(lambda: fe.fused_proj_residual_int8_reference(attn, x, o_lin), 2)
-    aq, a_scale = qg.row_quant_int8(attn)
-    stage_ms = [cuda_ms(lambda: qg.row_quant_int8(attn), 5),
-                cuda_ms(lambda: fe.proj_residual(aq, a_scale, x, o_lin), 5)]
-    int_mm_ms = cuda_ms(lambda: torch._int_mm(aq, o_lin.w_qt.t()), 5)
-    del aq, a_scale
-    bnd = bound(2 * rows * h * h, PEAK_INT8, 3 * rows * h * 2 + h * h + 2 * h * 4)
-    print(f"kernel fused_proj_residual_int8 [{rows}, {h}]: max_abs_err {err:.6g} mean "
-          f"{mean:.3g} (tol {tol:.6g}), bit-equal {equal}; ragged 1000 rows, row 7 zero "
-          f"{err_r:.6g}, bit-equal {equal_r}, zero row = residual + bias {zero_ok}; broken: "
-          f"residual dropped {no_res:.6g}, bias dropped {no_b:.6g}; {ms:.4f} ms "
-          f"({2 * rows * h * h / ms / 1e9:.1f} TOP/s); launches: row quantisation "
-          f"{stage_ms[0]:.4f}, o_proj {stage_ms[1]:.4f} ms; plain {plain_ms:.4f} ms, bound "
-          f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}; for orientation, the bare "
-          f"torch._int_mm product alone {int_mm_ms:.4f} ms; the mma.sync version "
-          f"{FIRST_VERSION_MS['fused_proj_residual_int8']} ms (PERF.md, not this run)",
-          flush=True)
-    if not (equal and equal_r and zero_ok):
-        fail(f"fused_proj_residual_int8 not bit-equal to its plain version: error {err} / "
-             f"{err_r} (tol {tol}), zero row {zero_ok}")
-    if not (no_res > tol and no_b > tol):
-        fail(f"fused_proj_residual_int8 tolerance {tol} does not catch a broken use "
-             f"({no_res}, {no_b})")
-    records["fused_proj_residual_int8"] = dict(
-        name="fused_proj_residual_int8", route="cuda",
-        source="videoitg_tpu_torch/csrc/fused_encoder.cu",
-        replaces="videoitg_tpu/ops/fused_encoder.py:121", max_abs_err=max(err, err_r),
-        mean_abs_err=mean, ms=ms, plain_ms=plain_ms, stage_ms=stage_ms, int_mm_ms=int_mm_ms,
-        library_ms=None, **bnd)
-    del attn, ref, out, out_r, ref_r
+        # G. A zero row: LN of it is the LN bias, so without one it quantises
+        # to zeros with scale 1 and each output row is its linear's bias.
+        q_lin, k_lin, v_lin = (int8_linear(h, h, bias_std=0.5) for _ in range(3))
+        refs = fe.fused_ln_qkv_int8_reference(x, ln, q_lin, k_lin, v_lin, eps)
+        outs = fe.fused_ln_qkv_int8(x, ln, q_lin, k_lin, v_lin, eps)
+        tol = min(int8_tol(r.float()) for r in refs)
+        err, mean = (max(v) for v in zip(*(err_stats(o, r) for o, r in zip(outs, refs))))
+        no_lnb = fe.fused_ln_qkv_int8_reference(x[:sub], ln_no_bias, q_lin, k_lin, v_lin, eps)
+        no_b = fe.fused_ln_qkv_int8_reference(x[:sub], ln, *(without_bias(p) for p in
+                                                           (q_lin, k_lin, v_lin)), eps)
+        broken_lnb = max(err_stats(o[:sub], r)[0] for o, r in zip(outs, no_lnb))
+        broken_b = max(err_stats(o[:sub], r)[0] for o, r in zip(outs, no_b))
+        broken_split = err_stats(outs[1][:sub], refs[0][:sub])[0]  # k held to the plain q
+        ragged = fe.fused_ln_qkv_int8(x[:1000], ln, q_lin, k_lin, v_lin, eps)
+        err_r = max(err_stats(o, r[:1000])[0] for o, r in zip(ragged, refs))
+        xz = x[:1000].clone()
+        xz[7] = 0
+        zero = fe.fused_ln_qkv_int8(xz, ln_no_bias, q_lin, k_lin, v_lin, eps)
+        refs_z = fe.fused_ln_qkv_int8_reference(xz, ln_no_bias, q_lin, k_lin, v_lin, eps)
+        err_z = max(err_stats(o, r)[0] for o, r in zip(zero, refs_z))
+        zero_ok = all(torch.equal(o[7], lin.b) for o, lin in zip(zero, (q_lin, k_lin, v_lin)))
+        ms = cuda_ms(lambda: fe.fused_ln_qkv_int8(x, ln, q_lin, k_lin, v_lin, eps), 5)
+        plain_ms = cuda_ms(lambda: fe.fused_ln_qkv_int8_reference(x, ln, q_lin, k_lin, v_lin,
+                                                                  eps), 2)
+        yq, ys = fe.ln_row_quant(x, ln, eps)
+        stage_ms = [cuda_ms(lambda: fe.ln_row_quant(x, ln, eps), 5),
+                    cuda_ms(lambda: fe.qkv_project(yq, ys, q_lin, k_lin, v_lin), 5)]
+        w_qkv = fe._packed_qkv(q_lin, k_lin, v_lin, dev)[0]
+        int_mm_ms = cuda_ms(lambda: torch._int_mm(yq, w_qkv.t()), 5)
+        del yq, ys, w_qkv
+        n_out = 3 * h
+        bnd = bound(2 * rows * h * n_out, PEAK_INT8,
+                    rows * h * 2 + n_out * h + rows * n_out * 2 + 2 * n_out * 4 + 2 * h * 4)
+        print(f"kernel fused_ln_qkv_int8{tag} [{rows}, {h}] -> 3 x [{rows}, {h}]: max_abs_err "
+              f"{err:.6g} mean {mean:.3g} (tol {tol:.6g}); ragged 1000 rows {err_r:.6g}; the "
+              f"same, no LN bias, row 7 zero {err_z:.6g}, zero row = bias {zero_ok}; broken: LN "
+              f"bias ignored {broken_lnb:.6g}, bias dropped {broken_b:.6g}, k held to the plain "
+              f"q {broken_split:.6g}; {ms:.4f} ms ({2 * rows * h * n_out / ms / 1e9:.1f} TOP/s); "
+              f"launches: LN + quantise {stage_ms[0]:.4f}, QKV product {stage_ms[1]:.4f} ms "
+              f"({2 * rows * h * n_out / stage_ms[1] / 1e9:.1f} TOP/s); plain {plain_ms:.4f} ms, "
+              f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}; for orientation, the bare "
+              f"torch._int_mm product alone {int_mm_ms:.4f} ms", flush=True)
+        if not (err <= tol and err_r <= tol and err_z <= tol and zero_ok):
+            fail(f"fused_ln_qkv_int8{tag} error {err} / {err_r} / {err_z} > {tol}, or zero row "
+                 f"{zero_ok}")
+        if not (broken_lnb > tol and broken_b > tol and broken_split > tol):
+            fail(f"fused_ln_qkv_int8{tag} tolerance {tol} does not catch a broken use "
+                 f"({broken_lnb}, {broken_b}, {broken_split})")
+        out_records["fused_ln_qkv_int8"] = dict(
+            name="fused_ln_qkv_int8", route="cuda",
+            source="videoitg_tpu_torch/csrc/fused_encoder.cu",
+            replaces="videoitg_tpu/ops/fused_encoder.py:84", max_abs_err=max(err, err_r, err_z),
+            mean_abs_err=mean, ms=ms, plain_ms=plain_ms, stage_ms=stage_ms, int_mm_ms=int_mm_ms,
+            library_ms=None, **bnd)
+        del refs, outs, no_lnb, no_b, ragged, zero, refs_z
 
-    # H, both activations. The last 16 intermediate channels get a large
-    # fc1 bias, so that a kernel which dropped the last (ragged) k tile of
-    # fc2 (bytes 4288..4303 of 4304) would stand out.
-    fc1, fc2 = int8_linear(h, inter, bias_std=0.1), int8_linear(inter, h, bias_std=0.5)
-    fc1.b.data[-16:] += 4.0
-    fc2_cut = QuantLinear(w_qt=fc2.w_qt.clone(), scale=fc2.scale, b=fc2.b, act_q=True)
-    fc2_cut.w_qt[:, -16:] = 0
-    asked, done = 4 * rows * h * inter, 6 * rows * h * inter  # fc1 runs twice
-    worst, worst_mean, times = 0.0, 0.0, {}
-    for act in ("gelu_tanh", "quick_gelu"):
-        ref = fe.fused_ln_mlp_int8_reference(x, ln, fc1, fc2, eps, act)
-        out = fe.fused_ln_mlp_int8(x, ln, fc1, fc2, eps, act)
-        again = fe.fused_ln_mlp_int8(x, ln, fc1, fc2, eps, act)
+        # I. No LN: the quantiser is order-free and its division exact, so the
+        # kernel must be bit-equal to its plain version, zero row included.
+        o_lin = int8_linear(h, h, bias_std=0.5)
+        attn = randn(rows, h).to(torch.bfloat16)
+        ref = fe.fused_proj_residual_int8_reference(attn, x, o_lin)
+        out = fe.fused_proj_residual_int8(attn, x, o_lin)
         tol = int8_tol(ref.float())
         err, mean = err_stats(out, ref)
-        no_tile, _ = err_stats(out[:sub], fe.fused_ln_mlp_int8_reference(
-            x[:sub], ln, fc1, fc2_cut, eps, act))
-        no_lnb, _ = err_stats(out[:sub], fe.fused_ln_mlp_int8_reference(
-            x[:sub], ln_no_bias, fc1, fc2, eps, act))
-        no_res, _ = err_stats(out[:sub].float() - x[:sub].float(), ref[:sub])
-        err_r, _ = err_stats(fe.fused_ln_mlp_int8(x[:1000], ln, fc1, fc2, eps, act), ref[:1000])
-        ms = cuda_ms(lambda: fe.fused_ln_mlp_int8(x, ln, fc1, fc2, eps, act), 5)
-        plain_ms = cuda_ms(lambda: fe.fused_ln_mlp_int8_reference(x, ln, fc1, fc2, eps, act), 2)
-        yq, ys = fe.ln_row_quant(x, ln, eps)
-        amax = fe.mlp_fc1_amax(yq, ys, fc1, act)
-        gq = fe.mlp_fc1_quant(yq, ys, fc1, amax, act)
-        stage_ms = [cuda_ms(lambda: fe.ln_row_quant(x, ln, eps), 5),
-                    cuda_ms(lambda: fe.mlp_fc1_amax(yq, ys, fc1, act), 5),
-                    cuda_ms(lambda: fe.mlp_fc1_quant(yq, ys, fc1, amax, act), 5),
-                    cuda_ms(lambda: fe.mlp_fc2_residual(x, gq, amax, fc2), 5)]
-        del yq, ys, amax, gq
-        print(f"kernel fused_ln_mlp_int8 {act} [{rows}, {h}] via {inter}: max_abs_err {err:.6g} "
-              f"mean {mean:.3g} (tol {tol:.6g}); ragged 1000 rows {err_r:.6g}; two runs "
-              f"bit-equal {bool(torch.equal(out, again))}; broken: last k tile of fc2 dropped "
-              f"{no_tile:.6g}, LN bias ignored {no_lnb:.6g}, residual dropped {no_res:.6g}; "
-              f"{ms:.4f} ms ({asked / ms / 1e9:.1f} TOP/s of the 2 products asked for, "
-              f"{done / ms / 1e9:.1f} of the 3 done); launches: LN + quantise "
-              f"{stage_ms[0]:.4f}, fc1 amax {stage_ms[1]:.4f}, fc1 quantise {stage_ms[2]:.4f}, "
-              f"fc2 {stage_ms[3]:.4f} ms; plain {plain_ms:.4f} ms", flush=True)
-        if not (err <= tol and err_r <= tol):
-            fail(f"fused_ln_mlp_int8 {act} error {err} / {err_r} > {tol}")
-        if not torch.equal(out, again):
-            fail(f"fused_ln_mlp_int8 {act}: two runs differ")
-        if not (no_tile > tol and no_lnb > tol and no_res > tol):
-            fail(f"fused_ln_mlp_int8 {act} tolerance {tol} does not catch a broken use "
-                 f"({no_tile}, {no_lnb}, {no_res})")
-        worst, worst_mean = max(worst, err, err_r), max(worst_mean, mean)
-        times[act] = (ms, plain_ms, stage_ms)
-        del ref, out, again
+        equal = bool(torch.equal(out, ref))
+        no_res, _ = err_stats(out[:sub], fe.fused_proj_residual_int8_reference(
+            attn[:sub], torch.zeros_like(x[:sub]), o_lin))
+        no_b, _ = err_stats(out[:sub], fe.fused_proj_residual_int8_reference(
+            attn[:sub], x[:sub], without_bias(o_lin)))
+        ar = attn[:1000].clone()
+        ar[7] = 0
+        out_r = fe.fused_proj_residual_int8(ar, x[:1000], o_lin)
+        ref_r = fe.fused_proj_residual_int8_reference(ar, x[:1000], o_lin)
+        err_r, _ = err_stats(out_r, ref_r)
+        equal_r = bool(torch.equal(out_r, ref_r))
+        zero_ok = bool(torch.equal(out_r[7], (x[7].float() + o_lin.b.float()).to(x.dtype)))
+        ms = cuda_ms(lambda: fe.fused_proj_residual_int8(attn, x, o_lin), 5)
+        plain_ms = cuda_ms(lambda: fe.fused_proj_residual_int8_reference(attn, x, o_lin), 2)
+        aq, a_scale = qg.row_quant_int8(attn)
+        stage_ms = [cuda_ms(lambda: qg.row_quant_int8(attn), 5),
+                    cuda_ms(lambda: fe.proj_residual(aq, a_scale, x, o_lin), 5)]
+        int_mm_ms = cuda_ms(lambda: torch._int_mm(aq, o_lin.w_qt.t()), 5)
+        del aq, a_scale
+        bnd = bound(2 * rows * h * h, PEAK_INT8, 3 * rows * h * 2 + h * h + 2 * h * 4)
+        print(f"kernel fused_proj_residual_int8{tag} [{rows}, {h}]: max_abs_err {err:.6g} mean "
+              f"{mean:.3g} (tol {tol:.6g}), bit-equal {equal}; ragged 1000 rows, row 7 zero "
+              f"{err_r:.6g}, bit-equal {equal_r}, zero row = residual + bias {zero_ok}; broken: "
+              f"residual dropped {no_res:.6g}, bias dropped {no_b:.6g}; {ms:.4f} ms "
+              f"({2 * rows * h * h / ms / 1e9:.1f} TOP/s); launches: row quantisation "
+              f"{stage_ms[0]:.4f}, o_proj {stage_ms[1]:.4f} ms; plain {plain_ms:.4f} ms, bound "
+              f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}; for orientation, the bare "
+              f"torch._int_mm product alone {int_mm_ms:.4f} ms", flush=True)
+        if not (equal and equal_r and zero_ok):
+            fail(f"fused_proj_residual_int8{tag} not bit-equal to its plain version: error {err} "
+                 f"/ {err_r} (tol {tol}), zero row {zero_ok}")
+        if not (no_res > tol and no_b > tol):
+            fail(f"fused_proj_residual_int8{tag} tolerance {tol} does not catch a broken use "
+                 f"({no_res}, {no_b})")
+        out_records["fused_proj_residual_int8"] = dict(
+            name="fused_proj_residual_int8", route="cuda",
+            source="videoitg_tpu_torch/csrc/fused_encoder.cu",
+            replaces="videoitg_tpu/ops/fused_encoder.py:121", max_abs_err=max(err, err_r),
+            mean_abs_err=mean, ms=ms, plain_ms=plain_ms, stage_ms=stage_ms, int_mm_ms=int_mm_ms,
+            library_ms=None, **bnd)
+        del attn, ref, out, out_r, ref_r
 
-    # H's row amax, broken: from fc1's first n tile only, and with the 48
-    # padded columns of fc1's last tile (4304 = 16 x 256 + 208) counted, as
-    # a kernel that read a bias there would. The last 16 channels run hot
-    # (+32) so that the tile that holds them sets each row's amax; the padded
-    # columns carry a bias of 1024.
-    act = "gelu_tanh"
-    fc1_hot = QuantLinear(w_qt=fc1.w_qt, scale=fc1.scale, b=fc1.b.clone(), act_q=True)
-    fc1_hot.b.data[-16:] += 28.0
-    xs_ = x[:sub]
-    ref = fe.fused_ln_mlp_int8_reference(xs_, ln, fc1_hot, fc2, eps, act)
-    tol = int8_tol(ref.float())
-    yq, ys = fe.ln_row_quant(xs_, ln, eps)
-    good, _ = err_stats(fe.fused_ln_mlp_int8(xs_, ln, fc1_hot, fc2, eps, act), ref)
+        # H, each activation. The last 16 intermediate channels get a large
+        # fc1 bias, so that a kernel which dropped fc2's last 16 k channels
+        # (at 4304, the ragged last k tile) would stand out.
+        fc1, fc2 = int8_linear(h, inter, bias_std=0.1), int8_linear(inter, h, bias_std=0.5)
+        fc1.b.data[-16:] += 4.0
+        fc2_cut = QuantLinear(w_qt=fc2.w_qt.clone(), scale=fc2.scale, b=fc2.b, act_q=True)
+        fc2_cut.w_qt[:, -16:] = 0
+        asked, done = 4 * rows * h * inter, 6 * rows * h * inter  # fc1 runs twice
+        worst, worst_mean, times = 0.0, 0.0, {}
+        for act in acts:
+            ref = fe.fused_ln_mlp_int8_reference(x, ln, fc1, fc2, eps, act)
+            out = fe.fused_ln_mlp_int8(x, ln, fc1, fc2, eps, act)
+            again = fe.fused_ln_mlp_int8(x, ln, fc1, fc2, eps, act)
+            tol = int8_tol(ref.float())
+            err, mean = err_stats(out, ref)
+            no_tile, _ = err_stats(out[:sub], fe.fused_ln_mlp_int8_reference(
+                x[:sub], ln, fc1, fc2_cut, eps, act))
+            no_lnb, _ = err_stats(out[:sub], fe.fused_ln_mlp_int8_reference(
+                x[:sub], ln_no_bias, fc1, fc2, eps, act))
+            no_res, _ = err_stats(out[:sub].float() - x[:sub].float(), ref[:sub])
+            err_r, _ = err_stats(fe.fused_ln_mlp_int8(x[:1000], ln, fc1, fc2, eps, act),
+                                 ref[:1000])
+            ms = cuda_ms(lambda: fe.fused_ln_mlp_int8(x, ln, fc1, fc2, eps, act), 5)
+            plain_ms = cuda_ms(lambda: fe.fused_ln_mlp_int8_reference(x, ln, fc1, fc2, eps, act),
+                               2)
+            yq, ys = fe.ln_row_quant(x, ln, eps)
+            amax = fe.mlp_fc1_amax(yq, ys, fc1, act)
+            gq = fe.mlp_fc1_quant(yq, ys, fc1, amax, act)
+            stage_ms = [cuda_ms(lambda: fe.ln_row_quant(x, ln, eps), 5),
+                        cuda_ms(lambda: fe.mlp_fc1_amax(yq, ys, fc1, act), 5),
+                        cuda_ms(lambda: fe.mlp_fc1_quant(yq, ys, fc1, amax, act), 5),
+                        cuda_ms(lambda: fe.mlp_fc2_residual(x, gq, amax, fc2), 5)]
+            del yq, ys, amax, gq
+            print(f"kernel fused_ln_mlp_int8{tag} {act} [{rows}, {h}] via {inter}: max_abs_err "
+                  f"{err:.6g} mean {mean:.3g} (tol {tol:.6g}); ragged 1000 rows {err_r:.6g}; two "
+                  f"runs bit-equal {bool(torch.equal(out, again))}; broken: fc2's last 16 k "
+                  f"channels dropped {no_tile:.6g}, LN bias ignored {no_lnb:.6g}, residual "
+                  f"dropped {no_res:.6g}; {ms:.4f} ms ({asked / ms / 1e9:.1f} TOP/s of the 2 "
+                  f"products asked for, {done / ms / 1e9:.1f} of the 3 done); launches: LN + "
+                  f"quantise {stage_ms[0]:.4f}, fc1 amax {stage_ms[1]:.4f}, fc1 quantise "
+                  f"{stage_ms[2]:.4f}, fc2 {stage_ms[3]:.4f} ms; plain {plain_ms:.4f} ms",
+                  flush=True)
+            if not (err <= tol and err_r <= tol):
+                fail(f"fused_ln_mlp_int8{tag} {act} error {err} / {err_r} > {tol}")
+            if not torch.equal(out, again):
+                fail(f"fused_ln_mlp_int8{tag} {act}: two runs differ")
+            if not (no_tile > tol and no_lnb > tol and no_res > tol):
+                fail(f"fused_ln_mlp_int8{tag} {act} tolerance {tol} does not catch a broken use "
+                     f"({no_tile}, {no_lnb}, {no_res})")
+            worst, worst_mean = max(worst, err, err_r), max(worst_mean, mean)
+            times[act] = (ms, plain_ms, stage_ms)
+            del ref, out, again
 
-    def with_amax(amax):
-        return fe.mlp_fc2_residual(xs_, fe.mlp_fc1_quant(yq, ys, fc1_hot, amax, act), amax, fc2)
+        # H's row amax, broken: from fc1's first n tile only, and, where fc1's
+        # last n tile is ragged (4304 = 16 x 256 + 208), with its padded
+        # columns counted, as a kernel that read a bias there would. The last
+        # 16 channels run hot (+32) so that the tile that holds them sets each
+        # row's amax; the padded columns carry a bias of 1024.
+        act = acts[0]
+        fc1_hot = QuantLinear(w_qt=fc1.w_qt, scale=fc1.scale, b=fc1.b.clone(), act_q=True)
+        fc1_hot.b.data[-16:] += 28.0
+        xs_ = x[:sub]
+        ref = fe.fused_ln_mlp_int8_reference(xs_, ln, fc1_hot, fc2, eps, act)
+        tol = int8_tol(ref.float())
+        yq, ys = fe.ln_row_quant(xs_, ln, eps)
+        good, _ = err_stats(fe.fused_ln_mlp_int8(xs_, ln, fc1_hot, fc2, eps, act), ref)
 
-    tile = fe.FC1_TILE
-    first = QuantLinear(w_qt=fc1_hot.w_qt[:tile], scale=fc1_hot.scale[:tile],
-                        b=fc1_hot.b[:tile], act_q=True)
-    one_tile, _ = err_stats(with_amax(fe.mlp_fc1_amax(yq, ys, first, act)), ref)
-    pad = -inter % tile
-    padded = QuantLinear(
-        w_qt=torch.cat([fc1_hot.w_qt, fc1_hot.w_qt.new_zeros(pad, h)]),
-        scale=torch.cat([fc1_hot.scale, fc1_hot.scale.new_ones(pad)]),
-        b=torch.cat([fc1_hot.b, fc1_hot.b.new_full((pad,), 1024.0)]), act_q=True)
-    counted, _ = err_stats(with_amax(fe.mlp_fc1_amax(yq, ys, padded, act)), ref)
-    print(f"kernel fused_ln_mlp_int8 {act} [{sub}, {h}], last 16 channels +32: max_abs_err "
-          f"{good:.6g} (tol {tol:.6g}); broken: amax from fc1's first n tile only "
-          f"{one_tile:.6g}, the {pad} padded columns counted {counted:.6g}", flush=True)
-    if not good <= tol:
-        fail(f"fused_ln_mlp_int8 hot channels error {good} > {tol}")
-    if not (one_tile > tol and counted > tol):
-        fail(f"fused_ln_mlp_int8 tolerance {tol} does not catch a broken row amax "
-             f"({one_tile}, {counted})")
-    worst = max(worst, good)
-    del yq, ys, ref, padded, first
-    # fc1 and fc2 once each; x read, out written, both weights read.
-    bnd = bound(asked, PEAK_INT8,
-                2 * rows * h * 2 + 2 * h * inter + 2 * (inter + h) * 4 + 2 * h * 4)
-    print(f"kernel fused_ln_mlp_int8: bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}; the "
-          f"mma.sync version {FIRST_VERSION_MS['fused_ln_mlp_int8']} ms (gelu_tanh; PERF.md, "
-          f"not this run)", flush=True)
-    records["fused_ln_mlp_int8"] = dict(
-        name="fused_ln_mlp_int8", route="cuda",
-        source="videoitg_tpu_torch/csrc/fused_encoder.cu",
-        replaces="videoitg_tpu/ops/fused_encoder.py:105", max_abs_err=worst,
-        mean_abs_err=worst_mean, ms=times["gelu_tanh"][0], plain_ms=times["gelu_tanh"][1],
-        quick_gelu_ms=times["quick_gelu"][0], stage_ms=times["gelu_tanh"][2],
-        library_ms=None, **bnd)
-    del x, ln, ln_no_bias, fc1, fc2, fc2_cut, fc1_hot, q_lin, k_lin, v_lin, o_lin
-    torch.cuda.empty_cache()
+        def with_amax(amax):
+            return fe.mlp_fc2_residual(xs_, fe.mlp_fc1_quant(yq, ys, fc1_hot, amax, act), amax,
+                                       fc2)
 
-    # ---- G, H (quick_gelu) and I at the clip tower's widths (CLIP
-    # ViT-L/14-336): one chunk of 128 frames x 577 tokens, hidden 1024, MLP
-    # 4096, LN eps 1e-5. The same checks at the same tolerances. ----
-    rows, h, inter, eps = 128 * 577, 1024, 4096, 1e-5
-    ln = Norm(h, bias=True, device=dev, dtype=torch.bfloat16)
-    ln.scale.data = (1.0 + randn(h, std=0.1)).to(torch.bfloat16)
-    ln.bias.data = randn(h, std=0.3).to(torch.bfloat16)
-    x = (randn(rows, h) * (1.0 + randn(1, h).abs()) + randn(1, h, std=0.5)).to(torch.bfloat16)
-    q_lin, k_lin, v_lin = (int8_linear(h, h, bias_std=0.5) for _ in range(3))
-    refs = fe.fused_ln_qkv_int8_reference(x, ln, q_lin, k_lin, v_lin, eps)
-    outs = fe.fused_ln_qkv_int8(x, ln, q_lin, k_lin, v_lin, eps)
-    tol = min(int8_tol(r.float()) for r in refs)
-    err = max(err_stats(o, r)[0] for o, r in zip(outs, refs))
-    ms = cuda_ms(lambda: fe.fused_ln_qkv_int8(x, ln, q_lin, k_lin, v_lin, eps), 5)
-    plain_ms = cuda_ms(lambda: fe.fused_ln_qkv_int8_reference(x, ln, q_lin, k_lin, v_lin, eps), 2)
-    bnd = bound(2 * rows * h * 3 * h, PEAK_INT8,
-                rows * h * 2 + 3 * h * h + rows * 3 * h * 2 + 2 * 3 * h * 4 + 2 * h * 4)
-    print(f"kernel fused_ln_qkv_int8 clip [{rows}, {h}] -> 3 x [{rows}, {h}]: max_abs_err "
-          f"{err:.6g} (tol {tol:.6g}); {ms:.4f} ms ({2 * rows * h * 3 * h / ms / 1e9:.1f} TOP/s), "
-          f"plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}",
+        tile = fe.FC1_TILE
+        first = QuantLinear(w_qt=fc1_hot.w_qt[:tile], scale=fc1_hot.scale[:tile],
+                            b=fc1_hot.b[:tile], act_q=True)
+        one_tile, _ = err_stats(with_amax(fe.mlp_fc1_amax(yq, ys, first, act)), ref)
+        pad = -inter % tile
+        counted = None
+        if pad:
+            padded = QuantLinear(
+                w_qt=torch.cat([fc1_hot.w_qt, fc1_hot.w_qt.new_zeros(pad, h)]),
+                scale=torch.cat([fc1_hot.scale, fc1_hot.scale.new_ones(pad)]),
+                b=torch.cat([fc1_hot.b, fc1_hot.b.new_full((pad,), 1024.0)]), act_q=True)
+            counted, _ = err_stats(with_amax(fe.mlp_fc1_amax(yq, ys, padded, act)), ref)
+            del padded
+        print(f"kernel fused_ln_mlp_int8{tag} {act} [{sub}, {h}], last 16 channels +32: "
+              f"max_abs_err {good:.6g} (tol {tol:.6g}); broken: amax from fc1's first n tile "
+              f"only {one_tile:.6g}, " + (f"the {pad} padded columns counted {counted:.6g}" if pad
+                                         else f"fc1's last n tile is whole at {inter}"),
+              flush=True)
+        if not good <= tol:
+            fail(f"fused_ln_mlp_int8{tag} hot channels error {good} > {tol}")
+        if not (one_tile > tol and (counted is None or counted > tol)):
+            fail(f"fused_ln_mlp_int8{tag} tolerance {tol} does not catch a broken row amax "
+                 f"({one_tile}, {counted})")
+        worst = max(worst, good)
+        del yq, ys, ref, first
+        # fc1 and fc2 once each; x read, out written, both weights read.
+        bnd = bound(asked, PEAK_INT8,
+                    2 * rows * h * 2 + 2 * h * inter + 2 * (inter + h) * 4 + 2 * h * 4)
+        print(f"kernel fused_ln_mlp_int8{tag}: bound {bnd['bound_ms']:.4f} ms by "
+              f"{bnd['bound_by']}", flush=True)
+        out_records["fused_ln_mlp_int8"] = dict(
+            name="fused_ln_mlp_int8", route="cuda",
+            source="videoitg_tpu_torch/csrc/fused_encoder.cu",
+            replaces="videoitg_tpu/ops/fused_encoder.py:105", max_abs_err=worst,
+            mean_abs_err=worst_mean, ms=times[act][0], plain_ms=times[act][1],
+            **{f"{a}_ms": times[a][0] for a in acts[1:]}, stage_ms=times[act][2],
+            library_ms=None, **bnd)
+        del x, ln, ln_no_bias, fc1, fc2, fc2_cut, fc1_hot, q_lin, k_lin, v_lin, o_lin
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return out_records
+
+    # ---- G, H, I over one tower chunk of 128 frames: SigLIP's 729 patches at
+    # H = 1152, MLP 4304, both activations (the records' own numbers); then
+    # CLIP ViT-L/14-336's 577 tokens at H = 1024, MLP 4096, LN eps 1e-5,
+    # quick_gelu. ----
+    siglip = tower("", 128 * 729, 1152, 4304, 1e-6, ("gelu_tanh", "quick_gelu"))
+    print("the mma.sync versions (H with gelu_tanh): " + ", ".join(
+        f"{name} {FIRST_VERSION_MS[name]} ms" for name in siglip) + " (PERF.md, not this run)",
           flush=True)
-    if not err <= tol:
-        fail(f"fused_ln_qkv_int8 at the clip width: error {err} > {tol}")
-    records["fused_ln_qkv_int8"]["max_abs_err"] = max(
-        records["fused_ln_qkv_int8"]["max_abs_err"], err)
-    records["fused_ln_qkv_int8"].update(clip_ms=ms, clip_plain_ms=plain_ms,
-                                        clip_bound_ms=bnd["bound_ms"])
-    del refs, outs
-
-    o_lin = int8_linear(h, h, bias_std=0.5)
-    attn = randn(rows, h).to(torch.bfloat16)
-    ref = fe.fused_proj_residual_int8_reference(attn, x, o_lin)
-    out = fe.fused_proj_residual_int8(attn, x, o_lin)
-    err, _ = err_stats(out, ref)
-    equal = bool(torch.equal(out, ref))
-    ms = cuda_ms(lambda: fe.fused_proj_residual_int8(attn, x, o_lin), 5)
-    plain_ms = cuda_ms(lambda: fe.fused_proj_residual_int8_reference(attn, x, o_lin), 2)
-    bnd = bound(2 * rows * h * h, PEAK_INT8, 3 * rows * h * 2 + h * h + 2 * h * 4)
-    print(f"kernel fused_proj_residual_int8 clip [{rows}, {h}]: max_abs_err {err:.6g}, "
-          f"bit-equal {equal}; {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}", flush=True)
-    if not equal:
-        fail(f"fused_proj_residual_int8 at the clip width not bit-equal: error {err}")
-    records["fused_proj_residual_int8"].update(clip_ms=ms, clip_plain_ms=plain_ms,
-                                               clip_bound_ms=bnd["bound_ms"])
-    del attn, ref, out
-
-    act = "quick_gelu"
-    fc1, fc2 = int8_linear(h, inter, bias_std=0.1), int8_linear(inter, h, bias_std=0.5)
-    ref = fe.fused_ln_mlp_int8_reference(x, ln, fc1, fc2, eps, act)
-    out = fe.fused_ln_mlp_int8(x, ln, fc1, fc2, eps, act)
-    tol = int8_tol(ref.float())
-    err, _ = err_stats(out, ref)
-    again = bool(torch.equal(out, fe.fused_ln_mlp_int8(x, ln, fc1, fc2, eps, act)))
-    ms = cuda_ms(lambda: fe.fused_ln_mlp_int8(x, ln, fc1, fc2, eps, act), 5)
-    plain_ms = cuda_ms(lambda: fe.fused_ln_mlp_int8_reference(x, ln, fc1, fc2, eps, act), 2)
-    asked = 4 * rows * h * inter
-    bnd = bound(asked, PEAK_INT8, 2 * rows * h * 2 + 2 * h * inter + 2 * (inter + h) * 4
-                + 2 * h * 4)
-    print(f"kernel fused_ln_mlp_int8 {act} clip [{rows}, {h}] via {inter}: max_abs_err "
-          f"{err:.6g} (tol {tol:.6g}); two runs bit-equal {again}; {ms:.4f} ms "
-          f"({asked / ms / 1e9:.1f} TOP/s of the 2 products asked for), plain {plain_ms:.4f} "
-          f"ms, bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}", flush=True)
-    if not (err <= tol and again):
-        fail(f"fused_ln_mlp_int8 {act} at the clip width: error {err} > {tol} or two runs "
-             f"differ ({again})")
-    records["fused_ln_mlp_int8"]["max_abs_err"] = max(
-        records["fused_ln_mlp_int8"]["max_abs_err"], err)
-    records["fused_ln_mlp_int8"].update(clip_ms=ms, clip_plain_ms=plain_ms,
-                                        clip_bound_ms=bnd["bound_ms"])
-    del x, ref, out
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    clip = tower(" clip", 128 * 577, 1024, 4096, 1e-5, ("quick_gelu",))
+    for name, rec in siglip.items():
+        rec["max_abs_err"] = max(rec["max_abs_err"], clip[name]["max_abs_err"])
+        rec["clip"] = {k: v for k, v in clip[name].items()
+                       if k not in ("name", "route", "source", "replaces", "library_ms")}
+        records[name] = rec
     return records
 
 
@@ -2021,6 +1968,40 @@ def run_slices(dev, card: str) -> dict:
     return {**launches, **{k: launches[k] + v for k, v in bf16_launches.items()}}
 
 
+def host_rss() -> Optional[int]:
+    """This process's resident bytes (/proc/self/statm), or None where the
+    machine does not give them."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, IndexError, ValueError):
+        return None
+
+
+class HostPeak:
+    """The largest resident set the process reaches inside the block, read
+    every 2 ms by a thread: the card's machine keeps no high-water mark that
+    can be reset (its /proc/self/status has no VmHWM). `before` and `peak`
+    are bytes, or None where host_rss gives none."""
+
+    def __enter__(self):
+        self.before = self.peak = host_rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while self.before is not None and not self._stop.wait(0.002):
+            self.peak = max(self.peak, host_rss() or 0)
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        if self.before is not None:
+            self.peak = max(self.peak, host_rss() or 0)
+
+
 def checkpoint_cells() -> list:
     """(name, config, frames) of the checkpoint phase: VideoITG-8B's widths
     with 2 LM and 3 tower layers; the same LM under CLIP ViT-L/14-336's tower
@@ -2056,7 +2037,6 @@ def run_checkpoints(dev, card: str) -> dict:
     4,608 image tokens, through kernel B. Launch counts are zeroed before
     each select of a loaded model and read after it. Returns the counts
     summed over the phase."""
-    import resource
     import tempfile
 
     import numpy as np
@@ -2099,33 +2079,37 @@ def run_checkpoints(dev, card: str) -> dict:
         tok = CharTokenizer(cfg.lm.vocab_size)
         model = init_grounding(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev,
                                dtype=torch.bfloat16)
+        # The host's peak resident set over the write and over the load: a
+        # whole-model copy on the host would raise it by about the file's bytes.
         with tempfile.TemporaryDirectory() as tmp:
             torch.cuda.synchronize()
-            rss_write = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
             t0 = time.perf_counter()
-            path = save_hf_checkpoint(model, cfg, tmp)
+            with HostPeak() as host_write:
+                path = save_hf_checkpoint(model, cfg, tmp)
             write_s = time.perf_counter() - t0
             nbytes = os.path.getsize(path)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             before = torch.cuda.memory_allocated()
-            rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
             t0 = time.perf_counter()
-            loaded, got_cfg = load_grounding_model(tmp, device=dev, dtype=torch.bfloat16)
-            torch.cuda.synchronize()
+            with HostPeak() as host_load:
+                loaded, got_cfg = load_grounding_model(tmp, device=dev, dtype=torch.bfloat16)
+                torch.cuda.synchronize()
             load_s = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated() - before
-            rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
         want, got = model.state_dict(), loaded.state_dict()
         unequal = sorted(k for k in want if not torch.equal(bits(want[k]), bits(got[k])))
         weights = sum(v.numel() * v.element_size() for v in got.values())
+        rises = ", ".join(
+            f"{k} +{(h.peak - h.before) / 2**30:.3f} GiB over {h.before / 2**30:.3f}"
+            if h.before is not None else f"{k} not measured (no /proc/self/statm)"
+            for k, h in (("write", host_write), ("load", host_load)))
         print(f"checkpoint {name}: {nbytes} bytes of fp32 safetensors written in {write_s:.4f} "
               f"s ({nbytes / write_s / 1e9:.3f} GB/s), read into bf16 on the card in "
               f"{load_s:.4f} s ({nbytes / load_s / 1e9:.3f} GB/s of file); device memory peak "
               f"of the load {peak / 2**30:.4f} GiB for {weights / 2**30:.4f} GiB of weights; "
-              f"host max RSS {rss_write / 2**20:.3f} GiB before the write, "
-              f"{rss0 / 2**20:.3f} after it, {rss1 / 2**20:.3f} after the load; "
-              f"{len(want)} tensors, bit-equal {not unequal} [{card}]", flush=True)
+              f"host peak resident set (sampled every 2 ms) {rises}; {len(want)} tensors, "
+              f"bit-equal {not unequal} [{card}]", flush=True)
         if got_cfg != cfg or set(got) != set(want) or unequal:
             fail(f"checkpoint {name}: the loaded model differs from the written one "
                  f"({unequal[:5]})")
