@@ -118,7 +118,7 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      columns of fc1's last tile counted; G's include its k held to the plain
      q (a wrong split). I has no LN: it must be bit-equal in every case. Each
      line times the launches one by one and, for orientation, the bare
-     `torch._int_mm` product. G, H with quick_gelu and I run again, every
+     `torch._int_mm` products (H's fc1 and fc2 each). G, H with quick_gelu and I run again, every
      check and broken use included, at the CLIP tower's widths: [73,856,
      1024] via 4096 (128 frames x 577 tokens), LN eps 1e-5 (fc1's last n
      tile is whole there, so the padded-columns use has nothing to count).
@@ -205,14 +205,25 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    entry), and three offloaded steps (`train/offload.py`: Adam's moments in
    pinned host memory between steps) bit-equal to three plain steps.
 
+9. Eval stage A: VideoITG-8B bf16 (random weights) through the port's
+   `cli/evaluate.main` in this process, task videomme, a --docs_json of 6
+   docs over 4 videos of 512 frames at target_fps=1 (one video with 3
+   questions: `select_many`; three with one each: the `score_frames` group
+   path), the frame reader swapped as in phase 6. Run at batch_size 1 and 2.
+   The batch_size=1 rows equal the adapter's engine called directly on the
+   same frames and prompts; the batch_size=2 raw scores are within E2E_ATOL
+   of batch_size 1's; A launches 416 times a run, B 168 (batch_size 1) and
+   140 (batch_size 2), nothing else. Prints docs per second, seconds per
+   video, peak device memory and the report's videomme_perception_score.
+
 `--only attention-kernels` prints ptxas' lines for kernels A and B and stops
 after checking them (a short first run after editing them),
 `--only int8-kernels` stops after building and checking kernels F-I,
 `--only train-kernels` after C, D, E, `--only splash-kernels` after K and L
 `--only segment-kernels` after J (a short first run for a new kernel);
 `--only serve` runs phase 6 alone, `--only train` phase 7, `--only vlm` phase
-8, `--only checkpoint` the checkpoint part of phase 5. None of them prints a
-result line.
+8, `--only checkpoint` the checkpoint part of phase 5, `--only eval` phase 9.
+None of them prints a result line.
 
 The last two lines are the per-kernel JSON record and
 {"ok": true, "device": {...}}.
@@ -890,6 +901,15 @@ def check_int8_kernels(dev) -> dict:
                         cuda_ms(lambda: fe.mlp_fc1_amax(yq, ys, fc1, act), 5),
                         cuda_ms(lambda: fe.mlp_fc1_quant(yq, ys, fc1, amax, act), 5),
                         cuda_ms(lambda: fe.mlp_fc2_residual(x, gq, amax, fc2), 5)]
+            if not times:
+                # for orientation, the bare torch._int_mm of fc1 and of fc2 (the
+                # same for every activation): [rows, h] x [h, inter], then
+                # [rows, inter] x [inter, h]
+                int_mm_ms = [cuda_ms(lambda: torch._int_mm(yq, fc1.w_qt.t()), 5),
+                             cuda_ms(lambda: torch._int_mm(gq, fc2.w_qt.t()), 5)]
+                print(f"kernel fused_ln_mlp_int8{tag}: for orientation, the bare torch._int_mm "
+                      f"products alone: fc1 {int_mm_ms[0]:.4f} ms, fc2 {int_mm_ms[1]:.4f} ms, "
+                      f"together {sum(int_mm_ms):.4f} ms", flush=True)
             del yq, ys, amax, gq
             print(f"kernel fused_ln_mlp_int8{tag} {act} [{rows}, {h}] via {inter}: max_abs_err "
                   f"{err:.6g} mean {mean:.3g} (tol {tol:.6g}); ragged 1000 rows {err_r:.6g}; two "
@@ -965,7 +985,7 @@ def check_int8_kernels(dev) -> dict:
             replaces="videoitg_tpu/ops/fused_encoder.py:105", max_abs_err=worst,
             mean_abs_err=worst_mean, ms=times[act][0], plain_ms=times[act][1],
             **{f"{a}_ms": times[a][0] for a in acts[1:]}, stage_ms=times[act][2],
-            library_ms=None, **bnd)
+            int_mm_ms=int_mm_ms, library_ms=None, **bnd)
         del x, ln, ln_no_bias, fc1, fc2, fc2_cut, fc1_hot, q_lin, k_lin, v_lin, o_lin
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -2858,20 +2878,232 @@ def run_vlm(dev, card: str) -> dict:
             "flash_mha_short": gen_launches["flash_mha_short"]}
 
 
+EVAL_FRAMES = 512  # frames a video at target_fps=1, the paper's eval setting
+EVAL_VIDEOS = (("a", QUESTIONS), ("b", ["What is on the table?"]),
+               ("c", ["Who opens the door?"]), ("d", ["Where does the boat go?"]))
+
+
+def run_eval(dev, card: str) -> dict:
+    """Phase 9: eval stage A. VideoITG-8B bf16 (random weights, seed 0 as the
+    adapter draws them) through `cli/evaluate.main` in this process: task
+    videomme, a --docs_json of 6 docs over 4 videos (a with 3 questions: the
+    `select_many` path; b, c, d with one each: the `score_frames` group
+    path), 512 frames at target_fps=1, with the frame reader swapped for one
+    that hands out seeded 360x640 frames. Run at batch_size 1, then 2 (b and
+    c score as one batch). Each batch_size=1 row equals what the adapter's
+    engine returns called directly on the same frames and prompts; the
+    batch_size=2 raw scores are within E2E_ATOL of the batch_size=1 ones; A
+    and B launch as often as the path implies, and nothing else launches.
+    Returns the launches of both runs."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from videoitg_tpu_torch.cli import evaluate as evaluate_cli
+    from videoitg_tpu_torch.data import video as video_mod
+    from videoitg_tpu_torch.eval import harness
+    from videoitg_tpu_torch.eval.adapters.videoitg import VideoITGAdapter
+
+    t_frames = EVAL_FRAMES
+    rng = np.random.default_rng(SEED + 90)
+    sampled = [30 * i for i in range(t_frames)]  # 1 fps of a 30 fps clip
+    videos = {v: frames_u8(rng, t_frames) for v, _ in EVAL_VIDEOS}
+    docs = []
+    for v, questions in EVAL_VIDEOS:
+        for q in questions:
+            n = len(docs)
+            docs.append({"videoID": v, "question_id": f"{v}{n}", "question": q,
+                         "options": ["A. one", "B. two", "C. three", "D. four"],
+                         "answer": "ABCD"[n % 4], "duration": ["short", "medium", "long"][n % 3],
+                         "domain": "d", "sub_category": "s", "task_type": "t"})
+    reads = []
+
+    def synthetic_reader(path, num_frames=512, target_fps=1.0, sampling="eval", multiple=1,
+                         pix_fmt="rgb"):
+        key = os.path.splitext(os.path.basename(path))[0]
+        if key not in videos or pix_fmt != "rgb" or (num_frames, target_fps, sampling) != (
+                t_frames, 1.0, "eval"):
+            raise FileNotFoundError(f"{path} ({num_frames}, {target_fps}, {sampling}, {pix_fmt})")
+        reads.append(key)
+        return videos[key], list(sampled)
+
+    built, raw, walls, peaks = [], {}, [], []
+    recording = [False]
+    real_init, real_evaluate = VideoITGAdapter.__init__, harness.evaluate_task
+
+    def spy_init(self, *a, **kw):
+        """Keeps the adapter the CLI builds, and records the raw scores its
+        engine returns (the rows hold them rounded to 2 decimals)."""
+        real_init(self, *a, **kw)
+        built.append(self)
+        eng = self.engine
+        score_frames, select_many = eng.score_frames, eng.select_many
+
+        def spy_score_frames(vids, instructions):
+            out = score_frames(vids, instructions)
+            if recording[0]:
+                raw.update(zip(instructions, out))
+            return out
+
+        def spy_select_many(*args, **kwargs):
+            out = select_many(*args, **kwargs)
+            if recording[0]:
+                raw.update((r.contexts, r.raw_scores) for r in out)
+            return out
+
+        eng.score_frames, eng.select_many = spy_score_frames, spy_select_many
+
+    def timed_evaluate(*a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        report = real_evaluate(*a, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated())
+        return report
+
+    n_layers, tower_layers = 28, 26
+    n_videos = len(EVAL_VIDEOS)
+    counted = wrappers()
+    total = {name: 0 for name in counted}
+    by_run = {}
+    real_reader = video_mod.read_video_frames
+    video_mod.read_video_frames = synthetic_reader
+    VideoITGAdapter.__init__, harness.evaluate_task = spy_init, timed_evaluate
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = os.path.join(tmp, "videomme")
+            os.makedirs(os.path.join(root, "data"))
+            for v, _ in EVAL_VIDEOS:  # videomme's doc_to_visual wants the files there
+                open(os.path.join(root, "data", f"{v}.mp4"), "wb").close()
+            docs_json = os.path.join(tmp, "docs.json")
+            with open(docs_json, "w") as f:
+                json.dump(docs, f)
+            for bs in (1, 2):
+                out = os.path.join(tmp, f"out_bs{bs}")
+                argv = ["--model", "videoitg", "--model_args",
+                        f"random_init=True,preset=videoitg-8b,num_frames={t_frames},"
+                        f"target_fps=1,batch_size={bs}",
+                        "--tasks", "videomme", "--data_root", root, "--docs_json", docs_json,
+                        "--output_path", out, "--seed", str(SEED)]
+                raw.clear()
+                reads.clear()
+                recording[0] = True
+                for fn in counted.values():
+                    fn.launches = 0
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                rc = evaluate_cli.main(argv)
+                torch.cuda.synchronize()
+                main_wall = time.perf_counter() - t0
+                recording[0] = False
+                launches = {name: fn.launches for name, fn in counted.items()}
+                if rc != 0:
+                    fail(f"eval batch_size={bs}: cli/evaluate.main returned {rc}")
+                for name, n in launches.items():
+                    total[name] += n
+                # A: 4 chunks of 128 frames x 26 layers per video, batched or not;
+                # B: 28 per LM pass: a's 3 questions, then b, c, d (b and c as one
+                # pass at batch_size 2)
+                want = {"flash_mha_short": n_videos * 4 * tower_layers,
+                        "flash_mha": n_layers * (3 + (3 if bs == 1 else 2))}
+                other = {k: v for k, v in launches.items() if k not in want and v}
+                if any(launches[k] != n for k, n in want.items()) or other:
+                    fail(f"eval batch_size={bs}: launches {launches}, expected {want} and no "
+                         f"other kernel")
+                if sorted(reads) != sorted(videos):
+                    fail(f"eval batch_size={bs}: the reader handed out {reads}")
+                task_dir = os.path.join(out, "videomme")
+                with open(os.path.join(task_dir, "results.jsonl")) as f:
+                    rows = [json.loads(line) for line in f]
+                with open(os.path.join(task_dir, "report.videomme.json")) as f:
+                    report = json.load(f)
+                if [r["doc_id"] for r in rows] != list(range(len(docs))) or \
+                        report["num_docs"] != len(docs):
+                    fail(f"eval batch_size={bs}: rows {[r['doc_id'] for r in rows]}, "
+                         f"report of {report['num_docs']} docs")
+                for r in rows:
+                    if sorted(r["index"]) != sampled or r["logits"] != sorted(r["logits"])[::-1] \
+                            or not all(0.0 <= x <= 1.0 for x in r["logits"]):
+                        fail(f"eval batch_size={bs}: doc {r['doc_id']} row is not a ranking "
+                             "of the sampled frames in [0, 1]")
+                for ctx, sc in raw.items():
+                    if sc.shape != (t_frames,) or not np.all(np.isfinite(sc)):
+                        fail(f"eval batch_size={bs}: scores {sc.shape}, finite "
+                             f"{np.all(np.isfinite(sc))}")
+                if len(raw) != len(docs):
+                    fail(f"eval batch_size={bs}: {len(raw)} raw score vectors for {len(docs)} docs")
+                wall, peak = walls[-1], peaks[-1]
+                weights = sum(t.numel() * t.element_size()
+                              for t in built[-1].engine.model.state_dict().values())
+                meta = report["metadata"]
+                print(f"eval [bf16, videomme, batch_size={bs}]: {len(docs)} docs over {n_videos} "
+                      f"videos of {t_frames} frames in {wall:.4f} s (evaluate_task, reader "
+                      f"swapped; cli main {main_wall:.2f} s with the weights' init): "
+                      f"{len(docs) / wall:.4f} docs/s, {wall / n_videos:.4f} s per video; peak "
+                      f"device memory over evaluate_task {peak / 2**30:.3f} GiB (weights "
+                      f"{weights / 2**30:.3f} GiB; {before / 2**30:.3f} GiB held before the run); "
+                      f"videomme_perception_score "
+                      f"{report['metrics']['videomme_perception_score']}; backend "
+                      f"{meta['backend']}, torch {meta['torch_version']}; launches A "
+                      f"{launches['flash_mha_short']}, B {launches['flash_mha']} [{card}]",
+                      flush=True)
+                by_run[bs] = dict(raw)
+                if bs == 1:
+                    # the same engine, called directly on the same frames and prompts
+                    eng = built[-1].engine
+                    per_video = {}
+                    for r in rows:
+                        per_video.setdefault(os.path.splitext(
+                            os.path.basename(r["video_path"]))[0], []).append(r)
+                    direct = {}
+                    for res in eng.select_many(videos["a"], sampled,
+                                               [r["contexts"] for r in per_video["a"]]):
+                        direct[res.contexts] = (res.index, res.logits)
+                    for v in "bcd":
+                        (r,) = per_video[v]
+                        sc = eng.score_frames([videos[v]], [r["contexts"]])[0]
+                        direct[r["contexts"]] = eng.rank_frames(sc, sampled)
+                    unequal = [r["doc_id"] for r in rows
+                               if (r["index"], r["logits"]) != tuple(direct[r["contexts"]])]
+                    print(f"eval batch_size=1 rows against the engine called directly "
+                          f"(select_many for a, score_frames + rank_frames for b, c, d): "
+                          f"{len(rows) - len(unequal)} of {len(rows)} equal", flush=True)
+                    if unequal:
+                        fail(f"eval batch_size=1 rows {unequal} differ from the engine's")
+                    del eng
+                built.clear()
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        video_mod.read_video_frames = real_reader
+        VideoITGAdapter.__init__, harness.evaluate_task = real_init, real_evaluate
+    diff = max(float(np.abs(by_run[2][ctx] - by_run[1][ctx]).max()) for ctx in by_run[1])
+    print(f"eval batch_size=2 against batch_size=1 raw scores: max |diff| {diff:.6g} "
+          f"(atol {E2E_ATOL})", flush=True)
+    if not diff <= E2E_ATOL:
+        fail(f"eval batch_size=2 scores differ from batch_size=1 by {diff} > {E2E_ATOL}")
+    return {name: total[name] for name in ("flash_mha_short", "flash_mha")}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["attention-kernels", "int8-kernels", "train-kernels",
                                           "splash-kernels",
                                           "segment-kernels", "vlm",
-                                          "serve", "train", "checkpoint"],
+                                          "serve", "train", "checkpoint", "eval"],
                         default=None,
                         help="build, then only: check kernels A, B (attention-kernels), F-I "
                              "(int8-kernels), C, D, E (train-kernels), K, L (splash-kernels) "
                              "or J (segment-kernels) against their plain versions, with "
                              "ptxas' lines for the TMA + wgmma instances among them; or run "
                              "the daemon phase (serve), "
-                             "the training phases (train), the causal-VLM phases (vlm) or "
-                             "the HF-checkpoint phase (checkpoint)")
+                             "the training phases (train), the causal-VLM phases (vlm), "
+                             "the HF-checkpoint phase (checkpoint) or eval stage A (eval)")
     args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "videoitg_tpu_torch")):
         fail("run from a checkout of the repository (videoitg_tpu_torch/ not found)")
@@ -2944,6 +3176,10 @@ def main(argv=None) -> int:
         run_checkpoints(dev, card)
         print("checkpoint phase passed", flush=True)
         return 0
+    if args.only == "eval":
+        run_eval(dev, card)
+        print("eval phase passed", flush=True)
+        return 0
     records = check_kernels(dev)
     records.update(check_train_kernels(dev))
     records.update(check_int8_kernels(dev))
@@ -2961,6 +3197,9 @@ def main(argv=None) -> int:
     launches.update({name: train_launches[name] for name in TRAIN_KERNELS})
     for name, n in run_vlm(dev, card).items():
         launches[name] = launches.get(name, 0) + n
+    torch.cuda.empty_cache()
+    for name, n in run_eval(dev, card).items():
+        launches[name] += n
     for name, rec in records.items():
         rec["launches"] = launches[name]
     loaded = sorted(m for m in sys.modules

@@ -129,6 +129,39 @@ def test_vlm_modules_load_no_jax(tmp_path):
     assert not (tmp_path / "build").exists()
 
 
+def test_eval_modules_load_no_jax(tmp_path):
+    """The eval slice's modules (the harness, the scorers, the task registry
+    with every task, the grounding adapter, the evaluate CLI), imported alone
+    in a fresh interpreter with no compiler on the path: neither jax nor
+    `videoitg_tpu` comes with them, the registries fill, and nothing is
+    built."""
+    mods = [m for m in _modules() if ".eval" in m] + ["videoitg_tpu_torch.cli.evaluate"]
+    assert {"videoitg_tpu_torch.eval.harness", "videoitg_tpu_torch.eval.adapters.videoitg",
+            "videoitg_tpu_torch.eval.tasks.videomme", "videoitg_tpu_torch.eval.megabench.scoring",
+            "videoitg_tpu_torch.eval.multihost"} <= set(mods)
+    assert sum(".eval.tasks." in m for m in mods) == 88
+    code = (
+        "import importlib, json, sys\n"
+        f"mods = {mods!r}\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "from videoitg_tpu_torch.eval import api\n"
+        "api.get_task('videomme'); api.get_adapter('videoitg')\n"
+        "from videoitg_tpu_torch.cli.evaluate import build_parser\n"
+        "build_parser().parse_args(['--model', 'videoitg', '--tasks', 'videomme', '--cpu'])\n"
+        "from videoitg_tpu_torch.ops import _build\n"
+        "bad = ('jax', 'jaxlib', 'optax', 'orbax', 'flax', 'videoitg_tpu')\n"
+        "foreign = sorted(k for k in sys.modules if k.split('.')[0] in bad)\n"
+        "print(json.dumps({'foreign': foreign, 'built': _build._lib is not None,\n"
+        "                  'tasks': len(api.TASK_REGISTRY), 'adapters': sorted(api.ADAPTER_REGISTRY)}))\n")
+    proc = _run(code, VIDEOITG_NVCC=str(tmp_path / "no-nvcc"), PATH="/usr/bin:/bin",
+                VIDEOITG_TORCH_BUILD_DIR=str(tmp_path / "build"))
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["foreign"] == [] and out["built"] is False and out["adapters"] == ["videoitg"]
+    assert out["tasks"] > 100
+    assert not (tmp_path / "build").exists()
+
+
 def test_the_guard_sees_the_jax_package():
     """The same scan must report `videoitg_tpu` as it reports `jax`."""
     code = ("import sys, json, videoitg_tpu.constants\n"

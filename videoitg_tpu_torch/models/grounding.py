@@ -34,16 +34,18 @@ class GroundingModel(nn.Module):
     The causal VLM is the same module: `with_lm_head` gives an untied LM its
     output head, and `with_out_proj=False` leaves the scoring head out, as a
     converted VLM checkpoint's tree does (a random-init VLM keeps it, unused,
-    exactly as the JAX package's `init_grounding` does)."""
+    exactly as the JAX package's `init_grounding` does). `lm` takes an LM built
+    elsewhere, such as one drawn directly in int8 form (ops/quant.init_qwen2_int8)."""
 
     def __init__(self, cfg: GroundingConfig, *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None, with_lm_head: bool = False,
-                 with_out_proj: bool = True):
+                 with_out_proj: bool = True, lm: Optional[nn.Module] = None):
         super().__init__()
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.vision = siglip_mod.SiglipTower(cfg.vision, **kw)
         self.projector = Projector(cfg.projector, **kw)
-        self.lm = qwen2_mod.Qwen2(cfg.lm, with_lm_head=with_lm_head, **kw)
+        self.lm = lm if lm is not None else qwen2_mod.Qwen2(
+            cfg.lm, with_lm_head=with_lm_head, **kw)
         if not with_out_proj:
             return
         self.out_proj = Linear(cfg.lm.hidden_size, 1, device=device, dtype=dtype)
