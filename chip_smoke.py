@@ -216,13 +216,31 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    140 (batch_size 2), nothing else. Prints docs per second, seconds per
    video, peak device memory and the report's videomme_perception_score.
 
+10. Eval stage B: stage A at batch_size 1 as in phase 9 (its model freed
+   after it), then `cli/evaluate.main --model videoitg-vlm` on its
+   results.jsonl: VideoITG-8B's causal, tied variant in bf16 with random
+   weights, num_frame=32 (hw 22), 16 new tokens, the libav reader of
+   `frames_for_doc` swapped for one that hands out the same seeded frames.
+   Videomme on the same 6 docs (generate_until), a loglikelihood task of two
+   candidates on the first doc of each video, and the generation again with
+   quantize=act8, VIDEOITG_QGEMM=1, VIDEOITG_FUSED=1. The frames asked for
+   are stage A's first 32, ascending; every response and loglikelihood
+   equals the adapter's model called directly; A launches 26 times and B 28
+   times a request, and under act8 G, H and I 26 times a request and F 7
+   times a layer for the prefill and for every decode step, nothing else.
+   F is held to its plain version at M = 1 and at the prefill's M on the
+   model's layer-0 weights, and timed for one LM layer at M = 1. Prints each
+   run's evaluate_task seconds, docs per second, tower and prefill seconds,
+   ms per decoded token, peak device memory and launches.
+
 `--only attention-kernels` prints ptxas' lines for kernels A and B and stops
 after checking them (a short first run after editing them),
 `--only int8-kernels` stops after building and checking kernels F-I,
 `--only train-kernels` after C, D, E, `--only splash-kernels` after K and L
 `--only segment-kernels` after J (a short first run for a new kernel);
 `--only serve` runs phase 6 alone, `--only train` phase 7, `--only vlm` phase
-8, `--only checkpoint` the checkpoint part of phase 5, `--only eval` phase 9.
+8, `--only checkpoint` the checkpoint part of phase 5, `--only eval` phase 9,
+`--only stage-b` phase 10.
 None of them prints a result line.
 
 The last two lines are the per-kernel JSON record and
@@ -2883,6 +2901,56 @@ EVAL_VIDEOS = (("a", QUESTIONS), ("b", ["What is on the table?"]),
                ("c", ["Who opens the door?"]), ("d", ["Where does the boat go?"]))
 
 
+def eval_inputs():
+    """(videos, sampled, docs) of the eval phases: 4 videos of EVAL_FRAMES
+    seeded 360x640 frames, the frame ids 1 fps takes from a 30 fps clip of
+    that length, and 6 Video-MME docs (3 questions on video a, one on each of
+    b, c, d)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 90)
+    sampled = [30 * i for i in range(EVAL_FRAMES)]  # 1 fps of a 30 fps clip
+    videos = {v: frames_u8(rng, EVAL_FRAMES) for v, _ in EVAL_VIDEOS}
+    docs = []
+    for v, questions in EVAL_VIDEOS:
+        for q in questions:
+            n = len(docs)
+            docs.append({"videoID": v, "question_id": f"{v}{n}", "question": q,
+                         "options": ["A. one", "B. two", "C. three", "D. four"],
+                         "answer": "ABCD"[n % 4], "duration": ["short", "medium", "long"][n % 3],
+                         "domain": "d", "sub_category": "s", "task_type": "t"})
+    return videos, sampled, docs
+
+
+def seeded_reader(videos, sampled, reads):
+    """A stand-in for `data/video.read_video_frames` that hands out the seeded
+    frames of `videos` at the eval sampling, and records each video it reads
+    in `reads`."""
+    def synthetic_reader(path, num_frames=512, target_fps=1.0, sampling="eval", multiple=1,
+                         pix_fmt="rgb"):
+        key = os.path.splitext(os.path.basename(path))[0]
+        if key not in videos or pix_fmt != "rgb" or (num_frames, target_fps, sampling) != (
+                EVAL_FRAMES, 1.0, "eval"):
+            raise FileNotFoundError(f"{path} ({num_frames}, {target_fps}, {sampling}, {pix_fmt})")
+        reads.append(key)
+        return videos[key], list(sampled)
+
+    return synthetic_reader
+
+
+def write_eval_root(tmp: str, docs) -> tuple:
+    """(data root, docs json) under `tmp`: the empty video files videomme's
+    doc_to_visual wants to find, and the docs."""
+    root = os.path.join(tmp, "videomme")
+    os.makedirs(os.path.join(root, "data"))
+    for v, _ in EVAL_VIDEOS:
+        open(os.path.join(root, "data", f"{v}.mp4"), "wb").close()
+    docs_json = os.path.join(tmp, "docs.json")
+    with open(docs_json, "w") as f:
+        json.dump(docs, f)
+    return root, docs_json
+
+
 def run_eval(dev, card: str) -> dict:
     """Phase 9: eval stage A. VideoITG-8B bf16 (random weights, seed 0 as the
     adapter draws them) through `cli/evaluate.main` in this process: task
@@ -2907,27 +2975,9 @@ def run_eval(dev, card: str) -> dict:
     from videoitg_tpu_torch.eval.adapters.videoitg import VideoITGAdapter
 
     t_frames = EVAL_FRAMES
-    rng = np.random.default_rng(SEED + 90)
-    sampled = [30 * i for i in range(t_frames)]  # 1 fps of a 30 fps clip
-    videos = {v: frames_u8(rng, t_frames) for v, _ in EVAL_VIDEOS}
-    docs = []
-    for v, questions in EVAL_VIDEOS:
-        for q in questions:
-            n = len(docs)
-            docs.append({"videoID": v, "question_id": f"{v}{n}", "question": q,
-                         "options": ["A. one", "B. two", "C. three", "D. four"],
-                         "answer": "ABCD"[n % 4], "duration": ["short", "medium", "long"][n % 3],
-                         "domain": "d", "sub_category": "s", "task_type": "t"})
+    videos, sampled, docs = eval_inputs()
     reads = []
-
-    def synthetic_reader(path, num_frames=512, target_fps=1.0, sampling="eval", multiple=1,
-                         pix_fmt="rgb"):
-        key = os.path.splitext(os.path.basename(path))[0]
-        if key not in videos or pix_fmt != "rgb" or (num_frames, target_fps, sampling) != (
-                t_frames, 1.0, "eval"):
-            raise FileNotFoundError(f"{path} ({num_frames}, {target_fps}, {sampling}, {pix_fmt})")
-        reads.append(key)
-        return videos[key], list(sampled)
+    synthetic_reader = seeded_reader(videos, sampled, reads)
 
     built, raw, walls, peaks = [], {}, [], []
     recording = [False]
@@ -2975,13 +3025,7 @@ def run_eval(dev, card: str) -> dict:
     VideoITGAdapter.__init__, harness.evaluate_task = spy_init, timed_evaluate
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            root = os.path.join(tmp, "videomme")
-            os.makedirs(os.path.join(root, "data"))
-            for v, _ in EVAL_VIDEOS:  # videomme's doc_to_visual wants the files there
-                open(os.path.join(root, "data", f"{v}.mp4"), "wb").close()
-            docs_json = os.path.join(tmp, "docs.json")
-            with open(docs_json, "w") as f:
-                json.dump(docs, f)
+            root, docs_json = write_eval_root(tmp, docs)
             for bs in (1, 2):
                 out = os.path.join(tmp, f"out_bs{bs}")
                 argv = ["--model", "videoitg", "--model_args",
@@ -3090,12 +3134,403 @@ def run_eval(dev, card: str) -> dict:
     return {name: total[name] for name in ("flash_mha_short", "flash_mha")}
 
 
+STAGE_B_FRAMES = 32      # num_frame of stage B: the first 32 of stage A's ranking
+STAGE_B_NEW_TOKENS = 16
+STAGE_B_ARGS = ("num_frame={n},random_init=True,preset=videoitg-8b,"
+                "max_new_tokens={t},dtype=bfloat16")
+
+
+def run_stage_b(dev, card: str) -> dict:
+    """Phase 10: eval stage B on the port alone. Stage A (phase 9's run at
+    batch_size 1) writes results.jsonl through `cli/evaluate.main`, and its
+    model is freed. Then `cli/evaluate.main --model videoitg-vlm` with
+    `frame_indices_jsonl=` that file, num_frame=32, VideoITG-8B's causal,
+    tied variant in bf16 with random weights, 16 new tokens: (1) videomme on
+    the same 6 docs (generate_until); (2) a loglikelihood task of two
+    candidates on the first doc of each video; (3) (1) again with
+    quantize=act8, VIDEOITG_QGEMM=1 and VIDEOITG_FUSED=1. The libav reader of
+    `FrameSelectionConsumer.frames_for_doc` is swapped for one that hands out
+    the seeded frames; the ids asked for must be stage A's first 32,
+    ascending. Every response and loglikelihood must equal the adapter's
+    model called directly (`vlm_generate` / `vlm_loglikelihood`) on the same
+    frames and prompt, and the launches must be what the code implies: A 26
+    and B 28 a request; under act8 also G, H, I 26 a request and F once for
+    each kernel-served LM linear of the prefill and of every decode step.
+    Then F against its plain version at M = 1 and at the prefill's M, and
+    its time for one LM layer at M = 1. Returns the launches of all four
+    runs and F's decode record."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from videoitg_tpu_torch.cli import evaluate as evaluate_cli
+    from videoitg_tpu_torch.data import video as video_mod
+    from videoitg_tpu_torch.eval import api, harness
+    from videoitg_tpu_torch.eval.adapters.native_vlm import NativeVLMAdapter
+    from videoitg_tpu_torch.models import vlm
+    from videoitg_tpu_torch.ops import quant_gemm as qg
+    from videoitg_tpu_torch.ops.fused_encoder import can_fuse_encoder_layer
+    from videoitg_tpu_torch.ops.quant import QWEN2_LINEAR_KEYS, Act8Switches
+
+    videos, sampled, docs = eval_inputs()
+    n_layers, tower_layers = 28, 26
+    counted = wrappers()
+    total = {name: 0 for name in counted}
+    asked = []  # (video, frame ids) stage B's frame source handed out
+
+    class SeededVideoReader:
+        """Stands in for the libav reader of `frames_for_doc`: a 30 fps clip
+        of EVAL_FRAMES seconds whose frame 30 i is the seeded frame i (the ids
+        stage A sampled)."""
+
+        fps = 30.0
+
+        def __init__(self, path, *a, **kw):
+            self.key = os.path.splitext(os.path.basename(path))[0]
+            if self.key not in videos:
+                raise FileNotFoundError(path)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def __len__(self):
+            return 30 * EVAL_FRAMES
+
+        def get_batch(self, ids):
+            ids = [int(i) for i in ids]
+            if any(i % 30 for i in ids):
+                fail(f"stage B asked {self.key} for frames stage A never sampled: {ids}")
+            asked.append((self.key, ids))
+            return videos[self.key][[i // 30 for i in ids]]
+
+    built, walls = [], []
+    timers = {"pack": [], "prefill": [], "decode": []}
+    real = {"init": NativeVLMAdapter.__init__, "evaluate_task": harness.evaluate_task,
+            "_pack_embeds": vlm._pack_embeds, "vlm_prefill": vlm.vlm_prefill,
+            "vlm_decode_step": vlm.vlm_decode_step, "VideoReader": video_mod.VideoReader}
+
+    def spy_init(self, *a, **kw):
+        real["init"](self, *a, **kw)
+        built.append(self)
+
+    def timed(key, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            (walls if key == "evaluate_task" else timers[key]).append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    def stage_b(tag, model_args, task, docs_json, out, n_requests, env=()):
+        """One `cli/evaluate.main` run of stage B with every count set to 0
+        just before it; returns (adapter, launches, samples, peak bytes)."""
+        for fn in counted.values():
+            fn.launches = 0
+        for v in timers.values():
+            v.clear()
+        asked.clear()
+        saved = {k: os.environ.get(k) for k, _ in env}
+        os.environ.update(dict(env))
+        NativeVLMAdapter.__init__ = spy_init
+        harness.evaluate_task = timed("evaluate_task", real["evaluate_task"])
+        vlm._pack_embeds = timed("pack", real["_pack_embeds"])
+        vlm.vlm_prefill = timed("prefill", real["vlm_prefill"])
+        vlm.vlm_decode_step = timed("decode", real["vlm_decode_step"])
+        video_mod.VideoReader = SeededVideoReader
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        try:
+            rc = evaluate_cli.main(["--model", "videoitg-vlm", "--model_args", model_args,
+                                    "--tasks", task, "--data_root", root, "--docs_json",
+                                    docs_json, "--output_path", out, "--log_samples",
+                                    "--seed", str(SEED)])
+            torch.cuda.synchronize()
+        finally:
+            NativeVLMAdapter.__init__ = real["init"]
+            harness.evaluate_task = real["evaluate_task"]
+            vlm._pack_embeds, vlm.vlm_prefill = real["_pack_embeds"], real["vlm_prefill"]
+            vlm.vlm_decode_step = real["vlm_decode_step"]
+            video_mod.VideoReader = real["VideoReader"]
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        main_wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counted.items()}
+        peak = torch.cuda.max_memory_allocated()
+        if rc != 0:
+            fail(f"stage B [{tag}]: cli/evaluate.main returned {rc}")
+        for name, n in launches.items():
+            total[name] += n
+        with open(os.path.join(out, task, f"samples.rank0.{task}.jsonl")) as f:
+            samples = [json.loads(line) for line in f]
+        if len(samples) != n_requests or len(built) != 1:
+            fail(f"stage B [{tag}]: {len(samples)} samples, {len(built)} adapters built")
+        wall = walls[-1]
+        decode = timers["decode"]
+        print(f"stage B [{tag}]: {n_requests} requests in {wall:.4f} s (evaluate_task; cli main "
+              f"{main_wall:.2f} s with the weights' init): {n_requests / wall:.4f} docs/s; tower "
+              f"+ packing {', '.join(f'{x:.4f}' for x in timers['pack'])} s, LM prefill "
+              f"{', '.join(f'{x:.4f}' for x in timers['prefill']) or 'none (teacher-forced)'} s; "
+              f"{len(decode)} decode steps, "
+              f"{f'{1e3 * sum(decode) / len(decode):.3f}' if decode else 'no'} ms per decoded "
+              f"token; peak device "
+              f"memory over stage B {peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB held before "
+              f"it); launches { {k: v for k, v in launches.items() if v} } [{card}]", flush=True)
+        return built.pop(), launches, samples, peak
+
+    def frames_of(key, ids):
+        return videos[key][[i // 30 for i in ids]]
+
+    def expect_asked(tag, requests):
+        """The frame ids of each request: stage A's first 32, ascending."""
+        want = [(v, sorted(rows[doc_id]["index"][:STAGE_B_FRAMES])) for doc_id, v in requests]
+        if asked != want:
+            fail(f"stage B [{tag}]: frames asked {[(v, ids[:4]) for v, ids in asked]}..., "
+                 f"expected stage A's first {STAGE_B_FRAMES} ascending")
+        if any(len(ids) != STAGE_B_FRAMES or len(set(ids)) != STAGE_B_FRAMES for _, ids in asked):
+            fail(f"stage B [{tag}]: not {STAGE_B_FRAMES} distinct frames a request")
+
+    def expect_launches_b(tag, launches, want):
+        other = {k: v for k, v in launches.items() if k not in want and v}
+        if any(launches[k] != n for k, n in want.items()) or other:
+            fail(f"stage B [{tag}]: launches { {k: v for k, v in launches.items() if v} }, "
+                 f"expected {want} and no other kernel")
+
+    def generation(tag, adapter, samples):
+        """Each response against `vlm_generate` called directly on the same
+        frames and prompt; returns (decode steps per request, prefill M)."""
+        task = api.get_task("videomme")
+        steps, m = [], None
+        for s, (key, ids) in zip(samples, list(asked)):
+            doc = docs[s["doc_id"]]
+            question = task.doc_text(doc, root, adapter.model_name)
+            batch, hw = adapter._packed_batch(frames_of(key, ids), question)
+            out = vlm.vlm_generate(adapter.model, batch, adapter.cfg, hw=hw,
+                                   max_new_tokens=STAGE_B_NEW_TOKENS, eos_token_id=adapter.eos_id,
+                                   use_flash=adapter.use_flash, act8=adapter.act8)
+            toks = out[0].tolist()
+            text = adapter.tokenizer.decode(vlm.truncate_at_stop_sequences(
+                out, eos_token_id=adapter.eos_id)[0], skip_special_tokens=True)
+            if text != s["response"]:
+                fail(f"stage B [{tag}] doc {s['doc_id']}: response {s['response']!r}, the model "
+                     f"called directly {text!r}")
+            # vlm_generate runs a decode step after each token but the last,
+            # and stops after the first eos
+            steps.append(next((i for i, t in enumerate(toks) if t == adapter.eos_id),
+                              STAGE_B_NEW_TOKENS - 1))
+            m = batch.pre_ids.shape[1] + STAGE_B_FRAMES * hw * hw + batch.post_ids.shape[1]
+        print(f"stage B [{tag}]: {len(samples)} of {len(samples)} responses equal the model "
+              f"called directly (vlm_generate); decode steps {steps}; prefill M {m}; responses "
+              f"{[s['response'] for s in samples]}", flush=True)
+        return steps, m
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root, docs_json = write_eval_root(tmp, docs)
+        # ---- stage A: phase 9's run at batch_size 1 ----
+        reads = []
+        real_reader = video_mod.read_video_frames
+        video_mod.read_video_frames = seeded_reader(videos, sampled, reads)
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        before_a = torch.cuda.memory_allocated()
+        out_a = os.path.join(tmp, "stage_a")
+        t0 = time.perf_counter()
+        try:
+            rc = evaluate_cli.main(["--model", "videoitg", "--model_args",
+                                    f"random_init=True,preset=videoitg-8b,num_frames={EVAL_FRAMES},"
+                                    "target_fps=1,batch_size=1", "--tasks", "videomme",
+                                    "--data_root", root, "--docs_json", docs_json,
+                                    "--output_path", out_a, "--seed", str(SEED)])
+            torch.cuda.synchronize()
+        finally:
+            video_mod.read_video_frames = real_reader
+        wall_a = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counted.items()}
+        if rc != 0:
+            fail(f"stage B's stage A: cli/evaluate.main returned {rc}")
+        expect_launches_b("stage A", launches, {"flash_mha_short": len(videos) * 4 * tower_layers,
+                                                "flash_mha": n_layers * len(docs)})
+        for name, n in launches.items():
+            total[name] += n
+        selections = os.path.join(out_a, "videomme", "results.jsonl")
+        with open(selections) as f:
+            rows = {r["doc_id"]: r for r in map(json.loads, f)}
+        if sorted(rows) != list(range(len(docs))) or sorted(reads) != sorted(videos):
+            fail(f"stage B's stage A: rows {sorted(rows)}, reads {reads}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() - before_a
+        print(f"stage B's stage A [bf16, videomme, batch_size=1]: {len(rows)} rows in "
+              f"{wall_a:.2f} s (cli main); {held / 2**30:.3f} GiB more allocated after it "
+              f"returned than before; launches A {launches['flash_mha_short']}, B "
+              f"{launches['flash_mha']} [{card}]", flush=True)
+        if held > 2**28:
+            fail(f"stage A's model was not freed: {held / 2**30:.3f} GiB still allocated")
+
+        model_args = (f"frame_indices_jsonl={selections}," +
+                      STAGE_B_ARGS.format(n=STAGE_B_FRAMES, t=STAGE_B_NEW_TOKENS))
+        requests = [(i, doc["videoID"]) for i, doc in enumerate(docs)]
+
+        # ---- (1) generate_until, bf16 ----
+        adapter, launches, samples, _ = stage_b(
+            "bf16, videomme", model_args, "videomme", docs_json, os.path.join(tmp, "out_bf16"),
+            len(docs))
+        if adapter.act8 != Act8Switches() or not adapter.use_flash or \
+                adapter.dtype != torch.bfloat16 or not adapter.cfg.lm.tie_word_embeddings:
+            fail(f"stage B adapter: act8 {adapter.act8}, use_flash {adapter.use_flash}, dtype "
+                 f"{adapter.dtype}")
+        expect_asked("bf16", requests)
+        expect_launches_b("bf16", launches, {"flash_mha_short": tower_layers * len(docs),
+                                             "flash_mha": n_layers * len(docs)})
+        weights = sum(t.numel() * t.element_size() for t in adapter.model.state_dict().values())
+        print(f"stage B [bf16]: weights {weights / 2**30:.3f} GiB (tied embedding)", flush=True)
+        generation("bf16", adapter, samples)
+        del adapter
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (2) loglikelihood: two candidates on the first doc of each video ----
+        firsts = [next(i for i, d in enumerate(docs) if d["videoID"] == v) for v, _ in EVAL_VIDEOS]
+        ll_docs, ll_rows = [], []
+        for i in firsts:
+            for cand in docs[i]["options"][:2]:
+                ll_docs.append(dict(docs[i], _id=f"{i}:{cand[0]}", cand=cand))
+                ll_rows.append(dict(rows[i], doc_id=f"{i}:{cand[0]}"))
+        ll_json, ll_sel = os.path.join(tmp, "ll_docs.json"), os.path.join(tmp, "ll_sel.jsonl")
+        with open(ll_json, "w") as f:
+            json.dump(ll_docs, f)
+        with open(ll_sel, "w") as f:
+            f.write("".join(json.dumps(r) + "\n" for r in ll_rows))
+        videomme = api.get_task("videomme")
+        api.register_task(api.Task(
+            name="stage_b_ll", doc_to_visual=videomme.doc_to_visual,
+            doc_to_text=videomme.doc_to_text, doc_to_target=lambda d: " " + d["cand"],
+            output_type="loglikelihood", doc_id_key="_id",
+            process_results=lambda doc, r: {"ll": float(r[0]), "greedy": bool(r[1])},
+            aggregate=lambda recs: {"mean_ll": sum(r["ll"] for r in recs) / len(recs)}))
+        adapter, launches, samples, _ = stage_b(
+            "bf16, loglikelihood", model_args.replace(selections, ll_sel), "stage_b_ll", ll_json,
+            os.path.join(tmp, "out_ll"), len(ll_docs))
+        expect_asked("loglikelihood", [(int(d["_id"].split(":")[0]), d["videoID"])
+                                       for d in ll_docs])
+        expect_launches_b("loglikelihood", launches, {"flash_mha_short": tower_layers * len(ll_docs),
+                                                      "flash_mha": n_layers * len(ll_docs)})
+        task = api.get_task("stage_b_ll")
+        direct = []
+        for s, d, (key, ids) in zip(samples, ll_docs, list(asked)):
+            question = adapter.strip_inline_image_slots(task.doc_text(d, root, adapter.model_name))
+            cont = adapter.tokenizer(" " + d["cand"]).input_ids
+            batch, hw = adapter._packed_batch(frames_of(key, ids), question, post_extra=cont,
+                                              post_labels=cont)
+            ll, greedy = vlm.vlm_loglikelihood(adapter.model, batch, adapter.cfg, hw=hw,
+                                               use_flash=adapter.use_flash, act8=adapter.act8)
+            direct.append([float(ll[0]), bool(greedy[0])])
+        got = [s["response"] for s in samples]
+        print(f"stage B [loglikelihood]: (ll, is_greedy) through the harness {got}; the model "
+              f"called directly (vlm_loglikelihood) {direct}", flush=True)
+        if got != direct or not all(np.isfinite(ll) and ll < 0 for ll, _ in got):
+            fail("stage B loglikelihoods differ from the model called directly or are not finite "
+                 "and negative")
+        del adapter
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (3) generate_until, act8 with kernels F-I on ----
+        adapter, launches, samples, _ = stage_b(
+            "act8, videomme", model_args + ",quantize=act8", "videomme", docs_json,
+            os.path.join(tmp, "out_act8"), len(docs),
+            env=(("VIDEOITG_QGEMM", "1"), ("VIDEOITG_FUSED", "1")))
+        if adapter.act8 != Act8Switches(qgemm=True, fused=True):
+            fail(f"stage B act8 adapter switches {adapter.act8}")
+        expect_asked("act8", requests)
+        lm, tower = adapter.model.lm, adapter.model.vision
+        f_per_layer = {sum(qg.shapes_supported(getattr(layer, k)) for k in QWEN2_LINEAR_KEYS)
+                       for layer in lm.layers[:n_layers]}
+        fused = sum(can_fuse_encoder_layer(layer) and layer.q.out_features == layer.q.in_features
+                    for layer in tower.layers[:tower_layers])
+        if f_per_layer != {7} or fused != tower_layers:
+            fail(f"act8: kernel-served LM linears per layer {f_per_layer}, fused tower layers "
+                 f"{fused}")
+        steps, m_prefill = generation("act8", adapter, samples)
+        n = len(docs)
+        expect_launches_b("act8", launches, {
+            "flash_mha_short": tower_layers * n, "flash_mha": n_layers * n,
+            "fused_ln_qkv_int8": fused * n, "fused_ln_mlp_int8": fused * n,
+            "fused_proj_residual_int8": fused * n,
+            # each LM layer's 7 linears in the prefill and in every decode step
+            "act8_gemm": 7 * n_layers * sum(1 + d for d in steps)})
+
+        # ---- F at M = 1 (a decoded token) and at the prefill's M, on the
+        # model's own layer-0 weights, against its plain version ----
+        gen = torch.Generator(device=dev).manual_seed(SEED + 100)
+        layer = lm.layers[0]
+        rec = dict(prefill_m=m_prefill, m1_ms=0.0, m1_plain_ms=0.0, m1_int_mm_ms=0.0,
+                   m1_bound_ms=0.0, worst=0.0)
+        for key in QWEN2_LINEAR_KEYS:
+            lin = getattr(layer, key)
+            n_out, k = lin.w_qt.shape
+            for m in (1, m_prefill):
+                x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+                ref = qg.act8_gemm_reference(x, None, lin.w_qt, lin.scale)
+                out = qg.act8_gemm(x, None, lin.w_qt, lin.scale)
+                tol = 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)
+                err, _ = err_stats(out, ref)
+                equal = bool(torch.equal(out, ref))
+                if not (err <= tol and equal):
+                    fail(f"act8_gemm [{m}, {k}] x [{k}, {n_out}] ({key}): error {err} (tol {tol}), "
+                         f"bit-equal {equal}")
+                rec["worst"] = max(rec["worst"], err)
+                if m == 1:
+                    ms = cuda_ms(lambda: qg.act8_gemm(x, None, lin.w_qt, lin.scale), 50)
+                    plain = cuda_ms(lambda: qg.act8_gemm_reference(x, None, lin.w_qt, lin.scale),
+                                    20)
+                    x_q, _ = qg.row_quant_reference(x)
+                    pad = torch.zeros(32, k, dtype=torch.int8, device=dev)
+                    pad[:1] = x_q
+                    int_mm = cuda_ms(lambda: torch._int_mm(pad, lin.w_qt.t()), 50)
+                    bnd = bound(2 * k * n_out, PEAK_INT8, k * 2 + n_out * k + n_out * 4 + n_out * 2)
+                    rec["m1_ms"] += ms
+                    rec["m1_plain_ms"] += plain
+                    rec["m1_int_mm_ms"] += int_mm
+                    rec["m1_bound_ms"] += bnd["bound_ms"]
+                    print(f"kernel act8_gemm at M = 1 ({key}) [1, {k}] x [{k}, {n_out}]: "
+                          f"max_abs_err {err:.6g} (tol {tol:.6g}, bit-equal {equal}); {ms:.4f} ms, "
+                          f"plain {plain:.4f} ms, bound {bnd['bound_ms']:.4f} ms by "
+                          f"{bnd['bound_by']}; bare torch._int_mm on 32 padded rows "
+                          f"{int_mm:.4f} ms", flush=True)
+                else:
+                    print(f"kernel act8_gemm at the prefill's M ({key}) [{m}, {k}] x "
+                          f"[{k}, {n_out}]: max_abs_err {err:.6g} (tol {tol:.6g}, bit-equal "
+                          f"{equal})", flush=True)
+                del x, ref, out
+        print(f"kernel act8_gemm, one LM layer at M = 1 (7 launches, a decoded token's share): "
+              f"{rec['m1_ms']:.4f} ms, plain {rec['m1_plain_ms']:.4f} ms, bound "
+              f"{rec['m1_bound_ms']:.4f} ms, bare torch._int_mm {rec['m1_int_mm_ms']:.4f} ms; "
+              f"x {n_layers} layers {n_layers * rec['m1_ms']:.3f} ms a token [{card}]", flush=True)
+        del adapter, lm, tower, layer
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"launches": {k: total[k] for k in SERVING_KERNELS}, "act8_gemm_m1": rec}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["attention-kernels", "int8-kernels", "train-kernels",
                                           "splash-kernels",
                                           "segment-kernels", "vlm",
-                                          "serve", "train", "checkpoint", "eval"],
+                                          "serve", "train", "checkpoint", "eval", "stage-b"],
                         default=None,
                         help="build, then only: check kernels A, B (attention-kernels), F-I "
                              "(int8-kernels), C, D, E (train-kernels), K, L (splash-kernels) "
@@ -3103,7 +3538,8 @@ def main(argv=None) -> int:
                              "ptxas' lines for the TMA + wgmma instances among them; or run "
                              "the daemon phase (serve), "
                              "the training phases (train), the causal-VLM phases (vlm), "
-                             "the HF-checkpoint phase (checkpoint) or eval stage A (eval)")
+                             "the HF-checkpoint phase (checkpoint), eval stage A (eval) or "
+                             "eval stage B after its stage A (stage-b)")
     args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "videoitg_tpu_torch")):
         fail("run from a checkout of the repository (videoitg_tpu_torch/ not found)")
@@ -3180,6 +3616,10 @@ def main(argv=None) -> int:
         run_eval(dev, card)
         print("eval phase passed", flush=True)
         return 0
+    if args.only == "stage-b":
+        run_stage_b(dev, card)
+        print("stage-B phase passed", flush=True)
+        return 0
     records = check_kernels(dev)
     records.update(check_train_kernels(dev))
     records.update(check_int8_kernels(dev))
@@ -3200,6 +3640,17 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     for name, n in run_eval(dev, card).items():
         launches[name] += n
+    torch.cuda.empty_cache()
+    stage_b = run_stage_b(dev, card)
+    for name, n in stage_b["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    m1 = stage_b["act8_gemm_m1"]
+    records["act8_gemm"].update(
+        decode_m1=dict(per="the 7 launches of one LM layer at M = 1 (one decoded token)",
+                       ms=m1["m1_ms"], plain_ms=m1["m1_plain_ms"], bound_ms=m1["m1_bound_ms"],
+                       int_mm_ms=m1["m1_int_mm_ms"], max_abs_err=m1["worst"],
+                       prefill_m=m1["prefill_m"]))
+    records["act8_gemm"]["max_abs_err"] = max(records["act8_gemm"]["max_abs_err"], m1["worst"])
     for name, rec in records.items():
         rec["launches"] = launches[name]
     loaded = sorted(m for m in sys.modules

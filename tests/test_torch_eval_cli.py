@@ -1,9 +1,9 @@
 """The port's evaluate CLI (`python -m videoitg_tpu_torch.cli.evaluate`) in a
 child process, with the arguments of the JAX CLI's own tests
 (tests/test_cli.py, tests/test_observability.py) and `--model videoitg`; and
-the two-stage contract: the port's stage-A `results.jsonl` feeds the JAX
-package's stage B (`echo-answer`, in process) to the report that the JAX
-stage A's rows give.
+the two-stage contract: the port's stage-A `results.jsonl` feeds the port's
+stage B (`echo-answer`, in process) to the report that the JAX stage A's rows
+give. tests/test_torch_eval_two_stage.py runs both stages on the port alone.
 """
 
 import json
@@ -55,10 +55,10 @@ def workdir(tmp_path_factory):
 
 
 def _stage_b(selections, data_root, docs, out):
-    """The JAX package's downstream stage on a results.jsonl, in process."""
-    adapter = jax_get_adapter("echo-answer")(frame_indices_jsonl=selections, num_frame=2,
-                                             data_root=data_root)
-    return jax_evaluate_task(adapter, jax_get_task("videomme"), docs, out, log_samples=True)
+    """The port's downstream stage on a results.jsonl, in process."""
+    adapter = get_adapter("echo-answer")(frame_indices_jsonl=selections, num_frame=2,
+                                         data_root=data_root, device="cpu")
+    return evaluate_task(adapter, get_task("videomme"), docs, out, log_samples=True)
 
 
 def test_parser_has_the_jax_cli_flags():
@@ -156,12 +156,22 @@ def test_report_to_jsonl_writes_the_metrics_stream(workdir):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--model", "echo-answer", "--cpu"], "ROADMAP queue 1, item 5b"),
-    (["--model", "videoitg-vlm", "--cpu"], "ROADMAP queue 1, item 5c"),
+    (["--model", "echo-answer", "--model_args", "num_frame=2"], "A (frames=[0, 29])"),
+    (["--model", "videoitg-vlm", "--model_args",
+      "num_frame=2,random_init=True,preset=tiny,dtype=float32,max_new_tokens=3"], None),
 ], ids=["echo-answer", "videoitg-vlm"])
-def test_adapters_not_ported_are_refused(capsys, argv, needle):
-    assert main([*argv, "--tasks", "videomme"]) == 2
-    assert needle in capsys.readouterr().err
+def test_adapters_not_ported_are_refused(workdir, tmp_path, argv, needle):
+    """The stage-B names once refused (ROADMAP items 5b and 5c) run through
+    `main` in this process, on the CPU, with no stage-A rows (the uniform
+    fallback)."""
+    out = tmp_path / "out"
+    assert main([*argv, "--cpu", "--tasks", "videomme", "--data_root",
+                 str(workdir / "root"), "--docs_json", str(workdir / "docs.json"),
+                 "--output_path", str(out), "--log_samples"]) == 0
+    samples = [json.loads(x) for x in open(out / "videomme" / "samples.rank0.videomme.jsonl")]
+    assert len(samples) == 2 and all(isinstance(s["response"], str) for s in samples)
+    if needle:
+        assert [s["response"] for s in samples] == [needle, needle]
 
 
 def test_the_card_or_an_error(workdir):
@@ -200,8 +210,9 @@ def test_rank_fleet_through_the_shared_directory(workdir):
 
 
 def test_port_stage_a_feeds_jax_stage_b_to_the_same_report(tmp_path, workdir):
-    """On bridged weights, stage B reads the port's rows and the JAX rows to
-    the same report and the same consumed frames, doc by doc."""
+    """On bridged weights, stage B (the port's echo-answer) reads the port's
+    rows and the JAX rows to the same report and the same consumed frames,
+    doc by doc."""
     docs = json.loads((workdir / "docs.json").read_text())
     docs += [dict(docs[0], question_id="q2", answer="B"), dict(docs[1], question_id="q3")]
     root = str(workdir / "root")

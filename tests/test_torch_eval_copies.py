@@ -5,12 +5,15 @@ and the registries, the argument parser and the harness's helpers give the
 same results. Every comparison here is for equality.
 
 Differences, each held by its own test:
-- `eval/api.py`: `get_adapter` imports the port's adapters and refuses the
-  names it does not have yet, naming their ROADMAP item.
 - `eval/harness.py`: `run_metadata` writes `torch_version` and the device
   type where the JAX package writes `jax_version` and jax's backend.
 - `eval/multihost.py`: one process only (collectives are ROADMAP item 8).
-- `eval/adapters/`: only the grounding adapter, on the port's engine.
+- `eval/adapters/videoitg.py`: the grounding adapter on the port's engine.
+- `eval/adapters/downstream.py`: the two adapters that hold a torch model
+  (`InternVLChatAdapter`, `QwenVLChatAdapter`) take `device=` and move their
+  model and inputs there.
+- `eval/adapters/native_vlm.py`: the native VLM adapter on the port's
+  models/vlm.py, with `device=`.
 - A few docstrings and one message say "offline" where the originals spoke
   of the machine they were written on (`REWORDED`).
 """
@@ -33,10 +36,8 @@ from videoitg_tpu_torch.utils import common
 REPO = pathlib.Path(__file__).resolve().parents[1]
 JAX_EVAL = REPO / "videoitg_tpu" / "eval"
 PORT_EVAL = REPO / "videoitg_tpu_torch" / "eval"
-NOT_COPIED = {"adapters/downstream.py", "adapters/api_chat.py",
-              "adapters/internvl_preprocess.py", "adapters/native_vlm.py"}
-DIFFERENT = {"api.py", "harness.py", "multihost.py", "adapters/__init__.py",
-             "adapters/videoitg.py"}
+DIFFERENT = {"harness.py", "multihost.py", "adapters/videoitg.py", "adapters/downstream.py",
+             "adapters/native_vlm.py"}
 # file -> {line number: the copy's line}: the only lines where a copy's text
 # differs from its renamed original.
 REWORDED = {
@@ -51,7 +52,7 @@ REWORDED = {
     "tracker.py": {14: "dataset repo (the default backend offline); any other value goes"},
 }
 ORIGINALS = sorted(str(p.relative_to(JAX_EVAL)) for p in JAX_EVAL.rglob("*.py"))
-COPIES = [f for f in ORIGINALS if f not in NOT_COPIED | DIFFERENT]
+COPIES = [f for f in ORIGINALS if f not in DIFFERENT]
 
 
 def _renamed(text: str) -> str:
@@ -59,9 +60,10 @@ def _renamed(text: str) -> str:
 
 
 def test_the_port_holds_every_eval_module_but_the_later_adapters():
+    """Every eval module of the JAX package, the adapters included."""
     port = sorted(str(p.relative_to(PORT_EVAL)) for p in PORT_EVAL.rglob("*.py"))
-    assert port == sorted(set(ORIGINALS) - NOT_COPIED)
-    assert len(ORIGINALS) == 118 and len(COPIES) == 109
+    assert port == ORIGINALS
+    assert len(ORIGINALS) == 118 and len(COPIES) == 113
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -90,9 +92,9 @@ def _without(source: str, *names: str) -> str:
 
 
 @pytest.mark.parametrize("rel,names", [
-    ("api.py", ("get_adapter", "NOT_PORTED_ADAPTERS")),
+    ("adapters/downstream.py", ("InternVLChatAdapter", "QwenVLChatAdapter")),
     ("harness.py", ("run_metadata",)),
-], ids=["api", "harness"])
+], ids=["downstream", "harness"])
 def test_differing_copies_differ_only_where_named(rel, names):
     got = (PORT_EVAL / rel).read_text()
     want = _renamed((JAX_EVAL / rel).read_text())
@@ -132,19 +134,40 @@ def test_adapter_copy_keeps_the_generate_until_and_every_argument():
     assert VideoITGAdapter.model_name == JaxAdapter.model_name == "videoitg"
 
 
-@pytest.mark.parametrize("name,item", sorted(api.NOT_PORTED_ADAPTERS.items()))
+# The adapter names of ROADMAP queue 1, items 5b and 5c, refused by name
+# until the port had them.
+LATER_ADAPTERS = {**dict.fromkeys(("echo-answer", "internvl-chat", "qwen-vl-chat",
+                                   "llava-ov-chat", "hf-video-llm", "api-chat"), "5b"),
+                  "videoitg-vlm": "5c"}
+
+
+@pytest.mark.parametrize("name,item", sorted(LATER_ADAPTERS.items()))
 def test_not_ported_adapter_names_are_refused_with_their_item(name, item):
-    jax_api.get_adapter(name)  # the JAX registry has it
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP queue 1, item {item}\)"):
-        api.get_adapter(name)
+    """None of them is refused now: each resolves to the port's counterpart
+    of the JAX package's class (or dispatch function), by module and name."""
+    want, got = jax_api.get_adapter(name), api.get_adapter(name)
+    assert got.__qualname__ == want.__qualname__
+    assert got.__module__ == want.__module__.replace("videoitg_tpu.", "videoitg_tpu_torch.")
+    assert got.__module__.startswith("videoitg_tpu_torch.eval.adapters.")
 
 
 def test_adapter_registry_and_unknown_names():
     assert api.get_adapter("videoitg").__module__ == "videoitg_tpu_torch.eval.adapters.videoitg"
-    assert sorted(api.ADAPTER_REGISTRY) == ["videoitg"]
-    assert set(api.NOT_PORTED_ADAPTERS) | {"videoitg"} == set(jax_api.ADAPTER_REGISTRY)
+    assert sorted(api.ADAPTER_REGISTRY) == sorted(jax_api.ADAPTER_REGISTRY)
+    assert set(api.ADAPTER_REGISTRY) == set(LATER_ADAPTERS) | {"videoitg"}
     with pytest.raises(KeyError, match="unknown model adapter"):
         api.get_adapter("no-such-adapter")
+
+
+@pytest.mark.parametrize("name", ["internvl-chat", "qwen-vl-chat", "videoitg-vlm"])
+def test_model_adapters_keep_every_argument_and_add_device(name):
+    want = inspect.signature(jax_api.get_adapter(name).__init__).parameters
+    got = inspect.signature(api.get_adapter(name).__init__).parameters
+    extra = [p for p in want if p in ("kwargs", "_ignored")]
+    assert list(got) == [*[p for p in want if p not in extra], "device", *extra]
+    for p, param in want.items():
+        assert got[p].default == param.default and got[p].kind == param.kind, p
+    assert got["device"].default is None
 
 
 def _norm(x):

@@ -157,9 +157,75 @@ def test_eval_modules_load_no_jax(tmp_path):
                 VIDEOITG_TORCH_BUILD_DIR=str(tmp_path / "build"))
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out["foreign"] == [] and out["built"] is False and out["adapters"] == ["videoitg"]
+    assert out["foreign"] == [] and out["built"] is False
+    assert out["adapters"] == ["api-chat", "echo-answer", "hf-video-llm", "internvl-chat",
+                               "llava-ov-chat", "qwen-vl-chat", "videoitg", "videoitg-vlm"]
     assert out["tasks"] > 100
     assert not (tmp_path / "build").exists()
+
+
+def test_adapters_import_without_transformers_or_pil(tmp_path):
+    """The card's machine may lack transformers and PIL: importing every
+    adapter, resolving each name and building the models that need neither
+    (videoitg-vlm's random tiny model, echo-answer) must work with both
+    blocked, and load neither jax nor `videoitg_tpu`."""
+    code = (
+        "import json, sys\n"
+        "sys.modules['transformers'] = None; sys.modules['PIL'] = None\n"
+        "import videoitg_tpu_torch.eval.adapters\n"
+        "from videoitg_tpu_torch.eval import api\n"
+        "names = sorted(api.ADAPTER_REGISTRY)\n"
+        "classes = [api.get_adapter(n).__name__ for n in names]\n"
+        "api.get_adapter('echo-answer')(device='cpu')\n"
+        "a = api.get_adapter('videoitg-vlm')(random_init=True, preset='tiny', device='cpu')\n"
+        "try:\n"
+        "    api.get_adapter('internvl-chat')(pretrained='x', device='cpu')\n"
+        "    hf = 'loaded'\n"
+        "except ImportError as e:\n"
+        "    hf = type(e).__name__\n"
+        "bad = ('jax', 'jaxlib', 'videoitg_tpu')\n"
+        "foreign = sorted(k for k in sys.modules if k.split('.')[0] in bad)\n"
+        "print(json.dumps({'foreign': foreign, 'names': names, 'classes': classes, 'hf': hf,\n"
+        "                  'blocked': [sys.modules[m] is None for m in ('transformers', 'PIL')]}))\n")
+    proc = _run(code, VIDEOITG_NVCC=str(tmp_path / "no-nvcc"), PATH="/usr/bin:/bin",
+                VIDEOITG_TORCH_BUILD_DIR=str(tmp_path / "build"))
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["foreign"] == [] and out["blocked"] == [True, True]
+    assert len(out["names"]) == 8 and "NativeVLMAdapter" in out["classes"]
+    assert out["hf"] == "ModuleNotFoundError"  # only an HF adapter's model load needs it
+
+
+def test_console_scripts_resolve_without_jax():
+    """pyproject.toml names the port's four CLIs beside the JAX package's;
+    each `module:function` resolves in a fresh interpreter without jax, and
+    each parser is named after its script."""
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    port = {k: v for k, v in scripts.items() if k.startswith("videoitg-torch-")}
+    assert port == {f"videoitg-torch-{cli}": f"videoitg_tpu_torch.cli.{mod}:main"
+                    for cli, mod in (("select", "select"), ("eval", "evaluate"),
+                                     ("train", "train"), ("serve", "serve"))}
+    assert {k for k in scripts if not k.startswith("videoitg-torch-")} == {
+        "videoitg-select", "videoitg-eval", "videoitg-train", "videoitg-serve"}
+    code = (
+        "import importlib, json, sys\n"
+        f"port = {port!r}\n"
+        "progs = {}\n"
+        "for name, target in port.items():\n"
+        "    mod, fn = target.split(':')\n"
+        "    m = importlib.import_module(mod)\n"
+        "    assert callable(getattr(m, fn))\n"
+        "    progs[name] = m.build_parser().prog\n"
+        "bad = ('jax', 'jaxlib', 'videoitg_tpu')\n"
+        "foreign = sorted(k for k in sys.modules if k.split('.')[0] in bad)\n"
+        "print(json.dumps({'foreign': foreign, 'progs': progs}))\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["foreign"] == [] and out["progs"] == {k: k for k in port}
 
 
 def test_the_guard_sees_the_jax_package():

@@ -2,8 +2,8 @@
 
 `videoitg_tpu_torch` imports nothing of `videoitg_tpu`; it keeps a copy of
 the config, constants, sampling, tokenizer, conversation templates, video
-reader, frame cache, decode-ahead pipeline, stage timer, char tokenizer and
-resize matrices. Each copy must behave exactly like the
+reader, frame cache, decode-ahead pipeline, Qwen-VL sizing, AnyRes tiling,
+stage timer, char tokenizer and resize matrices. Each copy must behave exactly like the
 original: every comparison here is for equality, not within a tolerance.
 """
 
@@ -14,9 +14,11 @@ import pytest
 
 from videoitg_tpu import config as jax_config
 from videoitg_tpu import constants as jax_constants
+from videoitg_tpu.data import anyres as jax_anyres
 from videoitg_tpu.data import conversation as jax_conversation
 from videoitg_tpu.data import frame_cache as jax_frame_cache
 from videoitg_tpu.data import prefetch as jax_prefetch
+from videoitg_tpu.data import qwen_sizing as jax_qwen_sizing
 from videoitg_tpu.data import sampling as jax_sampling
 from videoitg_tpu.data import tokenizer as jax_tokenizer
 from videoitg_tpu.data import video as jax_video
@@ -25,7 +27,8 @@ from videoitg_tpu.utils import common as jax_utils
 from videoitg_tpu.utils import metrics_logger as jax_metrics_logger
 from videoitg_tpu.utils import profiling as jax_profiling
 from videoitg_tpu_torch import config, constants
-from videoitg_tpu_torch.data import conversation, frame_cache, prefetch, sampling, tokenizer, video
+from videoitg_tpu_torch.data import (anyres, conversation, frame_cache, prefetch, qwen_sizing,
+                                     sampling, tokenizer, video)
 from videoitg_tpu_torch.ops import resize
 from videoitg_tpu_torch.utils import common as utils
 from videoitg_tpu_torch.utils import metrics_logger, profiling
@@ -199,6 +202,47 @@ def test_data_path_copies_have_the_originals_code(pair):
     got, want = pair
     assert got.__name__.startswith("videoitg_tpu_torch.")
     assert _code_lines(got) == _code_lines(want)
+
+
+@pytest.mark.parametrize("pair", [(anyres, jax_anyres), (qwen_sizing, jax_qwen_sizing)],
+                         ids=["anyres", "qwen_sizing"])
+def test_downstream_data_copies_are_the_originals(pair):
+    """data/anyres.py and data/qwen_sizing.py import nothing of either package:
+    the copies are the originals' source, line for line."""
+    import inspect
+
+    got, want = pair
+    assert got.__name__.startswith("videoitg_tpu_torch.data.")
+    assert inspect.getsource(got) == inspect.getsource(want)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_qwen_sizing_and_anyres_equal_on_seeded_inputs(seed):
+    rng = np.random.default_rng(seed)
+    grid = [(336, 672), (672, 336), (672, 672), (1008, 336), (336, 1008)]
+    for _ in range(50):
+        h, w = (int(v) for v in rng.integers(28, 4000, 2))
+        total, fps = int(rng.integers(4, 20000)), float(rng.choice([10.0, 23.976, 30.0]))
+        n = int(rng.integers(2, 768))
+        assert qwen_sizing.smart_resize(h, w) == jax_qwen_sizing.smart_resize(h, w)
+        assert qwen_sizing.smart_nframes(total, fps, fps=2.0, min_frames=4, max_frames=768) == \
+            jax_qwen_sizing.smart_nframes(total, fps, fps=2.0, min_frames=4, max_frames=768)
+        assert qwen_sizing.video_frame_size(n, h, w) == jax_qwen_sizing.video_frame_size(n, h, w)
+        assert anyres.select_best_resolution((w, h), grid) == \
+            jax_anyres.select_best_resolution((w, h), grid)
+        assert anyres.get_anyres_image_grid_shape((w, h), grid, 336) == \
+            jax_anyres.get_anyres_image_grid_shape((w, h), grid, 336)
+    from PIL import Image
+
+    image = rng.integers(0, 256, (150, 230, 3), np.uint8)
+    got = anyres.anyres_tiles(image, str(grid), 336, 336)
+    want = jax_anyres.anyres_tiles(image, str(grid), 336, 336)
+    assert got.shape == want.shape and got.shape[0] > 1
+    np.testing.assert_array_equal(got, want)
+    padded = anyres.resize_and_pad_image(Image.fromarray(image), (64, 48))
+    np.testing.assert_array_equal(
+        np.asarray(padded), np.asarray(jax_anyres.resize_and_pad_image(Image.fromarray(image),
+                                                                       (64, 48))))
 
 
 @pytest.mark.parametrize("pix_fmt", ["rgb", "yuv420"])

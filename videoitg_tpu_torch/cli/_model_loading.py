@@ -21,6 +21,16 @@ def resolve_device(cpu_requested: bool, tool: str, cpu_flag: str) -> torch.devic
     return torch.device("cuda")
 
 
+def adapter_device(device, tool: str) -> torch.device:
+    """An eval adapter's `device=` argument: None or a CUDA device is the
+    card, and no card is an error (SystemExit); any other device (the CPU)
+    is taken as asked."""
+    if device is None or torch.device(device).type == "cuda":
+        resolve_device(False, tool, "device=cpu")
+        return torch.device(device or "cuda")
+    return torch.device(device)
+
+
 def load_grounding_components(model: str | None, preset_name: str, random_init: bool,
                               dtype: torch.dtype, device: torch.device, seed: int = 0,
                               quantize: str | None = None, tool: str = "videoitg-torch"):

@@ -1,17 +1,23 @@
 """Benchmark evaluation CLI on the PyTorch port (lmms-eval replacement).
 
-Counterpart of videoitg_tpu/cli/evaluate.py, run as
-`python -m videoitg_tpu_torch.cli.evaluate`. Stage A of the two-stage
-pipeline (reference scripts/eval_lmms_eval/*.sh) writes per-doc frame
-selections:
+Counterpart of videoitg_tpu/cli/evaluate.py, run as `videoitg-torch-eval`
+or `python -m videoitg_tpu_torch.cli.evaluate`. Two-stage usage (reference
+scripts/eval_lmms_eval/*.sh):
 
-  python -m videoitg_tpu_torch.cli.evaluate --model videoitg \\
+  # Stage A — grounding: write per-doc frame selections
+  videoitg-torch-eval --model videoitg \\
       --model_args pretrained=/ckpts/VideoITG-8B,num_frames=512,target_fps=1 \\
       --tasks videomme --data_root /data/videomme --output_path ./out
 
-Stage B (a downstream Video-LLM reading out/videomme/results.jsonl) runs on
-the JAX package's adapters until they are ported (ROADMAP queue 1, items 5b
-and 5c); their names are refused here.
+  # Stage B — downstream answering on the selected frames
+  videoitg-torch-eval --model hf-video-llm \\
+      --model_args pretrained=OpenGVLab/InternVL2_5-8B,frame_indices_jsonl=./out/videomme/results.jsonl,num_frame=32 \\
+      --tasks videomme --data_root /data/videomme --output_path ./out_answers
+
+Stage B takes any downstream adapter: the repo's own causal VLM
+(videoitg-vlm), the HF chat families (internvl-chat, qwen-vl-chat,
+llava-ov-chat, hf-video-llm), an OpenAI-compatible API (api-chat) or the
+echo-answer stub.
 
 The run is on the card, or it fails; --cpu runs it on the CPU.
 --rank/--world_size shard docs across separately-launched processes/hosts
@@ -30,7 +36,10 @@ import sys
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("videoitg-torch-eval", description=__doc__)
-    p.add_argument("--model", required=True, help="adapter name (videoitg, hf-video-llm, echo-answer)")
+    p.add_argument("--model", required=True,
+                   help="adapter name: videoitg (stage A); videoitg-vlm, hf-video-llm, "
+                        "internvl-chat, qwen-vl-chat, llava-ov-chat, api-chat, echo-answer "
+                        "(stage B)")
     p.add_argument("--model_args", default="", help="comma k=v ctor args")
     p.add_argument("--tasks", required=True, help="comma-separated task names")
     p.add_argument("--data_root", default="", help="local benchmark data dir")
@@ -202,12 +211,7 @@ def main(argv=None) -> int:
 
         resolve_device(False, "videoitg-torch-eval", "--cpu")  # no card: an error
     adapter_base_root = model_kwargs["data_root"]
-    try:
-        adapter_cls = get_adapter(args.model)
-    except NotImplementedError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 2
-    adapter = adapter_cls(**model_kwargs)
+    adapter = get_adapter(args.model)(**model_kwargs)
     if args.use_cache:
         from videoitg_tpu_torch.eval.cache import CachingAdapter
 

@@ -28,16 +28,6 @@ from videoitg_tpu_torch.utils.common import call_with_data_root as _call_with_ro
 _TOOL = "videoitg adapter"
 
 
-def _resolve_device(device) -> torch.device:
-    """The card unless the caller asked for the CPU; no card is an error."""
-    from videoitg_tpu_torch.cli._model_loading import resolve_device
-
-    if device is None or torch.device(device).type == "cuda":
-        resolve_device(False, _TOOL, "device=cpu")  # raises with no card
-        return torch.device(device or "cuda")
-    return torch.device(device)
-
-
 def _init_grounding_int8(cfg, generator: torch.Generator, device, dtype):
     """A random grounding model whose LM is drawn directly in int8 serving
     form: the dense 8B LM never exists on the device."""
@@ -75,7 +65,8 @@ class VideoITGAdapter(ModelAdapter):
         device: Optional[str] = None,
         **_ignored,
     ):
-        from videoitg_tpu_torch.cli._model_loading import load_grounding_components
+        from videoitg_tpu_torch.cli._model_loading import (adapter_device,
+                                                            load_grounding_components)
         from videoitg_tpu_torch.engine import SelectionEngine
         from videoitg_tpu_torch.utils.common import resolve_dtype
 
@@ -85,7 +76,7 @@ class VideoITGAdapter(ModelAdapter):
             raise NotImplementedError(
                 f"{_TOOL}: {meshed} needs a device mesh, which is not ported to PyTorch "
                 "yet (ROADMAP queue 1, item 8)")
-        dev = _resolve_device(device)
+        dev = adapter_device(device, _TOOL)
         tdtype = resolve_dtype(dtype, dev)
 
         if pretrained:

@@ -239,22 +239,9 @@ def register_adapter(name: str):
     return deco
 
 
-# Adapters of the JAX package that the port does not have yet, with the
-# ROADMAP queue 1 item that ports each.
-NOT_PORTED_ADAPTERS: Dict[str, str] = {
-    **dict.fromkeys(("echo-answer", "internvl-chat", "qwen-vl-chat", "llava-ov-chat",
-                     "hf-video-llm", "api-chat"), "5b"),
-    "videoitg-vlm": "5c",
-}
-
-
 def get_adapter(name: str):
     import videoitg_tpu_torch.eval.adapters  # noqa: F401
 
-    if name in NOT_PORTED_ADAPTERS and name not in ADAPTER_REGISTRY:
-        raise NotImplementedError(
-            f"model adapter {name!r} is not ported to PyTorch yet "
-            f"(ROADMAP queue 1, item {NOT_PORTED_ADAPTERS[name]})")
     if name not in ADAPTER_REGISTRY:
         raise KeyError(f"unknown model adapter {name!r}; have {sorted(ADAPTER_REGISTRY)}")
     return ADAPTER_REGISTRY[name]

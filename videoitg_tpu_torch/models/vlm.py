@@ -35,6 +35,7 @@ from videoitg_tpu_torch.models.common import apply_rope, linear, rms_norm
 from videoitg_tpu_torch.models.grounding import GroundingModel
 from videoitg_tpu_torch.models.projector import apply_projector, frame_token_count
 from videoitg_tpu_torch.ops.attention import mha
+from videoitg_tpu_torch.ops.quant import Act8Switches
 
 
 class VLMBatch(NamedTuple):
@@ -58,10 +59,12 @@ class VLMBatch(NamedTuple):
 
 
 def _pack_embeds(model: GroundingModel, batch: VLMBatch, cfg: GroundingConfig, hw: int,
-                 use_flash, remat: bool, freeze_vision: bool):
+                 use_flash, remat: bool, freeze_vision: bool,
+                 act8: Act8Switches = Act8Switches()):
     """(x [B, S, H], valid [B, S], positions [B, S], n_img) of the packed
     layout. `freeze_vision` runs the tower without gradients, so its backward
-    never runs; otherwise `remat` recomputes its layers in the backward."""
+    never runs; otherwise `remat` recomputes its layers in the backward.
+    `act8` says which act8 products of the tower run in the int8 kernels."""
     b, t = batch.frame_valid.shape
     n_pf = frame_token_count(cfg.projector, hw, cfg.vision.num_patches)
     n_img = t * n_pf
@@ -69,11 +72,11 @@ def _pack_embeds(model: GroundingModel, batch: VLMBatch, cfg: GroundingConfig, h
     if freeze_vision:
         with torch.no_grad():
             feats = siglip_mod.siglip_features(model.vision, frames_flat, cfg.vision,
-                                               use_flash=use_flash)
+                                               use_flash=use_flash, act8=act8)
         feats = feats.detach()
     else:
         feats = siglip_mod.siglip_features(model.vision, frames_flat, cfg.vision,
-                                           use_flash=use_flash, remat=remat)
+                                           use_flash=use_flash, act8=act8, remat=remat)
     img_tokens = apply_projector(model.projector, feats, cfg.projector, hw=hw)
     img_tokens = img_tokens.reshape(b, n_img, -1)
 
@@ -90,16 +93,17 @@ def _pack_embeds(model: GroundingModel, batch: VLMBatch, cfg: GroundingConfig, h
 
 
 def _post_token_logprobs(model: GroundingModel, batch: VLMBatch, cfg: GroundingConfig, hw: int,
-                         use_flash, remat: bool, freeze_vision: bool):
+                         use_flash, remat: bool, freeze_vision: bool,
+                         act8: Act8Switches = Act8Switches()):
     """Teacher-forced plumbing shared by `vlm_loss` and `vlm_loglikelihood`:
     (token_logp [B, L_post], greedy [B, L_post], mask [B, L_post])."""
     lm_cfg = cfg.lm
     if not lm_cfg.causal:
         raise ValueError("teacher forcing requires a causal LMConfig")
     x, valid, positions, n_img = _pack_embeds(model, batch, cfg, hw, use_flash, remat,
-                                              freeze_vision)
+                                              freeze_vision, act8)
     hidden = qwen2_mod.qwen2_hidden_states(model.lm, x, positions, valid, lm_cfg,
-                                           use_flash=use_flash, remat=remat)
+                                           use_flash=use_flash, act8=act8, remat=remat)
     logits = qwen2_mod.lm_logits(model.lm, hidden, lm_cfg)  # [B, S, V] fp32
 
     l_pre = batch.pre_ids.shape[1]
@@ -144,15 +148,18 @@ def vlm_loss(model: GroundingModel, batch: VLMBatch, cfg: GroundingConfig, hw: i
 
 
 def vlm_loglikelihood(model: GroundingModel, batch: VLMBatch, cfg: GroundingConfig, hw: int,
-                      use_flash=False) -> Tuple[torch.Tensor, torch.Tensor]:
+                      use_flash=False, act8: Act8Switches = Act8Switches()
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-sample (loglikelihood [B] fp32, is_greedy [B] bool) of the labelled
     continuation: the summed logprob of the tokens with a label, and whether
-    each of them is the greedy prediction. No gradients."""
+    each of them is the greedy prediction. No gradients. `act8` says which
+    act8 products run in the int8 kernels."""
     if batch.post_labels is None:
         raise ValueError("vlm_loglikelihood needs batch.post_labels")
     with torch.no_grad():
         token_logp, greedy, mask = _post_token_logprobs(model, batch, cfg, hw, use_flash,
-                                                        remat=False, freeze_vision=True)
+                                                        remat=False, freeze_vision=True,
+                                                        act8=act8)
         ll = (token_logp * mask).sum(dim=1)
         is_greedy = (greedy | ~mask).all(dim=1)
     return ll, is_greedy
@@ -185,29 +192,32 @@ def _attend_with_cache(q, k_cache, v_cache, mask):
     return out.reshape(b, hq, 1, d).to(q.dtype)
 
 
-def _project_qkv(layer, y, positions, cfg: LMConfig):
+def _project_qkv(layer, y, positions, cfg: LMConfig, act8: Act8Switches):
     b, s, _ = y.shape
-    q = linear(layer.q, y).reshape(b, s, cfg.num_heads, cfg.head_dim).transpose(1, 2)
-    k = linear(layer.k, y).reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
-    v = linear(layer.v, y).reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+    q = linear(layer.q, y, act8).reshape(b, s, cfg.num_heads, cfg.head_dim).transpose(1, 2)
+    k = linear(layer.k, y, act8).reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+    v = linear(layer.v, y, act8).reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
     return (apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta),
             v.contiguous())
 
 
-def _mlp(layer, x, cfg: LMConfig):
+def _mlp(layer, x, cfg: LMConfig, act8: Act8Switches):
     y = rms_norm(layer.post_attn_norm, x, cfg.rms_norm_eps)
-    return x + linear(layer.down, F.silu(linear(layer.gate, y)) * linear(layer.up, y))
+    return x + linear(layer.down, F.silu(linear(layer.gate, y, act8)) * linear(layer.up, y, act8),
+                      act8)
 
 
 def vlm_prefill(lm: qwen2_mod.Qwen2, x: torch.Tensor, valid: torch.Tensor,
                 positions: torch.Tensor, cfg: LMConfig, max_len: int,
-                use_flash=False) -> Tuple[torch.Tensor, KVCache]:
+                use_flash=False, act8: Act8Switches = Act8Switches()
+                ) -> Tuple[torch.Tensor, KVCache]:
     """Causal prefill that fills a KV cache of `max_len` slots.
 
     `valid` may have pad holes mid-sequence (the packed [pre | img | post]
     layout pads each segment); the cache keeps them in its mask, and the
     hidden state returned is the one at each sample's LAST VALID slot.
-    `use_flash=True` takes the streaming inference kernel with `causal=True`.
+    `use_flash=True` takes the streaming inference kernel with `causal=True`;
+    `act8` says which act8 linears run in the int8 kernel.
     """
     b, s, _ = x.shape
     layers = lm.layers[: cfg.num_layers]
@@ -216,12 +226,12 @@ def vlm_prefill(lm: qwen2_mod.Qwen2, x: torch.Tensor, valid: torch.Tensor,
     v_all = torch.zeros(shape, dtype=x.dtype, device=x.device)
     for i, layer in enumerate(layers):
         y = rms_norm(layer.input_norm, x, cfg.rms_norm_eps)
-        q, k, v = _project_qkv(layer, y, positions, cfg)
+        q, k, v = _project_qkv(layer, y, positions, cfg, act8)
         k_all[i, :, :, :s] = k
         v_all[i, :, :, :s] = v
         attn = mha(q, k, v, valid=valid, causal=True, use_flash=use_flash)
-        x = x + linear(layer.o, attn.transpose(1, 2).reshape(b, s, cfg.q_dim))
-        x = _mlp(layer, x, cfg)
+        x = x + linear(layer.o, attn.transpose(1, 2).reshape(b, s, cfg.q_dim), act8)
+        x = _mlp(layer, x, cfg, act8)
     hidden = rms_norm(lm.final_norm, x, cfg.rms_norm_eps)
 
     mask = F.pad(valid, (0, max_len - s))
@@ -233,11 +243,12 @@ def vlm_prefill(lm: qwen2_mod.Qwen2, x: torch.Tensor, valid: torch.Tensor,
     return last_hidden, KVCache(k=k_all, v=v_all, mask=mask, write_idx=s, next_pos=next_pos)
 
 
-def vlm_decode_step(model, token: torch.Tensor, cache: KVCache,
-                    cfg: LMConfig) -> Tuple[torch.Tensor, KVCache]:
+def vlm_decode_step(model, token: torch.Tensor, cache: KVCache, cfg: LMConfig,
+                    act8: Act8Switches = Act8Switches()) -> Tuple[torch.Tensor, KVCache]:
     """One decode step: token [B] -> (logits [B, V] fp32, the cache). `model`
     is the `GroundingModel` or its LM. The cache is updated IN PLACE and
-    returned: slot `write_idx` of every layer gets the new key and value."""
+    returned: slot `write_idx` of every layer gets the new key and value.
+    `act8` says which act8 linears run in the int8 kernel (at M = B rows)."""
     lm = model.lm if hasattr(model, "lm") else model
     b = token.shape[0]
     x = qwen2_mod.embed_tokens(lm, token)[:, None, :]
@@ -247,12 +258,12 @@ def vlm_decode_step(model, token: torch.Tensor, cache: KVCache,
     seen = cache.mask[:, : w + 1]  # later slots are empty: leaving them out changes nothing
     for i, layer in enumerate(lm.layers[: cfg.num_layers]):
         y = rms_norm(layer.input_norm, x, cfg.rms_norm_eps)
-        q, k, v = _project_qkv(layer, y, pos, cfg)
+        q, k, v = _project_qkv(layer, y, pos, cfg, act8)
         cache.k[i, :, :, w] = k[:, :, 0]
         cache.v[i, :, :, w] = v[:, :, 0]
         attn = _attend_with_cache(q, cache.k[i, :, :, : w + 1], cache.v[i, :, :, : w + 1], seen)
-        x = x + linear(layer.o, attn.transpose(1, 2).reshape(b, 1, cfg.q_dim))
-        x = _mlp(layer, x, cfg)
+        x = x + linear(layer.o, attn.transpose(1, 2).reshape(b, 1, cfg.q_dim), act8)
+        x = _mlp(layer, x, cfg, act8)
     hidden = rms_norm(lm.final_norm, x, cfg.rms_norm_eps)
     logits = qwen2_mod.lm_logits(lm, hidden, cfg)[:, 0]
     cache.write_idx = w + 1
@@ -262,24 +273,27 @@ def vlm_decode_step(model, token: torch.Tensor, cache: KVCache,
 
 def vlm_generate(model: GroundingModel, batch: VLMBatch, cfg: GroundingConfig, hw: int,
                  max_new_tokens: int = 16, eos_token_id: int = -1, use_flash=False,
-                 stop_sequences: Sequence[Sequence[int]] = ()) -> torch.Tensor:
+                 stop_sequences: Sequence[Sequence[int]] = (),
+                 act8: Act8Switches = Act8Switches()) -> torch.Tensor:
     """Greedy generation. Returns [B, max_new_tokens] int32 token ids, padded
     with `eos_token_id` after a sample is done.
 
     A sample is done after it emits eos, or once its trailing tokens match one
     of `stop_sequences` (token-id sequences): the stop is live, it halts the
     loop and does not merely cut the text (`truncate_at_stop_sequences` still
-    cuts it afterwards). The loop ends when every sample is done.
+    cuts it afterwards). The loop ends when every sample is done. `act8`
+    says which act8 products (tower, prefill, decode) run in the int8 kernels.
     """
     lm_cfg = cfg.lm
     if not lm_cfg.causal:
         raise ValueError("generation requires a causal LMConfig")
     with torch.no_grad():
         x, valid, positions, _ = _pack_embeds(model, batch, cfg, hw, use_flash, remat=False,
-                                              freeze_vision=True)
+                                              freeze_vision=True, act8=act8)
         b, dev = x.shape[0], x.device
         last_hidden, cache = vlm_prefill(model.lm, x, valid, positions, lm_cfg,
-                                         x.shape[1] + max_new_tokens, use_flash=use_flash)
+                                         x.shape[1] + max_new_tokens, use_flash=use_flash,
+                                         act8=act8)
         tok = qwen2_mod.lm_logits(model.lm, last_hidden[:, None, :], lm_cfg)[:, 0].argmax(dim=-1)
         out = torch.full((b, max_new_tokens), eos_token_id, dtype=torch.int32, device=dev)
         done = torch.zeros(b, dtype=torch.bool, device=dev)
@@ -294,7 +308,7 @@ def vlm_generate(model: GroundingModel, batch: VLMBatch, cfg: GroundingConfig, h
                     done = done | (out[:, i + 1 - n: i + 1] == seq[None]).all(dim=1)
             if i + 1 == max_new_tokens or bool(done.all()):
                 break
-            logits, cache = vlm_decode_step(model, tok, cache, lm_cfg)
+            logits, cache = vlm_decode_step(model, tok, cache, lm_cfg, act8)
             tok = logits.argmax(dim=-1)
     return out
 
