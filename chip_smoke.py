@@ -155,7 +155,18 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    seconds and GB/s, the load's device memory peak, and the host's peak
    resident set over the write and over the load (/proc/self/statm read
    every 2 ms by a thread); the launch counts of
-   each select are exact (A, B, and F-I under act8).
+   each select are exact (A, B, and F-I under act8). At videoitg-8b-shallow
+   the act8 cold start from that HF file (read, then quantised at load) is
+   timed against the serving checkpoint of the same model, twice each,
+   alternated; both models bit-equal.
+   Serving checkpoints: VideoITG-8B at full width and depth in the int8,
+   int4 and act8 tiers, each a seeded bf16 model quantised in place on the
+   card (timed), written by `save_serving_checkpoint` (bytes, seconds,
+   GB/s, the host's peak rise) and read back onto the card by
+   `load_serving_checkpoint` (seconds, device memory peak, host peak rise),
+   bit-equal to the saved model; one 512-frame select through each (act8
+   with F-I on) gives bit-equal raw scores and Top-K, with exact launches:
+   A 104, B 28, under act8 also F 196, G, H, I 104.
 6. Serving daemon: VideoITG-8B bf16 behind `cli/serve.SelectionServer` and
    a `ThreadingHTTPServer` on port 0 in this process, 512-frame 640x360
    requests sent over HTTP. The machine has no libav, so the port's file
@@ -239,7 +250,8 @@ after checking them (a short first run after editing them),
 `--only train-kernels` after C, D, E, `--only splash-kernels` after K and L
 `--only segment-kernels` after J (a short first run for a new kernel);
 `--only serve` runs phase 6 alone, `--only train` phase 7, `--only vlm` phase
-8, `--only checkpoint` the checkpoint part of phase 5, `--only eval` phase 9,
+8, `--only checkpoint` the checkpoint part of phase 5, `--only
+serving-checkpoint` its serving-checkpoint part, `--only eval` phase 9,
 `--only stage-b` phase 10.
 None of them prints a result line.
 
@@ -2135,6 +2147,8 @@ def run_checkpoints(dev, card: str) -> dict:
                 torch.cuda.synchronize()
             load_s = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated() - before
+            if name == "videoitg-8b-shallow":
+                compare_cold_starts(dev, card, tmp, cfg)
         want, got = model.state_dict(), loaded.state_dict()
         unequal = sorted(k for k in want if not torch.equal(bits(want[k]), bits(got[k])))
         weights = sum(v.numel() * v.element_size() for v in got.values())
@@ -2188,6 +2202,206 @@ def run_checkpoints(dev, card: str) -> dict:
                 fail(f"checkpoint {name}: act8 kernels on vs off {diff} > {E2E_ATOL}")
             del on, off
         del model, loaded, engine, want, got
+        torch.cuda.empty_cache()
+    return total
+
+
+def explain_mismatch(tag: str, params_file: str, want: dict, got: dict, keys) -> None:
+    """For each state-dict key in `keys` (a model's, `want`, against one
+    loaded from `params_file`, `got`): how many bytes differ on the card and
+    on the host, and whether the file holds the one or the other, so that a
+    failed bit-equality says whether the writer, the reader or the
+    comparison went wrong."""
+    import torch
+
+    from videoitg_tpu_torch.checkpoint import _LAYER_KEY, _safetensors_index
+
+    refs, _ = _safetensors_index(params_file)
+    for key in keys:
+        path = key[:-len("w_qt")] + "w_q" if key.endswith(".w_qt") else key
+        m = _LAYER_KEY.match(path)
+        ref = refs[f"{m.group(1)}.{m.group(3)}"].layer(int(m.group(2))) if m else refs[path]
+        on_file = ref.read()
+        a, b = want[key].cpu(), got[key].cpu()
+        if key.endswith(".w_qt"):
+            on_file = on_file.t()
+        card_bytes = [t.reshape(-1).view(torch.uint8) for t in (want[key], got[key])]
+        flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in (a, b, on_file)]
+        print(f"{tag}: {key} {tuple(a.shape)} {a.dtype}: bytes differing on the card "
+              f"{int((card_bytes[0] != card_bytes[1]).sum())}, on the host "
+              f"{int((flat[0] != flat[1]).sum())}; the file equals the saved model "
+              f"{torch.equal(flat[0], flat[2])}, the loaded one {torch.equal(flat[1], flat[2])}",
+              flush=True)
+
+
+def compare_cold_starts(dev, card: str, hf_dir: str, cfg) -> None:
+    """The act8 cold start of one model two ways: its fp32 HF directory read
+    into bf16 (`load_grounding_model`) and quantised at load
+    (`apply_quantization_tier`), against its serving checkpoint
+    (`load_serving_checkpoint`). Both files were just written, so both are
+    read from the page cache. Two rounds, alternated; the two models must be
+    bit-equal."""
+    import tempfile
+
+    import torch
+
+    from videoitg_tpu_torch.checkpoint import (SERVING_PARAMS_NAME, load_grounding_model,
+                                               load_serving_checkpoint, save_serving_checkpoint)
+    from videoitg_tpu_torch.ops.quant import apply_quantization_tier
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    hf_bytes = sum(os.path.getsize(os.path.join(hf_dir, f)) for f in os.listdir(hf_dir))
+    with tempfile.TemporaryDirectory() as srv:
+        for round_ in (1, 2):
+            (hf, _), read_s = timed(lambda: load_grounding_model(hf_dir, device=dev,
+                                                                 dtype=torch.bfloat16))
+            _, quant_s = timed(lambda: apply_quantization_tier(hf, "act8"))
+            if round_ == 1:
+                save_serving_checkpoint(hf, cfg, srv, quantize="act8")
+            nbytes = os.path.getsize(os.path.join(srv, SERVING_PARAMS_NAME))
+            (served, _, _), serve_s = timed(lambda: load_serving_checkpoint(srv, device=dev))
+            a, b = hf.state_dict(), served.state_dict()
+            same = a.keys() == b.keys() and all(
+                torch.equal(a[k].reshape(-1).view(torch.uint8), b[k].reshape(-1).view(torch.uint8))
+                for k in a)
+            print(f"cold start videoitg-8b-shallow act8, round {round_}: HF fp32 files "
+                  f"({hf_bytes} bytes) read {read_s:.4f} s + quantise {quant_s:.4f} s = "
+                  f"{read_s + quant_s:.4f} s; serving checkpoint ({nbytes} bytes) read "
+                  f"{serve_s:.4f} s ({(read_s + quant_s) / serve_s:.2f}x faster); models "
+                  f"bit-equal {same} [{card}]", flush=True)
+            if not same:
+                bad = [k for k in a if not torch.equal(a[k].reshape(-1).view(torch.uint8),
+                                                       b[k].reshape(-1).view(torch.uint8))]
+                explain_mismatch("cold start", os.path.join(srv, SERVING_PARAMS_NAME), a, b,
+                                 bad[:3])
+                fail(f"cold start: the serving checkpoint's model differs from the HF "
+                     f"directory's quantised at load ({len(bad)} tensors: {bad[:5]})")
+            del hf, served, a, b
+            torch.cuda.empty_cache()
+
+
+def run_serving_checkpoints(dev, card: str) -> dict:
+    """Serving checkpoints at VideoITG-8B, full width and depth, in the int8,
+    int4 and act8 tiers: a bf16 model from SEED quantised in place on the
+    card (timed), written by `save_serving_checkpoint` into a temporary
+    directory (bytes, seconds, GB/s, the host's peak rise) and read back onto
+    the card by `load_serving_checkpoint` (seconds, device memory peak, host
+    peak rise), bit-equal to the saved model, act_q flags included. One
+    512-frame select through the saved and through the loaded model (act8
+    with the int8 kernels on) gives the same raw scores and Top-K, bit for
+    bit; launches are zeroed before each select and read after it: A 104, B
+    28, and under act8 F 196, G, H, I 104 each, else 0. Returns the counts
+    summed over the phase."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from videoitg_tpu_torch.checkpoint import (SERVING_PARAMS_NAME, load_serving_checkpoint,
+                                               save_serving_checkpoint)
+    from videoitg_tpu_torch.config import preset
+    from videoitg_tpu_torch.engine import SelectionEngine
+    from videoitg_tpu_torch.models.grounding import init_grounding
+    from videoitg_tpu_torch.ops.quant import QuantLinear, apply_quantization_tier
+    from videoitg_tpu_torch.utils.common import CharTokenizer
+
+    counted = wrappers()
+    total = {name: 0 for name in counted}
+    cfg = preset("videoitg-8b")
+    tok = CharTokenizer(cfg.lm.vocab_size)
+    frames, sampled = frames_u8(np.random.default_rng(SEED + 7), 512), [2 * i for i in range(512)]
+    tower, lm = cfg.vision.num_effective_layers * 4, cfg.lm.num_layers  # 4 chunks of 128 frames
+
+    def bits(t):
+        return t.reshape(-1).view(torch.uint8)
+
+    def rise(h):
+        if h.before is None:
+            return "not measured (no /proc/self/statm)"
+        return f"+{(h.peak - h.before) / 2**30:.3f} GiB over {h.before / 2**30:.3f}"
+
+    def select(tag, model, act8):
+        engine = SelectionEngine(model, cfg, tok, device=dev, dtype=torch.bfloat16, qgemm=act8,
+                                 fused=act8)
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.select(frames, sampled, QUESTIONS[0])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counted.items()}
+        check_result(res, sampled)
+        want = {"flash_mha_short": tower, "flash_mha": lm, "act8_gemm": 7 * lm if act8 else 0,
+                **{k: tower if act8 else 0 for k in ("fused_ln_qkv_int8", "fused_ln_mlp_int8",
+                                                     "fused_proj_residual_int8")}}
+        print(f"serving checkpoint {tag}: select 512 frames {wall:.4f} s, top8 {res.topk(8)}; "
+              f"launches {dict((k, v) for k, v in launches.items() if v)} [{card}]", flush=True)
+        for name, n in want.items():
+            if launches[name] != n:
+                fail(f"serving checkpoint {tag}: {name} launched {launches[name]} times, "
+                     f"expected {n}")
+        for name, n in launches.items():
+            total[name] += n
+        return res
+
+    for tier in ("int8", "int4", "act8"):
+        model = init_grounding(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                               dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        apply_quantization_tier(model, tier)
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            with HostPeak() as host_write:
+                save_serving_checkpoint(model, cfg, tmp, quantize=tier)
+            write_s = time.perf_counter() - t0
+            nbytes = os.path.getsize(os.path.join(tmp, SERVING_PARAMS_NAME))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            with HostPeak() as host_load:
+                loaded, got_cfg, got_tier = load_serving_checkpoint(tmp, device=dev)
+                torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - before
+            want, got = model.state_dict(), loaded.state_dict()
+            unequal = sorted(k for k in want if k not in got or not torch.equal(bits(want[k]),
+                                                                                 bits(got[k])))
+            if unequal and set(got) == set(want):
+                explain_mismatch(f"serving checkpoint {tier}", os.path.join(
+                    tmp, SERVING_PARAMS_NAME), want, got, unequal[:3])
+        flags = [[(n, m.bits, m.act_q) for n, m in mod.named_modules()
+                  if isinstance(m, QuantLinear)] for mod in (model, loaded)]
+        weights = sum(v.numel() * v.element_size() for v in got.values())
+        print(f"serving checkpoint videoitg-8b {tier}: quantised on the card in {quant_s:.4f} s; "
+              f"{nbytes} bytes written in {write_s:.4f} s ({nbytes / write_s / 1e9:.3f} GB/s), "
+              f"host peak {rise(host_write)}; cold start onto the card {load_s:.4f} s "
+              f"({nbytes / load_s / 1e9:.3f} GB/s of file), device memory peak of the load "
+              f"{peak / 2**30:.4f} GiB for {weights / 2**30:.4f} GiB of weights, host peak "
+              f"{rise(host_load)}; {len(want)} tensors, {len(flags[0])} quantised linears, "
+              f"bit-equal {not unequal and flags[0] == flags[1]} [{card}]", flush=True)
+        if (got_cfg != cfg or got_tier != tier or set(got) != set(want) or unequal
+                or flags[0] != flags[1]):
+            fail(f"serving checkpoint {tier}: the loaded model differs from the saved one "
+                 f"({len(unequal)} tensors: {unequal[:5]})")
+        a = select(f"{tier}, as saved", model, tier == "act8")
+        b = select(f"{tier}, loaded", loaded, tier == "act8")
+        same = np.array_equal(a.raw_scores, b.raw_scores) and a.index == b.index
+        print(f"serving checkpoint {tier}: loaded vs saved model, raw scores and Top-K index "
+              f"bit-equal {same} [{card}]", flush=True)
+        if not same:
+            fail(f"serving checkpoint {tier}: the loaded model selects otherwise")
+        del model, loaded, want, got, a, b
         torch.cuda.empty_cache()
     return total
 
@@ -3530,7 +3744,8 @@ def main(argv=None) -> int:
     parser.add_argument("--only", choices=["attention-kernels", "int8-kernels", "train-kernels",
                                           "splash-kernels",
                                           "segment-kernels", "vlm",
-                                          "serve", "train", "checkpoint", "eval", "stage-b"],
+                                          "serve", "train", "checkpoint", "serving-checkpoint",
+                                          "eval", "stage-b"],
                         default=None,
                         help="build, then only: check kernels A, B (attention-kernels), F-I "
                              "(int8-kernels), C, D, E (train-kernels), K, L (splash-kernels) "
@@ -3538,7 +3753,8 @@ def main(argv=None) -> int:
                              "ptxas' lines for the TMA + wgmma instances among them; or run "
                              "the daemon phase (serve), "
                              "the training phases (train), the causal-VLM phases (vlm), "
-                             "the HF-checkpoint phase (checkpoint), eval stage A (eval) or "
+                             "the HF-checkpoint phase (checkpoint), the serving-checkpoint "
+                             "phase (serving-checkpoint), eval stage A (eval) or "
                              "eval stage B after its stage A (stage-b)")
     args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "videoitg_tpu_torch")):
@@ -3612,6 +3828,10 @@ def main(argv=None) -> int:
         run_checkpoints(dev, card)
         print("checkpoint phase passed", flush=True)
         return 0
+    if args.only == "serving-checkpoint":
+        run_serving_checkpoints(dev, card)
+        print("serving-checkpoint phase passed", flush=True)
+        return 0
     if args.only == "eval":
         run_eval(dev, card)
         print("eval phase passed", flush=True)
@@ -3630,6 +3850,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     for name, n in run_checkpoints(dev, card).items():
         launches[name] = launches.get(name, 0) + n
+    torch.cuda.empty_cache()
+    for name, n in run_serving_checkpoints(dev, card).items():
+        launches[name] = launches.get(name, 0) + n
+    torch.cuda.empty_cache()
     for name, n in run_serving(dev, card).items():
         launches[name] = launches.get(name, 0) + n
     launches.update(run_repro_script())

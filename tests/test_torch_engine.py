@@ -184,7 +184,10 @@ def test_cli_select_in_process(tmp_path, capsys):
     assert top == sorted(record["index"][:3])
     assert main(argv + ["--quantize", "int8"]) == 0
     assert len(json.loads(capsys.readouterr().out.strip().splitlines()[-1])) == 8
-    assert main(argv + ["--export-serving", str(tmp_path / "out")]) == 2
+    assert main(argv + ["--json", "--export-serving", str(tmp_path / "out")]) == 0
+    exported = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert exported == record  # the export leaves the run's own selection as it was
+    assert os.path.exists(tmp_path / "out" / "params.safetensors")
     assert main(argv + ["--json", "--transfer", "yuv420"]) == 0
     yuv = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert sorted(yuv["index"]) == sorted(record["index"])

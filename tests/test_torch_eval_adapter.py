@@ -222,8 +222,14 @@ def test_a_missing_video_raises_alike(tmp_path, data_root):
 
 
 def test_serving_checkpoint_is_refused_naming_item_4(tmp_path):
-    (tmp_path / "serving_config.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 4\)"):
+    """A serving directory of the JAX package's layout (an orbax `params/`
+    tree) is refused, naming the port's remedy; the port's own layout loads
+    (tests/test_torch_serving_checkpoint.py)."""
+    (tmp_path / "params").mkdir()
+    (tmp_path / "serving_config.json").write_text(
+        '{"format": "videoitg-serving-v1", "quantize": "int8", "config": {}}')
+    with pytest.raises(SystemExit, match=r"orbax params/ tree.*videoitg-torch-select "
+                                         r".*--export-serving"):
         get_adapter("videoitg")(pretrained=str(tmp_path), device="cpu")
 
 

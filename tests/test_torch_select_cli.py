@@ -1,8 +1,10 @@
 """The port's `select` CLI takes the JAX CLI's flags: `--cpu` and
 `--save-frames DIR`, which writes each selected frame as
 `frame_{i:03d}_idx{frame_idx}.jpg` (videoitg_tpu/cli/select.py).
-`--export-serving` and a serving checkpoint as `--model` are refused with
-their ROADMAP item."""
+`--export-serving DIR` writes a serving checkpoint of the port's layout;
+a serving checkpoint of the JAX package's layout (an orbax `params/` tree)
+as `--model` is refused, naming the remedy (tests/test_torch_serving_checkpoint.py
+holds the rest)."""
 
 import io
 import json
@@ -52,9 +54,20 @@ def test_select_cpu_saves_the_selected_frames_in_a_child_process(tmp_path):
 
 
 def test_serving_checkpoints_are_refused_naming_their_item(tmp_path, capsys):
-    (tmp_path / "serving_config.json").write_text("{}")
-    for flags in (["--preset", "tiny", "--random-init", "--export-serving", str(tmp_path)],
-                  ["--model", str(tmp_path)]):
-        assert main([*flags, "--cpu", "--video", "v.mp4", "--prompt", "q"]) == 2
-        err = capsys.readouterr().err
-        assert "not ported" in err and "ROADMAP queue 1, item 4" in err, err
+    """The JAX layout's serving directory (serving_config.json + an orbax
+    `params/` tree) is refused, naming the port's remedy; `--export-serving`
+    itself now writes the port's layout."""
+    video = write_test_video(str(tmp_path / "v.mp4"), 64, 48, 30, 10, 8)
+    jax_dir = tmp_path / "jax_serving"
+    (jax_dir / "params").mkdir(parents=True)
+    (jax_dir / "serving_config.json").write_text(
+        json.dumps({"format": "videoitg-serving-v1", "quantize": None, "config": {}}))
+    assert main(["--model", str(jax_dir), "--cpu", "--video", video, "--prompt", "q"]) == 2
+    err = capsys.readouterr().err
+    assert "orbax params/ tree" in err and "videoitg-torch-select" in err, err
+    assert "--export-serving" in err and "not ported" not in err, err
+    out = tmp_path / "port_serving"
+    assert main(["--preset", "tiny", "--random-init", "--export-serving", str(out), "--cpu",
+                 "--video", video, "--prompt", "q", "--num-frames", "4"]) == 0
+    assert {"serving_config.json", "params.safetensors"} <= set(os.listdir(out))
+    assert f"serving checkpoint written to {out}" in capsys.readouterr().err

@@ -342,7 +342,10 @@ def _cli(*flags, cwd):
 
 
 REFUSED = [
-    (("--model", "{serving}"), "--model", "ROADMAP queue 1, item 4"),
+    # a serving directory of the JAX package's layout (an orbax params/ tree);
+    # the id is the one this case had when every serving directory was refused
+    pytest.param(("--model", "{serving}"), "--export-serving", "orbax params/ tree",
+                 id="flags0---model-ROADMAP queue 1, item 4"),
     (("--tp", "2"), "--dp / --tp / --sp / --pp", "ROADMAP queue 1, item 8"),
     (("--dp", "4"), "--dp / --tp / --sp / --pp", "ROADMAP queue 1, item 8"),
     (("--sp", "2"), "--dp / --tp / --sp / --pp", "ROADMAP queue 1, item 8"),
@@ -352,15 +355,18 @@ REFUSED = [
 
 @pytest.mark.parametrize("flags,named,item", REFUSED)
 def test_cli_refuses_what_is_not_ported(tmp_path, flags, named, item):
-    """A serving checkpoint (a directory with serving_config.json) as
-    `--model` and a mesh above one device are refused, each with its
-    ROADMAP item; HF-format `--model` directories are ported."""
-    (tmp_path / "serving").mkdir()
-    (tmp_path / "serving" / "serving_config.json").write_text("{}")
+    """A mesh above one device is refused with its ROADMAP item; a serving
+    directory of the JAX package's layout as `--model` is refused, naming the
+    re-export (`videoitg-torch-select --export-serving`). HF-format and the
+    port's serving `--model` directories are served."""
+    (tmp_path / "serving" / "params").mkdir(parents=True)
+    (tmp_path / "serving" / "serving_config.json").write_text(
+        '{"format": "videoitg-serving-v1", "quantize": null, "config": {}}')
     flags = [f.format(serving=tmp_path / "serving") for f in flags]
     proc = _cli("--preset", "tiny", "--random-init", "--cpu", "--port", "0", *flags, cwd=tmp_path)
     assert proc.returncode == 2
-    assert named in proc.stderr and item in proc.stderr and "not ported" in proc.stderr
+    assert named in proc.stderr and item in proc.stderr
+    assert ("not ported" in proc.stderr) == item.startswith("ROADMAP")
 
 
 def test_cli_stops_without_a_cuda_device(tmp_path):

@@ -8,6 +8,7 @@ import json
 import os
 import subprocess
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -144,6 +145,35 @@ def test_prefetch_keeps_order_and_raises_the_producers_error():
             break
         threading.Event().wait(0.1)
     assert threading.active_count() <= before
+
+
+@pytest.mark.parametrize("leave", ["break", "close"])
+def test_no_producer_is_alive_once_the_consumer_leaves(leave):
+    """The producer is joined as the generator closes, while it is still
+    busy making the next item: none outlives the consumer (a daemon thread
+    left inside native code at interpreter exit aborts the process)."""
+    made = []
+
+    def slow():
+        for i in range(100):
+            time.sleep(0.05)
+            made.append(i)
+            yield i
+
+    def producers():
+        return [t for t in threading.enumerate() if t.name == "prefetch_batches"]
+
+    if leave == "break":
+        for item in dataset.prefetch_batches(slow(), depth=1):
+            assert producers()
+            if item == 2:
+                break
+    else:
+        gen = dataset.prefetch_batches(slow(), depth=1)
+        assert next(gen) == 0 and producers()
+        gen.close()
+    assert not producers()
+    assert len(made) < 10  # it stopped at the item it was making
 
 
 @pytest.mark.parametrize("store", ["bf16", "int8"])

@@ -46,6 +46,17 @@ ways on dense, `w_q` and `w_q4` linears, in their own dtype, bit for bit.
 
 The tree's leaves must already be numpy arrays (`jax.tree.map(np.asarray,
 params)` on the JAX side); this module imports no jax.
+
+Serving checkpoints (counterpart of the JAX package's, which keep the tree in
+an orbax `params/` directory; orbax loads jax). `save_serving_checkpoint`
+writes `serving_config.json` byte for byte as the JAX writer does, the
+tokenizer files, and `params.safetensors`: the same tree's leaves under their
+dotted paths (`lm.layers.q.w_q`, stacked [L, ...]), each in the dtype the
+model holds, streamed one layer at a time, with the `act_q` markers listed in
+the file's metadata. `load_serving_checkpoint` builds the model on the meta
+device and fills it layer by layer from the file: the quantised form is read
+as it was saved, with no dense copy and no second quantisation. Both this
+loader and `params_from_numpy` go through `_assemble`.
 """
 
 from __future__ import annotations
@@ -84,27 +95,36 @@ def _to_tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))  # a writable copy
 
 
-def _quant_linear(leaves: dict, layer, dtype: torch.dtype) -> QuantLinear:
-    """One `QuantLinear` from a quantised linear's leaves (layer i of a
-    stacked linear, or the whole of an unstacked one when `layer` is None)."""
-    def leaf(key):
-        if leaves.get(key) is None:
-            return None
-        t = _to_tensor(leaves[key])
-        return t if layer is None else t[layer]
+def _take(src, layer: Optional[int], device, dtype: Optional[torch.dtype] = None
+          ) -> torch.Tensor:
+    """Layer `layer` of a stacked leaf, or the whole leaf when `layer` is None,
+    as a tensor of its own on `device` (floating leaves cast to `dtype` when
+    one is given). `src` is a tensor, or a `_TensorRef` into a file, of which
+    only the bytes of that layer are read."""
+    if isinstance(src, _TensorRef):
+        t = (src if layer is None else src.layer(layer)).read()
+    else:
+        t = src if layer is None else src[layer]
+    cast = dtype if dtype is not None and t.is_floating_point() else None
+    return t.to(device=device, dtype=cast, copy=True)
 
+
+def _quant_linear(leaves: dict, layer: Optional[int], device,
+                  dtype: Optional[torch.dtype]) -> QuantLinear:
+    """One `QuantLinear` from a quantised linear's leaves (layer i of a
+    stacked linear, or the whole of an unstacked one when `layer` is None);
+    the bias is cast to `dtype` when one is given."""
     weight, scale = ("w_q", "scale") if "w_q" in leaves else ("w_q4", "scale4")
     unknown = set(leaves) - {weight, scale, "b", "act_q"}
     if scale not in leaves or unknown:
         raise KeyError(f"a quantised linear holds {weight}, {scale}, optionally b and act_q; "
                        f"got {sorted(leaves)}")
-    b = leaf("b")
-    b = None if b is None else b.to(dtype)
+    b = None if leaves.get("b") is None else _take(leaves["b"], layer, device, dtype)
     act_q = "act_q" in leaves
-    if "w_q" in leaves:
-        return QuantLinear(w_qt=leaf("w_q").t().contiguous(), scale=leaf("scale"),
-                           b=b, act_q=act_q)
-    return QuantLinear(w_q4=leaf("w_q4").contiguous(), scale=leaf("scale4"), b=b, act_q=act_q)
+    w, s = _take(leaves[weight], layer, device), _take(leaves[scale], layer, device)
+    if weight == "w_q":
+        return QuantLinear(w_qt=w.t().contiguous(), scale=s, b=b, act_q=act_q)
+    return QuantLinear(w_q4=w, scale=s, b=b, act_q=act_q)
 
 
 def _set_submodule(model: torch.nn.Module, path: str, module: torch.nn.Module) -> None:
@@ -115,104 +135,120 @@ def _set_submodule(model: torch.nn.Module, path: str, module: torch.nn.Module) -
     setattr(node, leaf, module)
 
 
-def params_from_numpy(tree: dict, cfg: GroundingConfig, device=None,
-                      dtype: torch.dtype = torch.float32) -> GroundingModel:
-    """The JAX params pytree (numpy leaves) -> the port's GroundingModel."""
-    flat = list(_flatten(tree))
-    # LoRA leaves are attached after the model is built (they are not part
-    # of a fresh model's state dict): parent path -> {leaf: array}.
+def _layer_targets(path: str, src) -> List[Tuple[str, Optional[int]]]:
+    """(the port's module or tensor path, layer) for each layer a leaf of the
+    JAX tree fills: one per layer of a stacked `*.layers.*` leaf."""
+    head, sep, rest = path.partition(".layers.")
+    if not sep:
+        return [(path, None)]
+    return [(f"{head}.layers.{i}.{rest}", i) for i in range(src.shape[0])]
+
+
+def _assemble(leaves: Mapping[str, object], cfg: GroundingConfig, device,
+              dtype: Optional[torch.dtype]) -> GroundingModel:
+    """The port's model from the JAX tree's leaves under their dotted paths
+    (`lm.layers.q.w_q`: tensors or `_TensorRef`s, stacked [L, ...] under
+    `*.layers.*`; an `act_q` marker's value is None). The model is built on
+    the meta device and every tensor is put in place as it is read, so no
+    dense copy of a quantised linear and no second copy of the model is
+    made. Dense floating leaves and quantised biases are cast to `dtype`,
+    or keep their own dtype when it is None; integer weights, scales and
+    LoRA leaves always keep theirs."""
     adapters: Dict[str, dict] = {}
-    for path, arr in flat:
+    quantised: Dict[str, dict] = {}
+    dense: Dict[str, object] = {}
+    quant_parents = {path.rpartition(".")[0] for path in leaves
+                     if path.rpartition(".")[2] in ("w_q", "w_q4")}
+    for path, src in leaves.items():
         parent, _, leaf = path.rpartition(".")
         if leaf in LORA_KEYS:
-            adapters.setdefault(parent, {})[leaf] = arr
-    flat = [(path, arr) for path, arr in flat if path.rpartition(".")[2] not in LORA_KEYS]
-    quant_parents = {path.rpartition(".")[0] for path, _ in flat
-                     if path.rpartition(".")[2] in ("w_q", "w_q4")}
-    state: Dict[str, torch.Tensor] = {}
-    quantised: Dict[str, dict] = {parent: {} for parent in quant_parents}
-    for path, arr in flat:
-        parent, _, leaf = path.rpartition(".")
-        if parent in quant_parents:
-            quantised[parent][leaf] = arr
-            continue
-        t = _to_tensor(arr)
-        head, sep, rest = path.partition(".layers.")
-        if sep:  # stacked [L, ...] -> one tensor per layer module
-            for i in range(t.shape[0]):
-                state[f"{head}.layers.{i}.{rest}"] = t[i]
+            adapters.setdefault(parent, {})[leaf] = src
+        elif parent in quant_parents:
+            quantised.setdefault(parent, {})[leaf] = src
         else:
-            state[path] = t
+            dense[path] = src
     # A causal-VLM tree may carry an untied `lm.lm_head` and may lack the
     # scoring head; the model is built to the tree.
-    model = GroundingModel(cfg, device=device, dtype=dtype,
-                           with_lm_head="lm_head" in tree.get("lm", {}),
-                           with_out_proj="out_proj" in tree)
+    model = GroundingModel(cfg, device="meta", dtype=dtype or torch.float32,
+                           with_lm_head=any(p.startswith("lm.lm_head.") for p in leaves),
+                           with_out_proj=any(p.startswith("out_proj.") for p in leaves))
     replaced = []
-    for parent, leaves in quantised.items():
-        head, sep, rest = parent.partition(".layers.")
-        weight = leaves["w_q"] if "w_q" in leaves else leaves["w_q4"]
-        targets = ([(f"{head}.layers.{i}.{rest}", i) for i in range(weight.shape[0])]
-                   if sep else [(parent, None)])
-        for lin_path, layer in targets:
-            lin = _quant_linear(leaves, layer, dtype)
-            _set_submodule(model, lin_path, lin if device is None else lin.to(device))
+    for parent, group in quantised.items():
+        weight = group["w_q"] if "w_q" in group else group["w_q4"]
+        for lin_path, layer in _layer_targets(parent, weight):
+            _set_submodule(model, lin_path, _quant_linear(group, layer, device, dtype))
             replaced.append(lin_path + ".")
-    dense = {k for k in model.state_dict() if not k.startswith(tuple(replaced))}
-    if dense != set(state):
+    state = {key: (src, layer) for path, src in dense.items()
+             for key, layer in _layer_targets(path, src)}
+    wanted = {k for k in model.state_dict() if not k.startswith(tuple(replaced))}
+    if wanted != set(state):
         raise KeyError(f"params tree does not match the model: missing "
-                       f"{sorted(dense - set(state))}, unexpected {sorted(set(state) - dense)}")
-    model.load_state_dict(state, strict=False)
-    for parent, leaves in adapters.items():
-        if set(leaves) != set(LORA_KEYS):
-            raise KeyError(f"{parent}: a LoRA adapter holds {LORA_KEYS}, got {sorted(leaves)}")
-        a, b, scale = (_to_tensor(leaves[key]) for key in LORA_KEYS)
-        head, sep, rest = parent.partition(".layers.")
-        targets = ([(f"{head}.layers.{i}.{rest}", i) for i in range(a.shape[0])]
-                   if sep else [(parent, None)])
-        for lin_path, layer in targets:
-            lin = model.get_submodule(lin_path)
-            set_lora(lin, *((t if layer is None else t[layer]).clone().to(device)
-                            for t in (a, b, scale)))
+                       f"{sorted(wanted - set(state))}, unexpected {sorted(set(state) - wanted)}")
+    model.load_state_dict({key: _take(src, layer, device, dtype)
+                           for key, (src, layer) in state.items()}, strict=False, assign=True)
+    for parent, group in adapters.items():
+        if set(group) != set(LORA_KEYS):
+            raise KeyError(f"{parent}: a LoRA adapter holds {LORA_KEYS}, got {sorted(group)}")
+        for lin_path, layer in _layer_targets(parent, group["lora_a"]):
+            set_lora(model.get_submodule(lin_path),
+                     *(_take(group[key], layer, device) for key in LORA_KEYS))
     return model
 
 
-def _export_leaves(model: GroundingModel) -> Iterator[Tuple[str, object]]:
-    """(path, array-or-None) pairs under the JAX package's key names."""
-    for path, t in model.state_dict().items():
-        parent, _, leaf = path.rpartition(".")
-        t = t.detach().cpu()
-        if leaf == "w_qt":  # stored [out, in]; the tree holds [in, out]
-            path, t = f"{parent}.w_q", t.t()
-        arr = (t.float() if t.dtype == torch.bfloat16 else t).contiguous().numpy().copy()
-        yield path, arr
-    for path, module in model.named_modules():
-        if isinstance(module, QuantLinear) and module.act_q:
-            yield f"{path}.act_q", None
+def params_from_numpy(tree: dict, cfg: GroundingConfig, device=None,
+                      dtype: torch.dtype = torch.float32) -> GroundingModel:
+    """The JAX params pytree (numpy leaves) -> the port's GroundingModel on
+    `device` (default: the CPU) in `dtype`."""
+    leaves = {path: None if arr is None else _to_tensor(arr) for path, arr in _flatten(tree)}
+    return _assemble(leaves, cfg, torch.device("cpu") if device is None else device, dtype)
+
+
+def _jax_leaves(model: GroundingModel) -> Dict[str, object]:
+    """Every leaf of the model under its path in the JAX tree, where the
+    tensor lives and in its own dtype: an unstacked leaf as its tensor, a
+    `*.layers.*` leaf as the list of its layers' tensors (to be stacked
+    [L, ...]), an `act_q` marker as None (a list of Nones when stacked)."""
+    named = [(path, t.detach()) for path, t in model.state_dict().items()]
+    named = [(f"{path[:-5]}.w_q", t.t()) if path.endswith(".w_qt") else (path, t)
+             for path, t in named]  # the port stores w_q [out, in]; the tree [in, out]
+    named += [(f"{path}.act_q", None) for path, module in model.named_modules()
+              if isinstance(module, QuantLinear) and module.act_q]
+    leaves: Dict[str, object] = {}
+    stacked: Dict[str, Dict[int, Optional[torch.Tensor]]] = {}
+    for path, t in named:
+        m = _LAYER_KEY.match(path)
+        if m:
+            stacked.setdefault(f"{m.group(1)}.{m.group(3)}", {})[int(m.group(2))] = t
+        else:
+            leaves[path] = t
+    for path, layers in stacked.items():
+        kinds = {None if t is None else (t.dtype, tuple(t.shape)) for t in layers.values()}
+        if sorted(layers) != list(range(len(layers))) or len(kinds) != 1:
+            raise ValueError(f"{path}: the layers differ in presence, dtype or shape, which a "
+                             "stacked leaf cannot hold")
+        leaves[path] = [layers[i] for i in range(len(layers))]
+    return leaves
 
 
 def params_to_numpy(model: GroundingModel) -> dict:
     """Inverse of `params_from_numpy`: a nested dict of numpy arrays with
     stacked [L, ...] layer leaves. bf16 weights come back as float32, int8
     weights as int8, and an `act_q` linear carries the key `act_q: None`."""
-    stacked: Dict[str, Dict[int, object]] = {}
-    flat: Dict[str, object] = {}
-    for path, arr in _export_leaves(model):
-        m = _LAYER_KEY.match(path)
-        if m:
-            stacked.setdefault(f"{m.group(1)}.{m.group(3)}", {})[int(m.group(2))] = arr
-        else:
-            flat[path] = arr
-    for path, layers in stacked.items():
-        first = layers[0]
-        flat[path] = None if first is None else np.stack([layers[i] for i in range(len(layers))])
+    def numpy(t: torch.Tensor) -> np.ndarray:
+        t = t.cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).contiguous().numpy().copy()
+
     tree: dict = {}
-    for path, arr in flat.items():
+    for path, value in _jax_leaves(model).items():
+        if isinstance(value, list):
+            value = None if value[0] is None else np.stack([numpy(t) for t in value])
+        elif value is not None:
+            value = numpy(value)
         node = tree
         *parents, leaf = path.split(".")
         for key in parents:
             node = node.setdefault(key, {})
-        node[leaf] = arr
+        node[leaf] = value
     return tree
 
 
@@ -236,6 +272,12 @@ class _TensorRef:
 
     def __init__(self, path, dtype, shape, start, stop):
         self.path, self.dtype, self.shape, self.start, self.stop = path, dtype, shape, start, stop
+
+    def layer(self, i: int) -> "_TensorRef":
+        """Where row `i` of the first axis lies: a stacked leaf's layer i."""
+        per = (self.stop - self.start) // self.shape[0]
+        return _TensorRef(self.path, self.dtype, self.shape[1:], self.start + i * per,
+                          self.start + (i + 1) * per)
 
     def read(self) -> torch.Tensor:
         buf = bytearray(self.stop - self.start)
@@ -279,7 +321,10 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
 def write_safetensors(path: str, entries, metadata: Optional[Dict[str, str]] = None) -> int:
     """Write a safetensors file from `entries`: (name, dtype, shape, make)
     tuples, `make()` giving the tensor when its turn comes, so that only one
-    tensor at a time is staged on the host. Returns the bytes written."""
+    tensor at a time is staged on the host. `make()` may instead give the
+    rows of the first axis one at a time (an iterable of tensors of shape
+    `shape[1:]`), so that a stacked leaf is staged one layer at a time.
+    Returns the bytes written."""
     _check_little_endian()
     header, offset = {}, 0
     for name, dtype, shape, _ in entries:
@@ -295,13 +340,21 @@ def write_safetensors(path: str, entries, metadata: Optional[Dict[str, str]] = N
         f.write(struct.pack("<Q", len(text)))
         f.write(text)
         for name, dtype, shape, make in entries:
-            # Cast and lay out where the tensor lives (the card, for a model
-            # there), then copy the packed bytes to the host.
-            t = make().detach().to(dtype).contiguous().cpu()
-            if tuple(t.shape) != tuple(shape):
-                raise ValueError(f"{name}: made {tuple(t.shape)}, announced {tuple(shape)}")
-            if t.numel():
-                f.write(t.reshape(-1).view(torch.uint8).numpy().data)
+            made = make()
+            whole = isinstance(made, torch.Tensor)
+            rows = 0
+            for t in [made] if whole else made:
+                # Cast and lay out where the tensor lives (the card, for a
+                # model there), then copy the packed bytes to the host.
+                t = t.detach().to(dtype).contiguous().cpu()
+                want = tuple(shape) if whole else tuple(shape[1:])
+                if tuple(t.shape) != want:
+                    raise ValueError(f"{name}: made {tuple(t.shape)}, announced {want}")
+                if t.numel():
+                    f.write(t.reshape(-1).view(torch.uint8).numpy().data)
+                rows += 1
+            if not whole and rows != shape[0]:
+                raise ValueError(f"{name}: made {rows} rows, announced {shape[0]}")
     return 8 + len(text) + offset
 
 
@@ -517,9 +570,91 @@ def load_grounding_model(model_dir: str, cfg: Optional[GroundingConfig] = None, 
     return convert_grounding_checkpoint(load_hf_state_dict(model_dir), cfg, device, dtype), cfg
 
 
+# ---- serving checkpoints (pre-quantised, fast cold start) ----
+
+SERVING_FORMAT = "videoitg-serving-v1"
+SERVING_PARAMS_NAME = "params.safetensors"
+_TOKENIZER_FILES = ("tokenizer*", "special_tokens_map.json", "vocab*", "merges.txt")
+
+
 def is_serving_checkpoint(model_dir: str) -> bool:
-    """A pre-quantised serving checkpoint of the JAX package (not ported)."""
+    """A directory written by `save_serving_checkpoint`, of either package."""
     return os.path.exists(os.path.join(model_dir, SERVING_CONFIG_NAME))
+
+
+def _serving_entries(model: GroundingModel) -> Tuple[list, List[str]]:
+    """`write_safetensors` entries of every leaf of the model under its JAX
+    path, a stacked `*.layers.*` leaf as [L, ...] made one layer at a time,
+    in the dtype the model holds; and the paths of the `act_q` markers."""
+    entries, markers = [], []
+    for path, value in _jax_leaves(model).items():
+        first = value[0] if isinstance(value, list) else value
+        if first is None:
+            markers.append(path)
+        elif isinstance(value, list):
+            entries.append((path, first.dtype, (len(value), *first.shape),
+                            lambda value=value: iter(value)))
+        else:
+            entries.append((path, value.dtype, tuple(value.shape), lambda value=value: value))
+    return entries, markers
+
+
+def save_serving_checkpoint(model: GroundingModel, cfg: GroundingConfig, out_dir: str,
+                            quantize: Optional[str] = None,
+                            tokenizer_dir: Optional[str] = None) -> str:
+    """Persist a ready-to-serve model (int8 / int4 linears, LoRA adapters
+    and all) so that a later load skips the HF convert and the
+    quantisation pass. Layout: `serving_config.json` as the JAX package
+    writes it (format, tier, config), the tokenizer files of
+    `tokenizer_dir`, and `params.safetensors`, every leaf under its dotted
+    JAX path (`lm.layers.q.w_q` [L, in, out] int8) in the dtype the model
+    holds, with the `act_q` markers listed in its metadata (the JAX package
+    keeps the same tree in an orbax `params/` directory). Leaves are staged
+    on the host one layer at a time. Returns the directory."""
+    out_dir = os.path.abspath(out_dir)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, SERVING_CONFIG_NAME), "w") as f:
+        json.dump({"format": SERVING_FORMAT, "quantize": quantize,
+                   "config": json.loads(cfg.to_json())}, f, indent=2)
+    if tokenizer_dir:
+        # Carry the tokenizer so the directory is self-contained.
+        import glob
+        import shutil
+
+        for pattern in _TOKENIZER_FILES:
+            for name in glob.glob(os.path.join(tokenizer_dir, pattern)):
+                shutil.copy(name, out_dir)
+    entries, markers = _serving_entries(model)
+    write_safetensors(os.path.join(out_dir, SERVING_PARAMS_NAME), entries,
+                      metadata={"format": "pt", "act_q": json.dumps(markers)})
+    return out_dir
+
+
+def load_serving_checkpoint(model_dir: str, device=None
+                            ) -> Tuple[GroundingModel, GroundingConfig, Optional[str]]:
+    """(model, cfg, quantisation tier) of a `save_serving_checkpoint`
+    directory, the model on `device` (default: the card) in the form and
+    dtypes it was saved in, read one layer at a time. A directory of the
+    JAX package (an orbax `params/` tree) is refused: the port reads no
+    orbax."""
+    with open(os.path.join(model_dir, SERVING_CONFIG_NAME)) as f:
+        meta = json.load(f)
+    if meta.get("format") != SERVING_FORMAT:
+        raise ValueError(f"{model_dir}: serving format {meta.get('format')!r}, "
+                         f"expected {SERVING_FORMAT!r}")
+    path = os.path.join(model_dir, SERVING_PARAMS_NAME)
+    if not os.path.exists(path):
+        what = ("the JAX package's serving layout (an orbax params/ tree), which the port "
+                "does not read" if os.path.isdir(os.path.join(model_dir, "params"))
+                else f"no {SERVING_PARAMS_NAME}")
+        raise FileNotFoundError(
+            f"{model_dir} holds {what}; re-export it from its HF-format checkpoint with "
+            "`videoitg-torch-select --model HF_DIR [--quantize TIER] --export-serving DIR`")
+    cfg = GroundingConfig.from_json(json.dumps(meta["config"]))
+    refs, metadata = _safetensors_index(path)
+    leaves: Dict[str, object] = dict(refs)
+    leaves.update((marker, None) for marker in json.loads((metadata or {}).get("act_q", "[]")))
+    return _assemble(leaves, cfg, _device(device), None), cfg, meta.get("quantize")
 
 
 def _export_entries(model: GroundingModel, cfg: GroundingConfig

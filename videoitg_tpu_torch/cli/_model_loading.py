@@ -34,21 +34,31 @@ def adapter_device(device, tool: str) -> torch.device:
 def load_grounding_components(model: str | None, preset_name: str, random_init: bool,
                               dtype: torch.dtype, device: torch.device, seed: int = 0,
                               quantize: str | None = None, tool: str = "videoitg-torch"):
-    """(model, cfg, tokenizer) from an HF-format checkpoint directory (its
-    tokenizer through transformers' AutoTokenizer) or a random-init preset,
-    with the optional serving quantisation tier ('int8', 'int4', 'act8')
-    applied in place. Pre-quantised serving checkpoints are refused (ROADMAP
-    queue 1, item 4)."""
+    """(model, cfg, tokenizer) from a checkpoint directory (its tokenizer
+    through transformers' AutoTokenizer) or a random-init preset, with the
+    optional serving quantisation tier ('int8', 'int4', 'act8') applied in
+    place. The directory is HF-format, or a serving checkpoint
+    (`checkpoint.save_serving_checkpoint`), which loads already quantised in
+    the tier it was saved with: asking for another tier is an error."""
     if model:
-        from videoitg_tpu_torch.checkpoint import is_serving_checkpoint, load_grounding_model
-
-        if is_serving_checkpoint(model):
-            raise SystemExit(
-                f"error: {tool}: --model {model} is a serving checkpoint (serving_config.json); "
-                "serving checkpoints are not ported to PyTorch yet (ROADMAP queue 1, item 4)")
         from transformers import AutoTokenizer
 
-        params, cfg = load_grounding_model(model, device=device, dtype=dtype)
+        from videoitg_tpu_torch.checkpoint import (is_serving_checkpoint, load_grounding_model,
+                                                   load_serving_checkpoint)
+
+        if is_serving_checkpoint(model):
+            # Pre-quantised: skip the HF convert and the quantisation pass.
+            try:
+                params, cfg, saved_tier = load_serving_checkpoint(model, device=device)
+            except (FileNotFoundError, ValueError) as e:
+                raise SystemExit(f"error: {tool}: {e}") from e
+            if quantize and quantize != saved_tier:
+                raise SystemExit(
+                    f"error: serving checkpoint was saved with "
+                    f"quantize={saved_tier!r}; requested {quantize!r}")
+            quantize = None  # already applied at save time
+        else:
+            params, cfg = load_grounding_model(model, device=device, dtype=dtype)
         tokenizer = AutoTokenizer.from_pretrained(model)
     elif random_init:
         from videoitg_tpu_torch.config import preset as get_preset

@@ -12,7 +12,13 @@ Examples:
       --video clip.mp4 --prompt "Which scene shows the rocket launch?" --device cpu
 
 --model DIR reads an HF-format VideoITG checkpoint (safetensors or .bin,
-videoitg_tpu_config.json, a tokenizer for transformers' AutoTokenizer).
+videoitg_tpu_config.json, a tokenizer for transformers' AutoTokenizer), or a
+serving checkpoint that --export-serving wrote.
+
+--export-serving DIR, after loading and --quantize, writes a serving
+checkpoint (checkpoint.save_serving_checkpoint: the quantised weights, the
+config and the tokenizer); later runs pass it as --model and skip the HF
+convert and the quantisation pass.
 
 --quantize int8 | int4 | act8 applies a serving tier (ops/quant.py). Under
 act8, VIDEOITG_QGEMM=1 and VIDEOITG_FUSED=1 send the int8 products of the LM
@@ -29,14 +35,10 @@ import sys
 
 import torch
 
-_NOT_PORTED = {
-    "export_serving": "--export-serving (serving checkpoints; ROADMAP queue 1, item 4)",
-}
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("videoitg-torch-select", description=__doc__)
-    p.add_argument("--model", help="HF-format VideoITG checkpoint directory")
+    p.add_argument("--model", help="HF-format VideoITG checkpoint directory, or a serving "
+                                    "checkpoint (--export-serving)")
     p.add_argument("--preset", default="videoitg-8b", help="model preset name")
     p.add_argument("--random-init", action="store_true",
                    help="random weights from --seed (no checkpoint needed)")
@@ -61,7 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serving quantization of the LM: int8 / int4 weights, "
                         "act8 = int8 weights + dynamic int8 activations (LM + vision)")
     p.add_argument("--export-serving", metavar="DIR",
-                   help="a serving checkpoint: not ported yet (ROADMAP queue 1, item 4)")
+                   help="after loading (+ --quantize), persist a ready-to-serve checkpoint "
+                        "(pre-quantised weights + config + tokenizer); later runs pass it "
+                        "as --model and skip the HF convert and the quantisation pass")
     p.add_argument("--transfer", default="rgb", choices=["rgb", "yuv420"],
                    help="yuv420: ship the decoder's native YUV planes (half the "
                         "host-to-device bytes) and convert on the device")
@@ -70,11 +74,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for key, flag in _NOT_PORTED.items():
-        if getattr(args, key):
-            print(f"error: {flag} is not ported to PyTorch yet",
-                  file=sys.stderr)
-            return 2
     from videoitg_tpu_torch.cli._model_loading import load_grounding_components, resolve_device
     from videoitg_tpu_torch.engine import SelectionEngine
 
@@ -93,6 +92,12 @@ def main(argv=None) -> int:
     except SystemExit as e:
         print(e, file=sys.stderr)
         return 2
+    if args.export_serving:
+        from videoitg_tpu_torch.checkpoint import save_serving_checkpoint
+
+        out = save_serving_checkpoint(params, cfg, args.export_serving, quantize=args.quantize,
+                                      tokenizer_dir=args.model if args.model else None)
+        print(f"[videoitg-torch-select] serving checkpoint written to {out}", file=sys.stderr)
     engine = SelectionEngine(params, cfg, tokenizer, device=device, dtype=dtype,
                              num_frames=args.num_frames, target_fps=args.target_fps,
                              transfer=args.transfer)

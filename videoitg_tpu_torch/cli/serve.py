@@ -35,10 +35,10 @@ Smoke:  python -m videoitg_tpu_torch.cli.serve --preset tiny --random-init \\
             "prompt": "when does the car turn left?", "topk": 8}'
 
 `--model DIR` reads an HF-format VideoITG checkpoint (safetensors or .bin,
-videoitg_tpu_config.json, a tokenizer for transformers' AutoTokenizer).
-Refused here, each with the ROADMAP item that covers it: a serving
-checkpoint (a directory with serving_config.json) as `--model`, and
-`--dp/--tp/--sp/--pp` above 1 (multi-device).
+videoitg_tpu_config.json, a tokenizer for transformers' AutoTokenizer), or a
+serving checkpoint (`videoitg-torch-select --export-serving`), which loads
+already quantised in its saved tier. Refused here, with the ROADMAP item
+that covers it: `--dp/--tp/--sp/--pp` above 1 (multi-device).
 """
 
 from __future__ import annotations
@@ -55,7 +55,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("videoitg-torch-serve", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--model", help="HF-format VideoITG checkpoint directory")
+    p.add_argument("--model", help="HF-format VideoITG checkpoint directory, or a serving "
+                                    "checkpoint (--export-serving)")
     p.add_argument("--preset", default="videoitg-8b")
     p.add_argument("--random-init", action="store_true")
     p.add_argument("--num-frames", type=int, default=512)

@@ -33,6 +33,7 @@ covers them: `--dp/--tp/--sp/--pp` above 1 (multi-device).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import sys
 import time
@@ -307,35 +308,37 @@ def main(argv=None) -> int:
     t_window = time.time()
     # Decode-ahead: a producer thread keeps 2 batches of decoded frames ready
     # (the libav reader releases the GIL, so decode overlaps the device step).
-    for t_bucket, hw, samples in prefetch_batches(
-            make_batches(dataset, batch_size, cfg, epochs=args.num_train_epochs,
-                         seed=args.seed)):
-        if step >= total_steps:
-            break
-        collate, make_step = ((collate_vlm, make_vlm_train_step) if args.objective == "vlm"
-                              else (collate_grounding, make_train_step))
-        batch = collate(samples, t_bucket, cfg, dtype=dtype, device=device)
-        if hw not in step_fns:  # eager PyTorch: only hw is baked into a step function
-            fn = make_step(cfg, tx, hw=hw, use_flash=not on_cpu, remat=True, donate=True)
-            step_fns[hw] = make_offloaded_train_step(fn) if offload else fn
-        state, metrics = run_step(step_fns[hw], state, batch)
-        step = int(state.step)
-        if step % args.logging_steps == 0:
-            m = {k: float(v) for k, v in metrics.items()}
-            mlog.log(step, m)
-            extras = " ".join(f"{k}={v:.3f}" for k, v in m.items()
-                              if k not in ("loss", "grad_norm"))
-            # Windowed step time, since the last log line.
-            now = time.time()
-            s_per_step = (now - t_window) / max(1, step - last_logged)
-            t_window, last_logged = now, step
-            # grad_norm is the norm over the leaves that train (gradients exist
-            # only for those); the JAX package's is over the whole tree.
-            print(f"[train] step {step}/{total_steps} "
-                  f"loss={m['loss']:.4f} trained_grad_norm={m['grad_norm']:.3f} "
-                  f"{extras} "
-                  f"({s_per_step:.1f}s/step)")
-        ckpt.maybe_save(step, state)
+    # The generator is closed, and its producer joined, before the final save.
+    batches = prefetch_batches(make_batches(dataset, batch_size, cfg,
+                                            epochs=args.num_train_epochs, seed=args.seed))
+    with contextlib.closing(batches):
+        for t_bucket, hw, samples in batches:
+            if step >= total_steps:
+                break
+            collate, make_step = ((collate_vlm, make_vlm_train_step) if args.objective == "vlm"
+                                  else (collate_grounding, make_train_step))
+            batch = collate(samples, t_bucket, cfg, dtype=dtype, device=device)
+            if hw not in step_fns:  # eager PyTorch: only hw is baked into a step function
+                fn = make_step(cfg, tx, hw=hw, use_flash=not on_cpu, remat=True, donate=True)
+                step_fns[hw] = make_offloaded_train_step(fn) if offload else fn
+            state, metrics = run_step(step_fns[hw], state, batch)
+            step = int(state.step)
+            if step % args.logging_steps == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                mlog.log(step, m)
+                extras = " ".join(f"{k}={v:.3f}" for k, v in m.items()
+                                  if k not in ("loss", "grad_norm"))
+                # Windowed step time, since the last log line.
+                now = time.time()
+                s_per_step = (now - t_window) / max(1, step - last_logged)
+                t_window, last_logged = now, step
+                # grad_norm is the norm over the leaves that train (gradients exist
+                # only for those); the JAX package's is over the whole tree.
+                print(f"[train] step {step}/{total_steps} "
+                      f"loss={m['loss']:.4f} trained_grad_norm={m['grad_norm']:.3f} "
+                      f"{extras} "
+                      f"({s_per_step:.1f}s/step)")
+            ckpt.maybe_save(step, state)
 
     ckpt.maybe_save(step, state, force=True)
     ckpt.close()

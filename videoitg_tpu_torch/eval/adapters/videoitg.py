@@ -10,8 +10,9 @@ eval-path rounding (videoitg.py:82-93), 512 frames @ target_fps=1 by default.
 Every constructor argument of the JAX adapter keeps its meaning, with these
 differences: `device` (None = the card; a missing card is an error unless
 device="cpu") stands in for JAX_PLATFORMS; dp / tp / sp / pp above 1 are
-refused (multi-device: ROADMAP queue 1, item 8), as is a serving checkpoint
-as `pretrained` (item 4).
+refused (multi-device: ROADMAP queue 1, item 8). A serving checkpoint as
+`pretrained` (`videoitg-torch-select --export-serving`) loads already
+quantised, and the tier flags are ignored, as in the JAX adapter.
 """
 
 from __future__ import annotations
@@ -83,10 +84,9 @@ class VideoITGAdapter(ModelAdapter):
             from videoitg_tpu_torch.checkpoint import is_serving_checkpoint
 
             if is_serving_checkpoint(pretrained):
-                raise NotImplementedError(
-                    f"{_TOOL}: pretrained={pretrained} is a serving checkpoint "
-                    "(serving_config.json); serving checkpoints are not ported to "
-                    "PyTorch yet (ROADMAP queue 1, item 4)")
+                # Pre-quantised serving checkpoint: the weights are ready, so
+                # no requested tier is applied again.
+                quantize_int8 = quantize_int4 = act_int8 = False
             params, cfg, tokenizer = load_grounding_components(
                 pretrained, preset, False, tdtype, dev, tool=_TOOL)
         elif random_init and quantize_int8:

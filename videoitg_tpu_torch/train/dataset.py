@@ -119,7 +119,10 @@ def prefetch_batches(batches: Iterator[tuple], depth: int = 2) -> Iterator[tuple
     (train_itg.py dataloader_num_workers); here ONE producer thread is
     enough because the in-tree libav decoder releases the GIL — video
     decode for step i+1 overlaps step i's device time. Exceptions in the
-    producer re-raise at the consumer's next pull.
+    producer re-raise at the consumer's next pull. When the consumer leaves
+    (`break`, `close()`, an exception), the generator joins its producer once
+    the item in hand is made: a daemon thread still inside native code when
+    the interpreter finalises aborts the process.
     """
     import queue
     import threading
@@ -149,7 +152,8 @@ def prefetch_batches(batches: Iterator[tuple], depth: int = 2) -> Iterator[tuple
         except BaseException as e:  # surfaced on the consumer side
             put(e)
 
-    threading.Thread(target=fill, daemon=True).start()
+    producer = threading.Thread(target=fill, daemon=True, name="prefetch_batches")
+    producer.start()
     try:
         while True:
             item = q.get()
@@ -160,6 +164,7 @@ def prefetch_batches(batches: Iterator[tuple], depth: int = 2) -> Iterator[tuple
             yield item
     finally:
         stop.set()  # generator closed early: release the producer
+        producer.join()  # `put` sees `stop` within 0.2 s of its item
 
 
 def make_batches(
