@@ -244,6 +244,23 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    run's evaluate_task seconds, docs per second, tower and prefill seconds,
    ms per decoded token, peak device memory and launches.
 
+11. The mesh path (`--only mesh`), VideoITG-8B bf16: (a) a NCCL group of
+   world size 1 (a FileStore in a temporary directory) and `make_mesh()`,
+   every axis 1: the engine with that mesh returns the no-mesh engine's
+   Top-K and scores bit for bit on a 512-frame `select` and a `select_many`
+   of 3 questions, with A launching 104 times and B 28 times an LM pass on
+   both; (b) A at one tensor-parallel rank's shapes ([128, 16/tp, 729, 72],
+   tp 2 and 4) and B and K at [1, 28/tp q, 4/tp kv, 13,056, 128], each held
+   to its plain version at the tolerances above, with CUDA-event ms and the
+   bound; (c) every rank's steps of a ring of 2 and of 4 in one process
+   (`parallel/ring_attention.ring_shard`: C's key-mask-only forward on each
+   visiting block, then the merge) at [1, 28/4, 13,056, 128] with the keys
+   past 9,792 masked (the ring of 4's last block has no valid key), the
+   merged output held to the fp32 reference, to B on the unsplit sequence
+   and to the ring's plain (einsum) blocks; C's ms at S/sp = 6,528 and 3,264
+   beside its plain version and its bound. No collective across devices is
+   timed: the machine has one card.
+
 `--only attention-kernels` prints ptxas' lines for kernels A and B and stops
 after checking them (a short first run after editing them),
 `--only int8-kernels` stops after building and checking kernels F-I,
@@ -252,7 +269,7 @@ after checking them (a short first run after editing them),
 `--only serve` runs phase 6 alone, `--only train` phase 7, `--only vlm` phase
 8, `--only checkpoint` the checkpoint part of phase 5, `--only
 serving-checkpoint` its serving-checkpoint part, `--only eval` phase 9,
-`--only stage-b` phase 10.
+`--only stage-b` phase 10, `--only mesh` phase 11.
 None of them prints a result line.
 
 The last two lines are the per-kernel JSON record and
@@ -307,6 +324,7 @@ PTXAS = {
     "splash-kernels": (("K", r"stream_kernelILi\d+ELb0ELb0E.*SegmentIds"),),
     "int8-kernels": (("F", F_INSTANCES), ("G", G_INSTANCES), ("H", H_INSTANCES),
                      ("I", I_INSTANCES)),
+    "mesh": (("C ring form", r"stream_kernel.*KeyMaskAllRows"),),
     "segment-kernels": (("J fwd", J_FWD_INSTANCE), ("J dq", r"dq_kernel.*SegmentIds"),
                         ("J dkv", r"dkv_kernel.*SegmentIds"), ("E", r"dkv_kernel.*KeyMask")),
 }
@@ -3739,13 +3757,229 @@ def run_stage_b(dev, card: str) -> dict:
     return {"launches": {k: total[k] for k in SERVING_KERNELS}, "act8_gemm_m1": rec}
 
 
+RING_S = 512 * 25 + 256     # the LM's serving sequence, 13,056 slots
+RING_VALID = 9792           # keys at and past it masked: a ring of 4's last block is dead
+
+
+def run_mesh(dev, card: str) -> dict:
+    """Phase 11, the mesh path on one card: (a) the engine on a world-size-1
+    NCCL mesh against the engine with none, (b) A, B and K at one
+    tensor-parallel rank's shapes, (c) every rank's steps of a ring of 2 and
+    of 4. Returns {"launches": the mesh engine's A and B counts, "records":
+    kernel name -> what (b) and (c) measured}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from videoitg_tpu_torch.cli._model_loading import load_grounding_components
+    from videoitg_tpu_torch.engine import SelectionEngine
+    from videoitg_tpu_torch.ops import splash_attention as sa
+    from videoitg_tpu_torch.ops.flash_attention import flash_mha
+    from videoitg_tpu_torch.ops.flash_attention_short import (flash_mha_short,
+                                                              flash_mha_short_reference)
+    from videoitg_tpu_torch.ops.flash_attention_train import (flash_mha_train_reference,
+                                                              flash_train_fwd)
+    from videoitg_tpu_torch.parallel import ring_attention as ring
+    from videoitg_tpu_torch.parallel.mesh import make_mesh, mesh_shape
+
+    records: dict = {"flash_mha_short": {}, "flash_mha": {}, "splash_mqa": {},
+                     "flash_train_fwd": {}}
+    counted = wrappers()
+
+    # (a) the mesh at world size 1
+    rng = np.random.default_rng(SEED + 11)
+    video512 = frames_u8(rng, 512)
+    sampled512 = [2 * i for i in range(512)]
+    torch.cuda.set_device(dev)  # the rank's device before its NCCL communicator
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh()
+            print(f"[mesh] backend {dist.get_backend()}, world size {dist.get_world_size()}, "
+                  f"mesh {mesh_shape(mesh)}", flush=True)
+            if set(mesh_shape(mesh).values()) != {1}:
+                fail(f"make_mesh() on one rank gave {mesh_shape(mesh)}")
+            model, cfg, tok = load_grounding_components(None, "videoitg-8b", True,
+                                                        torch.bfloat16, dev, seed=SEED)
+            plain = SelectionEngine(model, cfg, tok, device=dev, dtype=torch.bfloat16)
+            meshed = SelectionEngine(model, cfg, tok, device=dev, dtype=torch.bfloat16,
+                                     mesh=mesh)
+            mesh_launches = {"flash_mha_short": 0, "flash_mha": 0}
+
+            def drive(engine, fn, n_lm, tag):
+                for w in counted.values():
+                    w.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(engine)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got = {name: counted[name].launches for name in ("flash_mha_short", "flash_mha")}
+                want = {"flash_mha_short": 104, "flash_mha": 28 * n_lm}
+                print(f"[mesh] {tag}: {wall:.4f} s, launches {got} [{card}]", flush=True)
+                if got != want or any(w.launches for n, w in counted.items() if n not in got):
+                    fail(f"{tag}: launches {got}, want {want} and nothing else")
+                return out, got
+
+            calls = [("select 512 frames", 1,
+                      lambda e: [e.select(video512, sampled512, QUESTIONS[0])]),
+                     ("select_many 512 frames x 3 questions", 3,
+                      lambda e: e.select_many(video512, sampled512, QUESTIONS))]
+            for name, n_lm, fn in calls:
+                want, _ = drive(plain, fn, n_lm, f"no mesh, {name}")
+                got, n = drive(meshed, fn, n_lm, f"world-size-1 mesh, {name}")
+                for k, v in n.items():
+                    mesh_launches[k] += v
+                for g, w in zip(got, want):
+                    check_result(g, sampled512)
+                    if g.index != w.index or not np.array_equal(g.raw_scores, w.raw_scores):
+                        fail(f"mesh {name}: not bit-equal to the engine with no mesh "
+                             f"(max diff {float(np.abs(g.raw_scores - w.raw_scores).max())})")
+                print(f"[mesh] {name}: Top-K and scores bit-equal to the engine with no mesh, "
+                      f"top8 {got[0].topk(8)}", flush=True)
+            del model, plain, meshed
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    # (b) kernels at one tensor-parallel rank's shapes
+    for tp in (2, 4):
+        shape = (128, 16 // tp, 729, 72)
+        q, k, v = (randn(*shape) for _ in range(3))
+        ref = torch.cat([flash_mha_short_reference(q[i:i + 32].float(), k[i:i + 32].float(),
+                                                   v[i:i + 32].float())
+                         for i in range(0, 128, 32)])
+        err, tol = max_err(flash_mha_short(q, k, v), ref), bf16_tol(ref)
+        ms = cuda_ms(lambda: flash_mha_short(q, k, v), 20)
+        t, h, sq, d = shape
+        bnd = bound(4 * sq * sq * d * t * h, PEAK_BF16, 4 * q.numel() * 2)
+        print(f"[mesh] kernel flash_mha_short tp={tp} {list(shape)}: max_abs_err {err:.6g} "
+              f"(tol {tol:.6g}); {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by "
+              f"{bnd['bound_by']} [{card}]", flush=True)
+        if not err <= tol:
+            fail(f"flash_mha_short tp={tp}: error {err} > {tol}")
+        records["flash_mha_short"][f"tp{tp}"] = dict(shape=list(shape), max_abs_err=err, ms=ms,
+                                                     **bnd)
+        del q, k, v, ref
+
+        hq, hkv = 28 // tp, 4 // tp
+        q = randn(1, hq, RING_S, 128)
+        k, v = randn(1, hkv, RING_S, 128), randn(1, hkv, RING_S, 128)
+        valid = torch.rand(1, RING_S, generator=gen, device=dev) > 0.01
+        valid[:, 512 * 25 + 40:] = False
+        ref = lm_reference(q, k, v, valid)
+        tol = bf16_tol(ref)
+        for name, fn in (("flash_mha", lambda: flash_mha(q, k, v, valid=valid)),
+                         ("splash_mqa", lambda: sa.splash_lm(q, k, v, valid))):
+            out = fn()
+            rows = valid[0]
+            err = max_err(out[:, :, rows], ref[:, :, rows])
+            masked = out[0][:, ~rows].abs().max().item()
+            ms = cuda_ms(fn, 10)
+            n_valid = int(rows.sum())
+            pairs = RING_S * RING_S if name == "flash_mha" else \
+                n_valid * n_valid + (RING_S - n_valid) ** 2
+            bnd = bound(4 * pairs * 128 * hq, PEAK_BF16, (2 * q.numel() + 2 * k.numel()) * 2)
+            print(f"[mesh] kernel {name} tp={tp} [1, {hq}/{hkv}, {RING_S}, 128]: max_abs_err "
+                  f"{err:.6g} on valid rows (tol {tol:.6g}), invalid rows max {masked}; "
+                  f"{ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} [{card}]",
+                  flush=True)
+            if not err <= tol or masked != 0.0:
+                fail(f"{name} tp={tp}: error {err} > {tol} or invalid rows not 0")
+            records[name][f"tp{tp}"] = dict(shape=[1, hq, hkv, RING_S, 128], max_abs_err=err,
+                                            ms=ms, **bnd)
+        del q, k, v, ref, out
+        torch.cuda.empty_cache()
+
+    # (c) every rank's steps of a ring, in one process
+    q, k, v = randn(1, 28, RING_S, 128), randn(1, 4, RING_S, 128), randn(1, 4, RING_S, 128)
+    valid = torch.rand(1, RING_S, generator=gen, device=dev) > 0.01
+    valid[:, RING_VALID:] = False
+    ref = lm_reference(q, k, v, valid)
+    tol = bf16_tol(ref)
+    whole = flash_mha(q, k, v, valid=valid)
+    for n in (2, 4):
+        s_loc = RING_S // n
+        parts = [slice(r * s_loc, (r + 1) * s_loc) for r in range(n)]
+        shards = [(k[:, :, p].contiguous(), v[:, :, p].contiguous(), valid[:, p].contiguous())
+                  for p in parts]
+
+        def run(impl):
+            outs = []
+            for r in range(n):
+                def start(i, _blocks, r=r):
+                    return lambda: shards[(r + i + 1) % n]
+                outs.append(ring.ring_shard(q[:, :, parts[r]].contiguous(), *shards[r], n=n,
+                                            rank=r, start_fetch=start, block_impl=impl))
+            return torch.cat(outs, dim=2)
+
+        merged = run("flash")
+        plain_blocks = run("einsum")
+        dead = [r for r in range(n) if not bool(shards[r][2].any())]
+        rows = valid[0]
+        err = max_err(merged[:, :, rows], ref[:, :, rows])
+        vs_b = (merged.float() - whole.float()).abs().max().item()
+        vs_plain = (merged.float() - plain_blocks.float()).abs().max().item()
+        masked = merged[0][:, ~rows].abs().max().item()
+        finite = bool(torch.isfinite(merged).all())
+        qs, (ks, vs, kvs) = q[:, :, parts[0]].contiguous(), shards[0]
+        ms = cuda_ms(lambda: flash_train_fwd(qs, ks, vs, valid=kvs, key_mask_only=True), 10)
+        plain_ms = cuda_ms(lambda: flash_mha_train_reference(qs, ks, vs, valid=kvs,
+                                                             key_mask_only=True), 1)
+        # The library's one call that also returns lse: memory-efficient
+        # sdpa, kv heads expanded, the key mask as an additive bias.
+        k28, v28 = ks.repeat_interleave(7, dim=1), vs.repeat_interleave(7, dim=1)
+        key_bias = torch.zeros(1, 1, 1, s_loc, dtype=torch.bfloat16, device=dev).masked_fill(
+            ~kvs[:, None, None, :], float("-inf")).expand(1, 28, s_loc, s_loc)
+
+        def library():
+            return torch.ops.aten._scaled_dot_product_efficient_attention(
+                qs, k28, v28, key_bias, True)[:2]
+
+        library_ms = cuda_ms(library, 10)
+        lib_diff = (library()[0].float() - flash_train_fwd(
+            qs, ks, vs, valid=kvs, key_mask_only=True)[0].float()).abs().max().item()
+        del k28, v28, key_bias
+        bnd = bound(4 * s_loc * s_loc * 128 * 28, PEAK_BF16,
+                    (2 * qs.numel() + 2 * ks.numel()) * 2 + qs.numel() // 128 * 4 + s_loc)
+        print(f"[mesh] ring of {n} at [1, 28/4, {RING_S}, 128], keys from {RING_VALID} masked "
+              f"(dead blocks {dead}): max_abs_err {err:.6g} (tol {tol:.6g}); vs B unsplit "
+              f"{vs_b:.6g}, vs plain blocks {vs_plain:.6g} (tol {2 * tol:.6g}); invalid rows "
+              f"max {masked}, finite {finite}; C per block [1, 28/4, {s_loc}, 128] {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, library (efficient sdpa with lse, kv heads expanded, "
+              f"key mask as bias) {library_ms:.4f} ms (its output vs C's {lib_diff:.6g}), "
+              f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} [{card}]", flush=True)
+        if not (err <= tol and vs_b <= 2 * tol and vs_plain <= 2 * tol and masked == 0.0
+                and finite):
+            fail(f"ring of {n}: error {err} / {vs_b} / {vs_plain}, invalid rows {masked}, "
+                 f"finite {finite}")
+        if n == 4 and dead != [3]:
+            fail(f"ring of 4: the last block should hold no valid key, dead {dead}")
+        records["flash_train_fwd"][f"ring{n}"] = dict(
+            block_shape=[1, 28, 4, s_loc, 128], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, library_vs_kernel=lib_diff, **bnd)
+        del merged, plain_blocks
+        torch.cuda.empty_cache()
+    del q, k, v, ref, whole
+    torch.cuda.empty_cache()
+    return {"launches": mesh_launches, "records": records}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["attention-kernels", "int8-kernels", "train-kernels",
                                           "splash-kernels",
                                           "segment-kernels", "vlm",
                                           "serve", "train", "checkpoint", "serving-checkpoint",
-                                          "eval", "stage-b"],
+                                          "eval", "stage-b", "mesh"],
                         default=None,
                         help="build, then only: check kernels A, B (attention-kernels), F-I "
                              "(int8-kernels), C, D, E (train-kernels), K, L (splash-kernels) "
@@ -3754,8 +3988,9 @@ def main(argv=None) -> int:
                              "the daemon phase (serve), "
                              "the training phases (train), the causal-VLM phases (vlm), "
                              "the HF-checkpoint phase (checkpoint), the serving-checkpoint "
-                             "phase (serving-checkpoint), eval stage A (eval) or "
-                             "eval stage B after its stage A (stage-b)")
+                             "phase (serving-checkpoint), eval stage A (eval), "
+                             "eval stage B after its stage A (stage-b) or the mesh path "
+                             "(mesh)")
     args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "videoitg_tpu_torch")):
         fail("run from a checkout of the repository (videoitg_tpu_torch/ not found)")
@@ -3840,6 +4075,10 @@ def main(argv=None) -> int:
         run_stage_b(dev, card)
         print("stage-B phase passed", flush=True)
         return 0
+    if args.only == "mesh":
+        run_mesh(dev, card)
+        print("mesh phase passed", flush=True)
+        return 0
     records = check_kernels(dev)
     records.update(check_train_kernels(dev))
     records.update(check_int8_kernels(dev))
@@ -3868,6 +4107,12 @@ def main(argv=None) -> int:
     stage_b = run_stage_b(dev, card)
     for name, n in stage_b["launches"].items():
         launches[name] = launches.get(name, 0) + n
+    torch.cuda.empty_cache()
+    mesh = run_mesh(dev, card)
+    for name, n in mesh["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    for name, extra in mesh["records"].items():
+        records[name]["mesh"] = extra
     m1 = stage_b["act8_gemm_m1"]
     records["act8_gemm"].update(
         decode_m1=dict(per="the 7 launches of one LM layer at M = 1 (one decoded token)",

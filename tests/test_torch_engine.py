@@ -160,7 +160,7 @@ def test_engine_rejects_what_is_not_ported(tiny):
     assert SelectionEngine(model, cfg, tok, transfer="yuv420").transfer == "yuv420"
     with pytest.raises(ValueError, match="transfer"):  # as the JAX engine refuses it
         SelectionEngine(model, cfg, tok, transfer="nv12")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):  # a mesh is parallel/mesh.make_mesh's
         SelectionEngine(model, cfg, tok, mesh=object())
     port = SelectionEngine(model, cfg, tok, dtype=torch.float32, buckets=(32, 64))
     rng = np.random.default_rng(3)

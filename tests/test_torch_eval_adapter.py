@@ -200,12 +200,32 @@ def test_port_adapter_builds_its_own_tier(data_root, tier):
     assert len(scores.index) == 4 and all(0.0 <= v <= 1.0 for v in scores.logits)
 
 
+@pytest.fixture(scope="module")
+def meshed_rows(data_root, tmp_path_factory):
+    """The adapter's rows with dp, tp, sp or pp = 2 in a world of two gloo
+    ranks, and with no mesh, per rank (tests/_torch_dist.py adapter_job)."""
+    from _torch_dist import run_world
+
+    return run_world(2, "adapter", tmp_path_factory.mktemp("meshed_adapter"),
+                     data_root=data_root, docs=_docs(), base=BASE)
+
+
 @pytest.mark.parametrize("arg", ["dp", "tp", "sp", "pp"])
-def test_device_meshes_are_refused_naming_item_8(data_root, arg):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 8\)"):
-        get_adapter("videoitg")(device="cpu", data_root=data_root, **BASE, **{arg: 2})
-    # one device on the axis is no mesh
-    get_adapter("videoitg")(device="cpu", data_root=data_root, **BASE, **{arg: 1})
+def test_device_meshes_write_the_one_device_rows(data_root, meshed_rows, arg):
+    """With two ranks on the axis the adapter builds a mesh, and both ranks
+    write the rows of the adapter without one (Top-K equal, scores to the
+    file's 2 decimals)."""
+    for out in meshed_rows:
+        got = [json.loads(x) for x in out[arg].splitlines()]
+        want = [json.loads(x) for x in out[None].splitlines()]
+        assert len(want) == 6  # the broken video has no row
+        assert [r["doc_id"] for r in got] == [r["doc_id"] for r in want]
+        for g, w in zip(got, want):
+            assert g["index"] == w["index"] and g["contexts"] == w["contexts"]
+            np.testing.assert_allclose(g["logits"], w["logits"], atol=0.01 + 1e-9)
+    # one device on the axis and no process group: no mesh
+    adapter = get_adapter("videoitg")(device="cpu", data_root=data_root, **BASE, **{arg: 1})
+    assert adapter.engine.mesh is None
 
 
 def test_a_missing_video_raises_alike(tmp_path, data_root):

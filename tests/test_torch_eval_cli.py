@@ -184,16 +184,48 @@ def test_the_card_or_an_error(workdir):
               "--docs_json", str(workdir / "docs.json")])
 
 
-def test_a_torch_distributed_group_is_refused_naming_item_8(monkeypatch, capsys):
-    import torch.distributed as dist
+def _free_port() -> int:
+    import socket
 
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
-    monkeypatch.setattr(dist, "get_rank", lambda *a, **k: 1)
-    assert main(["--cpu", "--model", "videoitg", "--tasks", "videomme"]) == 2
-    assert "ROADMAP queue 1, item 8" in capsys.readouterr().err
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+@pytest.mark.parametrize("mesh", ["", ",tp=2"])
+def test_one_torch_distributed_group_merges_through_the_collective(workdir, mesh):
+    """Two gloo processes, launched as torchrun launches them (WORLD_SIZE,
+    RANK, MASTER_ADDR / MASTER_PORT in the environment), each evaluate their
+    doc shard and merge through the collective: rank 0's report counts every
+    doc and no rank waited on a sentinel (tests/test_multihost.py). With the
+    adapter on a tp=2 mesh over the group, both ranks score every doc in step
+    and rank 0 alone writes."""
     args = build_parser().parse_args(["--model", "videoitg", "--tasks", "videomme"])
     assert args.rank is None and args.world_size is None
+    port = _free_port()
+    out_name = "outMH" + mesh.replace(",", "_").replace("=", "")
+    cmd = [sys.executable, "-m", "videoitg_tpu_torch.cli.evaluate", "--cpu",
+           "--model", "videoitg", "--model_args", STAGE_A_ARGS + mesh, "--tasks", "videomme",
+           "--data_root", "root", "--docs_json", "docs.json", "--output_path", out_name]
+    procs = [subprocess.Popen(cmd, cwd=workdir, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=dict(os.environ, PYTHONPATH=REPO, WORLD_SIZE="2",
+                                                  RANK=str(r), LOCAL_RANK=str(r),
+                                                  MASTER_ADDR="localhost",
+                                                  MASTER_PORT=str(port)))
+             for r in range(2)]
+    outs = [p.communicate(timeout=600) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, f"STDOUT:{out[-2000:]}\nSTDERR:{err[-2000:]}"
+    out = workdir / out_name / "videomme"
+    report = json.loads((out / "report.videomme.json").read_text())
+    shards = 1 if mesh else 2
+    assert report["num_docs"] == 2 and report["metadata"]["world_size"] == shards
+    assert [json.loads(x)["doc_id"] for x in open(out / "results.jsonl")] == [0, 1]
+    n = sum(1 for r in range(shards) for _ in open(out / f"records.rank{r}.videomme.jsonl"))
+    assert n == 2
+    assert not (out / f"records.rank{shards}.videomme.jsonl").exists()
 
 
 def test_rank_fleet_through_the_shared_directory(workdir):

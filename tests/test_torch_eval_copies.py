@@ -7,7 +7,8 @@ same results. Every comparison here is for equality.
 Differences, each held by its own test:
 - `eval/harness.py`: `run_metadata` writes `torch_version` and the device
   type where the JAX package writes `jax_version` and jax's backend.
-- `eval/multihost.py`: one process only (collectives are ROADMAP item 8).
+- `eval/multihost.py`: the barrier and the gather over torch.distributed,
+  where the JAX package's ride the JAX distributed runtime.
 - `eval/adapters/videoitg.py`: the grounding adapter on the port's engine.
 - `eval/adapters/downstream.py`: the two adapters that hold a torch model
   (`InternVLChatAdapter`, `QwenVLChatAdapter`) take `device=` and move their
@@ -272,14 +273,11 @@ def test_multihost_is_one_process():
         "barrier", "gather_objects", "is_multiprocess"]
 
 
-def test_multihost_refuses_two_ranks_naming_item_8(monkeypatch):
-    """With a torch.distributed group of 2 ranks, the barrier and the gather
-    are refused (checked in one process through the group's world size)."""
-    import torch.distributed as dist
+def test_multihost_gathers_across_two_gloo_ranks(tmp_path):
+    """In a torch.distributed group of 2 gloo ranks the barrier holds and
+    every rank receives every rank's object, in rank order."""
+    from _torch_dist import run_world
 
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
-    assert multihost.is_multiprocess()
-    for call in (lambda: multihost.barrier("x"), lambda: multihost.gather_objects(1)):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 8\)"):
-            call()
+    outs = run_world(2, "multihost", tmp_path)
+    want = [{"rank": 0, "text": ""}, {"rank": 1, "text": "é"}]
+    assert outs == [{"multiprocess": True, "gathered": want}] * 2

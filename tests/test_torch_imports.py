@@ -267,3 +267,35 @@ def test_cli_runs_as_a_module(tmp_path):
     assert proc.returncode == 0, proc.stderr
     record = json.loads(proc.stdout.strip().splitlines()[-1])
     assert len(record["index"]) == 8 and record["contexts"] == "what?"
+
+
+def test_parallel_modules_load_no_jax(tmp_path):
+    """The multi-device serving slice's modules (videoitg_tpu_torch.parallel:
+    the mesh, the sharding specs, tensor, ring and pipeline parallelism),
+    imported alone in a fresh interpreter with no compiler on the path:
+    neither jax nor `videoitg_tpu` comes with them, the specs build, no
+    process group is opened, and nothing is built."""
+    mods = [m for m in _modules() if m.startswith("videoitg_tpu_torch.parallel")]
+    assert {"videoitg_tpu_torch.parallel.mesh", "videoitg_tpu_torch.parallel.context",
+            "videoitg_tpu_torch.parallel.sharding", "videoitg_tpu_torch.parallel.tensor",
+            "videoitg_tpu_torch.parallel.ring_attention",
+            "videoitg_tpu_torch.parallel.pipeline"} <= set(mods)
+    code = (
+        "import importlib, json, sys\n"
+        f"mods = {mods!r}\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "from videoitg_tpu_torch.parallel import mesh, sharding\n"
+        "assert mesh.mesh_layout(8, pp=2) == (('pp', 'dp', 'tp'), (2, 1, 4))\n"
+        "assert sharding.grounding_param_specs(pp=True)['lm']['layers']['q']['w'] == "
+        "('pp', None, 'tp')\n"
+        "import torch.distributed as dist\n"
+        "from videoitg_tpu_torch.ops import _build\n"
+        "foreign = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'videoitg_tpu'))\n"
+        "print(json.dumps({'foreign': foreign, 'built': _build._lib is not None, "
+        "'group': dist.is_initialized()}))\n")
+    proc = _run(code, VIDEOITG_NVCC=str(tmp_path / "no-nvcc"), PATH="/usr/bin:/bin",
+                VIDEOITG_TORCH_BUILD_DIR=str(tmp_path / "build"))
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"foreign": [], "built": False, "group": False}
+    assert not (tmp_path / "build").exists()

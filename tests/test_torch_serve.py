@@ -1,8 +1,9 @@
 """The port's serving daemon (`videoitg_tpu_torch/cli/serve.py`): the cases of
 tests/test_serve.py and of tests/test_encode_reuse.py's LRU test on the port,
 the port's daemon against the JAX daemon on bridged weights, decode-ahead
-with `preprocess_ahead` on worker threads, and the CLI's refusals in child
-processes. CPU, fp32, `preset("tiny")`; every case decodes a video and skips
+with `preprocess_ahead` on worker threads, the CLI's refusal in a child
+process, and the CLI on a device mesh of gloo ranks launched as torchrun
+launches them. CPU, fp32, `preset("tiny")`; every case decodes a video and skips
 where the libav reader cannot be built.
 """
 
@@ -346,19 +347,14 @@ REFUSED = [
     # the id is the one this case had when every serving directory was refused
     pytest.param(("--model", "{serving}"), "--export-serving", "orbax params/ tree",
                  id="flags0---model-ROADMAP queue 1, item 4"),
-    (("--tp", "2"), "--dp / --tp / --sp / --pp", "ROADMAP queue 1, item 8"),
-    (("--dp", "4"), "--dp / --tp / --sp / --pp", "ROADMAP queue 1, item 8"),
-    (("--sp", "2"), "--dp / --tp / --sp / --pp", "ROADMAP queue 1, item 8"),
-    (("--pp", "2"), "--dp / --tp / --sp / --pp", "ROADMAP queue 1, item 8"),
 ]
 
 
 @pytest.mark.parametrize("flags,named,item", REFUSED)
 def test_cli_refuses_what_is_not_ported(tmp_path, flags, named, item):
-    """A mesh above one device is refused with its ROADMAP item; a serving
-    directory of the JAX package's layout as `--model` is refused, naming the
-    re-export (`videoitg-torch-select --export-serving`). HF-format and the
-    port's serving `--model` directories are served."""
+    """A serving directory of the JAX package's layout as `--model` is
+    refused, naming the re-export (`videoitg-torch-select --export-serving`).
+    HF-format and the port's serving `--model` directories are served."""
     (tmp_path / "serving" / "params").mkdir(parents=True)
     (tmp_path / "serving" / "serving_config.json").write_text(
         '{"format": "videoitg-serving-v1", "quantize": null, "config": {}}')
@@ -367,6 +363,97 @@ def test_cli_refuses_what_is_not_ported(tmp_path, flags, named, item):
     assert proc.returncode == 2
     assert named in proc.stderr and item in proc.stderr
     assert ("not ported" in proc.stderr) == item.startswith("ROADMAP")
+
+
+# --flag N on a world of that many gloo ranks, launched as torchrun launches
+# them (WORLD_SIZE, RANK, LOCAL_RANK, MASTER_ADDR / MASTER_PORT): the mesh
+# /healthz must report and the transfer (the pp world ships YUV planes)
+MESHES = {"--tp": (2, {"dp": 1, "tp": 2}, "rgb"), "--dp": (4, {"dp": 4, "tp": 1}, "rgb"),
+          "--sp": (2, {"dp": 1, "tp": 1, "sp": 2}, "rgb"),
+          "--pp": (2, {"pp": 2, "dp": 1, "tp": 1}, "yuv420")}
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+@pytest.fixture(scope="module")
+def mesh_daemons(tmp_path_factory):
+    """One daemon world per MESHES entry, all started together; yields
+    {flag: (rank 0's base URL, the ranks' processes)}."""
+    tmp = tmp_path_factory.mktemp("mesh_daemons")
+    worlds = {}
+    for flag, (world, _, transfer) in MESHES.items():
+        master = str(_free_port())
+        worlds[flag] = [subprocess.Popen(
+            [sys.executable, "-m", "videoitg_tpu_torch.cli.serve", "--preset", "tiny",
+             "--random-init", "--cpu", "--port", "0", "--num-frames", "8", "--target-fps", "4",
+             "--transfer", transfer, flag, str(world)],
+            cwd=tmp, stderr=subprocess.PIPE, stdout=subprocess.DEVNULL, text=True,
+            env=dict(os.environ, PYTHONPATH=REPO, WORLD_SIZE=str(world), RANK=str(r),
+                     LOCAL_RANK=str(r), MASTER_ADDR="localhost", MASTER_PORT=master,
+                     OMP_NUM_THREADS="1"))
+            for r in range(world)]
+    bases = {}
+    try:
+        for flag, procs in worlds.items():
+            for line in procs[0].stderr:
+                if "listening on" in line:
+                    bases[flag] = f"http://127.0.0.1:{int(line.rsplit(':', 1)[1])}"
+                    break
+        yield {flag: (bases.get(flag), procs) for flag, procs in worlds.items()}
+    finally:
+        for procs in worlds.values():
+            procs[0].terminate()  # the leader stops its followers
+        for procs in worlds.values():
+            for p in procs:
+                try:
+                    p.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+
+
+@pytest.mark.parametrize("flag", sorted(MESHES))
+def test_cli_serves_on_a_mesh_of_gloo_ranks(mesh_daemons, videos, flag):
+    """`--tp 2`, `--dp 4`, `--sp 2`, `--pp 2` (YUV planes) under a
+    torchrun-style launch: rank 0 answers POST /select with the one-rank
+    daemon's answer (the same random-init weights), a video that does not
+    decode is an error for that request only, /healthz reports the mesh, and
+    a stopped leader stops every rank with exit code 0."""
+    from videoitg_tpu_torch.cli._model_loading import load_grounding_components
+
+    base, procs = mesh_daemons[flag]
+    assert base is not None, procs[0].stderr.read()[-3000:]
+    params, cfg, tok = load_grounding_components(None, "tiny", True, torch.float32,
+                                                 torch.device("cpu"), seed=0)
+    one = serve.SelectionServer(SelectionEngine(params, cfg, tok, device="cpu",
+                                                dtype=torch.float32, num_frames=8,
+                                                target_fps=4.0, transfer=MESHES[flag][2]))
+    try:
+        status, bad = _post(base, {"video_path": "/no/such/video.mp4", "prompt": "q"})
+        assert status == 500 and "error" in bad
+        for v in videos[:2]:
+            req = {"video_path": v, "prompt": "where is it?", "topk": 3}
+            status, got = _post(base, req)
+            want = one.submit(req)
+            assert status == 200 and set(got) == KEYS
+            assert got["selected"] == want["selected"] and got["index"] == want["index"]
+            np.testing.assert_allclose(got["logits"], want["logits"], atol=0.01 + 1e-9)
+        status, again = _post(base, {"video_path": videos[0], "prompt": "where is it?"})
+        assert status == 200  # an LRU hit on every rank
+        health = _get(base, "/healthz")
+        assert health["mesh"] == MESHES[flag][1] and health["encode_cache_hits"] == 1
+    finally:
+        one.close()
+    procs[0].terminate()
+    rcs = [p.wait(timeout=60) for p in procs]
+    assert rcs == [0] * len(procs), [p.stderr.read()[-2000:] for p in procs]
 
 
 def test_cli_stops_without_a_cuda_device(tmp_path):

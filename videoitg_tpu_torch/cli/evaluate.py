@@ -22,8 +22,16 @@ echo-answer stub.
 The run is on the card, or it fails; --cpu runs it on the CPU.
 --rank/--world_size shard docs across separately-launched processes/hosts
 (same round-robin as the reference); rank 0 merges and aggregates through
-the shared output directory. Collectives across processes (one
-torch.distributed group) are ROADMAP queue 1, item 8.
+the shared output directory. One torch.distributed group (launched by
+torchrun, which sets WORLD_SIZE: gloo with --cpu, NCCL on the card) shards
+the docs by rank and merges through a collective instead
+(eval/multihost.py), with no shared directory needed:
+
+  torchrun --nproc-per-node 4 -m videoitg_tpu_torch.cli.evaluate ...
+
+An adapter on a device mesh (`dp=2,tp=2` in the videoitg adapter's
+--model_args) spans the whole group instead: every rank evaluates every doc
+in step, and rank 0 alone writes the outputs.
 """
 
 from __future__ import annotations
@@ -189,18 +197,16 @@ def main(argv=None) -> int:
     # (the accelerate-DDP equivalent, SURVEY §2.7).
     import torch.distributed as dist
 
+    from videoitg_tpu_torch.parallel.mesh import init_distributed
+
+    opened = not dist.is_initialized()
+    init_distributed(args.cpu)  # a torchrun launch opens its group here
     grouped = dist.is_available() and dist.is_initialized()
+    opened = opened and grouped
     if args.rank is None:
         args.rank = dist.get_rank() if grouped else 0
     if args.world_size is None:
         args.world_size = dist.get_world_size() if grouped else 1
-    # One torch.distributed group spanning the ranks would merge through a
-    # collective (the JAX CLI's jax.distributed path): not ported yet.
-    if args.world_size > 1 and grouped and dist.get_world_size() == args.world_size:
-        print("error: the collective merge of a torch.distributed group is not ported "
-              "to PyTorch yet (ROADMAP queue 1, item 8); launch the ranks separately "
-              "with --rank / --world_size and a shared --output_path", file=sys.stderr)
-        return 2
 
     model_kwargs = parse_model_args(args.model_args)
     model_kwargs.setdefault("data_root", args.data_root)
@@ -212,6 +218,19 @@ def main(argv=None) -> int:
         resolve_device(False, "videoitg-torch-eval", "--cpu")  # no card: an error
     adapter_base_root = model_kwargs["data_root"]
     adapter = get_adapter(args.model)(**model_kwargs)
+    engine = _engine(adapter)
+    follower, scratch = False, None
+    if engine is not None and getattr(engine, "mesh", None) is not None and grouped:
+        # The adapter's mesh spans the group: one logical evaluator, every
+        # rank in step over every doc; only rank 0's outputs are kept, a
+        # follower's go to a directory removed when main returns.
+        import tempfile
+
+        follower = dist.get_rank() != 0
+        if follower:
+            scratch = tempfile.TemporaryDirectory(prefix="videoitg-eval-rank")
+            args.output_path = scratch.name
+        args.rank, args.world_size = 0, 1
     if args.use_cache:
         from videoitg_tpu_torch.eval.cache import CachingAdapter
 
@@ -302,16 +321,26 @@ def main(argv=None) -> int:
             limit=args.limit, log_samples=args.log_samples,
             predict_only=args.predict_only,
         )
-        # Multi-rank merge: separately-launched rank fleets meet through
-        # shared-FS sentinels polled by rank 0.
+        # Multi-rank merge: one torch.distributed group synchronises with a
+        # collective (no shared FS needed); separately-launched rank fleets
+        # meet through shared-FS sentinels polled by rank 0.
+        collective = (args.world_size > 1 and grouped
+                      and dist.get_world_size() == args.world_size)
+        if collective:
+            from videoitg_tpu_torch.eval.harness import collective_merge_and_aggregate
+
+            # Collective: EVERY rank participates in the gather.
+            report = collective_merge_and_aggregate(
+                task, out_dir, args.rank, predict_only=args.predict_only)
         if args.rank == 0:
-            if args.world_size > 1:
+            if args.world_size > 1 and not collective:
                 # Raises RankTimeoutError (nonzero exit, no report) on
                 # stragglers — partial benchmark numbers are never written.
                 wait_for_ranks(task, out_dir, args.world_size)
                 report = merge_and_aggregate(task, out_dir, args.world_size,
                                              predict_only=args.predict_only)
-            ResultsWriter(out_dir, args.rank, args.world_size).merge()
+            if not collective:
+                ResultsWriter(out_dir, args.rank, args.world_size).merge()
             report.metadata = run_metadata(
                 model=args.model, model_args=args.model_args,
                 world_size=args.world_size, limit=args.limit, seed=args.seed,
@@ -320,7 +349,7 @@ def main(argv=None) -> int:
             save_report(report, out_dir)
         reports.append(report)
 
-    if args.rank == 0:
+    if args.rank == 0 and not follower:
         from videoitg_tpu_torch.eval.api import GROUP_REGISTRY, group_rollup
         from videoitg_tpu_torch.eval.harness import EvalReport
 
@@ -359,6 +388,11 @@ def main(argv=None) -> int:
         if engine is not None and engine.timer.totals:
             print("\nstage timings:")
             print(engine.timer.report())
+    if scratch is not None:
+        scratch.cleanup()
+    if opened:  # every rank meets, then the group this run opened closes
+        dist.barrier()
+        dist.destroy_process_group()
     return 0
 
 

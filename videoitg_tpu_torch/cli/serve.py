@@ -21,7 +21,7 @@ API:
                  "selected": the Top-K downstream contract (first k
                  score-descending, sorted ascending).
   GET /healthz -> {"ok": true, "pending": N, "served": M,
-                   "encode_cache_hits": H}
+                   "encode_cache_hits": H} (+ "mesh": {axis: size} on a mesh)
   GET /stats   -> per-stage timing summary (decode/preprocess/tower/score).
 
 It runs on the card; `--cpu` is the only way onto the CPU, and with neither a
@@ -37,8 +37,18 @@ Smoke:  python -m videoitg_tpu_torch.cli.serve --preset tiny --random-init \\
 `--model DIR` reads an HF-format VideoITG checkpoint (safetensors or .bin,
 videoitg_tpu_config.json, a tokenizer for transformers' AutoTokenizer), or a
 serving checkpoint (`videoitg-torch-select --export-serving`), which loads
-already quantised in its saved tier. Refused here, with the ROADMAP item
-that covers it: `--dp/--tp/--sp/--pp` above 1 (multi-device).
+already quantised in its saved tier.
+
+Several devices: `--dp/--tp/--sp/--pp` lay the ranks of a torchrun launch
+out as a device mesh (parallel/mesh.py), one process per GPU:
+
+  torchrun --nproc-per-node 4 -m videoitg_tpu_torch.cli.serve --tp 4 ...
+
+Rank 0 binds HTTP, decodes, and broadcasts each burst of requests and each
+video's uint8 frames (or YUV planes) over the group, so no other rank reads
+or decodes a file; every rank runs the engine on the same requests in the
+same order (and so keeps the same encoded-video LRU), and rank 0 replies.
+/healthz reports the mesh. With `--cpu` the group is gloo, else NCCL.
 """
 
 from __future__ import annotations
@@ -64,10 +74,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default=None, choices=[None, "bfloat16", "float32"],
                    help="default: bfloat16 on the card, float32 on the CPU")
     p.add_argument("--quantize", default=None, choices=[None, "int8", "int4", "act8"])
-    p.add_argument("--dp", type=int, default=None, help="above 1: not ported yet")
-    p.add_argument("--tp", type=int, default=None, help="above 1: not ported yet")
-    p.add_argument("--sp", type=int, default=1, help="above 1: not ported yet")
-    p.add_argument("--pp", type=int, default=1, help="above 1: not ported yet")
+    p.add_argument("--dp", type=int, default=None,
+                   help="data-parallel mesh axis: videos, frames and questions split "
+                        "over it (multi-GPU serving under torchrun)")
+    p.add_argument("--tp", type=int, default=None,
+                   help="tensor-parallel mesh axis (heads/ffn sharding)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel axis (ring attention over the LM sequence)")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline-parallel stages (layer-sharded decoder, "
+                        "microbatch pipeline)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--decode-workers", type=int, default=2)
@@ -92,11 +108,24 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 class SelectionServer:
-    """Queue + scoring worker around a hot SelectionEngine."""
+    """Queue + scoring worker around a hot SelectionEngine.
+
+    With `group` (a process group spanning every rank of a mesh engine) the
+    server of the group's rank 0 leads: its worker broadcasts each burst of
+    requests and each decoded video to the other ranks, whose servers run
+    `follow()` and score the same burst with no HTTP, queue or decoder of
+    their own."""
 
     def __init__(self, engine, decode_workers: int = 2, decode_ahead: int = 4,
-                 encode_cache: int = 2):
+                 encode_cache: int = 2, group=None):
         self.engine = engine
+        self.group = group
+        self.leader = True
+        if group is not None:
+            import torch.distributed as dist
+
+            self.leader = dist.get_rank(group) == 0
+            self._src = dist.get_global_rank(group, 0)
         self.decode_workers = decode_workers
         self.decode_ahead = decode_ahead
         self.requests: queue.Queue = queue.Queue()
@@ -110,8 +139,10 @@ class SelectionServer:
         self._cache: dict = {}  # key -> (EncodedVideo, sampled), oldest first
         self.cache_hits = 0
         self._lock = threading.Lock()
-        self._worker = threading.Thread(target=self._run, daemon=True)
-        self._worker.start()
+        self._worker = None
+        if self.leader:
+            self._worker = threading.Thread(target=self._run, daemon=True)
+            self._worker.start()
 
     def submit(self, req: dict) -> dict:
         """Blocking submit: returns the response dict (or {"error": ...})."""
@@ -131,26 +162,58 @@ class SelectionServer:
                 return batch
 
     def close(self) -> None:
-        """Stop the scoring worker once it has answered what is queued, and
-        drop the engine and the LRU's slots (the weights and features they
-        hold on the device go with them)."""
-        self.requests.put(None)
-        self._worker.join()
+        """Stop the scoring worker once it has answered what is queued (and,
+        when leading a group, the followers with it), and drop the engine and
+        the LRU's slots (the weights and features they hold on the device go
+        with them)."""
+        if self._worker is not None:
+            self.requests.put(None)
+            self._worker.join()
         self._cache.clear()
         self.engine = None
 
+    def follow(self) -> None:
+        """A follower rank's loop: score every burst the leader shares, until
+        the leader closes."""
+        while True:
+            burst = self._share(None)
+            if burst is None:
+                return
+            self._serve_burst([(req, {}, threading.Event(), key) for req, key in burst])
+
+    def _share(self, obj):
+        """The leader's `obj` on every rank of the group (itself alone)."""
+        if self.group is None:
+            return obj
+        import torch.distributed as dist
+
+        box = [obj]
+        dist.broadcast_object_list(box, src=self._src, group=self.group)
+        return box[0]
+
     def _run(self):
+        if self.group is not None and self.engine.device.type == "cuda":
+            import torch
+
+            torch.cuda.set_device(self.engine.device)  # the thread's collectives' device
         while True:
             batch = self._drain()
-            # decode_ahead takes one sampling mode per call: group the burst.
-            by_sampling: dict = {}
-            for entry in batch:
-                if entry is not None:
-                    by_sampling.setdefault(entry[0].get("sampling", "eval"), []).append(entry)
-            for sampling, group in by_sampling.items():
-                self._score_group(sampling, group)
+            entries = [(req, box, done,
+                        self._encode_key(req.get("video_path", ""), req.get("sampling", "eval")))
+                       for req, box, done in (e for e in batch if e is not None)]
+            self._share([(req, key) for req, _, _, key in entries])
+            self._serve_burst(entries)
             if None in batch:  # close() was called
+                self._share(None)
                 return
+
+    def _serve_burst(self, entries):
+        # decode_ahead takes one sampling mode per call: group the burst.
+        by_sampling: dict = {}
+        for entry in entries:
+            by_sampling.setdefault(entry[0].get("sampling", "eval"), []).append(entry)
+        for sampling, group in by_sampling.items():
+            self._score_group(sampling, group)
 
     def _encode_key(self, video_path: str, sampling: str):
         try:
@@ -171,6 +234,59 @@ class SelectionServer:
         while len(self._cache) > self.encode_cache:
             self._cache.pop(next(iter(self._cache)))
 
+    def _shared_video(self, dec):
+        """(frames, sampled, error message) of one decoded video on every
+        rank: the leader broadcasts its uint8 frames (or YUV planes) over
+        the group, on the engine's device."""
+        error = None if dec is None or dec.error is None else \
+            f"{type(dec.error).__name__}: {dec.error}"
+        if self.group is None:
+            return dec.frames, dec.sampled, error
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+
+        from videoitg_tpu_torch.data.video import YUVFrames
+
+        header = None
+        if self.leader:
+            planes = [] if error else (list(dec.frames) if isinstance(dec.frames, YUVFrames)
+                                       else [dec.frames])
+            header = {"error": error, "yuv": isinstance(dec.frames, YUVFrames),
+                      "shapes": [p.shape for p in planes], "sampled": dec.sampled}
+        header = self._share(header)
+        if header["error"]:
+            return None, None, header["error"]
+        device = self.engine.device
+        if self.leader:
+            tensors = [torch.from_numpy(np.ascontiguousarray(p)).to(device) for p in planes]
+        else:
+            tensors = [torch.empty(shape, dtype=torch.uint8, device=device)
+                       for shape in header["shapes"]]
+        for t in tensors:
+            dist.broadcast(t, src=self._src, group=self.group)
+        frames = YUVFrames(*tensors) if header["yuv"] else tensors[0]
+        return frames, header["sampled"], None
+
+    def _decoded(self, misses, sampling):
+        """(frames, sampled, error) for each miss, in order. The leader
+        decodes ahead on host threads (uploading and resizing there too when
+        it serves alone); a follower receives the leader's frames."""
+        if not self.leader:
+            for _ in misses:
+                yield self._shared_video(None)
+            return
+        from videoitg_tpu_torch.data.prefetch import decode_ahead
+
+        items = [(key, req.get("video_path", ""), None) for key, req, _, _ in misses]
+        for dec in decode_ahead(
+                items, num_frames=self.engine.num_frames,
+                target_fps=self.engine.target_fps,
+                sampling=sampling, pix_fmt=self.engine.transfer,
+                workers=self.decode_workers, ahead=self.decode_ahead,
+                post=self.engine.preprocess_ahead if self.group is None else None):
+            yield self._shared_video(dec)
+
     def _respond(self, req, box, done, enc, sampled):
         try:
             scores = self.engine.score_encoded(enc, [req["prompt"]])[0]
@@ -190,11 +306,8 @@ class SelectionServer:
             done.set()
 
     def _score_group(self, sampling: str, group):
-        from videoitg_tpu_torch.data.prefetch import decode_ahead
-
         misses = []
-        for req, box, done in group:
-            key = self._encode_key(req.get("video_path", ""), sampling)
+        for req, box, done, key in group:
             entry = self._cache_get(key) if self.encode_cache else None
             if entry is not None:
                 with self._lock:
@@ -203,30 +316,23 @@ class SelectionServer:
             else:
                 misses.append((key, req, box, done))
 
-        items = [(key, req.get("video_path", ""), (req, box, done))
-                 for key, req, box, done in misses]
         # Decode ahead across the whole queued burst: host decode, upload and
         # resize of request i+1 overlap the card scoring request i.
-        for dec in decode_ahead(
-                items, num_frames=self.engine.num_frames,
-                target_fps=self.engine.target_fps,
-                sampling=sampling, pix_fmt=self.engine.transfer,
-                workers=self.decode_workers, ahead=self.decode_ahead,
-                post=self.engine.preprocess_ahead):
-            req, box, done = dec.meta
-            if dec.error is not None:
-                box["error"] = f"{type(dec.error).__name__}: {dec.error}"
+        for (key, req, box, done), (frames, sampled, error) in zip(
+                misses, self._decoded(misses, sampling)):
+            if error is not None:
+                box["error"] = error
                 done.set()
                 continue
             try:
-                enc = self.engine.encode_video(dec.frames)
+                enc = self.engine.encode_video(frames)
             except Exception as e:  # per-request isolation
                 box["error"] = f"{type(e).__name__}: {e}"
                 done.set()
                 continue
             if self.encode_cache:
-                self._cache_put(dec.key, (enc, dec.sampled))
-            self._respond(req, box, done, enc, dec.sampled)
+                self._cache_put(key, (enc, sampled))
+            self._respond(req, box, done, enc, sampled)
 
 
 def make_handler(server: SelectionServer):
@@ -244,10 +350,13 @@ def make_handler(server: SelectionServer):
 
         def do_GET(self):
             if self.path == "/healthz":
-                self._reply(200, {"ok": True,
-                                  "pending": server.requests.qsize(),
-                                  "served": server.served,
-                                  "encode_cache_hits": server.cache_hits})
+                health = {"ok": True, "pending": server.requests.qsize(),
+                          "served": server.served, "encode_cache_hits": server.cache_hits}
+                if server.engine.mesh is not None:  # {axis: size} of a mesh engine
+                    from videoitg_tpu_torch.parallel.mesh import mesh_shape
+
+                    health["mesh"] = mesh_shape(server.engine.mesh)
+                self._reply(200, health)
             elif self.path == "/stats":
                 self._reply(200, server.engine.timer.summary())
             else:
@@ -269,15 +378,8 @@ def make_handler(server: SelectionServer):
     return Handler
 
 
-def _refusal(args) -> str | None:
-    """The message for a flag of the JAX daemon that the port does not run."""
-    if any(n is not None and n > 1 for n in (args.dp, args.tp, args.sp, args.pp)):
-        return "--dp / --tp / --sp / --pp above 1 (multi-device; ROADMAP queue 1, item 8)"
-    return None
-
-
-def build_engine(args, device):
-    """The hot engine on `device` from the parsed flags."""
+def build_engine(args, device, mesh=None):
+    """The hot engine on `device` from the parsed flags, on `mesh` if given."""
     import torch
 
     from videoitg_tpu_torch.cli._model_loading import load_grounding_components
@@ -288,9 +390,32 @@ def build_engine(args, device):
     params, cfg, tokenizer = load_grounding_components(
         args.model, args.preset, args.random_init, dtype, device, quantize=args.quantize,
         tool="videoitg-torch-serve")
-    return SelectionEngine(params, cfg, tokenizer, device=device, dtype=dtype,
+    return SelectionEngine(params, cfg, tokenizer, device=device, dtype=dtype, mesh=mesh,
                            num_frames=args.num_frames, target_fps=args.target_fps,
                            transfer=args.transfer)
+
+
+def open_mesh(args):
+    """(device, mesh) of a launch with --dp/--tp/--sp/--pp: the torchrun
+    group's ranks as a mesh, each on its own device; (None, None) with no
+    group open and every axis 1 (the one-device path)."""
+    import torch.distributed as dist
+
+    from videoitg_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    axes = (args.dp, args.tp, args.sp, args.pp)
+    if args.dp is None and args.tp is None and args.sp == 1 and args.pp == 1:
+        return None, None
+    device = init_distributed(args.cpu)
+    if not dist.is_initialized():
+        if any(n is not None and n > 1 for n in axes):
+            raise SystemExit("error: videoitg-torch-serve: --dp/--tp/--sp/--pp above 1 need "
+                             "one process per device (launch with torchrun)")
+        return None, None
+    try:
+        return device, make_mesh(dp=args.dp, tp=args.tp, sp=args.sp, pp=args.pp)
+    except AssertionError as e:
+        raise SystemExit(f"error: videoitg-torch-serve: {e}") from e
 
 
 def warmup(engine, buckets) -> None:
@@ -313,16 +438,13 @@ def warmup(engine, buckets) -> None:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refused = _refusal(args)
-    if refused:
-        print(f"error: videoitg-torch-serve: {refused} is not ported to PyTorch yet",
-              file=sys.stderr)
-        return 2
     from videoitg_tpu_torch.cli._model_loading import resolve_device
 
     try:
-        device = resolve_device(args.cpu, "videoitg-torch-serve", "--cpu")
-        engine = build_engine(args, device)
+        device, mesh = open_mesh(args)
+        if device is None:
+            device = resolve_device(args.cpu, "videoitg-torch-serve", "--cpu")
+        engine = build_engine(args, device, mesh)
     except SystemExit as e:
         print(e, file=sys.stderr)
         return 2
@@ -330,10 +452,26 @@ def main(argv=None) -> int:
         buckets = ([int(x) for x in args.warmup_buckets.split(",")]
                    if args.warmup_buckets else [args.num_frames])
         print(f"[videoitg-torch-serve] warming up buckets {buckets}...", file=sys.stderr)
-        warmup(engine, buckets)
+        warmup(engine, buckets)  # every rank of a mesh, in step
+    group = None
+    if mesh is not None:
+        import torch.distributed as dist
+
+        group = dist.group.WORLD
     server = SelectionServer(engine, decode_workers=args.decode_workers,
                              decode_ahead=args.decode_ahead,
-                             encode_cache=args.encode_cache)
+                             encode_cache=args.encode_cache, group=group)
+    if not server.leader:
+        server.follow()
+        server.close()
+        _leave(group)
+        return 0
+    if group is not None:
+        import signal
+
+        def _stop(*_):
+            raise KeyboardInterrupt
+        signal.signal(signal.SIGTERM, _stop)  # a stopped leader stops its followers too
     httpd = ThreadingHTTPServer((args.host, args.port), make_handler(server))
     print(f"[videoitg-torch-serve] listening on {args.host}:{httpd.server_address[1]}",
           file=sys.stderr, flush=True)
@@ -344,7 +482,18 @@ def main(argv=None) -> int:
     finally:
         httpd.server_close()
         server.close()
+        _leave(group)
     return 0
+
+
+def _leave(group) -> None:
+    """Every rank of a mesh meets, then the process group is closed, so no
+    rank exits while another still talks to it."""
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

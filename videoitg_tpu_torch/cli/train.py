@@ -27,7 +27,8 @@ Smoke run (random weights, synthetic-capable):
       --data-path data.json --image-folder vids/ --total-steps 20 --cpu
 
 Flags of the JAX CLI that are refused here, with the ROADMAP item that
-covers them: `--dp/--tp/--sp/--pp` above 1 (multi-device).
+covers them: `--dp/--tp/--sp/--pp` above 1 (multi-device training, item 8b;
+the serving entry points run on a device mesh).
 """
 
 from __future__ import annotations
@@ -119,7 +120,8 @@ def build_parser() -> argparse.ArgumentParser:
 def _refusal(args) -> str | None:
     """The message for a flag of the JAX CLI that the port does not run."""
     if any(n is not None and n > 1 for n in (args.dp, args.tp, args.sp, args.pp)):
-        return "--dp / --tp / --sp / --pp above 1 (multi-device; ROADMAP queue 1, item 8)"
+        return ("--dp / --tp / --sp / --pp above 1 (multi-device training: the next slice, "
+                "ROADMAP queue 1, item 8b; serving runs on a mesh already)")
     return None
 
 

@@ -86,6 +86,22 @@ cudaError_t launch_fwd(const TrainArgs& a) {
   return hattn::launch_stream<DP, false, true>(h, hattn::KeyMask{a.valid});
 }
 
+// Kernel C's ring form (parallel/ring_attention.py): the visiting block's
+// `valid` masks its keys only, and every query row below S is stored as
+// computed, with its lse; the ring zeroes the invalid query rows of its own
+// shard after the merge. The same kernel, another row rule.
+struct KeyMaskAllRows : hattn::KeyMask {
+  __device__ __forceinline__ bool keeps_row(int, int row, int S) const { return row < S; }
+};
+
+template <int DP>
+cudaError_t launch_fwd_keys(const TrainArgs& a) {
+  hattn::Args h{a.q, a.k, a.v, a.valid, a.o, a.B, a.Hq, a.Hkv, a.S, a.D, a.causal,
+                a.sm_scale * kLog2e, a.stream};
+  h.lse = a.lse_out;
+  return hattn::launch_stream<DP, false, true>(h, KeyMaskAllRows{{a.valid}});
+}
+
 // Kernel D: hattn::dq_kernel<DP, KeyMask> (hopper_attention_dq.cuh), grid
 // (ceil(S / 128), Hq, B), causal blocks with the most key tiles first.
 static hattn::BwdArgs bwd_args(const TrainArgs& a) {
@@ -138,6 +154,25 @@ extern "C" int videoitg_flash_train_fwd_bf16(const void* q, const void* k, const
   a.stream = static_cast<cudaStream_t>(stream);
   if (!shapes_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
   VIDEOITG_DISPATCH_DP(launch_fwd, a)
+}
+
+extern "C" int videoitg_flash_train_fwd_keys_bf16(const void* q, const void* k,
+                                                  const void* v, const void* valid, void* out,
+                                                  void* lse, int B, int Hq, int Hkv, int S,
+                                                  int D, float sm_scale, void* stream) {
+  using namespace videoitg;
+  TrainArgs a{};
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.valid = static_cast<const uint8_t*>(valid);
+  a.o = static_cast<__nv_bfloat16*>(out);
+  a.lse_out = static_cast<float*>(lse);
+  a.B = B; a.Hq = Hq; a.Hkv = Hkv; a.S = S; a.D = D; a.causal = 0;
+  a.sm_scale = sm_scale;
+  a.stream = static_cast<cudaStream_t>(stream);
+  if (!shapes_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
+  VIDEOITG_DISPATCH_DP(launch_fwd_keys, a)
 }
 
 extern "C" int videoitg_flash_train_dq_bf16(const void* q, const void* k, const void* v,

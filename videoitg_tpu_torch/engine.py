@@ -12,8 +12,16 @@ hand-written int8 kernels, and `lm_splash` (default: VIDEOITG_LM_SPLASH, read
 once here) sends the LM's attention through the splash MQA kernel instead of
 the flash kernel (the JAX package's A/B arm). `transfer="yuv420"` takes the
 decoder's native planes (data.video.YUVFrames, half the host-to-device
-bytes) and converts them to RGB on the device. Device meshes wait (ROADMAP
-queue 1).
+bytes) and converts them to RGB on the device.
+
+`mesh=` (parallel/mesh.make_mesh) serves on a ([pp,] dp, tp[, sp]) device
+mesh, one process per device, every rank calling the engine with the same
+inputs and getting the same result: the weights are sharded at
+construction (parallel/sharding.py); dp splits the tower's frames, a
+score_frames batch and the questions of score_encoded, gathering the results;
+tp splits heads and MLP features (parallel/tensor.py); sp runs the LM's
+attention as a ring (parallel/ring_attention.py); pp runs the decoder as a
+microbatch pipeline (parallel/pipeline.py).
 """
 
 from __future__ import annotations
@@ -120,8 +128,6 @@ class SelectionEngine:
         fused: Optional[bool] = None,
         lm_splash: Optional[bool] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("device meshes are not ported yet (ROADMAP queue 1)")
         if transfer not in ("rgb", "yuv420"):
             raise ValueError(f"transfer must be 'rgb' or 'yuv420', got {transfer!r}")
         # "yuv420": the decoder ships its native planes and the BT.601 -> RGB
@@ -144,8 +150,57 @@ class SelectionEngine:
         self.vision_chunk = 128 if vision_chunk is None else vision_chunk
         self.act8 = Act8Switches.from_env(qgemm=qgemm, fused=fused)
         self.lm_splash = resolve_lm_splash(lm_splash)
+        self.mesh = mesh
+        if mesh is not None:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
+                                f"(parallel/mesh.make_mesh), got {type(mesh).__name__}")
+            params = self._shard(params, cfg, mesh)
         self.model = cast_params(params, dtype, device=self.device).eval()
         self.timer = StageTimer()
+
+    @staticmethod
+    def _shard(params: GroundingModel, cfg: GroundingConfig, mesh) -> GroundingModel:
+        """This rank's slice of the weights: dense specs adapted to the
+        actual tree (int8 / int4 leaves shard like w, scales follow the out
+        axis); a pp axis also splits the decoder layers into stages."""
+        from videoitg_tpu_torch.parallel import sharding
+        from videoitg_tpu_torch.parallel.mesh import TP_AXIS, mesh_coords, mesh_shape
+
+        shape = mesh_shape(mesh)
+        tp = shape.get(TP_AXIS, 1)
+        for what, n in (("LM q", cfg.lm.num_heads), ("LM kv", cfg.lm.num_kv_heads),
+                        ("vision", cfg.vision.num_heads)):
+            if n % tp != 0:
+                raise ValueError(
+                    f"tp={tp} does not divide {what} head count {n}; "
+                    f"pick tp from divisors (e.g. tp<=({cfg.lm.num_kv_heads}))")
+        specs = sharding.grounding_param_specs(pp=shape.get("pp", 1) > 1)
+        return sharding.shard_model(params, specs, shape, mesh_coords(mesh),
+                                    tp_group=mesh.get_group(TP_AXIS) if tp > 1 else None)
+
+    def _mesh_ctx(self):
+        """Ambient contexts of a mesh-backed call: the attention mesh always,
+        plus the decoder pipeline when the mesh carries a pp axis; nothing
+        without a mesh."""
+        import contextlib
+
+        from videoitg_tpu_torch.parallel import context as par_context
+        from videoitg_tpu_torch.parallel.mesh import axis_size
+
+        stack = contextlib.ExitStack()
+        if self.mesh is not None:
+            stack.enter_context(par_context.attention_mesh(self.mesh))
+            if axis_size(self.mesh, "pp") > 1:
+                stack.enter_context(par_context.pipeline_mesh(self.mesh))
+        return stack
+
+    def _dp(self) -> int:
+        from videoitg_tpu_torch.parallel.mesh import DP_AXIS, axis_size
+
+        return axis_size(self.mesh, DP_AXIS)
 
     def _tokenize(self, instructions: Sequence[str]):
         ids = np.zeros((len(instructions), self.cfg.max_text_len), np.int64)
@@ -182,14 +237,13 @@ class SelectionEngine:
         out_size = self.cfg.vision.image_size
         if isinstance(frames_u8, YUVFrames):
             t = frames_u8.shape[0]
-            planes = list(frames_u8)
+            planes = [torch.as_tensor(p).to(self.device) for p in frames_u8]
             if t < t_bucket:
                 # Black in YUV is y = 0 (it clips to 0 after the -16 offset)
                 # with NEUTRAL chroma 128: zero chroma would come out green.
-                planes = [np.concatenate([p, np.full((t_bucket - t,) + p.shape[1:], fill,
-                                                     np.uint8)])
+                planes = [torch.cat([p, p.new_full((t_bucket - t,) + tuple(p.shape[1:]), fill)])
                           for p, fill in zip(planes, (0, 128, 128))]
-            y, u, v = (torch.as_tensor(p).to(self.device) for p in planes)
+            y, u, v = planes
             return preprocess_frames_yuv(y, u, v, out_size=out_size, dtype=self.dtype)
         x = torch.as_tensor(frames_u8).to(self.device)
         t, h, w, _ = x.shape
@@ -230,33 +284,64 @@ class SelectionEngine:
             t_bucket = frame_bucket(t_real, self.buckets)
         with self.timer.stage("preprocess"):
             pix = self._preprocess(frames, t_bucket)
-        with self.timer.stage("tower"):
-            feats = vision_features(self.model, pix, self.cfg, use_flash=self.use_flash,
-                                    vision_chunk=self.vision_chunk, act8=self.act8)
+        with self.timer.stage("tower"), self._mesh_ctx():
+            chunk, dp = self.vision_chunk, self._dp()
+            if not (t_bucket > chunk and t_bucket % chunk == 0):
+                chunk = 0
+            # Under dp the tower's frames split over the dp line when every
+            # chunk (or the unchunked bucket) divides by dp; each rank runs
+            # its share in chunks of chunk / dp and the features are gathered.
+            if dp > 1 and (chunk % dp == 0 if chunk else t_bucket % dp == 0):
+                from videoitg_tpu_torch.parallel.mesh import dp_share, gather_dp
+
+                feats = vision_features(self.model, pix[dp_share(t_bucket, self.mesh)],
+                                        self.cfg, use_flash=self.use_flash,
+                                        vision_chunk=chunk // dp, act8=self.act8)
+                feats = gather_dp(feats, self.mesh)
+            else:
+                feats = vision_features(self.model, pix, self.cfg, use_flash=self.use_flash,
+                                        vision_chunk=self.vision_chunk, act8=self.act8)
         return EncodedVideo(feats, t_real)
 
     @torch.inference_mode()
     def score_encoded(self, enc: EncodedVideo, instructions: Sequence[str]) -> List[np.ndarray]:
         """Score N instructions against one encoded video (tower skipped):
-        the projector runs once, then one LM pass per question."""
+        the projector runs once, then one LM pass per question. Under dp the
+        questions run dp at a time, rank r taking question g dp + r of group
+        g, the last group padded by repeating its final question."""
         if not instructions:
             return []
         cfg = self.cfg
         hw = inference_hw(cfg.projector, enc.t_real, cfg.vision.num_patches_per_side)
         n_pf = frame_token_count(cfg.projector, hw, cfg.vision.num_patches)
         fv = self._frame_valid([enc.t_real], enc.t_bucket)
-        ids, valid = self._tokenize(instructions)
-        with self.timer.stage("score"):
+        n, dp = len(instructions), self._dp()
+        padded = list(instructions) + [instructions[-1]] * (-n % dp)
+        mine = range(len(padded))
+        if dp > 1:
+            from videoitg_tpu_torch.parallel.mesh import DP_AXIS, mesh_coords
+
+            mine = range(mesh_coords(self.mesh)[DP_AXIS], len(padded), dp)
+        ids, valid = self._tokenize([padded[i] for i in mine])
+        with self.timer.stage("score"), self._mesh_ctx():
             img = apply_projector(self.model.projector, enc.feats, cfg.projector, hw=hw)
             img = img.reshape(1, enc.t_bucket * n_pf, -1)
             probs = []
-            for i in range(len(instructions)):
+            for i in range(len(mine)):
                 logits = grounding_logits_from_tokens(
                     self.model, img, fv, ids[i: i + 1], valid[i: i + 1], cfg,
                     n_pf=n_pf, use_flash=self.use_flash, act8=self.act8,
                     lm_splash=self.lm_splash)
                 probs.append(torch.sigmoid(logits.float())[0, : enc.t_real])
-            return [p.cpu().numpy() for p in probs]
+            probs = torch.stack(probs)
+            if dp > 1:
+                from videoitg_tpu_torch.parallel.mesh import gather_dp
+
+                # [dp * groups, T] in rank order -> question order g dp + r
+                probs = gather_dp(probs, self.mesh).reshape(dp, -1, enc.t_real)
+                probs = probs.transpose(0, 1).reshape(-1, enc.t_real)
+            probs = probs.cpu().numpy()
+            return [probs[i] for i in range(n)]
 
     def select_many(self, frames, sampled_frames: Sequence[int], instructions: Sequence[str],
                     video_path: str = "",
@@ -289,18 +374,35 @@ class SelectionEngine:
             raise ValueError(f"videos in one batch must share hw (got {hws}); "
                              "group by frame count")
         hw = hws.pop()
+        b_real, dp = len(videos), self._dp()
+        if dp > 1:
+            from videoitg_tpu_torch.parallel.mesh import dp_share
+
+            # The batch splits over dp: a partial batch is padded by
+            # repeating the last video, whose extra scores are dropped.
+            pad = -b_real % dp
+            videos = list(videos) + [videos[-1]] * pad
+            instructions = list(instructions) + [instructions[-1]] * pad
+            share = dp_share(len(videos), self.mesh)
+            videos, instructions = videos[share], instructions[share]
+        t_mine = [v.shape[0] for v in videos]
         with self.timer.stage("preprocess"):
             pix = torch.stack([self._preprocess(v, t_bucket) for v in videos])
             ids, text_valid = self._tokenize(instructions)
-        batch = GroundingBatch(frames=pix, frame_valid=self._frame_valid(t_reals, t_bucket),
+        batch = GroundingBatch(frames=pix, frame_valid=self._frame_valid(t_mine, t_bucket),
                                text_ids=ids, text_valid=text_valid)
         chunk = self.vision_chunk if len(videos) * t_bucket > self.vision_chunk else 0
-        with self.timer.stage("score"):
+        with self.timer.stage("score"), self._mesh_ctx():
             logits = grounding_logits(self.model, batch, self.cfg, hw=hw,
                                       use_flash=self.use_flash, vision_chunk=chunk,
                                       act8=self.act8, lm_splash=self.lm_splash)
-            probs = torch.sigmoid(logits.float()).cpu().numpy()  # sigmoid(-inf) = 0
-        return [probs[i, :t] for i, t in enumerate(t_reals)]
+            probs = torch.sigmoid(logits.float())  # sigmoid(-inf) = 0
+            if dp > 1:
+                from videoitg_tpu_torch.parallel.mesh import gather_dp
+
+                probs = gather_dp(probs, self.mesh)
+            probs = probs.cpu().numpy()
+        return [probs[i, :t] for i, t in enumerate(t_reals[:b_real])]
 
     def rank_frames(self, scores: np.ndarray,
                     sampled_frames: Sequence[int]) -> Tuple[List[int], List[float]]:

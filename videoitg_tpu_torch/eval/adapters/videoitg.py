@@ -9,8 +9,11 @@ eval-path rounding (videoitg.py:82-93), 512 frames @ target_fps=1 by default.
 
 Every constructor argument of the JAX adapter keeps its meaning, with these
 differences: `device` (None = the card; a missing card is an error unless
-device="cpu") stands in for JAX_PLATFORMS; dp / tp / sp / pp above 1 are
-refused (multi-device: ROADMAP queue 1, item 8). A serving checkpoint as
+device="cpu") stands in for JAX_PLATFORMS; dp / tp / sp / pp build a device
+mesh over the open torch.distributed group (parallel/mesh.make_mesh; a
+torchrun launch of cli/evaluate.py opens it, and each rank's device is
+`cuda:LOCAL_RANK`), and with no group open and every axis 1 there is no
+mesh. A serving checkpoint as
 `pretrained` (`videoitg-torch-select --export-serving`) loads already
 quantised, and the tier flags are ignored, as in the JAX adapter.
 """
@@ -71,13 +74,20 @@ class VideoITGAdapter(ModelAdapter):
         from videoitg_tpu_torch.engine import SelectionEngine
         from videoitg_tpu_torch.utils.common import resolve_dtype
 
-        meshed = {k: v for k, v in (("dp", dp), ("tp", tp), ("sp", sp), ("pp", pp))
-                  if v is not None and v > 1}
-        if meshed:
-            raise NotImplementedError(
-                f"{_TOOL}: {meshed} needs a device mesh, which is not ported to PyTorch "
-                "yet (ROADMAP queue 1, item 8)")
+        import torch.distributed as dist
+
+        from videoitg_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
         dev = adapter_device(device, _TOOL)
+        mesh = None
+        if dp is not None or tp is not None or sp > 1 or pp > 1:
+            rank_dev = init_distributed(dev.type == "cpu")
+            if dist.is_initialized():
+                dev = rank_dev
+                mesh = make_mesh(dp=dp, tp=tp, sp=sp, pp=pp)
+            elif any(n is not None and n > 1 for n in (dp, tp, sp, pp)):
+                raise ValueError(f"{_TOOL}: dp/tp/sp/pp above 1 need a torch.distributed "
+                                 "group of that many processes (launch with torchrun)")
         tdtype = resolve_dtype(dtype, dev)
 
         if pretrained:
@@ -119,7 +129,7 @@ class VideoITGAdapter(ModelAdapter):
             quant.apply_full_int8(params)
 
         self.engine = SelectionEngine(
-            params, cfg, tokenizer, device=dev, num_frames=num_frames,
+            params, cfg, tokenizer, device=dev, mesh=mesh, num_frames=num_frames,
             target_fps=target_fps, dtype=tdtype, transfer=transfer,
         )
         self.num_frames = num_frames

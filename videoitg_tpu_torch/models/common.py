@@ -86,7 +86,13 @@ def linear(p, x: torch.Tensor, act8=None) -> torch.Tensor:
     """x @ w (+ b) for a dense `Linear`; an int8 / int4 `QuantLinear`
     (ops/quant.py) goes to `quantized_linear`, with the act8 kernel switches.
     A LoRA delta is added before the bias of a dense linear and after the
-    quantised product (QLoRA)."""
+    quantised product (QLoRA). A linear split over a tensor-parallel mesh
+    (it carries a `tp` marker, parallel/sharding.py) runs its slice and its
+    collective in parallel/tensor.py."""
+    if getattr(p, "tp", None) is not None:
+        from videoitg_tpu_torch.parallel.tensor import tp_linear
+
+        return tp_linear(p, x, act8)
     if not isinstance(p, Linear):
         from videoitg_tpu_torch.ops.quant import Act8Switches, quantized_linear
 

@@ -8,7 +8,9 @@ matrix `bilinear_resize_matrix` (ops/resize.py), in fp32, then Linear /
 GELU(erf) / Linear. The per-token families keep one token per patch:
 "linear" (one Linear), "mlpNx_gelu" (N Linears with GELU(erf) between) and
 "identity" (no parameters). Every preset uses seq_mlp; the other families
-come from a checkpoint's videoitg_tpu_config.json.
+come from a checkpoint's videoitg_tpu_config.json. On a tensor-parallel mesh
+fc1 is column-parallel and fc2 row-parallel (parallel/sharding.py): `linear`
+runs each rank's slice and its collective.
 """
 
 from __future__ import annotations

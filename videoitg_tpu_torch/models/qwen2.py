@@ -9,7 +9,11 @@ position ids. `remat=True` recomputes each layer in the backward pass
 saved). The causal VLM (models/vlm.py) runs the same stack with cfg.causal
 True and reads next-token logits through `lm_logits`: the tied embedding, or
 an `lm_head` of its own when the config is untied and a head was asked for.
-The pipeline-parallel branch waits (ROADMAP queue 1).
+Under a tensor-parallel mesh each rank holds its slice of the heads (28/tp q,
+4/tp kv: the GQA group is unchanged) and of the MLP, and a vocab slice of the
+embedding (parallel/sharding.py, parallel/tensor.py); under an active
+pipeline (parallel/context.pipeline_mesh) the stack runs as a microbatch
+pipeline over the pp stages (parallel/pipeline.py).
 """
 
 from __future__ import annotations
@@ -87,7 +91,12 @@ class Qwen2(nn.Module):
 
 
 def embed_tokens(lm: Qwen2, ids: torch.Tensor) -> torch.Tensor:
-    """Token embedding lookup; ids may hold padding (callers mask)."""
+    """Token embedding lookup; ids may hold padding (callers mask). A
+    vocab-sharded table (tp) gathers locally and sums over tp."""
+    if getattr(lm.embed, "tp", None) is not None:
+        from videoitg_tpu_torch.parallel.tensor import vocab_embed
+
+        return vocab_embed(lm.embed, ids)
     return lm.embed.w[ids]
 
 
@@ -97,14 +106,15 @@ def _decoder_layer(p: Qwen2Layer, x: torch.Tensor, positions: torch.Tensor,
     b, s, _ = x.shape
     y = rms_norm(p.input_norm, x, cfg.rms_norm_eps)
     q, k, v = fused_qkv(p.q, p.k, p.v, y, act8)
-    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim).transpose(1, 2)
-    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
-    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2).contiguous()
+    # Head counts from the projections: a tensor-parallel rank holds its own.
+    q = q.reshape(b, s, -1, cfg.head_dim).transpose(1, 2)
+    k = k.reshape(b, s, -1, cfg.head_dim).transpose(1, 2)
+    v = v.reshape(b, s, -1, cfg.head_dim).transpose(1, 2).contiguous()
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     attn = mha(q, k, v, valid=valid, causal=cfg.causal, use_flash=use_flash,
                lm_splash=lm_splash)
-    x = x + linear(p.o, attn.transpose(1, 2).reshape(b, s, cfg.q_dim), act8)
+    x = x + linear(p.o, attn.transpose(1, 2).reshape(b, s, -1), act8)
     y = rms_norm(p.post_attn_norm, x, cfg.rms_norm_eps)
     return x + linear(p.down, F.silu(linear(p.gate, y, act8)) * linear(p.up, y, act8), act8)
 
@@ -118,7 +128,20 @@ def qwen2_hidden_states(lm: Qwen2, inputs_embeds: torch.Tensor, positions: torch
     """Run the decoder stack; returns final-norm hidden states [B, S, H].
     With `remat` (and gradients on) each layer keeps only its input and is
     run again in the backward pass. `lm_splash` is the serving A/B switch of
-    `ops/attention.mha` (None reads VIDEOITG_LM_SPLASH)."""
+    `ops/attention.mha` (None reads VIDEOITG_LM_SPLASH). Under an active
+    pipeline (parallel/context.pipeline_mesh) the stack runs as a GPipe
+    microbatch pipeline over the mesh's pp axis."""
+    from videoitg_tpu_torch.parallel.context import current_pipeline
+
+    pctx = current_pipeline()
+    if pctx is not None:
+        from videoitg_tpu_torch.parallel.pipeline import pipeline_hidden_states
+
+        mesh, pp_axis, microbatches = pctx
+        hidden = pipeline_hidden_states(
+            lm, inputs_embeds, positions, valid, cfg, use_flash=use_flash, act8=act8,
+            lm_splash=lm_splash, mesh=mesh, pp_axis=pp_axis, microbatches=microbatches)
+        return rms_norm(lm.final_norm, hidden, cfg.rms_norm_eps)
     x = inputs_embeds
     remat = remat and torch.is_grad_enabled()
     for layer in lm.layers[: cfg.num_layers]:

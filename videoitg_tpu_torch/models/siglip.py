@@ -6,8 +6,10 @@ second-to-last encoder layer (select_layer = -2): 26 of 27 layers run and
 the post-layernorm never does. The patch embedding is an unfold + matmul with
 the (kh, kw, c) patch order of the JAX package. Under the act8 tier
 (ops/quant.py) with the `fused` switch on, the non-attention part of each
-layer runs as three fused int8 kernels (ops/fused_encoder.py). `remat=True`
-recomputes each layer in the backward pass.
+layer runs as three fused int8 kernels (ops/fused_encoder.py), never under a
+device mesh. On a tensor-parallel mesh each rank runs its 16/tp heads and its
+slice of the MLP (parallel/tensor.py). `remat=True` recomputes each layer in
+the backward pass.
 
 arch="clip" is HF CLIP's tower (e.g. LLaVA-1.5's ViT-L/14-336): a biasless
 patch embedding, a CLS token prepended before the positions (a table of
@@ -118,13 +120,17 @@ def _encoder_layer(p: SiglipLayer, x: torch.Tensor, cfg: VisionConfig,
     # The gate of the JAX package: the inference kernel attention asked for
     # (not the training arm), the switch on, every linear int8 + act_q, and a
     # q projection that is not padded.
+    # Under a device mesh the fused kernels stay off, as in the JAX package.
+    from videoitg_tpu_torch.parallel.context import current_attention_mesh
+
     if (use_flash is True and act8.fused and can_fuse_encoder_layer(p)
-            and p.q.out_features == x.shape[-1]):
+            and p.q.out_features == x.shape[-1] and current_attention_mesh() is None):
         return _encoder_layer_fused(p, x, cfg)
     t, n, h = x.shape
-    heads, d = cfg.num_heads, cfg.head_dim
+    d = cfg.head_dim
     y = layer_norm(p.ln1, x, cfg.layer_norm_eps)
     q, k, v = fused_qkv(p.q, p.k, p.v, y, act8)
+    heads = q.shape[-1] // d  # a tensor-parallel rank's own heads
     # [T, P, H*D] -> [T, H, P, D], contiguous for the kernel.
     q, k, v = (a.reshape(t, n, heads, d).transpose(1, 2).contiguous() for a in (q, k, v))
     attn = mha(q, k, v, valid=None, causal=False, use_flash=use_flash,

@@ -65,6 +65,9 @@ SIGNATURES = {
     "videoitg_proj_residual_s8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # q, k, v, valid (nullable), out, lse, B, Hq, Hkv, S, D, causal, sm_scale, stream
     "videoitg_flash_train_fwd_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # C's ring form, `valid` a key mask only: q, k, v, valid (nullable), out,
+    # lse, B, Hq, Hkv, S, D, sm_scale, stream
+    "videoitg_flash_train_fwd_keys_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # q, k, v, valid (nullable), dout, lse, delta, dq, B, Hq, Hkv, S, D, causal,
     # sm_scale, stream
     "videoitg_flash_train_dq_bf16": (_P, _P, _P, _P, _P, _P, _P, _P,

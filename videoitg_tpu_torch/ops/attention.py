@@ -24,8 +24,12 @@ The LM splash switch is the JAX package's A/B arm: `lm_splash=True / False`
 decides it, `None` reads `VIDEOITG_LM_SPLASH` (`1` is on; off by default), so
 one process can run both arms.
 
-The mesh / ring arms of the JAX dispatch need more than one device (ROADMAP
-queue 1).
+Under a device mesh (parallel/context.attention_mesh) the tensors are this
+rank's: its batch share (dp) and its heads (tp), so the kernels run on them
+as they are, with no communication. When the mesh carries an sp axis, a
+masked sequence that splits over it (the LM's; the tower passes no mask)
+runs as ring attention (parallel/ring_attention.py): flash blocks (kernel
+C's forward) with `use_flash` and not causal, einsum blocks otherwise.
 """
 
 from __future__ import annotations
@@ -160,6 +164,19 @@ def mha(
         from videoitg_tpu_torch.ops.flash_attention_train import flash_mha_train
 
         return flash_mha_train(q, k, v, valid=valid, causal=causal)
+    from videoitg_tpu_torch.parallel.context import current_attention_mesh
+
+    ctx = current_attention_mesh()
+    if ctx is not None and ctx[3] is not None and valid is not None:
+        from videoitg_tpu_torch.parallel.mesh import axis_size
+
+        mesh, _dp, _tp, sp = ctx
+        if q.shape[2] % axis_size(mesh, sp) == 0:
+            from videoitg_tpu_torch.parallel.ring_attention import ring_attention
+
+            impl = "flash" if (use_flash and not causal) else "einsum"
+            return ring_attention(q, k, v, valid=valid, mesh=mesh, axis=sp, causal=causal,
+                                  block_impl=impl)
     if not use_flash:
         return mha_reference(q, k, v, valid=valid, causal=causal, sm_scale=sm_scale)
     from videoitg_tpu_torch.ops.flash_attention import flash_mha

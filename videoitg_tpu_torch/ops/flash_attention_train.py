@@ -58,10 +58,12 @@ def flash_mha_train_reference(
     v: torch.Tensor,
     valid: Optional[torch.Tensor] = None,
     causal: bool = False,
+    key_mask_only: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel's plain version: (o [B, Hq, S, D] in q.dtype,
     lse [B, Hq, S] fp32). One query head of each group at a time, so that a
-    long sequence holds [B, Hkv, S, S] scores and no more."""
+    long sequence holds [B, Hkv, S, S] scores and no more. `key_mask_only`
+    keeps the invalid query rows as computed (the ring form)."""
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     group = hq // hkv
@@ -86,7 +88,7 @@ def flash_mha_train_reference(
     # [group, B, Hkv, ...] -> [B, Hkv, group, ...] -> [B, Hq, ...]
     o = torch.stack(outs, dim=2).reshape(b, hq, s, d)
     lse = torch.stack(lses, dim=2).reshape(b, hq, s)
-    if valid is not None:
+    if valid is not None and not key_mask_only:
         o = o * valid[:, None, :, None].to(o.dtype)
     return o.to(q.dtype), lse
 
@@ -160,17 +162,29 @@ def _check_stats(name, q, lse, delta):
     check_matrix(name, "delta", delta, torch.float32, (b, hq, s), q.device)
 
 
-def flash_train_fwd(q, k, v, valid=None, causal=False):
-    """Forward kernel: (o, lse). CPU tensors run `flash_mha_train_reference`."""
+def flash_train_fwd(q, k, v, valid=None, causal=False, key_mask_only=False):
+    """Forward kernel: (o, lse). CPU tensors run `flash_mha_train_reference`.
+
+    `key_mask_only` is the ring form (parallel/ring_attention.py), non-causal:
+    `valid` masks the keys of a visiting block only and every query row is
+    stored as computed, lse included."""
     if q.device.type == "cpu":
-        return flash_mha_train_reference(q, k, v, valid=valid, causal=causal)
+        return flash_mha_train_reference(q, k, v, valid=valid, causal=causal,
+                                         key_mask_only=key_mask_only)
     b, hq, hkv, s, d = _check("flash_train_fwd", q, k, v, valid)
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, s), device=q.device, dtype=torch.float32)
-    err = _build.library().videoitg_flash_train_fwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if valid is None else valid.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b, hq, hkv, s, d, int(causal), d ** -0.5, stream_handle(q))
+    lib = _build.library()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if valid is None else valid.data_ptr(), out.data_ptr(), lse.data_ptr())
+    if key_mask_only:
+        if causal:
+            raise ValueError("flash_train_fwd: the key-mask-only form is non-causal")
+        err = lib.videoitg_flash_train_fwd_keys_bf16(*ptrs, b, hq, hkv, s, d, d ** -0.5,
+                                                     stream_handle(q))
+    else:
+        err = lib.videoitg_flash_train_fwd_bf16(*ptrs, b, hq, hkv, s, d, int(causal),
+                                                d ** -0.5, stream_handle(q))
     _build.check(err, "flash_train_fwd")
     flash_train_fwd.launches += 1
     return out, lse

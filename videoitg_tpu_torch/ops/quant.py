@@ -99,11 +99,17 @@ def quantize_weight_int4(w: torch.Tensor):
         raise ValueError(f"int4 packing needs an even input dim, got {in_dim}")
     scale = symmetric_scale(w.abs().amax(dim=-2), 7.0)
     w_q = torch.clamp(torch.round(w / scale[..., None, :]), -7, 7).to(torch.int8)
+    return pack_int4(w_q), scale
+
+
+def pack_int4(w_q: torch.Tensor) -> torch.Tensor:
+    """int8 [..., in, out] in [-8, 7] -> packed int8 [..., in/2, out]; the
+    inverse of `unpack_int4`."""
+    in_dim = w_q.shape[-2]
     lo = w_q[..., : in_dim // 2, :]
     hi = w_q[..., in_dim // 2:, :]
     # Through int16 so that the shift cannot overflow; the cast keeps the low byte.
-    packed = ((lo.to(torch.int16) & 0xF) | (hi.to(torch.int16) << 4)).to(torch.int8)
-    return packed, scale
+    return ((lo.to(torch.int16) & 0xF) | (hi.to(torch.int16) << 4)).to(torch.int8)
 
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
@@ -225,14 +231,21 @@ def quantize_linear_int4(lin: Linear) -> QuantLinear:
 
 
 def _int_weight_matmul(w_qt: torch.Tensor, scale: torch.Tensor, x: torch.Tensor,
-                       bias: Optional[torch.Tensor], act_q: bool) -> torch.Tensor:
+                       bias: Optional[torch.Tensor], act_q: bool,
+                       x_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Shared core of the int8 / int4 linears: x @ dequant(w) with the
     per-output-channel scale applied after the product. With act_q the
     activations are quantised per row and the product is int8 x int8 with an
-    exact int32 sum (a library product, see `int8_matmul`)."""
+    exact int32 sum (a library product, see `int8_matmul`); `x_scale`
+    ([M, 1] fp32) gives the row scales instead of the rows' own amax (a
+    row-parallel shard quantises with the whole row's, parallel/tensor.py)."""
     if act_q:
         lead = x.shape[:-1]
-        x_q, x_scale = row_quant(x.float().reshape(-1, x.shape[-1]))
+        x2 = x.float().reshape(-1, x.shape[-1])
+        if x_scale is None:
+            x_q, x_scale = row_quant(x2)
+        else:
+            x_q = torch.clamp(torch.round(x2 / x_scale), -127, 127).to(torch.int8)
         acc = int8_matmul(x_q, w_qt)
         y = (acc.float() * x_scale * scale).to(x.dtype).reshape(*lead, w_qt.shape[0])
     else:
@@ -244,18 +257,23 @@ def _int_weight_matmul(w_qt: torch.Tensor, scale: torch.Tensor, x: torch.Tensor,
 
 
 def quantized_linear(lin: QuantLinear, x: torch.Tensor,
-                     act8: Act8Switches = Act8Switches()) -> torch.Tensor:
-    """x @ dequant(w) (+ b) for either integer form. An act_q int8 linear
-    whose shape the kernel supports goes through `act8_linear` (kernel F on
-    the card) when `act8.qgemm` is set."""
+                     act8: Act8Switches = Act8Switches(),
+                     x_scale: Optional[torch.Tensor] = None,
+                     with_bias: bool = True) -> torch.Tensor:
+    """x @ dequant(w) (+ b unless `with_bias` is off) for either integer
+    form. An act_q int8 linear whose shape the kernel supports goes through
+    `act8_linear` (kernel F on the card) when `act8.qgemm` is set. `x_scale`
+    gives act8's row scales (see `_int_weight_matmul`)."""
+    bias = lin.b if with_bias else None
     if lin.bits == 4:
-        return _int_weight_matmul(unpack_int4(lin.w_q4).t(), lin.scale4, x, lin.b, lin.act_q)
+        return _int_weight_matmul(unpack_int4(lin.w_q4).t(), lin.scale4, x, bias, lin.act_q,
+                                  x_scale)
     if lin.act_q and act8.qgemm:
         from videoitg_tpu_torch.ops.quant_gemm import act8_linear, shapes_supported
 
         if shapes_supported(lin, x):
-            return act8_linear(lin, x)
-    return _int_weight_matmul(lin.w_qt, lin.scale, x, lin.b, lin.act_q)
+            return act8_linear(lin, x, x_scale=x_scale, with_bias=with_bias)
+    return _int_weight_matmul(lin.w_qt, lin.scale, x, bias, lin.act_q, x_scale)
 
 
 # ---- model-level transforms (in place, layer by layer) ----

@@ -125,17 +125,20 @@ def act8_gemm(x: torch.Tensor, x_scale, w_qt: torch.Tensor,
 act8_gemm.launches = 0
 
 
-def act8_linear(lin: QuantLinear, x: torch.Tensor) -> torch.Tensor:
+def act8_linear(lin: QuantLinear, x: torch.Tensor, x_scale=None,
+                with_bias: bool = True) -> torch.Tensor:
     """Drop-in for the act_q arm of ops/quant.quantized_linear on [*, K]
     inputs. The row scales follow `ops/quant.row_quant`'s formula and are
-    made by the kernel; the bias is added outside it in the output dtype."""
+    made by the kernel, unless `x_scale` ([M, 1] fp32) gives them (a
+    row-parallel shard's, from the whole row); the bias is added outside the
+    kernel in the output dtype."""
     k = x.shape[-1]
     x2 = x.reshape(-1, k)
     if not x2.is_contiguous():
         x2 = x2.contiguous()
-    y = act8_gemm(x2, None, lin.w_qt, lin.scale)
+    y = act8_gemm(x2, x_scale, lin.w_qt, lin.scale)
     y = y.reshape(*x.shape[:-1], lin.out_features)
-    if lin.b is not None:
+    if with_bias and lin.b is not None:
         y = y + lin.b
     return y
 
@@ -147,4 +150,9 @@ def shapes_supported(lin, x=None) -> bool:
     if not isinstance(lin, QuantLinear) or lin.bits != 8:
         return False
     n, k = lin.w_qt.shape
+    # A tensor-parallel shard is routed by the whole linear's shape, as the
+    # JAX package routes it; the kernel runs on the local columns or rows.
+    t = getattr(lin, "tp", None)
+    if t is not None:
+        n, k = (n * t.size, k) if t.kind.startswith("col") else (n, k * t.size)
     return k % BLOCK_K == 0 and n % BLOCK_N == 0
