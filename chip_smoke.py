@@ -258,8 +258,22 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    past 9,792 masked (the ring of 4's last block has no valid key), the
    merged output held to the fp32 reference, to B on the unsplit sequence
    and to the ring's plain (einsum) blocks; C's ms at S/sp = 6,528 and 3,264
-   beside its plain version and its bound. No collective across devices is
-   timed: the machine has one card.
+   beside its plain version and its bound; (d) on the same world-size-1
+   mesh, phase 7's LoRA step (VideoITG-8B, r16, the 1024-frame feature
+   batch, 16,640 tokens, remat) three times through `run_step(mesh=...)`
+   and three times with no mesh, from the same start, without and with the
+   optimizer's host offload: loss, grad_norm, the trainable leaves and the
+   AdamW moments bit-equal, C, D and E launching 56, 28 and 28 times a step;
+   (e) every rank's backward ring steps for rings of 2 and 4 in one process
+   (`ring_shard_backward`: D and E on each visiting block with the global
+   lse) at [1, 28/4, 16,640, 128] with the keys and rows past 12,480 masked
+   (the ring of 4's last block has no valid key and no valid row), dq, dk
+   and dv held to D and E on the unsplit sequence, to the fp32 autograd
+   reference and to the ring through the plain versions, and D and E timed
+   on a block at S/sp = 8,320 and 4,160 beside the plain version, the bound
+   and their 3/7 and 4/7 shares of memory-efficient sdpa's autograd
+   backward. No collective across devices is timed: the machine has one
+   card (`scripts/torch_mesh_check.py` runs the layouts on several).
 
 `--only attention-kernels` prints ptxas' lines for kernels A and B and stops
 after checking them (a short first run after editing them),
@@ -324,7 +338,8 @@ PTXAS = {
     "splash-kernels": (("K", r"stream_kernelILi\d+ELb0ELb0E.*SegmentIds"),),
     "int8-kernels": (("F", F_INSTANCES), ("G", G_INSTANCES), ("H", H_INSTANCES),
                      ("I", I_INSTANCES)),
-    "mesh": (("C ring form", r"stream_kernel.*KeyMaskAllRows"),),
+    "mesh": (("C ring form", r"stream_kernel.*KeyMaskAllRows"), ("D", r"dq_kernel.*KeyMask"),
+             ("E", r"dkv_kernel.*KeyMask")),
     "segment-kernels": (("J fwd", J_FWD_INSTANCE), ("J dq", r"dq_kernel.*SegmentIds"),
                         ("J dkv", r"dkv_kernel.*SegmentIds"), ("E", r"dkv_kernel.*KeyMask")),
 }
@@ -2669,11 +2684,12 @@ def bit_checksums(tensors) -> list:
     return sums
 
 
-def train_steps(tag, state, step_fn, batch, n_steps, expect, card):
-    """`n_steps` calls of run_step on `batch`, each with the launch counts set
-    to 0 just before and read just after; `expect` (kernel -> launches per
-    step) must hold at every step and the loss must be finite. Returns the
-    counts summed over the steps."""
+def train_steps(tag, state, step_fn, batch, n_steps, expect, card, mesh=None, record=None):
+    """`n_steps` calls of run_step on `batch` (on `mesh` when given), each with
+    the launch counts set to 0 just before and read just after; `expect`
+    (kernel -> launches per step) must hold at every step and the loss must
+    be finite. Appends each step's (loss, grad_norm) to `record` when given.
+    Returns the counts summed over the steps."""
     import torch
 
     from videoitg_tpu_torch.train.train_step import run_step
@@ -2686,11 +2702,13 @@ def train_steps(tag, state, step_fn, batch, n_steps, expect, card):
             fn.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, metrics = run_step(step_fn, state, batch)
+        state, metrics = run_step(step_fn, state, batch, mesh=mesh)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in counted.items()}
         m = {k: float(v) for k, v in metrics.items()}
+        if record is not None:
+            record.append((m["loss"], m["grad_norm"]))
         others = ", ".join(f"{k} {v:.4f}" for k, v in m.items() if k not in ("loss", "grad_norm"))
         print(f"train [{tag}] step {state.step}: {wall:.4f} s, loss {m['loss']:.6f}, grad_norm "
               f"{m['grad_norm']:.6f}, {others}, launches "
@@ -3759,14 +3777,266 @@ def run_stage_b(dev, card: str) -> dict:
 
 RING_S = 512 * 25 + 256     # the LM's serving sequence, 13,056 slots
 RING_VALID = 9792           # keys at and past it masked: a ring of 4's last block is dead
+TRAIN_S = 1024 * 16 + 256   # the training cell's LM sequence, 16,640 slots
+TRAIN_RING_VALID = 12480    # keys and rows past it masked: a ring of 4's last block is dead
+
+
+def mesh_training(model, cfg, mesh, dev, card) -> dict:
+    """Phase 11 (d): phase 7's LoRA step (VideoITG-8B, r16, a 1024-frame
+    feature batch, 16,640 tokens, remat) three times with no mesh and three
+    times through run_step(mesh=...) on the world-size-1 mesh, from the same
+    start, once without and once with the optimizer's host offload. The
+    mesh's steps must equal the others bit for bit: loss, grad_norm, the
+    trainable leaves and the AdamW moments; C, D and E launch 56, 28 and 28
+    times a step. Returns the mesh runs' launches."""
+    import torch
+
+    from videoitg_tpu_torch.models.grounding import GroundingBatch
+    from videoitg_tpu_torch.train.lora import add_lora, make_lora_optimizer
+    from videoitg_tpu_torch.train.offload import make_offloaded_train_step
+    from videoitg_tpu_torch.train.train_step import create_train_state, make_train_step
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    add_lora(model, gen, rank=16)
+    opt = dict(learning_rate=2e-4, out_proj_lr=2e-4, total_steps=10)
+    start = [p.detach().clone() for p in make_lora_optimizer(model, **opt).params]
+    t_frames, hw = 1024, 4
+    feats = torch.randn(1, t_frames, cfg.vision.num_patches, cfg.vision.hidden_size,
+                        generator=gen, device=dev, dtype=torch.bfloat16)
+    batch = GroundingBatch(
+        frames=feats, frame_valid=torch.ones(1, t_frames, dtype=torch.bool, device=dev),
+        text_ids=torch.randint(0, cfg.lm.vocab_size, (1, cfg.max_text_len), generator=gen,
+                               device=dev),
+        text_valid=torch.arange(cfg.max_text_len, device=dev)[None] < 40,
+        labels=(torch.rand(1, t_frames, generator=gen, device=dev) < 0.1).float())
+    expect = expect_launches("train", cfg.lm.num_layers)
+    launches = {name: 0 for name in TRAIN_KERNELS}
+    for offload in (False, True):
+        runs = {}
+        for on_mesh in (False, True):
+            with torch.no_grad():
+                tx = make_lora_optimizer(model, **opt)
+                for p, p0 in zip(tx.params, start):
+                    p.copy_(p0)
+            state = create_train_state(model, tx)
+            step_fn = make_train_step(cfg, tx, hw=hw, use_flash=True, remat=True)
+            if offload:
+                step_fn = make_offloaded_train_step(step_fn)
+            tag = (f"8b lora, features, {'world-size-1 mesh' if on_mesh else 'no mesh'}"
+                   f"{', offload' if offload else ''}")
+            record = []
+            state, total = train_steps(tag, state, step_fn, batch, 3, expect, card,
+                                       mesh=mesh if on_mesh else None, record=record)
+            moments = [tx.optimizer.state[p][key] for p in tx.params
+                       for key in ("exp_avg", "exp_avg_sq")]
+            if offload and any(m.is_cuda for m in moments):
+                fail(f"[{tag}] a moment stayed on the card after the step")
+            runs[on_mesh] = (record, bit_checksums(tx.params), bit_checksums(moments))
+            if on_mesh:
+                for name in TRAIN_KERNELS:
+                    launches[name] += total[name]
+            del state, tx, step_fn, moments
+        same = [runs[True][i] == runs[False][i] for i in range(3)]
+        print(f"[mesh] training{' with offload' if offload else ''}: 3 steps on the "
+              f"world-size-1 mesh vs no mesh: losses and grad_norms {runs[True][0]}; equal "
+              f"{same[0]}, trainable leaves bit-equal {same[1]}, AdamW moments bit-equal "
+              f"{same[2]} [{card}]", flush=True)
+        if not all(same):
+            fail(f"world-size-1 mesh training{' with offload' if offload else ''}: not "
+                 f"bit-equal to no mesh (losses {runs[True][0]} vs {runs[False][0]})")
+    del feats, batch
+    return launches
+
+
+def attention_grads_fp32(q, k, v, valid, do, chunk=2048):
+    """(dq, dk, dv) of sum(attention(q, k, v) * do) in fp32 by autograd, the
+    query rows in chunks (each row's output depends on its own query only),
+    so a chunk's scores are [1, Hq, chunk, S] and no more."""
+    import torch
+
+    group = q.shape[1] // k.shape[1]
+    kf = k.float().requires_grad_()
+    vf = v.float().requires_grad_()
+    bias = torch.zeros(valid.shape, device=q.device).masked_fill(~valid, float("-inf"))
+    dqs = []
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for c0 in range(0, q.shape[2], chunk):
+        qc = q[:, :, c0:c0 + chunk].float().requires_grad_()
+        k_rep, v_rep = kf.repeat_interleave(group, dim=1), vf.repeat_interleave(group, dim=1)
+        scores = qc @ k_rep.transpose(-1, -2) * q.shape[-1] ** -0.5 + bias[:, None, None, :]
+        out = torch.softmax(scores, dim=-1) @ v_rep
+        gq, gk, gv = torch.autograd.grad(out, (qc, kf, vf), do[:, :, c0:c0 + chunk].float())
+        dqs.append(gq)
+        dk += gk
+        dv += gv
+        del scores, out
+    return torch.cat(dqs, dim=2), dk, dv
+
+
+def ring_backward_cells(dev, card) -> dict:
+    """Phase 11 (e): every rank's forward and backward ring steps, for rings
+    of 2 and 4, driven in one process at [1, 28/4, 16,640, 128] bf16 with the
+    keys and rows past 12,480 masked (the ring of 4's last block has no valid
+    key and no valid row): kernel D and E on each visiting block with the
+    global lse (`parallel/ring_attention.ring_shard_backward`). dq, dk and dv
+    are held to D and E on the unsplit sequence, to the fp32 autograd
+    reference and to the ring driven with the kernels' plain versions; D and
+    E are timed on a block beside the plain version, the bound and the
+    library's share. Returns {"flash_train_dq" / "flash_train_dkv": {"ring2",
+    "ring4"}}."""
+    import torch
+
+    from videoitg_tpu_torch.ops import flash_attention_train as fat
+    from videoitg_tpu_torch.parallel import ring_attention as ring
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    s = TRAIN_S
+    q, k, v = randn(1, 28, s, 128), randn(1, 4, s, 128), randn(1, 4, s, 128)
+    do = randn(1, 28, s, 128)
+    valid = torch.arange(s, device=dev)[None] < TRAIN_RING_VALID
+    rows = valid[0]
+    # references: D and E unsplit, fp32 autograd (the loss reads valid rows only)
+    o_u, lse_u = fat.flash_train_fwd(q, k, v, valid)
+    do0_u, delta_u = fat.prepare_backward(valid, o_u, do)
+    unsplit = (fat.flash_train_dq(q, k, v, valid, do0_u, lse_u, delta_u),
+               *fat.flash_train_dkv(q, k, v, valid, do0_u, lse_u, delta_u))
+    exact = attention_grads_fp32(q, k, v, valid, do0_u)
+    del o_u, lse_u, do0_u, delta_u
+    records = {"flash_train_dq": {}, "flash_train_dkv": {}}
+    for n in (2, 4):
+        s_loc = s // n
+        parts = [slice(r * s_loc, (r + 1) * s_loc) for r in range(n)]
+        shards = [(k[:, :, p].contiguous(), v[:, :, p].contiguous(), valid[:, p].contiguous())
+                  for p in parts]
+        dq = [None] * n
+        # contributions[j][i]: block j's dK/dV from rank (j - i) % n, the i-th
+        # to join its accumulator on the ring
+        contrib = [[None] * n for _ in range(n)]
+        plain_dq = [torch.zeros(1, 28, s_loc, 128, device=dev) for _ in range(n)]
+        plain_dkv = [[torch.zeros(1, 4, s_loc, 128, device=dev) for _ in range(2)]
+                     for _ in range(n)]
+        kernel_inputs = []
+        for r in range(n):
+            def fetch(i, _blocks, r=r):
+                return lambda: shards[(r + i + 1) % n]
+            q_r, do_r = q[:, :, parts[r]].contiguous(), do[:, :, parts[r]].contiguous()
+            lse, acc = ring.ring_flash_state(q_r, *shards[r], n=n, start_fetch=fetch)
+            o_r = ring.finish(acc, shards[r][2], q.dtype)
+            sent = []
+
+            def pass_grads(dk_acc, dv_acc, sent=sent):
+                sent.append((dk_acc, dv_acc))
+                return torch.zeros_like(dk_acc), torch.zeros_like(dv_acc)
+            dq[r], _, _ = ring.ring_shard_backward(q_r, *shards[r], o_r, lse, do_r, n=n,
+                                                   start_fetch=fetch, pass_grads=pass_grads)
+            for i, pair in enumerate(sent):
+                contrib[(r + i) % n][i] = pair
+            # the same steps through the kernels' plain versions
+            do0, delta = fat.prepare_backward(shards[r][2], o_r, do_r)
+            lse_inf = torch.where(lse <= ring.NEG_BIG / 2, torch.full_like(lse, float("inf")),
+                                  lse)
+            for i in range(n):
+                j = (r + i) % n
+                g = fat.backward_on_kernel_inputs(q_r, shards[j][0], shards[j][1], shards[j][2],
+                                                  do0, lse_inf, delta, False)
+                plain_dq[r] += g[0].float()
+                plain_dkv[j][0] += g[1].float()
+                plain_dkv[j][1] += g[2].float()
+            kernel_inputs.append((q_r, do0, lse_inf, delta))
+        ring_g = (torch.cat(dq, dim=2),
+                  torch.cat([sum((c[0] for c in contrib[j][1:]), contrib[j][0][0]).to(k.dtype)
+                             for j in range(n)], dim=2),
+                  torch.cat([sum((c[1] for c in contrib[j][1:]), contrib[j][0][1]).to(v.dtype)
+                             for j in range(n)], dim=2))
+        plain_g = (torch.cat(plain_dq, dim=2),
+                   torch.cat([plain_dkv[j][0] for j in range(n)], dim=2),
+                   torch.cat([plain_dkv[j][1] for j in range(n)], dim=2))
+        dead = [r for r in range(n) if not bool(shards[r][2].any())]
+        errs, msg = {}, []
+        ok = True
+        for name, got, u, e, pl in zip(("dq", "dk", "dv"), ring_g, unsplit, exact, plain_g):
+            tol = bf16_tol(e)
+            errs[name] = dict(vs_fp32=max_err(got, e), vs_unsplit=max_err(got, u.float()),
+                              vs_plain=max_err(got, pl), tol=tol)
+            finite = bool(torch.isfinite(got).all())
+            zero = got[0][:, ~rows].abs().max().item()  # invalid rows (dq) or keys (dk, dv)
+            msg.append(f"{name} vs fp32 {errs[name]['vs_fp32']:.6g}, vs unsplit D/E "
+                       f"{errs[name]['vs_unsplit']:.6g}, vs plain blocks "
+                       f"{errs[name]['vs_plain']:.6g} (tol {2 * tol:.6g}), masked max {zero}, "
+                       f"finite {finite}")
+            ok &= (max(errs[name]["vs_fp32"], errs[name]["vs_unsplit"],
+                       errs[name]["vs_plain"]) <= 2 * tol and zero == 0.0 and finite)
+        # D and E on rank 0's own block (all its rows and keys valid), timed
+        q_0, do0_0, lse_0, delta_0 = kernel_inputs[0]
+        k_0, v_0, kv_0 = shards[0]
+        ms = dict(dq=cuda_ms(lambda: fat.flash_train_dq(q_0, k_0, v_0, kv_0, do0_0, lse_0,
+                                                        delta_0), 5),
+                  dkv=cuda_ms(lambda: fat.flash_train_dkv(q_0, k_0, v_0, kv_0, do0_0, lse_0,
+                                                          delta_0), 5))
+        plain_ms = cuda_ms(lambda: fat.backward_on_kernel_inputs(
+            q_0, k_0, v_0, kv_0, do0_0, lse_0, delta_0, False), 1)
+        # The library's autograd backward of memory-efficient sdpa on the same
+        # block (kv heads expanded, the key mask as an additive bias): dq, dk
+        # and dv in one call, split 3/7 (D) and 4/7 (E) by the kernels' work.
+        qg = q_0.detach().clone().requires_grad_()
+        k28 = k_0.repeat_interleave(7, dim=1).requires_grad_()
+        v28 = v_0.repeat_interleave(7, dim=1).requires_grad_()
+        key_bias = torch.zeros(1, 1, 1, s_loc, dtype=torch.bfloat16, device=dev).masked_fill(
+            ~kv_0[:, None, None, :], float("-inf")).expand(1, 28, s_loc, s_loc)
+        lib_out = torch.ops.aten._scaled_dot_product_efficient_attention(
+            qg, k28, v28, key_bias, True)[0]
+        library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (qg, k28, v28), do0_0,
+                                                         retain_graph=True), 3)
+        del qg, k28, v28, key_bias, lib_out
+        unit = s_loc * s_loc * 128 * 28  # the block's pairs, every row and key valid
+        big, small, stat = q_0.numel() * 2, k_0.numel() * 2, lse_0.numel() * 4
+        bounds = dict(dq=bound(6 * unit, PEAK_BF16, 3 * big + 2 * small + 2 * stat),
+                      dkv=bound(8 * unit, PEAK_BF16, 2 * big + 4 * small + 2 * stat))
+        share = dict(dq=3 / 7, dkv=4 / 7)
+        print(f"[mesh] ring backward of {n} at [1, 28/4, {s}, 128], keys and rows from "
+              f"{TRAIN_RING_VALID} masked (dead blocks {dead}): " + "; ".join(msg)
+              + f"; per block [1, 28/4, {s_loc}, 128]: D {ms['dq']:.4f} ms, E "
+              f"{ms['dkv']:.4f} ms, plain (dq, dk, dv together) {plain_ms:.4f} ms, library "
+              f"(efficient sdpa's autograd backward, dq, dk, dv together) {library_ms:.4f} ms: "
+              f"D's share {library_ms * share['dq']:.4f}, E's {library_ms * share['dkv']:.4f}; "
+              f"bounds D {bounds['dq']['bound_ms']:.4f}, E {bounds['dkv']['bound_ms']:.4f} ms "
+              f"by {bounds['dkv']['bound_by']} [{card}]", flush=True)
+        if not ok:
+            fail(f"ring backward of {n}: " + "; ".join(msg))
+        if n == 4 and dead != [3]:
+            fail(f"ring of 4: the last block should hold no valid key, dead {dead}")
+        for rec, part, names in (("flash_train_dq", "dq", ("dq",)),
+                                 ("flash_train_dkv", "dkv", ("dk", "dv"))):
+            records[rec][f"ring{n}"] = dict(
+                block_shape=[1, 28, 4, s_loc, 128],
+                max_abs_err=max(max(errs[x]["vs_fp32"], errs[x]["vs_unsplit"],
+                                    errs[x]["vs_plain"]) for x in names),
+                ms=ms[part], plain_ms=plain_ms, library_ms=library_ms,
+                library_share_ms=library_ms * share[part],
+                note="plain_ms and library_ms are the block's whole backward (dq, dk, dv)",
+                **bounds[part])
+        del dq, contrib, plain_dq, plain_dkv, kernel_inputs, ring_g, plain_g
+        torch.cuda.empty_cache()
+    del q, k, v, do, unsplit, exact
+    torch.cuda.empty_cache()
+    return records
+
+
 
 
 def run_mesh(dev, card: str) -> dict:
     """Phase 11, the mesh path on one card: (a) the engine on a world-size-1
     NCCL mesh against the engine with none, (b) A, B and K at one
     tensor-parallel rank's shapes, (c) every rank's steps of a ring of 2 and
-    of 4. Returns {"launches": the mesh engine's A and B counts, "records":
-    kernel name -> what (b) and (c) measured}."""
+    of 4, (d) LoRA training steps on the world-size-1 mesh against none, (e)
+    every rank's backward ring steps. Returns {"launches": the mesh engine's
+    A and B counts and the mesh training's C, D and E counts, "records":
+    kernel name -> what (b), (c) and (e) measured}."""
     import tempfile
 
     import numpy as np
@@ -3840,7 +4110,11 @@ def run_mesh(dev, card: str) -> dict:
                              f"(max diff {float(np.abs(g.raw_scores - w.raw_scores).max())})")
                 print(f"[mesh] {name}: Top-K and scores bit-equal to the engine with no mesh, "
                       f"top8 {got[0].topk(8)}", flush=True)
-            del model, plain, meshed
+            del plain, meshed
+            torch.cuda.empty_cache()
+            # (d) training steps on the same mesh
+            mesh_launches.update(mesh_training(model, cfg, mesh, dev, card))
+            del model
         finally:
             dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -3970,6 +4244,9 @@ def run_mesh(dev, card: str) -> dict:
         torch.cuda.empty_cache()
     del q, k, v, ref, whole
     torch.cuda.empty_cache()
+
+    # (e) every rank's backward steps of a ring, in one process
+    records.update(ring_backward_cells(dev, card))
     return {"launches": mesh_launches, "records": records}
 
 

@@ -113,10 +113,11 @@ def test_vlm_modules_load_no_jax(tmp_path):
         "import importlib, json, sys\n"
         f"mods = {mods!r}\n"
         "for m in mods: importlib.import_module(m)\n"
-        "from videoitg_tpu_torch.cli.train import build_parser, _refusal\n"
+        "from videoitg_tpu_torch.cli.train import build_parser\n"
+        "from videoitg_tpu_torch.parallel.mesh import open_cli_mesh\n"
         "args = build_parser().parse_args(['--data-path', 'x', '--image-folder', '.', "
         "'--objective', 'vlm', '--conv-template', 'chatml', '--offload-optimizer', '--cpu'])\n"
-        "assert _refusal(args) is None\n"
+        "assert open_cli_mesh(args, 'train') == (None, None)\n"
         "from videoitg_tpu_torch.ops import _build\n"
         "bad = ('jax', 'jaxlib', 'optax', 'orbax', 'flax', 'videoitg_tpu')\n"
         "foreign = sorted(k for k in sys.modules if k.split('.')[0] in bad)\n"
@@ -270,8 +271,9 @@ def test_cli_runs_as_a_module(tmp_path):
 
 
 def test_parallel_modules_load_no_jax(tmp_path):
-    """The multi-device serving slice's modules (videoitg_tpu_torch.parallel:
-    the mesh, the sharding specs, tensor, ring and pipeline parallelism),
+    """The multi-device slices' modules (videoitg_tpu_torch.parallel: the
+    mesh, the sharding specs, tensor, ring and pipeline parallelism, the
+    training step's gradients over the mesh),
     imported alone in a fresh interpreter with no compiler on the path:
     neither jax nor `videoitg_tpu` comes with them, the specs build, no
     process group is opened, and nothing is built."""
@@ -279,7 +281,8 @@ def test_parallel_modules_load_no_jax(tmp_path):
     assert {"videoitg_tpu_torch.parallel.mesh", "videoitg_tpu_torch.parallel.context",
             "videoitg_tpu_torch.parallel.sharding", "videoitg_tpu_torch.parallel.tensor",
             "videoitg_tpu_torch.parallel.ring_attention",
-            "videoitg_tpu_torch.parallel.pipeline"} <= set(mods)
+            "videoitg_tpu_torch.parallel.pipeline", "videoitg_tpu_torch.parallel.grads"
+            } <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"mods = {mods!r}\n"

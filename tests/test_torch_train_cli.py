@@ -5,8 +5,9 @@ that restores the step, the parameters, Adam's moments and the schedule's
 position, so that stopping and continuing equals not stopping, exactly.
 `python -m videoitg_tpu_torch.cli.train` runs in child processes with the repo
 root on PYTHONPATH, on a two-video synthetic set (skipped where the libav
-reader cannot be built); each refused flag exits non-zero with its message;
-without a CUDA device and without `--cpu` / `--device cpu` both CLIs stop.
+reader cannot be built); mesh axes above 1 without a torchrun group exit 2
+with their message; without a CUDA device and without `--cpu` / `--device
+cpu` both CLIs stop.
 """
 
 import json
@@ -184,18 +185,20 @@ NOW_PORTED = ("--model", "--objective vlm", "--offload-optimizer")
 
 @pytest.mark.parametrize("flags,named", REFUSED)
 def test_cli_refuses_what_is_not_ported(capsys, flags, named):
-    """A mesh above one device is refused before anything is loaded, with its
-    ROADMAP item. `--model`, the VLM objective and the optimizer offload were
-    refused once and are ported: the same check lets them by."""
-    from videoitg_tpu_torch.cli.train import _refusal, build_parser, main
+    """Every flag once refused is ported. A mesh above one device with no
+    torchrun group open is an error before anything is loaded (exit 2, never
+    a one-device run); `--model`, the VLM objective and the optimizer offload
+    open no mesh."""
+    from videoitg_tpu_torch.cli.train import build_parser, main
+    from videoitg_tpu_torch.parallel.mesh import open_cli_mesh
 
     argv = ["--random-init", "--data-path", "x.json", "--image-folder", ".", "--cpu", *flags]
     if named in NOW_PORTED:
-        assert _refusal(build_parser().parse_args(argv)) is None
+        assert open_cli_mesh(build_parser().parse_args(argv), "train") == (None, None)
         return
     assert main(argv) == 2
     err = capsys.readouterr().err
-    assert named in err and "ROADMAP queue 1" in err and "not ported" in err
+    assert named in err and "torchrun" in err and "one process per device" in err
 
 
 def test_cli_quantize_base_needs_lora_and_random_init_is_required(workdir):

@@ -138,5 +138,7 @@ def test_accumulation_counts_every_call():
 
 
 def test_run_step_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    """A mesh that is not a DeviceMesh is refused (meshes train since the
+    multi-device slice: tests/test_torch_parallel_train*.py)."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         train_step.run_step(lambda s, b: (s, {}), None, None, mesh=object())

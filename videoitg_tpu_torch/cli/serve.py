@@ -395,29 +395,6 @@ def build_engine(args, device, mesh=None):
                            transfer=args.transfer)
 
 
-def open_mesh(args):
-    """(device, mesh) of a launch with --dp/--tp/--sp/--pp: the torchrun
-    group's ranks as a mesh, each on its own device; (None, None) with no
-    group open and every axis 1 (the one-device path)."""
-    import torch.distributed as dist
-
-    from videoitg_tpu_torch.parallel.mesh import init_distributed, make_mesh
-
-    axes = (args.dp, args.tp, args.sp, args.pp)
-    if args.dp is None and args.tp is None and args.sp == 1 and args.pp == 1:
-        return None, None
-    device = init_distributed(args.cpu)
-    if not dist.is_initialized():
-        if any(n is not None and n > 1 for n in axes):
-            raise SystemExit("error: videoitg-torch-serve: --dp/--tp/--sp/--pp above 1 need "
-                             "one process per device (launch with torchrun)")
-        return None, None
-    try:
-        return device, make_mesh(dp=args.dp, tp=args.tp, sp=args.sp, pp=args.pp)
-    except AssertionError as e:
-        raise SystemExit(f"error: videoitg-torch-serve: {e}") from e
-
-
 def warmup(engine, buckets) -> None:
     """Before accepting traffic: build the kernels (on the card) and run one
     synthetic video of each frame bucket through decode, preprocess, tower and
@@ -439,9 +416,10 @@ def warmup(engine, buckets) -> None:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from videoitg_tpu_torch.cli._model_loading import resolve_device
+    from videoitg_tpu_torch.parallel.mesh import leave_mesh, open_cli_mesh
 
     try:
-        device, mesh = open_mesh(args)
+        device, mesh = open_cli_mesh(args, "videoitg-torch-serve")
         if device is None:
             device = resolve_device(args.cpu, "videoitg-torch-serve", "--cpu")
         engine = build_engine(args, device, mesh)
@@ -464,7 +442,7 @@ def main(argv=None) -> int:
     if not server.leader:
         server.follow()
         server.close()
-        _leave(group)
+        leave_mesh(mesh)
         return 0
     if group is not None:
         import signal
@@ -482,18 +460,8 @@ def main(argv=None) -> int:
     finally:
         httpd.server_close()
         server.close()
-        _leave(group)
+        leave_mesh(mesh)
     return 0
-
-
-def _leave(group) -> None:
-    """Every rank of a mesh meets, then the process group is closed, so no
-    rank exits while another still talks to it."""
-    if group is not None:
-        import torch.distributed as dist
-
-        dist.barrier()
-        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

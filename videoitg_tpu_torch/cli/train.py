@@ -22,13 +22,20 @@ videoitg_tpu_config.json; `--objective vlm` the preset's causal variant.
 It runs on the card; `--cpu` asks for the CPU. With neither a CUDA device
 nor `--cpu` it stops with an error.
 
+Several devices: `--dp/--tp/--sp/--pp` lay the ranks of a torchrun launch
+out as a device mesh (parallel/mesh.make_mesh; NCCL on `cuda:LOCAL_RANK`,
+gloo with `--cpu`), one process per device. Every rank reads the same
+batches; a step takes `--per-device-train-batch-size` x dp samples and
+splits them over dp, and a leftover group that dp does not divide is
+dropped (and printed). Each rank holds its slice of the model
+(parallel/sharding.shard_model) and of the AdamW state; rank 0 logs and
+writes the checkpoints whole (train/checkpointing.py), so a run resumes on
+any mesh or on none. Axes above 1 without a torchrun group are an error.
+
 Smoke run (random weights, synthetic-capable):
   python -m videoitg_tpu_torch.cli.train --preset tiny --random-init \\
       --data-path data.json --image-folder vids/ --total-steps 20 --cpu
-
-Flags of the JAX CLI that are refused here, with the ROADMAP item that
-covers them: `--dp/--tp/--sp/--pp` above 1 (multi-device training, item 8b;
-the serving entry points run on a device mesh).
+  torchrun --nproc-per-node 2 -m videoitg_tpu_torch.cli.train --tp 2 ... (on two cards)
 """
 
 from __future__ import annotations
@@ -66,7 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="feature storage: bf16 (exact vs bf16 training) "
                         "or int8 (4x smaller, ~0.4%% feature error)")
     p.add_argument("--precompute-features", action="store_true",
-                   help="fill --feature-cache over the whole dataset, then exit (no training)")
+                   help="fill --feature-cache over the whole dataset, then exit (no training; "
+                        "one device: refused on a mesh)")
     p.add_argument("--vision-token-num", type=int, default=None,
                    help="seq_mlp total vision-token budget override (the "
                         "grounding recipe uses 16384)")
@@ -102,14 +110,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--async-save", action="store_true",
                    help="accepted; checkpoints are written synchronously")
     p.add_argument("--logging-steps", type=int, default=1)
-    p.add_argument("--dp", type=int, default=None, help="above 1: not ported yet")
-    p.add_argument("--tp", type=int, default=None, help="above 1: not ported yet")
-    p.add_argument("--sp", type=int, default=1, help="above 1: not ported yet")
-    p.add_argument("--pp", type=int, default=1, help="above 1: not ported yet")
-    p.add_argument("--pp-microbatches", type=int, default=None)
+    p.add_argument("--dp", type=int, default=None,
+                   help="data parallel: ranks that split each batch (under torchrun)")
+    p.add_argument("--tp", type=int, default=None,
+                   help="tensor parallel: ranks that split heads and MLP features")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence parallel: ranks of the LM attention's ring")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline parallel: stages that split the decoder layers")
+    p.add_argument("--pp-microbatches", type=int, default=None,
+                   help="microbatches of each dp rank's batch in the pipeline "
+                        "(default: the largest divisor of it <= pp)")
     p.add_argument("--offload-optimizer", action="store_true",
                    help="park optimizer state in pinned host memory between "
-                        "steps (on a CUDA device; ignored on the CPU)")
+                        "steps (on a CUDA device, each rank its own slice of it "
+                        "on a mesh; ignored on the CPU)")
     p.add_argument("--dtype", default=None, choices=[None, "bfloat16", "float32"],
                    help="default: bfloat16 on the card, float32 on the CPU")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
@@ -117,30 +132,34 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refusal(args) -> str | None:
-    """The message for a flag of the JAX CLI that the port does not run."""
-    if any(n is not None and n > 1 for n in (args.dp, args.tp, args.sp, args.pp)):
-        return ("--dp / --tp / --sp / --pp above 1 (multi-device training: the next slice, "
-                "ROADMAP queue 1, item 8b; serving runs on a mesh already)")
-    return None
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refused = _refusal(args)
-    if refused:
-        print(f"error: videoitg-torch-train: {refused} is not ported to PyTorch yet",
-              file=sys.stderr)
-        return 2
-    import torch
-
     from videoitg_tpu_torch.cli._model_loading import resolve_device
+    from videoitg_tpu_torch.parallel.mesh import leave_mesh, open_cli_mesh
 
     try:
-        device = resolve_device(args.cpu, "videoitg-torch-train", "--cpu")
+        device, mesh = open_cli_mesh(args, "videoitg-torch-train")
+        if mesh is None:
+            device = resolve_device(args.cpu, "videoitg-torch-train", "--cpu")
     except SystemExit as e:
         print(e, file=sys.stderr)
         return 2
+    try:
+        if args.precompute_features and mesh is not None and mesh.size() > 1:
+            print("error: --precompute-features fills the cache on one device; run it "
+                  "without --dp / --tp / --sp / --pp and torchrun", file=sys.stderr)
+            return 2
+        return _train(args, device, mesh)
+    finally:
+        leave_mesh(mesh)
+
+
+def _train(args, device, mesh) -> int:
+    import torch
+    import torch.distributed as dist
+
+    lead = mesh is None or dist.get_rank() == 0  # logs, prints and writes
+
     on_cpu = device.type == "cpu"
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
         args.dtype or ("float32" if on_cpu else "bfloat16")]
@@ -251,7 +270,19 @@ def main(argv=None) -> int:
             print(f"[feature-cache] done: {cache.stats()} in {args.feature_cache}")
             return 0
 
-    batch_size = args.per_device_train_batch_size
+    specs, dp = None, 1
+    if mesh is not None:
+        # This rank's slice of every leaf (and so of the AdamW state).
+        from videoitg_tpu_torch.parallel import sharding
+        from videoitg_tpu_torch.parallel.mesh import DP_AXIS, TP_AXIS, mesh_coords, mesh_shape
+
+        shape = mesh_shape(mesh)
+        specs = sharding.grounding_param_specs(with_lm_head=hasattr(model.lm, "lm_head"),
+                                               pp=args.pp > 1)
+        tp_group = mesh.get_group(TP_AXIS) if shape.get(TP_AXIS, 1) > 1 else None
+        model = sharding.shard_model(model, specs, shape, mesh_coords(mesh), tp_group=tp_group)
+        dp = shape.get(DP_AXIS, 1)
+    batch_size = args.per_device_train_batch_size * dp
     total_steps = args.total_steps or max(
         1, args.num_train_epochs * len(dataset) // batch_size)
 
@@ -292,17 +323,19 @@ def main(argv=None) -> int:
                                                       supports_host_offload)
 
         offload = supports_host_offload(device)
-        if not offload:
+        if not offload and lead:
             print("[train] host offload unsupported on this backend; ignoring")
 
-    mlog = MetricsLogger(args.output_dir, report_to=args.report_to,
-                         run_name=args.run_name, config=vars(args))
+    mlog = (MetricsLogger(args.output_dir, report_to=args.report_to,
+                          run_name=args.run_name, config=vars(args)) if lead else None)
     ckpt = TrainCheckpointer(args.output_dir, max_to_keep=args.save_total_limit,
-                             save_interval=args.save_steps, async_save=args.async_save)
+                             save_interval=args.save_steps, async_save=args.async_save,
+                             mesh=mesh, specs=specs)
     resume_step, restored = ckpt.restore_latest(state)
     if restored is not None:
         state = restored
-        print(f"[train] auto-resumed from step {resume_step}")
+        if lead:
+            print(f"[train] auto-resumed from step {resume_step}")
 
     step_fns = {}
     start = int(state.step)
@@ -317,15 +350,23 @@ def main(argv=None) -> int:
         for t_bucket, hw, samples in batches:
             if step >= total_steps:
                 break
+            if len(samples) % dp:
+                # the leftover group that dp does not divide: dropped, as the
+                # JAX CLI drops it (the reference's drop_last)
+                if lead:
+                    print(f"[train] dropping leftover batch of {len(samples)} "
+                          f"(not divisible by dp={dp})")
+                continue
             collate, make_step = ((collate_vlm, make_vlm_train_step) if args.objective == "vlm"
                                   else (collate_grounding, make_train_step))
             batch = collate(samples, t_bucket, cfg, dtype=dtype, device=device)
             if hw not in step_fns:  # eager PyTorch: only hw is baked into a step function
                 fn = make_step(cfg, tx, hw=hw, use_flash=not on_cpu, remat=True, donate=True)
                 step_fns[hw] = make_offloaded_train_step(fn) if offload else fn
-            state, metrics = run_step(step_fns[hw], state, batch)
+            state, metrics = run_step(step_fns[hw], state, batch, mesh=mesh,
+                                      microbatches=args.pp_microbatches)
             step = int(state.step)
-            if step % args.logging_steps == 0:
+            if lead and step % args.logging_steps == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 mlog.log(step, m)
                 extras = " ".join(f"{k}={v:.3f}" for k, v in m.items()
@@ -344,8 +385,9 @@ def main(argv=None) -> int:
 
     ckpt.maybe_save(step, state, force=True)
     ckpt.close()
-    mlog.close()
-    print(f"[train] done at step {step}; checkpoints in {ckpt.directory}")
+    if lead:
+        mlog.close()
+        print(f"[train] done at step {step}; checkpoints in {ckpt.directory}")
     return 0
 
 

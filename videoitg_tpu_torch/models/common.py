@@ -175,9 +175,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 def fused_qkv(p_q, p_k, p_v, x: torch.Tensor, act8=None):
     """q/k/v projections as one GEMM over concatenated weight columns
     (exact: concatenation commutes with the matmul). Three separate linears
-    when any of them is quantised or carries a LoRA adapter."""
+    when any of them is quantised or carries a LoRA adapter. Column-parallel
+    slices (tp) concatenate as they are; their replicated input's gradient
+    is summed over tp (parallel/tensor.copy_to_tp)."""
     if not all(isinstance(p, Linear) and p.lora_a is None for p in (p_q, p_k, p_v)):
         return linear(p_q, x, act8), linear(p_k, x, act8), linear(p_v, x, act8)
+    if getattr(p_q, "tp", None) is not None:
+        from videoitg_tpu_torch.parallel.tensor import copy_to_tp
+
+        x = copy_to_tp(x, p_q.tp.group)
     dq, dk = p_q.w.shape[-1], p_k.w.shape[-1]
     w = torch.cat([p_q.w, p_k.w, p_v.w], dim=-1)
     y = x @ w

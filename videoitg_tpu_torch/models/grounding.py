@@ -27,6 +27,7 @@ from videoitg_tpu_torch.models import siglip as siglip_mod
 from videoitg_tpu_torch.models.common import Linear
 from videoitg_tpu_torch.models.projector import Projector, apply_projector, frame_token_count
 from videoitg_tpu_torch.ops.quant import Act8Switches
+from videoitg_tpu_torch.parallel import context as par_context
 
 
 class GroundingModel(nn.Module):
@@ -168,7 +169,8 @@ def grounding_loss(model: GroundingModel, batch: GroundingBatch, cfg: GroundingC
                    use_flash=False, remat: bool = True, freeze_vision: bool = True):
     """Masked BCE-with-logits in fp32 with pos_weight = min(cfg.max_pos_weight,
     sqrt(neg / max(1, pos))), the weight from the whole batch's labels and the
-    mean over all valid frames. `use_flash=True` means the differentiable
+    mean over all valid frames (under a dp mesh: the whole batch's, each
+    rank's loss its share of it). `use_flash=True` means the differentiable
     kernels ("train"), in the tower as well. Returns (loss, metrics) with
     metrics `loss`, `pos_weight`, `pos_frac` (detached 0-d tensors)."""
     if batch.labels is None:
@@ -181,14 +183,16 @@ def grounding_loss(model: GroundingModel, batch: GroundingBatch, cfg: GroundingC
     labels = batch.labels.float() * mask
     logits = logits.masked_fill(~batch.frame_valid, 0.0).float()
 
-    pos = labels.sum()
-    total = mask.sum()
+    # Under a dp mesh the statistics are the whole batch's (each rank's loss
+    # is its share of the whole-batch mean, so the losses and gradients sum
+    # over dp).
+    pos, total = par_context.sum_over_dp(labels.sum(), mask.sum())
     neg = total - pos
     pos_weight = torch.sqrt(neg / pos.clamp(min=1.0)).clamp(max=float(cfg.max_pos_weight))
 
     per_elem = -(pos_weight * labels * F.logsigmoid(logits)
                  + (1.0 - labels) * F.logsigmoid(-logits))
     loss = (per_elem * mask).sum() / total.clamp(min=1.0)
-    metrics = {"loss": loss.detach(), "pos_weight": pos_weight,
+    metrics = {"loss": par_context.sum_over_dp(loss.detach())[0], "pos_weight": pos_weight,
                "pos_frac": pos / total.clamp(min=1.0)}
     return loss, metrics

@@ -140,7 +140,8 @@ def qwen2_hidden_states(lm: Qwen2, inputs_embeds: torch.Tensor, positions: torch
         mesh, pp_axis, microbatches = pctx
         hidden = pipeline_hidden_states(
             lm, inputs_embeds, positions, valid, cfg, use_flash=use_flash, act8=act8,
-            lm_splash=lm_splash, mesh=mesh, pp_axis=pp_axis, microbatches=microbatches)
+            lm_splash=lm_splash, remat=remat, mesh=mesh, pp_axis=pp_axis,
+            microbatches=microbatches)
         return rms_norm(lm.final_norm, hidden, cfg.rms_norm_eps)
     x = inputs_embeds
     remat = remat and torch.is_grad_enabled()
@@ -158,10 +159,16 @@ def lm_logits(lm: Qwen2, hidden: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     through the transposed embedding when `cfg.tie_word_embeddings`, else
     through `lm_head`. Operands are raised to fp32 before the product (bf16
     products are exact in fp32, so this is the JAX package's bf16 operands
-    with fp32 accumulation), which costs one fp32 copy of the weight."""
-    if cfg.tie_word_embeddings:
-        return hidden.float() @ lm.embed.w.float().t()
-    return hidden.float() @ lm.lm_head.w.float()
+    with fp32 accumulation), which costs one fp32 copy of the weight. Under
+    tp the head holds this rank's vocab slice and the logits are gathered
+    over tp (parallel/tensor.sharded_logits)."""
+    head = lm.embed if cfg.tie_word_embeddings else lm.lm_head
+    w = head.w.t() if cfg.tie_word_embeddings else head.w
+    if getattr(head, "tp", None) is not None:
+        from videoitg_tpu_torch.parallel.tensor import sharded_logits
+
+        return sharded_logits(head.tp, hidden, w)
+    return hidden.float() @ w.float()
 
 
 def init_qwen2(cfg: LMConfig, generator: torch.Generator, *, device=None,

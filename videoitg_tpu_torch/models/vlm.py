@@ -36,6 +36,7 @@ from videoitg_tpu_torch.models.grounding import GroundingModel
 from videoitg_tpu_torch.models.projector import apply_projector, frame_token_count
 from videoitg_tpu_torch.ops.attention import mha
 from videoitg_tpu_torch.ops.quant import Act8Switches
+from videoitg_tpu_torch.parallel import context as par_context
 
 
 class VLMBatch(NamedTuple):
@@ -142,9 +143,11 @@ def vlm_loss(model: GroundingModel, batch: VLMBatch, cfg: GroundingConfig, hw: i
         use_flash = "train"
     token_logp, _, mask = _post_token_logprobs(model, batch, cfg, hw, use_flash, remat,
                                                freeze_vision)
-    n = mask.sum()
+    # Under a dp mesh the token count is the whole batch's (each rank's loss
+    # its share of the whole-batch mean).
+    n, = par_context.sum_over_dp(mask.sum())
     loss = -(token_logp * mask).sum() / n.clamp(min=1).to(token_logp.dtype)
-    return loss, {"loss": loss.detach(), "num_label_tokens": n}
+    return loss, {"loss": par_context.sum_over_dp(loss.detach())[0], "num_label_tokens": n}
 
 
 def vlm_loglikelihood(model: GroundingModel, batch: VLMBatch, cfg: GroundingConfig, hw: int,

@@ -28,8 +28,14 @@ Under a device mesh (parallel/context.attention_mesh) the tensors are this
 rank's: its batch share (dp) and its heads (tp), so the kernels run on them
 as they are, with no communication. When the mesh carries an sp axis, a
 masked sequence that splits over it (the LM's; the tower passes no mask)
-runs as ring attention (parallel/ring_attention.py): flash blocks (kernel
-C's forward) with `use_flash` and not causal, einsum blocks otherwise.
+runs as ring attention (parallel/ring_attention.py). Training, as the JAX
+package's rule: `use_flash="train"` rings through `ring_attention_train`
+(kernels C, D, E per block) when the call is not causal; causal calls and
+`"train-jax"` keep their local heads on the whole sequence, and so does a
+call that needs gradients under any other `use_flash` (the serving ring has
+no backward; activations are whole on every rank). Serving: flash blocks
+(kernel C's forward) with `use_flash` and not causal, einsum blocks
+otherwise.
 """
 
 from __future__ import annotations
@@ -159,24 +165,34 @@ def mha(
         if sm_scale is not None:
             raise ValueError("sm_scale override is a serving-path knob; the training "
                              "kernels use head_dim ** -0.5")
-        if use_flash == "train-jax":
-            return mha_trainable(q, k, v, valid=valid, causal=causal)
-        from videoitg_tpu_torch.ops.flash_attention_train import flash_mha_train
-
-        return flash_mha_train(q, k, v, valid=valid, causal=causal)
     from videoitg_tpu_torch.parallel.context import current_attention_mesh
 
     ctx = current_attention_mesh()
+    ring = None
     if ctx is not None and ctx[3] is not None and valid is not None:
         from videoitg_tpu_torch.parallel.mesh import axis_size
 
         mesh, _dp, _tp, sp = ctx
         if q.shape[2] % axis_size(mesh, sp) == 0:
-            from videoitg_tpu_torch.parallel.ring_attention import ring_attention
+            ring = (mesh, sp)
+    if ring is not None and not causal and use_flash == "train":
+        from videoitg_tpu_torch.parallel.ring_attention import ring_attention_train
 
-            impl = "flash" if (use_flash and not causal) else "einsum"
-            return ring_attention(q, k, v, valid=valid, mesh=mesh, axis=sp, causal=causal,
-                                  block_impl=impl)
+        return ring_attention_train(q.contiguous(), k.contiguous(), v.contiguous(),
+                                    valid=valid, mesh=ring[0], axis=ring[1])
+    if use_flash == "train-jax":
+        return mha_trainable(q, k, v, valid=valid, causal=causal)
+    if use_flash == "train":
+        from videoitg_tpu_torch.ops.flash_attention_train import flash_mha_train
+
+        return flash_mha_train(q, k, v, valid=valid, causal=causal)
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if ring is not None and not needs_grad:
+        from videoitg_tpu_torch.parallel.ring_attention import ring_attention
+
+        impl = "flash" if (use_flash and not causal) else "einsum"
+        return ring_attention(q, k, v, valid=valid, mesh=ring[0], axis=ring[1],
+                              causal=causal, block_impl=impl)
     if not use_flash:
         return mha_reference(q, k, v, valid=valid, causal=causal, sm_scale=sm_scale)
     from videoitg_tpu_torch.ops.flash_attention import flash_mha

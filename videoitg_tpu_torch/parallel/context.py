@@ -3,7 +3,8 @@
 Counterpart of videoitg_tpu/parallel/context.py. Threading the mesh through
 every model function would burden the functional API, so the engine installs
 it here: `ops/attention.mha` reads the attention mesh (its sp axis sends the
-LM's masked attention through ring attention) and
+LM's masked attention through ring attention), the training losses read its
+dp axis (`sum_over_dp`: whole-batch statistics) and
 `models/qwen2.qwen2_hidden_states` reads the pipeline (its pp axis runs the
 decoder stack as a microbatch pipeline). Tensor parallelism needs no context:
 each sharded linear carries its own marker (parallel/sharding.py).
@@ -38,6 +39,26 @@ def attention_mesh(mesh, dp_axis: str = "dp", tp_axis: str = "tp",
 
 def current_attention_mesh() -> Optional[Tuple[object, str, str, Optional[str]]]:
     return _ACTIVE
+
+
+def sum_over_dp(*tensors):
+    """The tensors summed over the active mesh's dp axis (a training step's
+    whole-batch statistics, which the JAX package gets from GSPMD); as they
+    are when no mesh is active or dp is 1. Not differentiable: for
+    statistics of the labels and for metrics."""
+    if _ACTIVE is None:
+        return tensors
+    import torch
+    import torch.distributed as dist
+
+    from videoitg_tpu_torch.parallel.mesh import axis_size
+
+    mesh, dp_axis = _ACTIVE[0], _ACTIVE[1]
+    if axis_size(mesh, dp_axis) == 1:
+        return tensors
+    flat = torch.stack([t.detach().float() for t in tensors])
+    dist.all_reduce(flat, group=mesh.get_group(dp_axis))
+    return tuple(flat[i].to(t.dtype) for i, t in enumerate(tensors))
 
 
 @contextlib.contextmanager

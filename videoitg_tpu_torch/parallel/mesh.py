@@ -48,6 +48,35 @@ def init_distributed(cpu: bool) -> Optional[torch.device]:
     return device
 
 
+def open_cli_mesh(args, tool: str):
+    """(device, mesh) of a CLI launch with `args.dp/tp/sp/pp` (the flags
+    --dp/--tp/--sp/--pp and --cpu): the torchrun group's ranks as a mesh,
+    each on its own device; (None, None) with no group open and every axis
+    1 (the one-device path). Axes above 1 with no group are a SystemExit
+    naming `tool`, never a one-device run."""
+    axes = (args.dp, args.tp, args.sp, args.pp)
+    if args.dp is None and args.tp is None and args.sp == 1 and args.pp == 1:
+        return None, None
+    device = init_distributed(args.cpu)
+    if not dist.is_initialized():
+        if any(n is not None and n > 1 for n in axes):
+            raise SystemExit(f"error: {tool}: --dp / --tp / --sp / --pp above 1 need one "
+                             f"process per device (launch with torchrun)")
+        return None, None
+    try:
+        return device, make_mesh(dp=args.dp, tp=args.tp, sp=args.sp, pp=args.pp)
+    except AssertionError as e:
+        raise SystemExit(f"error: {tool}: {e}") from e
+
+
+def leave_mesh(mesh) -> None:
+    """Every rank of a CLI's mesh meets, then the process group is closed, so
+    no rank exits while another still talks to it (no mesh: nothing)."""
+    if mesh is not None:
+        dist.barrier()
+        dist.destroy_process_group()
+
+
 def _rank_device(cpu: bool) -> torch.device:
     if cpu:
         return torch.device("cpu")

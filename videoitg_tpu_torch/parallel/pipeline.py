@@ -12,6 +12,19 @@ to every stage, the counterpart of the JAX package's psum over a one-hot
 stage mask; the final norm runs outside. Inside a stage the attention mesh is
 off (no ring), while tensor parallelism of the stage's weights stays on;
 a stage runs the attention kernels as the engine's `use_flash` says.
+
+Under autograd the stage is one `torch.autograd.Function` (`_Stage`) whose
+inputs are the stage's input and its trainable leaves, so that a caller's
+`torch.autograd.grad(loss, params)` reaches them. Its forward runs the
+schedule above, keeping each microbatch's detached input and the graph of
+its output (each layer rematerialised when asked). Its backward runs the
+microbatches in reverse, in one fixed order on every stage: receive the
+cotangent from stage s + 1 (the last stage takes its own), differentiate
+that microbatch, send dX to stage s - 1. Every stage computes the same loss,
+so the broadcast's backward keeps the cotangent of the last stage only (the
+transpose of the JAX psum over a one-hot stage mask); the input's gradient,
+whole on stage 0, is broadcast to every stage, as the JAX island's
+replicated input receives it.
 """
 
 from __future__ import annotations
@@ -34,16 +47,131 @@ def default_microbatches(batch: int, pp: int) -> int:
     return m
 
 
+class _Schedule:
+    """One stage's view of the pipeline: its layers, neighbours and the
+    microbatch split."""
+
+    def __init__(self, lm, positions, valid, cfg, use_flash, act8, lm_splash, remat, mesh,
+                 pp_axis, m):
+        self.group = mesh.get_group(pp_axis)
+        pp = dist.get_world_size(self.group)
+        stage = mesh.get_local_rank(pp_axis)
+        self.prev = dist.get_global_rank(self.group, stage - 1) if stage > 0 else None
+        self.nxt = dist.get_global_rank(self.group, stage + 1) if stage < pp - 1 else None
+        self.first = dist.get_global_rank(self.group, 0)
+        self.last = dist.get_global_rank(self.group, pp - 1)
+        self.lm, self.positions, self.valid, self.cfg = lm, positions, valid, cfg
+        self.use_flash, self.act8, self.lm_splash, self.remat = use_flash, act8, lm_splash, remat
+        self.m = m
+
+    def part(self, i: int, b: int) -> slice:
+        mb = b // self.m
+        return slice(i * mb, (i + 1) * mb)
+
+    def stage(self, x: torch.Tensor, part: slice) -> torch.Tensor:
+        from torch.utils.checkpoint import checkpoint
+
+        from videoitg_tpu_torch.models.qwen2 import _decoder_layer
+
+        pos = self.positions[part]
+        val = None if self.valid is None else self.valid[part]
+        args = (pos, val, self.cfg, self.use_flash, self.act8, self.lm_splash)
+        for layer in self.lm.layers:
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(_decoder_layer, layer, x, *args, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = _decoder_layer(layer, x, *args)
+        return x
+
+    def input_of(self, inputs_embeds: torch.Tensor, part: slice) -> torch.Tensor:
+        if self.prev is None:
+            return inputs_embeds[part]
+        x = torch.empty_like(inputs_embeds[part])
+        dist.recv(x, src=self.prev, group=self.group)
+        return x
+
+    def forward(self, inputs_embeds: torch.Tensor, keep=None) -> torch.Tensor:
+        """The GPipe forward; with `keep` (a list) under autograd, each
+        microbatch's (detached input, output) is appended to it."""
+        out = torch.empty_like(inputs_embeds)
+        b = inputs_embeds.shape[0]
+        with par_context.no_attention_mesh():
+            for i in range(self.m):
+                part = self.part(i, b)
+                x = self.input_of(inputs_embeds, part)
+                if keep is not None:
+                    x = x.detach().requires_grad_(inputs_embeds.requires_grad or
+                                                  self.prev is not None)
+                    with torch.enable_grad():
+                        y = self.stage(x, part)
+                    keep.append((x, y))
+                else:
+                    y = self.stage(x, part)
+                if self.nxt is not None:
+                    dist.send(y.detach().contiguous(), dst=self.nxt, group=self.group)
+                else:
+                    out[part] = y.detach()
+        dist.broadcast(out, src=self.last, group=self.group)
+        return out
+
+
+class _Stage(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, sched, inputs_embeds, *leaves):
+        keep = []
+        out = sched.forward(inputs_embeds, keep)
+        ctx.sched, ctx.keep, ctx.leaves = sched, keep, leaves
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        sched, keep, leaves = ctx.sched, ctx.keep, ctx.leaves
+        b = dout.shape[0]
+        dx = torch.zeros_like(dout)
+        dleaves = [None] * len(leaves)
+        with par_context.no_attention_mesh():
+            for i in reversed(range(sched.m)):
+                part = sched.part(i, b)
+                x, y = keep[i]
+                if sched.nxt is None:
+                    g = dout[part].contiguous()
+                else:
+                    g = torch.empty_like(y)
+                    dist.recv(g, src=sched.nxt, group=sched.group)
+                wrt = ([x] if x.requires_grad else []) + list(leaves)
+                grads = (torch.autograd.grad(y, wrt, g, allow_unused=True) if y.requires_grad
+                         else [None] * len(wrt))
+                if x.requires_grad:
+                    gx, grads = grads[0], grads[1:]
+                    if sched.prev is not None:
+                        dist.send(gx.contiguous(), dst=sched.prev, group=sched.group)
+                    elif gx is not None:
+                        dx[part] = gx
+                for j, gl in enumerate(grads):
+                    if gl is not None:
+                        dleaves[j] = gl if dleaves[j] is None else dleaves[j] + gl
+        ctx.keep = None
+        if ctx.needs_input_grad[1]:
+            dist.broadcast(dx, src=sched.first, group=sched.group)
+        else:
+            dx = None
+        dleaves = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, dleaves)]
+        return (None, dx, *dleaves)
+
+
 def pipeline_hidden_states(lm, inputs_embeds: torch.Tensor, positions: torch.Tensor,
                            valid: Optional[torch.Tensor], cfg, use_flash=False, act8=None,
-                           lm_splash: Optional[bool] = None, *, mesh, pp_axis: str = PP_AXIS,
+                           lm_splash: Optional[bool] = None, remat: bool = False, *, mesh,
+                           pp_axis: str = PP_AXIS,
                            microbatches: Optional[int] = None) -> torch.Tensor:
     """The decoder stack over this rank's batch as a pipeline; returns the
     hidden states before the final norm, the same on every stage.
+    Differentiable in the stage's input and in the stage's leaves that
+    require gradients; `remat` recomputes each layer in the backward pass.
 
     Requires cfg.num_layers % pp == 0 (the model sharded with pp) and
     batch % M == 0 (M defaults to the largest divisor of the batch <= pp)."""
-    from videoitg_tpu_torch.models.qwen2 import _decoder_layer
     from videoitg_tpu_torch.ops.quant import Act8Switches
 
     group = mesh.get_group(pp_axis)
@@ -60,27 +188,10 @@ def pipeline_hidden_states(lm, inputs_embeds: torch.Tensor, positions: torch.Ten
     if b % m:
         raise ValueError(f"batch ({b}) % microbatches ({m}) != 0")
     act8 = act8 if act8 is not None else Act8Switches()
-    mb = b // m
-    prev = dist.get_global_rank(group, stage - 1) if stage > 0 else None
-    nxt = dist.get_global_rank(group, stage + 1) if stage < pp - 1 else None
-    last = dist.get_global_rank(group, pp - 1)
     # Every stage sends and receives in the model's dtype.
-    out = torch.empty_like(inputs_embeds)
-    with par_context.no_attention_mesh():
-        for i in range(m):
-            part = slice(i * mb, (i + 1) * mb)
-            if prev is None:
-                x = inputs_embeds[part]
-            else:
-                x = torch.empty_like(inputs_embeds[part])
-                dist.recv(x, src=prev, group=group)
-            pos = positions[part]
-            val = None if valid is None else valid[part]
-            for layer in lm.layers:
-                x = _decoder_layer(layer, x, pos, val, cfg, use_flash, act8, lm_splash)
-            if nxt is not None:
-                dist.send(x.contiguous(), dst=nxt, group=group)
-            else:
-                out[part] = x
-    dist.broadcast(out, src=last, group=group)
-    return out
+    sched = _Schedule(lm, positions, valid, cfg, use_flash, act8, lm_splash, remat, mesh,
+                      pp_axis, m)
+    leaves = [p for p in lm.layers.parameters() if p.requires_grad]
+    if torch.is_grad_enabled() and (inputs_embeds.requires_grad or leaves):
+        return _Stage.apply(sched, inputs_embeds, *leaves)
+    return sched.forward(inputs_embeds)

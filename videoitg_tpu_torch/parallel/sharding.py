@@ -208,6 +208,15 @@ def _int4_rows(packed: torch.Tensor, tp: int, rank: int) -> torch.Tensor:
     return pack_int4(full.narrow(-2, rank * step, step))
 
 
+def local_slice(name: str, tensor: torch.Tensor, spec: Spec, shape: Mapping[str, int],
+                coords: Mapping[str, int]) -> torch.Tensor:
+    """The slice of a whole leaf that the rank at `coords` holds (a view,
+    or a repacked copy for a row-parallel packed-int4 weight)."""
+    if name.endswith(".w_q4") and spec[0] == TP_AXIS and shape.get(TP_AXIS, 1) > 1:
+        return _int4_rows(tensor, shape[TP_AXIS], coords[TP_AXIS])
+    return _slice(tensor, spec, shape, coords)
+
+
 def shard_model(model: nn.Module, specs: Any, shape: Mapping[str, int],
                 coords: Mapping[str, int], tp_group=None) -> nn.Module:
     """A copy of `model` that holds only this rank's slice of every leaf.
@@ -240,11 +249,7 @@ def shard_model(model: nn.Module, specs: Any, shape: Mapping[str, int],
             if not stage[0] <= idx < stage[1]:
                 memo[id(tensor)] = None  # dropped with its layer below
                 continue
-        spec = flat[name]
-        if name.endswith(".w_q4") and spec[0] == TP_AXIS and shape.get(TP_AXIS, 1) > 1:
-            part = _int4_rows(tensor.data, shape[TP_AXIS], coords[TP_AXIS])
-        else:
-            part = _slice(tensor.data, spec, shape, coords)
+        part = local_slice(name, tensor.data, flat[name], shape, coords)
         if part.shape == tensor.shape:
             memo[id(tensor)] = tensor
             continue

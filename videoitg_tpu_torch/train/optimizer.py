@@ -116,8 +116,11 @@ class GroupedAdamW:
     def trainable_names(self) -> List[str]:
         return [n for names in self.group_names.values() for n in names]
 
-    def apply(self, grads: Sequence[torch.Tensor]) -> None:
-        """Take the gradients of one call (aligned with `self.params`)."""
+    def apply(self, grads: Sequence[torch.Tensor], norms=None) -> None:
+        """Take the gradients of one call (aligned with `self.params`).
+        `norms(param_lists, grad_lists)` gives each group's clipping norm
+        (default: `global_norm` of each list; on a mesh,
+        parallel/grads.MeshNorms, the norm of the whole leaves)."""
         first = self.mini_step == 0
         for p, g in zip(self.params, grads):
             if first:
@@ -128,12 +131,16 @@ class GroupedAdamW:
         if self.mini_step < self.accum_steps:
             return
         self.mini_step = 0
-        for group in self.optimizer.param_groups:
-            g_list = [p.grad for p in group["params"]]
-            if self.accum_steps > 1:
+        groups = self.optimizer.param_groups
+        g_lists = [[p.grad for p in group["params"]] for group in groups]
+        if self.accum_steps > 1:
+            for g_list in g_lists:
                 torch._foreach_div_(g_list, float(self.accum_steps))
-            if self.max_grad_norm is not None:
-                norm = global_norm(g_list)
+        if self.max_grad_norm is not None:
+            p_lists = [group["params"] for group in groups]
+            group_norms = (norms(p_lists, g_lists) if norms is not None
+                           else [global_norm(g_list) for g_list in g_lists])
+            for g_list, norm in zip(g_lists, group_norms):
                 scale = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
                                     self.max_grad_norm / norm)
                 torch._foreach_mul_(g_list, [scale.to(g.dtype) for g in g_list])
@@ -141,17 +148,51 @@ class GroupedAdamW:
         self.scheduler.step()
         self.optimizer.zero_grad(set_to_none=True)
 
-    def state_dict(self) -> dict:
-        acc = [p.grad for p in self.params] if self.mini_step else None
-        return {"optimizer": self.optimizer.state_dict(), "scheduler": self.scheduler.state_dict(),
-                "mini_step": self.mini_step, "accumulated": acc}
+    def state_dict(self, gather: Optional[Callable] = None) -> dict:
+        """The state under the leaf names: the moments and a pending
+        accumulation as {key: {name: tensor}}, each group's hyperparameters,
+        the schedule and the mini-step. `gather({name: tensor})` makes a
+        rank's slices whole (a checkpoint on a mesh); default as they are."""
+        names = self.trainable_names()
+        sd = self.optimizer.state_dict()
+        by_key: Dict[str, Dict[str, torch.Tensor]] = {}  # "step", "exp_avg", ...: {name: t}
+        for i, name in enumerate(names):
+            for key, value in sd["state"].get(i, {}).items():
+                by_key.setdefault(key, {})[name] = value
+            if self.mini_step:
+                by_key.setdefault("accumulated", {})[name] = self.params[i].grad
+        whole = {key: (gather or dict)(group) for key, group in sorted(by_key.items())}
+        accumulated = whole.pop("accumulated", None)
+        return {"groups": [{k: v for k, v in g.items() if k != "params"}
+                           for g in sd["param_groups"]],
+                "state": whole, "accumulated": accumulated,
+                "scheduler": self.scheduler.state_dict(), "mini_step": self.mini_step}
 
-    def load_state_dict(self, state: dict) -> None:
-        self.optimizer.load_state_dict(state["optimizer"])
+    def load_state_dict(self, state: dict, global_name: Optional[Callable] = None,
+                        local_of: Optional[Callable] = None) -> None:
+        """Load `state_dict()`'s form. `global_name(name)` is a leaf's name
+        in it and `local_of(name, whole)` this rank's slice of the whole
+        tensor (a checkpoint on a mesh); default the name and the tensor."""
+        global_name = global_name or (lambda name: name)
+        local_of = local_of or (lambda name, whole: whole)
+        names = self.trainable_names()
+        sd = self.optimizer.state_dict()
+        by_label = {g["name"]: g for g in state["groups"]}
+        sd["param_groups"] = [dict(by_label[g["name"]], params=g["params"])
+                              for g in sd["param_groups"]]
+        moments = {}
+        for i, name in enumerate(names):
+            gname = global_name(name)
+            if gname in state["state"].get("step", {}):
+                moments[i] = {key: local_of(name, leaves[gname])
+                              for key, leaves in state["state"].items()}
+        sd["state"] = moments
+        self.optimizer.load_state_dict(sd)
         self.scheduler.load_state_dict(state["scheduler"])
         self.mini_step = state["mini_step"]
         if state["accumulated"] is not None:
-            for p, g in zip(self.params, state["accumulated"]):
+            for name, p in zip(names, self.params):
+                g = local_of(name, state["accumulated"][global_name(name)])
                 p.grad = g.to(device=p.device, dtype=p.dtype)
 
 
