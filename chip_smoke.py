@@ -275,6 +275,35 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    backward. No collective across devices is timed: the machine has one
    card (`scripts/torch_mesh_check.py` runs the layouts on several).
 
+12. Lane-padded tower heads (`--only pad-heads`, `models/siglip.pad_attention_heads`):
+   kernel A at [128, 16, 729, 128] (head_dim 72 zero-padded to 128, sm_scale
+   72**-0.5: S = 729 is past K resident at D = 128, so the two-pass streaming
+   form) against its plain version at the bf16 tolerance, its padded lanes
+   exactly 0, its first 72 lanes against A at D = 72 on the same numbers, a
+   broken use (keys dropped), timed beside A at D = 72 with both bounds, sdpa
+   as the library call; then VideoITG-8B's tower (random bf16 weights) on one
+   128-frame chunk, padded against unpadded, dense and act8: each layer on the
+   same input within bf16_tol of its output, and the 26 layers' features
+   within the larger of E2E_ATOL and twice the unpadded tower's own kernel vs
+   plain path (relative to max|features|), A 26 launches a pass.
+
+13. The overfit trajectory (`--only overfit`, scripts/train/torch_overfit_smoke.py):
+   the JAX package's recorded recipe at videoitg-2b, LoRA 16, 400 steps, batch
+   2, lr 2e-4 (out_proj 2e-3), a checkpoint every 25 steps, 32 videos, 8
+   targets. The script's train CLI runs in child processes launched as
+   `python3 chip_smoke.py --train-child -- ARGS`, which swaps
+   `data/video.read_video_frames` for the fixtures' frames (frame i the solid
+   colour `expected_fixture_color(i)` at 64x48, at the indices the port's own
+   sampling gives) before calling `cli/train.main(ARGS)`, then prints the
+   child's peak device memory and launch counts; the evaluation runs in this
+   process under the same swap. Phase 1 must reach a checkpoint and be
+   SIGKILLed, phase 2 must auto-resume and reach step 400, Top-1 on the 32
+   training videos must reach 0.9; C 82, D 28, E 28 launches a step in phase
+   2 (the frozen tower's C 26, the LM's C 56, D 28, E 28), A 26 and B 28 a
+   video in the evaluation. Prints the step killed at and resumed from, the
+   first and last logged loss, seconds a step with and without the
+   checkpoints, the phase's seconds and Top-1.
+
 `--only attention-kernels` prints ptxas' lines for kernels A and B and stops
 after checking them (a short first run after editing them),
 `--only int8-kernels` stops after building and checking kernels F-I,
@@ -283,8 +312,10 @@ after checking them (a short first run after editing them),
 `--only serve` runs phase 6 alone, `--only train` phase 7, `--only vlm` phase
 8, `--only checkpoint` the checkpoint part of phase 5, `--only
 serving-checkpoint` its serving-checkpoint part, `--only eval` phase 9,
-`--only stage-b` phase 10, `--only mesh` phase 11.
-None of them prints a result line.
+`--only stage-b` phase 10, `--only mesh` phase 11, `--only pad-heads` phase 12,
+`--only overfit` phase 13.
+None of them prints a result line. `--train-child -- ARGS` is phase 13's child
+process, not a phase.
 
 The last two lines are the per-kernel JSON record and
 {"ok": true, "device": {...}}.
@@ -4250,13 +4281,302 @@ def run_mesh(dev, card: str) -> dict:
     return {"launches": mesh_launches, "records": records}
 
 
+# ---- phase 13: the overfit trajectory (scripts/train/torch_overfit_smoke.py) ----
+
+OVERFIT_ARGS = ["--preset", "videoitg-2b", "--lora", "16", "--steps", "400", "--batch", "2",
+                "--lr", "2e-4", "--save-steps", "25", "--videos", "32", "--targets", "8"]
+OVERFIT_THRESHOLD = 0.9
+
+
+def fixture_reader(path, num_frames=512, target_fps=1.0, sampling="eval", multiple=1,
+                   pix_fmt="rgb"):
+    """A stand-in for `data/video.read_video_frames` on the overfit script's
+    fixtures (`write_test_video(path, 64, 48, 32, 10, 8)`: frame i is the
+    solid colour `expected_fixture_color(i)`): the frames the port's own
+    sampling arithmetic picks, made without a decoder."""
+    import numpy as np
+
+    from videoitg_tpu_torch.data.sampling import (sample_frame_indices_eval,
+                                                  sample_frame_indices_infer)
+    from videoitg_tpu_torch.data.video import expected_fixture_color
+
+    if pix_fmt != "rgb" or not os.path.exists(path):
+        raise FileNotFoundError(f"{path} ({pix_fmt})")
+    total, fps = 32, 10.0
+    if sampling == "eval":
+        sampled = sample_frame_indices_eval(total, fps, target_fps, num_frames, multiple)
+    else:
+        sampled = sample_frame_indices_infer(total, fps, target_fps, num_frames)
+    frames = np.empty((len(sampled), 48, 64, 3), dtype=np.uint8)
+    for n, i in enumerate(sampled):
+        frames[n] = expected_fixture_color(i)
+    return frames, list(sampled)
+
+
+def empty_fixture(path, *args, **kwargs) -> str:
+    """A stand-in for `data/video.write_test_video`: the file the records
+    name, empty (`fixture_reader` makes its frames)."""
+    open(path, "wb").close()
+    return path
+
+
+def train_child(argv) -> int:
+    """`chip_smoke.py --train-child -- ARGS` (phase 13's child process): the
+    port's train CLI with ARGS, the frame reader swapped for `fixture_reader`;
+    then one line `[train-child] {"peak_gib": ..., "launches": {...}}`."""
+    sys.path.insert(0, HERE)
+    import torch
+
+    from videoitg_tpu_torch.cli import train
+    from videoitg_tpu_torch.data import video as video_mod
+
+    video_mod.read_video_frames = fixture_reader
+    counted = wrappers()
+    for fn in counted.values():
+        fn.launches = 0
+    rc = train.main(argv)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if torch.cuda.is_available() else 0.0
+    print("[train-child] " + json.dumps({"peak_gib": peak, "launches": {
+        name: fn.launches for name, fn in counted.items()}}), flush=True)
+    return rc
+
+
+def run_overfit(dev, card: str) -> dict:
+    """Phase 13: scripts/train/torch_overfit_smoke.py's recipe at videoitg-2b
+    (LoRA 16, 400 steps, batch 2, lr 2e-4, a checkpoint every 25 steps, 32
+    videos, 8 targets). Its train CLI runs in child processes through
+    `--train-child` (the frame reader swapped), phase 1 is killed after its
+    first checkpoint, phase 2 must auto-resume and reach step 400, and the
+    evaluation in this process (the same swap) must reach Top-1 >= 0.9.
+    Phase 2's child counts C, D, E (the frozen tower's C and the LM's C, D,
+    E each step); the evaluation A and B. Returns {"launches": both,
+    "record": the run's numbers}."""
+    import importlib.util
+    import tempfile
+
+    import torch
+
+    from videoitg_tpu_torch.config import preset
+    from videoitg_tpu_torch.data import video as video_mod
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_overfit_smoke", os.path.join(HERE, "scripts", "train", "torch_overfit_smoke.py"))
+    overfit = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(overfit)
+    launcher = [sys.executable, os.path.abspath(__file__), "--train-child", "--"]
+    counted = wrappers()
+    real = video_mod.read_video_frames, video_mod.write_test_video
+    video_mod.read_video_frames, video_mod.write_test_video = fixture_reader, empty_fixture
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as work:
+            args = overfit.build_parser().parse_args(
+                OVERFIT_ARGS + ["--threshold", str(OVERFIT_THRESHOLD), "--workdir", work])
+            for fn in counted.values():
+                fn.launches = 0
+            try:
+                res = overfit.run(args, launcher=launcher)
+            except (SystemExit, AssertionError) as e:
+                for log in ("phase1.log", "phase2.log"):
+                    path = os.path.join(work, log)
+                    if os.path.exists(path):
+                        with open(path) as f:
+                            print(f"overfit {log} (last lines):\n" + "".join(f.readlines()[-15:]),
+                                  flush=True)
+                fail(f"overfit: {e}")
+            eval_launches = {name: fn.launches for name, fn in counted.items()}
+            with open(res["logs"][1]) as f:
+                child = [json.loads(line.split("[train-child] ", 1)[1]) for line in f
+                         if line.startswith("[train-child] ")]
+    finally:
+        video_mod.read_video_frames, video_mod.write_test_video = real
+    wall = time.perf_counter() - t0
+    cfg = preset(args.preset)
+    if len(child) != 1:
+        fail("overfit: phase 2's child printed no launch counts")
+    child = child[0]
+    steps = res["steps"] - res["resumed_from_step"]
+    per_step = expect_launches("train", cfg.lm.num_layers, cfg.vision.num_effective_layers)
+    want_train = {name: n * steps for name, n in per_step.items()}
+    got_train = {name: child["launches"][name] for name in want_train}
+    videos = res["videos"]
+    want_eval = {"flash_mha_short": cfg.vision.num_effective_layers * videos,
+                 "flash_mha": cfg.lm.num_layers * videos}
+    got_eval = {name: eval_launches[name] for name in want_eval}
+    print(f"overfit {args.preset} LoRA {args.lora}, {res['steps']} steps, batch {args.batch}, lr "
+          f"{args.lr}, a checkpoint every {args.save_steps}: killed after "
+          f"the checkpoint of step {res['killed_at_step']}, resumed from step "
+          f"{res['resumed_from_step']}; loss {res['first_loss']:.6f} at step "
+          f"{res['first_loss_step']} -> {res['last_loss']:.6f} at step {res['last_loss_step']}; "
+          f"phase 2 {res['s_per_step']:.4f} s a step with the checkpoints "
+          f"({res['s_per_step_alone']:.4f} s a step and {res['s_per_checkpoint']:.4f} s a "
+          f"checkpoint of the whole model's leaves, {args.save_steps} steps apart), phase 1 "
+          f"{res['phase1_s']:.1f} s, phase 2 {res['phase2_s']:.1f} s, evaluation "
+          f"{res['eval_s']:.1f} s; child peak device "
+          f"memory {child['peak_gib']:.3f} GiB; Top-1 {res['top1_train_accuracy']:.4f} on "
+          f"{videos} training videos (threshold {OVERFIT_THRESHOLD}); launches: phase 2 "
+          f"{got_train} over {steps} steps (expected {want_train}), evaluation {got_eval} "
+          f"(expected {want_eval}); phase {wall:.1f} s [{card}]", flush=True)
+    if got_train != want_train or got_eval != want_eval:
+        fail("overfit: launch counts differ from the path's")
+    if any(eval_launches[name] for name in eval_launches if name not in want_eval):
+        fail("overfit: another kernel launched in the evaluation")
+    if not res["top1_train_accuracy"] >= OVERFIT_THRESHOLD:
+        fail(f"overfit: Top-1 {res['top1_train_accuracy']} < {OVERFIT_THRESHOLD}")
+    record = {k: v for k, v in res.items() if k != "logs"}
+    record.update(peak_gib=child["peak_gib"], seconds=wall)
+    return {"launches": {**got_train, **got_eval}, "record": record}
+
+
+# ---- phase 12: lane-padded vision heads (models/siglip.pad_attention_heads) ----
+
+
+def run_pad_heads(dev, card: str) -> dict:
+    """Phase 12: kernel A at the padded tower's shape [128, 16, 729, 128]
+    (head_dim 72 zero-padded to 128, sm_scale 72**-0.5) against its plain
+    version, timed beside A at [128, 16, 729, 72] on the same numbers, each
+    with its bound; then VideoITG-8B's tower (26 layers, random bf16 weights)
+    on one 128-frame chunk, padded against unpadded, dense and act8: each
+    layer on the same input within bf16_tol of its output, and the 26
+    layers' features as close as the unpadded tower's kernel path is to its
+    plain path (at least E2E_ATOL, relative), A launching 26 times a pass.
+    Returns {"launches": A's, "record": the padded kernel's numbers}."""
+    import torch
+    from torch.nn import functional as F
+
+    from videoitg_tpu_torch.config import preset
+    from videoitg_tpu_torch.models import siglip as siglip_mod
+    from videoitg_tpu_torch.models.common import linear
+    from videoitg_tpu_torch.models.siglip import init_siglip, pad_attention_heads, siglip_features
+    from videoitg_tpu_torch.ops.flash_attention_short import (flash_mha_short,
+                                                              flash_mha_short_reference)
+    from videoitg_tpu_torch.ops.quant import (SIGLIP_LINEAR_KEYS, Act8Switches,
+                                              enable_act_quant, quantize_siglip_int8)
+
+    cfg = preset("videoitg-8b").vision
+    t, heads, s, d, lane = 128, cfg.num_heads, cfg.num_patches, cfg.head_dim, 128
+    scale = d ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(SEED + 130)
+    q, k, v = (torch.randn(t, heads, s, d, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    qp, kp, vp = (F.pad(a, (0, lane - d)) for a in (q, k, v))
+    parts = [slice(i, i + 32) for i in range(0, t, 32)]
+    ref = torch.cat([flash_mha_short_reference(qp[p].float(), kp[p].float(), vp[p].float(),
+                                               sm_scale=scale) for p in parts])
+    tol = bf16_tol(ref)
+    out = flash_mha_short(qp, kp, vp, sm_scale=scale)
+    err = max_err(out, ref)
+    lanes = out[..., d:].abs().max().item()
+    same = torch.equal(out[..., :d], flash_mha_short(q, k, v))
+    drop = max(max_err(flash_mha_short_reference(qp[p].float(), kp[p, :, :s - 64].float(),
+                                                 vp[p, :, :s - 64].float(), sm_scale=scale),
+                       ref[p]) for p in parts)
+    ms = cuda_ms(lambda: flash_mha_short(qp, kp, vp, sm_scale=scale), 20)
+    ms72 = cuda_ms(lambda: flash_mha_short(q, k, v), 20)
+    ms_again = cuda_ms(lambda: flash_mha_short(qp, kp, vp, sm_scale=scale), 20)
+    plain_ms = cuda_ms(lambda: [flash_mha_short_reference(qp[p], kp[p], vp[p], sm_scale=scale)
+                                for p in parts], 3)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qp, kp, vp, scale=scale), 10)
+    bnd = bound(4 * s * s * lane * t * heads, PEAK_BF16, 4 * qp.numel() * 2)
+    bnd72 = bound(4 * s * s * d * t * heads, PEAK_BF16, 4 * q.numel() * 2)
+    print(f"kernel flash_mha_short padded [{t}, {heads}, {s}, {lane}] (head_dim {d}) bf16: "
+          f"max_abs_err {err:.6g} (tol {tol:.6g}), padded lanes max {lanes}, first {d} lanes "
+          f"bit-equal to A at D = {d}: {same}; broken: last 64 keys dropped {drop:.6g}; "
+          f"{ms:.4f} / {ms_again:.4f} ms (before / after D = {d}), plain {plain_ms:.4f} ms, "
+          f"library (sdpa) {library_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by "
+          f"{bnd['bound_by']}; at D = {d} {ms72:.4f} ms, bound {bnd72['bound_ms']:.4f} ms "
+          f"[{card}]", flush=True)
+    if not err <= tol or lanes != 0.0:
+        fail(f"flash_mha_short padded: error {err} > {tol} or padded lanes {lanes}")
+    if not drop > tol:
+        fail(f"flash_mha_short padded: tolerance {tol} does not catch dropped keys ({drop})")
+    del q, k, v, qp, kp, vp, ref, out
+
+    tower = init_siglip(cfg, torch.Generator(device=dev).manual_seed(SEED + 131), device=dev,
+                        dtype=torch.bfloat16)
+    x = torch.randn(t, cfg.image_size, cfg.image_size, 3, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    counted = wrappers()
+    launches = 0
+
+    def features(tw, use_flash=True):
+        nonlocal launches
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            y = siglip_features(tw, x, cfg, use_flash=use_flash)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {name: fn.launches for name, fn in counted.items() if fn.launches}
+        if got != ({"flash_mha_short": cfg.num_effective_layers} if use_flash else {}):
+            fail(f"pad-heads tower: launches {got}")
+        launches += got.get("flash_mha_short", 0)
+        if not torch.isfinite(y).all():
+            fail("pad-heads tower: features not finite")
+        return y, wall
+
+    def layer_by_layer(padded):
+        """Each layer of both towers on the unpadded tower's input to it: the
+        worst error over bf16_tol of the layer's output (one rounding of the
+        same sums apart)."""
+        worst = 0.0
+        with torch.no_grad():
+            h = linear(tower.patch_embed, siglip_mod._patchify(x, cfg.patch_size))
+            h = h + tower.pos_embed.to(h.dtype)[None]
+            for lu, lp in zip(tower.layers[:cfg.num_effective_layers], padded.layers):
+                want = siglip_mod._encoder_layer(lu, h, cfg, True, Act8Switches())
+                got = siglip_mod._encoder_layer(lp, h, cfg, True, Act8Switches())
+                worst = max(worst, max_err(got, want.float()) / bf16_tol(want.float()))
+                h = want
+        return worst
+
+    def rel(a, b):
+        return (a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+
+    for tier in ("dense", "act8"):
+        if tier == "act8":
+            enable_act_quant(quantize_siglip_int8(tower), keys=SIGLIP_LINEAR_KEYS)
+        padded = pad_attention_heads(tower, cfg)
+        per_layer = layer_by_layer(padded)
+        features(tower)  # warm
+        base, wall = features(tower)
+        got, wall_p = features(padded)
+        plain, _ = features(tower, use_flash=False)
+        diff, noise = rel(got, base), rel(plain, base)
+        tol = max(E2E_ATOL, 2 * noise)
+        print(f"pad-heads VideoITG-8B tower {tier}, {t} frames: each layer padded vs unpadded on "
+              f"the same input, worst error / bf16_tol {per_layer:.4g} (at most 1); the "
+              f"{cfg.num_effective_layers} layers' features padded vs unpadded, max |diff| / "
+              f"max|features| {diff:.6g} (tol {tol:.6g}: the larger of {E2E_ATOL} and twice the "
+              f"unpadded tower's kernel vs plain path, {noise:.6g}); tower {wall:.4f} s "
+              f"unpadded, {wall_p:.4f} s padded; A {cfg.num_effective_layers} launches a pass "
+              f"[{card}]", flush=True)
+        if not per_layer <= 1.0:
+            fail(f"pad-heads tower {tier}: a padded layer is {per_layer} bf16_tol off")
+        if not diff <= tol:
+            fail(f"pad-heads tower {tier}: features {diff} > {tol}")
+        del padded, got, base, plain
+    del tower
+    torch.cuda.empty_cache()
+    record = dict(shape=[t, heads, s, lane], head_dim=d, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                  library_ms=library_ms, unpadded_ms=ms72, unpadded_bound_ms=bnd72["bound_ms"],
+                  **bnd)
+    return {"launches": {"flash_mha_short": launches}, "record": record}
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--train-child"]:
+        return train_child(argv[2:] if argv[1:2] == ["--"] else argv[1:])
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["attention-kernels", "int8-kernels", "train-kernels",
                                           "splash-kernels",
                                           "segment-kernels", "vlm",
                                           "serve", "train", "checkpoint", "serving-checkpoint",
-                                          "eval", "stage-b", "mesh"],
+                                          "eval", "stage-b", "mesh", "overfit", "pad-heads"],
                         default=None,
                         help="build, then only: check kernels A, B (attention-kernels), F-I "
                              "(int8-kernels), C, D, E (train-kernels), K, L (splash-kernels) "
@@ -4266,8 +4586,9 @@ def main(argv=None) -> int:
                              "the training phases (train), the causal-VLM phases (vlm), "
                              "the HF-checkpoint phase (checkpoint), the serving-checkpoint "
                              "phase (serving-checkpoint), eval stage A (eval), "
-                             "eval stage B after its stage A (stage-b) or the mesh path "
-                             "(mesh)")
+                             "eval stage B after its stage A (stage-b), the mesh path "
+                             "(mesh), the overfit trajectory with a kill and a resume "
+                             "(overfit) or kernel A on lane-padded tower heads (pad-heads)")
     args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "videoitg_tpu_torch")):
         fail("run from a checkout of the repository (videoitg_tpu_torch/ not found)")
@@ -4356,6 +4677,14 @@ def main(argv=None) -> int:
         run_mesh(dev, card)
         print("mesh phase passed", flush=True)
         return 0
+    if args.only == "overfit":
+        run_overfit(dev, card)
+        print("overfit phase passed", flush=True)
+        return 0
+    if args.only == "pad-heads":
+        run_pad_heads(dev, card)
+        print("pad-heads phase passed", flush=True)
+        return 0
     records = check_kernels(dev)
     records.update(check_train_kernels(dev))
     records.update(check_int8_kernels(dev))
@@ -4390,6 +4719,15 @@ def main(argv=None) -> int:
         launches[name] = launches.get(name, 0) + n
     for name, extra in mesh["records"].items():
         records[name]["mesh"] = extra
+    torch.cuda.empty_cache()
+    pad = run_pad_heads(dev, card)
+    launches["flash_mha_short"] += pad["launches"]["flash_mha_short"]
+    records["flash_mha_short"]["padded"] = pad["record"]
+    overfit = run_overfit(dev, card)
+    for name, n in overfit["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+        records[name]["overfit_launches"] = n
+    records["flash_train_fwd"]["overfit"] = overfit["record"]
     m1 = stage_b["act8_gemm_m1"]
     records["act8_gemm"].update(
         decode_m1=dict(per="the 7 launches of one LM layer at M = 1 (one decoded token)",

@@ -43,17 +43,25 @@ must the movement of its trainable leaves (LoRA and the scoring head, fp32:
 the L1 size and the signed sum). A batch that does not fit one card leaves
 its layouts unchecked, and says so. Each step is timed (wall, ending in a
 device sync) and printed beside rank 0's C, D and E launches; a layout that
-fails is named and the others still run. `--dtype` sets the weights' dtype (bf16 on the cards, fp32 on
-the CPU by default): the rehearsal in both shows what bf16's rounding alone
-moves between layouts, where fp32 layouts agree to rounding.
+fails is named and the others still run. `--dtype` sets the weights' dtype (bf16 on the
+cards, fp32 on the CPU by default): the rehearsal in both shows what bf16's rounding
+alone moves between layouts, where fp32 layouts agree to rounding. The limit is
+E2E_ATOL for every layout and dtype: tp sums its partials as GSPMD does on the JAX
+package's CPU mesh (bf16 partial products rounded once, summed in fp32; a row-parallel
+adapter's x @ a summed before @ b; parallel/tensor.py), and the bf16 rehearsal
+(`--train --cpu 4 --preset dryrun --dtype bfloat16`) then moves tp4 by 0.28% and
+dp2 x tp2 by 0.15% after the first update, where rounding each rank's partial adapter
+delta into its bf16 partial product moved them by 6.88% and 2.09%.
+tests/test_torch_parallel_train_tp_bf16.py holds both packages' bf16 tp gaps side
+by side.
 
 `--train` on one device, where no layout fits, runs the no-mesh steps of
-batch 1 and a witness that needs no second card: the same steps again with the linears that tp splits
-computed as tp = 1, 2 and 4 ranks round them (a column-parallel linear in n
-column blocks, so autograd sums n partial input gradients in the input's
-dtype; a row-parallel one as n partial products, each rounded to the
-output's dtype and summed in it), each beside the plain steps. tp = 1 must
-equal the plain steps bit for bit.
+batch 1 and a witness that needs no second card: the same steps again with the linears
+that tp splits computed as tp = 1, 2 and 4 ranks compute them (a column-parallel linear
+in n column blocks whose n partial input gradients are summed in fp32; a row-parallel
+one as n partial products, each rounded to the output's dtype and summed in fp32, the
+adapter's x @ a summed over the n row blocks before @ b), each beside the plain steps.
+tp = 1 must equal the plain steps bit for bit.
 """
 
 from __future__ import annotations
@@ -65,6 +73,8 @@ import socket
 import subprocess
 import sys
 import time
+
+import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 E2E_ATOL = 2e-2
@@ -355,34 +365,48 @@ def _steps(model, cfg, batch, hw, use_flash, dev, start, mesh=None):
 
 def _rounded_linear(p, x, act8=None):
     """A linear marked by `_tp_rounding`, on one device, rounded as its
-    `tp.size` ranks round it (no collective)."""
-    import torch
-
-    from videoitg_tpu_torch.parallel.tensor import _lora
+    `tp.size` ranks round it (no collective): a row-parallel one as n partial
+    products, each rounded to the output's dtype and summed in fp32, the
+    adapter's x @ a summed over the n row blocks before @ b; a
+    column-parallel one in n column blocks whose n partial input gradients
+    are summed in fp32 (parallel/tensor.py)."""
+    from videoitg_tpu_torch.parallel.tensor import _lora, _lora_tail
 
     n = p.tp.size
     if p.tp.kind == "row":
         step = p.w.shape[0] // n
-        y = None
-        for r in range(n):
-            rows = slice(r * step, (r + 1) * step)
-            part = x[..., rows] @ p.w[rows]
-            if p.lora_a is not None:
-                part = part + _lora(p, x[..., rows], p.lora_a[rows], p.lora_b).to(part.dtype)
-            y = part if y is None else y + part
+        rows = [slice(r * step, (r + 1) * step) for r in range(n)]
+        y = sum((x[..., r] @ p.w[r]).float() for r in rows).to(x.dtype)
+        if p.lora_a is not None:
+            h = sum(x[..., r].to(p.lora_a.dtype) @ p.lora_a[r] for r in rows)
+            y = y + _lora_tail(h, p.lora_b, p.lora_scale).to(y.dtype)
     else:
         step = p.w.shape[1] // n
         parts = []
-        for r in range(n):
+        # tp = 1 splits nothing: x as it is, its gradients accumulated as with no mesh
+        for r, xr in enumerate((x,) if n == 1 else _Replicas.apply(x, n)):
             cols = slice(r * step, (r + 1) * step)
-            part = x @ p.w[:, cols]
+            part = xr @ p.w[:, cols]
             if p.lora_a is not None:
-                part = part + _lora(p, x, p.lora_a, p.lora_b[:, cols]).to(part.dtype)
+                part = part + _lora(xr, p.lora_a, p.lora_b[:, cols], p.lora_scale).to(part.dtype)
             parts.append(part)
         y = torch.cat(parts, dim=-1)
     if p.b is not None:
         y = y + p.b
     return y
+
+
+class _Replicas(torch.autograd.Function):
+    """n views of x whose gradients are summed in fp32 (`copy_to_tp`'s
+    backward over n ranks)."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        return tuple(x.view_as(x) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return sum(g.float() for g in grads).to(grads[0].dtype), None
 
 
 class _tp_rounding:

@@ -309,14 +309,14 @@ def adapter_job(data_root, docs, base):
 # ---- training on a mesh (tests/test_torch_parallel_train*.py) ----
 
 
-def train_cfg(objective="grounding", layers=4):
-    """The port's preset("tiny") with `layers` LM layers; the causal VLM with
-    tied embeddings for objective "vlm"."""
+def train_cfg(objective="grounding", layers=4, name="tiny"):
+    """The port's preset `name` ("tiny" by default) with `layers` LM layers;
+    the causal VLM with tied embeddings for objective "vlm"."""
     import dataclasses
 
-    from videoitg_tpu_torch.config import GroundingConfig
+    from videoitg_tpu_torch.config import preset
 
-    cfg = GroundingConfig.tiny()
+    cfg = preset(name)
     lm = dataclasses.replace(cfg.lm, num_layers=layers)
     if objective == "vlm":
         lm = dataclasses.replace(lm, causal=True, tie_word_embeddings=True)
@@ -367,20 +367,29 @@ HW = 2
 VLM_PAD = dict(max_pre=4, max_post=6)
 
 
-def port_batch(cfg, spec, t_bucket=T_BUCKET):
+def port_batch(cfg, spec, t_bucket=T_BUCKET, dtype=torch.float32):
     """The port's batch of a layout's batch spec (objective, seed, form, kw)."""
     objective, seed, form, kw = spec
     if objective == "vlm":
         from videoitg_tpu_torch.train.vlm_sft import VLMSample, collate_vlm
 
         return collate_vlm([VLMSample(*x) for x in vlm_samples(seed, **kw)], t_bucket=2,
-                           cfg=cfg, dtype=torch.float32, **VLM_PAD)
+                           cfg=cfg, dtype=dtype, **VLM_PAD)
     from videoitg_tpu_torch.train.collate import collate_grounding
     from videoitg_tpu_torch.train.dataset import GroundingSample
 
     samples = [GroundingSample(fr, ids, lab, "v") for fr, ids, lab
                in grounding_samples(cfg, seed, form, **kw)]
-    return collate_grounding(samples, t_bucket, cfg, dtype=torch.float32)
+    return collate_grounding(samples, t_bucket, cfg, dtype=dtype)
+
+
+def bf16_base(model):
+    """The model's frozen-base leaves in bf16, its LoRA leaves as they are
+    (fp32): the train CLI's LoRA run on the card."""
+    for name, p in model.named_parameters():
+        if p.is_floating_point() and ".lora_" not in f".{name}":
+            p.data = p.data.to(torch.bfloat16)
+    return model
 
 
 # Optimizer settings shared with the JAX reference: lr 0 at update 0, then
@@ -404,7 +413,7 @@ def train_layout(mesh, model, cfg, layout, steps=2):
     local = sharding.shard_model(model, specs, shape, coords, tp_group=tp_group)
     make_opt = (lora.make_lora_optimizer if layout["opt"] == "lora"
                 else optimizer.make_grounding_optimizer)
-    tx = make_opt(local, **TRAIN_OPT)
+    tx = make_opt(local, **layout.get("opt_kw", TRAIN_OPT))
     seen = []
     apply = tx.apply
 
@@ -419,7 +428,8 @@ def train_layout(mesh, model, cfg, layout, steps=2):
                    use_flash=layout.get("use_flash", False), remat=True)
     start = {n: t.detach().clone() for n, t in local.state_dict().items()}
     state = train_step.create_train_state(local, tx)
-    batch = port_batch(cfg, layout["batch"], layout.get("t_bucket", T_BUCKET))
+    batch = port_batch(cfg, layout["batch"], layout.get("t_bucket", T_BUCKET),
+                       getattr(torch, layout.get("dtype", "float32")))
     metrics = []
     for _ in range(steps):
         state, m = train_step.run_step(step_fn, state, batch, mesh=mesh,
@@ -428,16 +438,18 @@ def train_layout(mesh, model, cfg, layout, steps=2):
     names = tx.trainable_names()
     sd = local.state_dict()
     return {"shape": shape, "coords": coords, "metrics": metrics,
-            "leaves": {n: sd[n].numpy() for n in names},
-            "grads": {n: g.numpy() for n, g in zip(names, seen)},
+            "leaves": {n: sd[n].float().numpy() for n in names},
+            "grads": {n: g.float().numpy() for n, g in zip(names, seen)},
             "frozen": sorted(n for n in sd if n not in names and not torch.equal(sd[n], start[n]))}
 
 
 def train_job(tree_paths, layouts):
     """Every layout of `layouts` ({"name", "mesh": make_mesh kwargs, "ranks",
     "tree": key of tree_paths, "opt", "batch", "use_flash", "microbatches",
-    "hw", "t_bucket"})
-    on the ranks it names: {name: train_layout(...)}."""
+    "hw", "t_bucket", "dtype" ("bfloat16": `bf16_base`, the batch in bf16),
+    "steps", "preset" (of `train_cfg`), "opt_kw" (the optimizer's, else
+    TRAIN_OPT)}) on the ranks it names:
+    {name: train_layout(...)}."""
     from videoitg_tpu_torch.checkpoint import params_from_numpy
     from videoitg_tpu_torch.parallel.mesh import make_mesh
 
@@ -446,10 +458,13 @@ def train_job(tree_paths, layouts):
         mesh = make_mesh(ranks=layout.get("ranks"), **layout["mesh"])
         if not _in(mesh):
             continue
-        cfg = train_cfg(layout["batch"][0])
+        cfg = train_cfg(layout["batch"][0], name=layout.get("preset", "tiny"))
         with open(tree_paths[layout["tree"]], "rb") as f:
             model = params_from_numpy(pickle.load(f), cfg)
-        out[layout["name"]] = train_layout(mesh, model, cfg, layout)
+        if layout.get("dtype") == "bfloat16":
+            bf16_base(model)
+        out[layout["name"]] = train_layout(mesh, model, cfg, layout,
+                                           steps=layout.get("steps", 2))
     return out
 
 

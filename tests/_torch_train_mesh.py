@@ -54,9 +54,11 @@ def jax_cfg(objective="grounding", layers=4):
     return dataclasses.replace(cfg, lm=lm)
 
 
-def jax_tree(objective="grounding", opt="full", quant=None, seed=0):
+def jax_tree(objective="grounding", opt="full", quant=None, seed=0, trained_b=False):
     """The starting JAX params: init_grounding, int8 base with `quant`,
-    LoRA r4 with opt "lora"."""
+    LoRA r4 with opt "lora". `trained_b`: every lora_b drawn from N(0, 0.02^2)
+    instead of zeros, as after some training, so the scales and the b leaves
+    get gradients at the first step."""
     params = jax_init_grounding(jax.random.PRNGKey(seed), jax_cfg(objective), dtype=jnp.float32)
     if quant == "int8":
         from videoitg_tpu.ops.quant import quantize_grounding_int8
@@ -64,6 +66,11 @@ def jax_tree(objective="grounding", opt="full", quant=None, seed=0):
         params = quantize_grounding_int8(params)
     if opt == "lora":
         params = jax_lora.add_lora(params, jax.random.PRNGKey(seed + 1), rank=4)
+    if trained_b:
+        keys = iter(jax.random.split(jax.random.PRNGKey(seed + 2), 64))
+        params = jax.tree_util.tree_map_with_path(
+            lambda path, x: 0.02 * jax.random.normal(next(keys), x.shape, x.dtype)
+            if str(getattr(path[-1], "key", "")) == "lora_b" else x, params)
     return params
 
 
@@ -151,20 +158,27 @@ def jax_reference(layout, params, steps=2):
     batch = jax_batch(layout["batch"], layout.get("t_bucket", T_BUCKET))
     whole = jax.tree.map(jnp.asarray, batch)
     batch = jax.tree.map(lambda a: jax.device_put(a, batch_sharding(mesh)), batch)
-    metrics, grads = [], []
+    metrics, grads, before = [], [], None
     for _ in range(steps):
-        grads.append(no_mesh_grads(objective, jax.tree.map(np.asarray, state.params), whole,
-                                   layout.get("hw", HW)))
+        now = jax.tree.map(np.asarray, state.params)
+        if before is not None and all(np.array_equal(a, b) for a, b in
+                                      zip(jax.tree.leaves(now), jax.tree.leaves(before))):
+            grads.append(grads[-1])  # an update at learning rate 0 moved nothing
+        else:
+            grads.append(no_mesh_grads(objective, now, whole, layout.get("hw", HW)))
+        before = now
         state, m = jax_train_step.run_step(step, state, batch, mesh=mesh,
                                            microbatches=layout.get("microbatches"))
         metrics.append({k: float(v) for k, v in m.items()})
     return metrics, grads, jax.tree.map(np.asarray, state.params), params
 
 
-def port_local(tree, objective, shape, coords):
+def port_local(tree, objective, shape, coords, model=None):
     """{name: tensor} of the port rank at `coords` holding `tree` (params or
-    gradients in the JAX layout) sliced as `shard_model` slices it."""
-    model = params_from_numpy(tree, train_cfg(objective))
+    gradients in the JAX layout; `model`, the port model of it, when already
+    built) sliced as `shard_model` slices it."""
+    if model is None:
+        model = params_from_numpy(tree, train_cfg(objective))
     specs = sharding.grounding_param_specs(pp=shape.get("pp", 1) > 1)
     return sharding.shard_model(model, specs, shape, coords).state_dict()
 
@@ -204,16 +218,23 @@ def check_layout(layout, ranks, reference, ranks_expected):
     metrics, grads, final, _ = reference
     objective = layout["batch"][0]
     assert len(ranks) == ranks_expected
+    # the same for every rank, so computed once (and once for gradients a step reused)
+    norms = {}
+    for g in grads:
+        if id(g) not in norms:
+            norms[id(g)] = trainable_norm(g, layout)
+    whole_grads, whole_final = (params_from_numpy(t, train_cfg(objective))
+                                for t in (grads[0], final))
     for r in ranks:
         for i, (got, want) in enumerate(zip(r["metrics"], metrics)):
             np.testing.assert_allclose(got["loss"], want["loss"], rtol=LOSS_RTOL,
                                        err_msg=f"step {i}")
             if "pos_weight" in want:
                 np.testing.assert_allclose(got["pos_weight"], want["pos_weight"], rtol=1e-6)
-            np.testing.assert_allclose(got["grad_norm"], trainable_norm(grads[i], layout),
-                                       rtol=1e-4, err_msg=f"step {i}")
-        want_grads = port_local(grads[0], objective, r["shape"], r["coords"])
-        want_leaves = port_local(final, objective, r["shape"], r["coords"])
+            np.testing.assert_allclose(got["grad_norm"], norms[id(grads[i])], rtol=1e-4,
+                                       err_msg=f"step {i}")
+        want_grads = port_local(grads[0], objective, r["shape"], r["coords"], whole_grads)
+        want_leaves = port_local(final, objective, r["shape"], r["coords"], whole_final)
         assert r["leaves"] and set(r["leaves"]) == set(r["grads"])
         for name, g in r["grads"].items():
             np.testing.assert_allclose(g, want_grads[name].numpy(), atol=LEAF_ATOL, rtol=1e-4,

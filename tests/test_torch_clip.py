@@ -13,6 +13,7 @@ tests/test_torch_fused_encoder.py's `_tol`.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -72,9 +73,11 @@ def _hf_clip():
     return model
 
 
+@functools.lru_cache(maxsize=None)
 def _spliced_checkpoint(ptype="seq_mlp"):
     """(numpy HF state dict, HF CLIP model): a JAX-exported tiny grounding
-    checkpoint with its tower replaced by the CLIP model's."""
+    checkpoint with its tower replaced by the CLIP model's. Built once and
+    shared: the tests only read both."""
     base = JaxConfig.tiny()
     jcfg = dataclasses.replace(base, projector=dataclasses.replace(base.projector,
                                                                     projector_type=ptype))

@@ -245,7 +245,8 @@ def test_no_source_line_imports_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(from|import) +(jax|videoitg_tpu)(\.|\s|$)")
     paths = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "scripts", "torch_repro_kernels.py"),
-             os.path.join(REPO, "scripts", "torch_profile_request.py")]
+             os.path.join(REPO, "scripts", "torch_profile_request.py"),
+             os.path.join(REPO, "scripts", "train", "torch_overfit_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "videoitg_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     hits = []
@@ -253,6 +254,33 @@ def test_no_source_line_imports_jax_or_the_jax_package():
         with open(path) as f:
             hits += [f"{path}:{i}" for i, line in enumerate(f, 1) if pattern.match(line)]
     assert len(paths) > 20 and not hits, hits
+
+
+def test_overfit_script_loads_no_jax(tmp_path):
+    """scripts/train/torch_overfit_smoke.py and every module its functions
+    import, loaded in a fresh interpreter with no compiler on the path:
+    neither jax nor `videoitg_tpu` comes with them, and nothing is built."""
+    script = os.path.join(REPO, "scripts", "train", "torch_overfit_smoke.py")
+    code = (
+        "import importlib.util, json, sys\n"
+        f"spec = importlib.util.spec_from_file_location('overfit', {script!r})\n"
+        "mod = importlib.util.module_from_spec(spec); spec.loader.exec_module(mod)\n"
+        "args = mod.build_parser().parse_args(['--cpu'])\n"
+        "cmd = mod.train_cmd('w', 'd.json', 'o', 4, 1e-4, 2, lora=4, cpu=True)\n"
+        "assert cmd[:3] == [sys.executable, '-m', 'videoitg_tpu_torch.cli.train'], cmd\n"
+        "for m in ('videoitg_tpu_torch.cli.train', 'videoitg_tpu_torch.cli._model_loading',\n"
+        "          'videoitg_tpu_torch.engine', 'videoitg_tpu_torch.train.checkpointing',\n"
+        "          'videoitg_tpu_torch.train.lora', 'videoitg_tpu_torch.train.optimizer',\n"
+        "          'videoitg_tpu_torch.data.video', 'videoitg_tpu_torch.utils.common'):\n"
+        "    importlib.import_module(m)\n"
+        "from videoitg_tpu_torch.ops import _build\n"
+        "foreign = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'videoitg_tpu'))\n"
+        "print(json.dumps({'foreign': foreign, 'built': _build._lib is not None}))\n")
+    proc = _run(code, VIDEOITG_NVCC=str(tmp_path / "no-nvcc"), PATH="/usr/bin:/bin",
+                VIDEOITG_TORCH_BUILD_DIR=str(tmp_path / "build"))
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"foreign": [], "built": False}
 
 
 def test_cli_runs_as_a_module(tmp_path):

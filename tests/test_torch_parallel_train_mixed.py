@@ -1,9 +1,11 @@
 """Training steps of the port on meshes that mix axes, over gloo ranks,
 against the JAX package's `run_step` on the same layout of its virtual mesh,
 held as in tests/test_torch_parallel_train_dp_tp.py
-(tests/_torch_train_mesh.py): dp2 x tp2 with LoRA r4 (replicated adapters
-used on a slice: their gradients are summed over tp), and pp2 x dp2 x tp2 as
-a full finetune on frames (tests/test_pipeline.py's layout and geometry; the
+(tests/_torch_train_mesh.py): dp2 x tp2 with LoRA r4 whose b leaves start
+away from zero, so every adapter leaf, the scales included, has a gradient
+at the first step (replicated adapters used on a slice: their gradients are
+summed over tp; a row-parallel adapter's x @ a is summed before @ b), and
+pp2 x dp2 x tp2 as a full finetune on frames (tests/test_pipeline.py's layout and geometry; the
 frozen tower runs its tp slices in the step). One world of 8 ranks, spawned
 once.
 """
@@ -28,7 +30,7 @@ RANKS = {"dp2-tp2-lora": 4, "pp2-dp2-tp2": 8}
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
-    trees = {"full": jax_tree(), "lora": jax_tree(opt="lora")}
+    trees = {"full": jax_tree(), "lora": jax_tree(opt="lora", trained_b=True)}
     return run_layouts(tmp_path_factory.mktemp("train_mixed"), 8, trees, LAYOUTS)
 
 

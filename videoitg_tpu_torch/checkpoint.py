@@ -184,8 +184,9 @@ def _assemble(leaves: Mapping[str, object], cfg: GroundingConfig, device,
     if wanted != set(state):
         raise KeyError(f"params tree does not match the model: missing "
                        f"{sorted(wanted - set(state))}, unexpected {sorted(set(state) - wanted)}")
-    model.load_state_dict({key: _take(src, layer, device, dtype)
-                           for key, (src, layer) in state.items()}, strict=False, assign=True)
+    tensors = {key: _take(src, layer, device, dtype) for key, (src, layer) in state.items()}
+    _fit_padded_heads(model, tensors)
+    model.load_state_dict(tensors, strict=False, assign=True)
     for parent, group in adapters.items():
         if set(group) != set(LORA_KEYS):
             raise KeyError(f"{parent}: a LoRA adapter holds {LORA_KEYS}, got {sorted(group)}")
@@ -193,6 +194,22 @@ def _assemble(leaves: Mapping[str, object], cfg: GroundingConfig, device,
             set_lora(model.get_submodule(lin_path),
                      *(_take(group[key], layer, device) for key in LORA_KEYS))
     return model
+
+
+_PADDED_HEADS = re.compile(r"^vision\.layers\.\d+\.(q|k|v|o)\.(w|b)$")
+
+
+def _fit_padded_heads(model: GroundingModel, tensors: Mapping[str, torch.Tensor]) -> None:
+    """A tower whose heads `models/siglip.pad_attention_heads` widened has
+    wider q, k, v (columns) and o (rows) leaves than the config gives: the
+    model's meta leaves take the tree's shapes before the load assigns them."""
+    for key, t in tensors.items():
+        if _PADDED_HEADS.match(key):
+            path, _, leaf = key.rpartition(".")
+            lin = model.get_submodule(path)
+            if getattr(lin, leaf).shape != t.shape:
+                setattr(lin, leaf, torch.nn.Parameter(torch.empty(t.shape, device="meta"),
+                                                      requires_grad=False))
 
 
 def params_from_numpy(tree: dict, cfg: GroundingConfig, device=None,

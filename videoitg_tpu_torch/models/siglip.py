@@ -9,7 +9,8 @@ the (kh, kw, c) patch order of the JAX package. Under the act8 tier
 layer runs as three fused int8 kernels (ops/fused_encoder.py), never under a
 device mesh. On a tensor-parallel mesh each rank runs its 16/tp heads and its
 slice of the MLP (parallel/tensor.py). `remat=True` recomputes each layer in
-the backward pass.
+the backward pass. `pad_attention_heads` widens the heads to a lane width in
+the weights; the layer reads the per-head width from them.
 
 arch="clip" is HF CLIP's tower (e.g. LLaVA-1.5's ViT-L/14-336): a biasless
 patch embedding, a CLS token prepended before the positions (a table of
@@ -78,6 +79,62 @@ def _embedding(shape, generator: Optional[torch.Generator], *, device, dtype) ->
     return nn.Parameter(x, requires_grad=False)
 
 
+def pad_attention_heads(tower: SiglipTower, cfg: VisionConfig, lane: int = 128) -> SiglipTower:
+    """A copy of `tower` whose attention heads are zero-padded from head_dim
+    to `lane` in the weights (the JAX package's `pad_attention_heads`).
+
+    q, k and v gain zero output columns per head and o matching zero input
+    rows, so the projections produce and consume a [T, H, S, lane] layout.
+    The numbers are exact: padded q and k lanes are 0, so Q K^T over `lane`
+    equals the head_dim contraction; padded v lanes are 0 and meet o's zero
+    rows. `_encoder_layer` reads the per-head width from the weights and
+    keeps sm_scale = head_dim**-0.5. Dense `Linear`s (w [in, out]) and int8
+    `QuantLinear`s (w_qt [out, in], a per-output scale) are padded; biases
+    pad with zeros, int8 scales with ones (their rows dequantise exact
+    zeros), and the `act_q` markers are kept.
+    """
+    import copy
+
+    from videoitg_tpu_torch.ops.quant import QuantLinear
+
+    h, d = cfg.num_heads, cfg.head_dim
+    if d > lane:
+        raise ValueError(f"head_dim {d} is wider than lane {lane}")
+
+    def pad_heads(a: torch.Tensor, dim: int, fill: float = 0.0) -> torch.Tensor:
+        # the `dim` axis [H*d] -> [H, d] -> [H, lane] -> [H*lane]
+        a = a.movedim(dim, -1)
+        lead = a.shape[:-1]
+        x = a.reshape(*lead, h, d)
+        x = torch.cat([x, x.new_full((*lead, h, lane - d), fill)], dim=-1)
+        return x.reshape(*lead, h * lane).movedim(-1, dim).contiguous()
+
+    def param(t: torch.Tensor) -> nn.Parameter:
+        return nn.Parameter(t, requires_grad=False)
+
+    out = copy.deepcopy(tower)
+    for layer in out.layers:
+        for lin in (layer.q, layer.k, layer.v, layer.o):
+            if getattr(lin, "lora_a", None) is not None or getattr(lin, "tp", None) is not None:
+                raise ValueError("pad_attention_heads takes a whole tower with no adapters")
+            if isinstance(lin, QuantLinear) and lin.bits != 8:
+                raise ValueError("pad_attention_heads pads dense and int8 linears only")
+        for lin in (layer.q, layer.k, layer.v):  # zero output columns per head
+            if isinstance(lin, QuantLinear):
+                lin.w_qt = pad_heads(lin.w_qt, 0)
+                lin.scale = pad_heads(lin.scale, 0, fill=1.0)
+            else:
+                lin.w = param(pad_heads(lin.w.data, 1))
+            if lin.b is not None:
+                lin.b = param(pad_heads(lin.b.data, 0))
+        o = layer.o  # zero input rows per head
+        if isinstance(o, QuantLinear):
+            o.w_qt = pad_heads(o.w_qt, 1)
+        else:
+            o.w = param(pad_heads(o.w.data, 0))
+    return out
+
+
 def _patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
     """NHWC [T, H, W, C] -> [T, (H//p)*(W//p), p*p*C], cropping to (H//p)*p
     like a stride-p valid conv; patch vectors in (kh, kw, c) order."""
@@ -127,10 +184,13 @@ def _encoder_layer(p: SiglipLayer, x: torch.Tensor, cfg: VisionConfig,
             and p.q.out_features == x.shape[-1] and current_attention_mesh() is None):
         return _encoder_layer_fused(p, x, cfg)
     t, n, h = x.shape
-    d = cfg.head_dim
     y = layer_norm(p.ln1, x, cfg.layer_norm_eps)
     q, k, v = fused_qkv(p.q, p.k, p.v, y, act8)
-    heads = q.shape[-1] // d  # a tensor-parallel rank's own heads
+    tp = getattr(p.q, "tp", None)
+    heads = cfg.num_heads // (tp.size if tp is not None else 1)  # a tp rank's own heads
+    # The per-head width from the weights: head_dim, or the lane of
+    # `pad_attention_heads` (zero columns per head); the scale stays head_dim's.
+    d = q.shape[-1] // heads
     # [T, P, H*D] -> [T, H, P, D], contiguous for the kernel.
     q, k, v = (a.reshape(t, n, heads, d).transpose(1, 2).contiguous() for a in (q, k, v))
     attn = mha(q, k, v, valid=None, causal=False, use_flash=use_flash,

@@ -10,18 +10,21 @@ its slice and says what it needs:
   patch embedding) gathers them over tp.
 * row-parallel (o, down, the tower's fc2, the projector's fc2): the local
   input features give a partial product, summed over tp by one all-reduce;
-  the replicated bias is added once, after the sum. Under the act8 tier the
-  row's int8 scale comes from the amax of the WHOLE row (an all-reduce MAX
-  over tp before quantising), as GSPMD makes the JAX package's amax global;
-  kernel F takes that scale as given. A packed-int4 row-parallel weight
-  holds this rank's input rows, repacked (parallel/sharding.py), so it
-  takes the local features as they are.
+  the replicated bias is added once, after the sum. Every sum over tp runs
+  in fp32 over the partials as rounded to their dtype, then rounds once, as
+  GSPMD's all-reduce of a bf16 partial product does on the JAX package's
+  CPU mesh. Under the act8 tier the row's int8 scale comes from the amax of
+  the WHOLE row (an all-reduce MAX over tp before quantising), as GSPMD makes
+  the JAX package's amax global; kernel F takes that scale as given. A
+  packed-int4 row-parallel weight holds this rank's input rows, repacked
+  (parallel/sharding.py), so it takes the local features as they are.
 * the vocab-sharded embedding: a masked local gather, then a sum over tp;
   exact, as one rank contributes each row.
 
 LoRA leaves stay replicated: a column-parallel linear applies its adapter's
-output columns, a row-parallel one its input rows (a partial delta, summed
-with the product).
+output columns, a row-parallel one its input rows: x @ a over the local rows
+is summed over tp (rank r wide), then multiplied by b and the scale and added
+to the summed product, as GSPMD orders it.
 
 Under autograd each collective has its backward written out (the JAX
 package has GSPMD transpose them):
@@ -34,9 +37,10 @@ package has GSPMD transpose them):
   loss downstream, so its cotangent is already whole; the backward of
   `torch.distributed.nn.functional.all_reduce` would sum it again and give
   tp times the gradient;
-* a replicated LoRA leaf used on a slice gets a partial gradient on each
-  rank: `copy_to_tp` on the leaf sums it over tp, so every rank holds the
-  whole gradient;
+* a replicated LoRA leaf used on a slice (a, b and the scale of a
+  column-parallel linear, a of a row-parallel one) gets a partial gradient
+  on each rank: `copy_to_tp` on the leaf sums it over tp, so every rank
+  holds the whole gradient;
 * a gathered column-parallel output: all-gather forward, this rank's slice
   of the cotangent backward (`gather_from_tp`).
 
@@ -53,6 +57,16 @@ def _grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def _sum_over_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of x over tp in fp32 at least, in x's dtype: each rank's
+    partial is rounded to its dtype once, the sum is not (as GSPMD sums a
+    bf16 partial product: an fp32 all-reduce of the rounded partials)."""
+    y = x.to(torch.promote_types(x.dtype, torch.float32), memory_format=torch.contiguous_format,
+             copy=True)
+    dist.all_reduce(y, group=group)
+    return y.to(x.dtype)
+
+
 class _CopyToTP(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -61,17 +75,13 @@ class _CopyToTP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return _sum_over_tp(g, ctx.group), None
 
 
 class _ReduceFromTP(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y, group=group)
-        return y
+        return _sum_over_tp(x, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -98,11 +108,11 @@ def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
 
 
 def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of x over tp; under autograd the cotangent passes unchanged."""
+    """The sum of x over tp (`_sum_over_tp`); under autograd the cotangent
+    passes unchanged."""
     if _grad(x):
         return _ReduceFromTP.apply(x, group)
-    dist.all_reduce(x, group=group)
-    return x
+    return _sum_over_tp(x, group)
 
 
 def gather_from_tp(x: torch.Tensor, group, rank: int) -> torch.Tensor:
@@ -115,9 +125,14 @@ def gather_from_tp(x: torch.Tensor, group, rank: int) -> torch.Tensor:
     return all_gather_cat(x, group, dim=-1)
 
 
-def _lora(p, x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    delta = (x.to(a.dtype) @ a) @ b
-    return delta * p.lora_scale.to(delta.dtype)
+def _lora(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor
+          ) -> torch.Tensor:
+    return _lora_tail(x.to(a.dtype) @ a, b, scale)
+
+
+def _lora_tail(h: torch.Tensor, b: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The adapter's delta from h = x @ a."""
+    return (h @ b) * scale.to(h.dtype)
 
 
 def _part(t, n: int) -> slice:
@@ -149,14 +164,15 @@ def _global_row_scale(x: torch.Tensor, group) -> torch.Tensor:
 def tp_linear(p, x: torch.Tensor, act8=None) -> torch.Tensor:
     """`models/common.linear` for a linear marked with a TPShard."""
     t = p.tp
-    lora_a = lora_b = None
-    if p.lora_a is not None:
-        lora_a, lora_b = copy_to_tp(p.lora_a, t.group), copy_to_tp(p.lora_b, t.group)
     if t.kind in ("col", "col_gather"):
         x = copy_to_tp(x, t.group)
         y = _product(p, x, act8)
-        if lora_a is not None:
-            y = y + _lora(p, x, lora_a, lora_b[:, _part(t, lora_b.shape[1])]).to(y.dtype)
+        if p.lora_a is not None:
+            # each rank's output columns: a, b's columns and the scale each get a
+            # partial gradient, summed over tp
+            a, b, scale = (copy_to_tp(leaf, t.group) for leaf in (p.lora_a, p.lora_b,
+                                                                   p.lora_scale))
+            y = y + _lora(x, a, b[:, _part(t, b.shape[1])], scale).to(y.dtype)
         if p.b is not None:
             y = y + p.b
         if t.kind == "col_gather":
@@ -167,10 +183,15 @@ def tp_linear(p, x: torch.Tensor, act8=None) -> torch.Tensor:
     x_scale = None
     if getattr(p, "act_q", False):
         x_scale = _global_row_scale(x, t.group)
-    y = _product(p, x, act8, x_scale=x_scale)
-    if lora_a is not None:
-        y = y + _lora(p, x, lora_a[_part(t, lora_a.shape[0])], lora_b).to(y.dtype)
-    y = reduce_from_tp(y, t.group)
+    y = reduce_from_tp(_product(p, x, act8, x_scale=x_scale), t.group)
+    if p.lora_a is not None:
+        # as GSPMD has it: x @ a over this rank's rows, summed over tp (r wide,
+        # fp32), then @ b, added to the summed product as with no mesh. a's
+        # rows get their gradient on one rank each (summed over tp); b and the
+        # scale meet the whole sum, so every rank has their whole gradient.
+        a = copy_to_tp(p.lora_a, t.group)
+        h = reduce_from_tp(x.to(a.dtype) @ a[_part(t, a.shape[0])], t.group)
+        y = y + _lora_tail(h, p.lora_b, p.lora_scale).to(y.dtype)
     if p.b is not None:
         y = y + p.b
     return y

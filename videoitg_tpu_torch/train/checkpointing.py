@@ -161,7 +161,12 @@ class TrainCheckpointer:
         if not force and (self.save_interval <= 0 or step % self.save_interval != 0):
             return False
         final = os.path.join(self.directory, str(step))
-        if os.path.exists(os.path.join(final, _FILE)):
+        written = os.path.exists(os.path.join(final, _FILE))
+        if self.mesh is not None:
+            # every rank looks before any rank writes, so all take the same branch
+            # (a rank that saw the writer's file would skip the collectives below)
+            _mesh_barrier(self.mesh)
+        if written:
             return False
         layout = _Layout(state.model, self.mesh, self.specs)
         payload = {"step": int(state.step),
