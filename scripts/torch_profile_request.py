@@ -28,6 +28,15 @@ summed device time of its kernels, the idle share (1 - device / wall), the
 device time by group (the port's own kernels by name, library GEMMs, copies,
 all other PyTorch kernels) and the largest single kernels, each line with
 the card's name and power limit. Writes the same as JSON under chiprun_out/.
+
+A request is also traced by the port's own spans (utils/profiling.py), which
+record while the profiler does: the script prints each stage's device ms
+split into its `linear` and `attention` spans and the rest (self time), the
+linear spans' share of the bf16 or int8 peak, and every idle gap of the
+device put down to the innermost span open on the host when the gap began.
+The spans' host stamps and the profiler's events share one clock; probes
+before the unit (`record_function` ranges between two `time.time_ns()`
+reads) bound the offset between the two, printed in microseconds.
 """
 
 from __future__ import annotations
@@ -67,6 +76,100 @@ GROUPS = (
 )
 # Rows of the tracer's own bookkeeping: no work of the request.
 TRACER_ROWS = ("Command Buffer Full", "Activity Buffer Request")
+PROBE = "clock_probe_"
+PEAK = {"bf16": 989e12, "int8": 1979e12}  # one H100 SXM, dense, at 700 W
+
+
+def _ns(evt, what: str) -> int:
+    fn = getattr(evt, f"{what}_ns", None)
+    return int(fn()) if fn is not None else int(getattr(evt, f"{what}_us")() * 1000)
+
+
+def clock_probes(n: int = 64):
+    """(host stamp before, host stamp inside) of n record_function probes."""
+    from torch.profiler import record_function
+
+    stamps = []
+    for i in range(n):
+        t0 = time.time_ns()
+        with record_function(f"{PROBE}{i}"):
+            t1 = time.time_ns()
+        stamps.append((t0, t1))
+    return stamps
+
+
+def clock_offset_us(events, stamps):
+    """Bounds on (profiler clock - time.time_ns), median over the probes: a
+    probe's profiler start lies between its two host stamps on one clock."""
+    import statistics
+
+    starts = {e.name(): _ns(e, "start") for e in events if e.name().startswith(PROBE)}
+    lo, hi = [], []
+    for i, (t0, t1) in enumerate(stamps):
+        s = starts.get(f"{PROBE}{i}")
+        if s is not None:
+            lo.append((s - t1) / 1e3)
+            hi.append((s - t0) / 1e3)
+    return (statistics.median(lo), statistics.median(hi)) if lo else None
+
+
+def span_path(span, by_id) -> str:
+    """The span's names from below the request down to it: 'tower/linear'."""
+    names = []
+    while span is not None and span.parent is not None:
+        names.append(span.name)
+        span = by_id[(span.request, span.parent)]
+    return "/".join(reversed(names)) or "request"
+
+
+def idle_by_span(device, spans, t0: int, t1: int):
+    """Idle gaps of the device inside [t0, t1] (host ns), by the innermost
+    program span open on the host at each gap's start: {path: [s, gaps]}."""
+    busy = []
+    for s, e in sorted((max(s, t0), min(e, t1)) for s, e in device if min(e, t1) > max(s, t0)):
+        if busy and s <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], e)
+        else:
+            busy.append([s, e])
+    edges = [t0] + [t for iv in busy for t in iv] + [t1]
+    by_id = {(sp.request, sp.id): sp for sp in spans}
+    out = {}
+    for gs, ge in zip(edges[0::2], edges[1::2]):
+        if ge <= gs:
+            continue
+        inner = None
+        for sp in spans:
+            if sp.start_ns <= gs < sp.end_ns and (inner is None or sp.start_ns >= inner.start_ns):
+                inner = sp
+        key = span_path(inner, by_id) if inner is not None else "no span"
+        row = out.setdefault(key, [0.0, 0])
+        row[0] += (ge - gs) / 1e9
+        row[1] += 1
+    return out
+
+
+def stage_table(spans):
+    """Per stage: device ms, its linear and attention children's ms, the rest
+    (self time), and the linear children's least time / their time."""
+    from videoitg_tpu_torch.utils.profiling import self_ms
+
+    rows = {}
+    for st in spans:
+        if st.parent != 0 or st.device_ms is None:
+            continue
+        kids = [k for k in spans if k.request == st.request and k.parent == st.id]
+        row = rows.setdefault(st.name, dict(n=0, device_ms=0.0, linear_ms=0.0,
+                                             attention_ms=0.0, rest_ms=0.0, least_ms=0.0))
+        row["n"] += 1
+        row["device_ms"] += st.device_ms
+        row["rest_ms"] += self_ms(spans, st)
+        for k in kids:
+            if k.name == "linear":
+                row["linear_ms"] += k.device_ms
+                row["least_ms"] += 1e3 * k.args["ops"] / PEAK[k.args["kind"]]
+            elif k.name == "attention":
+                row["attention_ms"] += k.device_ms
+    return rows
 
 
 def group_of(name: str) -> str:
@@ -226,15 +329,22 @@ def main(argv=None) -> int:
             def unit():
                 engine.select(frames, sampled, "What is the person holding?")
 
+    from videoitg_tpu_torch.utils import profiling
+
     for _ in range(2):
         unit()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        stamps = clock_probes()
+        profiling.clear()
+        t0_ns = time.time_ns()
         t0 = time.perf_counter()
         unit()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        t1_ns = time.time_ns()
+    spans = profiling.read().spans
 
     groups: dict[str, float] = {}
     counts: dict[str, int] = {}
@@ -242,7 +352,8 @@ def main(argv=None) -> int:
     for evt in prof.key_averages():
         # Device-side activities only: a CPU operator's row repeats the device
         # time of the kernels it launched.
-        if evt.device_type != DeviceType.CUDA or evt.key in TRACER_ROWS:
+        if (evt.device_type != DeviceType.CUDA or evt.key in TRACER_ROWS
+                or evt.key.startswith(PROBE)):
             continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
@@ -275,12 +386,35 @@ def main(argv=None) -> int:
     kernels.sort(reverse=True)
     for ms, count, name in kernels[:12]:
         print(f"    {ms:9.2f} ms  {count:5d} x  {name[:110]}")
+    events = prof.profiler.kineto_results.events()
+    offset = clock_offset_us(events, stamps)
+    if offset is not None:
+        print(f"clock: profiler - time.time_ns() lies in [{offset[0]:.1f}, {offset[1]:.1f}] us "
+              f"(median bounds over {len(stamps)} probes)")
+    stages, gaps = {}, {}
+    if spans:
+        stages = stage_table(spans)
+        for name, r in stages.items():
+            share = 100 * r["least_ms"] / r["linear_ms"] if r["linear_ms"] else 0.0
+            print(f"  span {name} x{r['n']}: device {r['device_ms']:.2f} ms = linear "
+                  f"{r['linear_ms']:.2f} + attention {r['attention_ms']:.2f} + rest "
+                  f"{r['rest_ms']:.2f}; linear at {share:.2f}% of its peak [{card}]")
+        device = [(_ns(e, "start"), _ns(e, "start") + _ns(e, "duration")) for e in events
+                  if e.device_type() == DeviceType.CUDA and e.name() not in TRACER_ROWS
+                  and not e.name().startswith(PROBE)]
+        gaps = idle_by_span(device, spans, t0_ns, t1_ns)
+        idle = sum(g for g, _ in gaps.values())
+        print(f"  idle {1e3 * idle:.3f} ms of {1e3 * wall:.1f} by the innermost span open [{card}]:")
+        for key, (g, n) in sorted(gaps.items(), key=lambda kv: -kv[1][0])[:12]:
+            print(f"    {1e3 * g:9.3f} ms  {n:6d} gaps  {key}")
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, out_name), "w") as f:
         json.dump({"card": card, "unit": label, "tier": args.tier, "kernels": args.kernels,
                    "frames": args.frames, "wall_s": wall, "device_busy_ms": busy_ms,
                    "groups_ms": groups, "launches": counts,
+                   "clock_offset_us": offset, "span_stages": stages,
+                   "idle_by_span_s": {k: v[0] for k, v in gaps.items()},
                    "top_kernels": [dict(ms=m, count=c, name=n) for m, c, n in kernels[:40]]},
                   f, indent=1)
     return 0

@@ -22,7 +22,13 @@ API:
                  score-descending, sorted ascending).
   GET /healthz -> {"ok": true, "pending": N, "served": M,
                    "encode_cache_hits": H} (+ "mesh": {axis: size} on a mesh)
-  GET /stats   -> per-stage timing summary (decode/preprocess/tower/score).
+  GET /stats   -> per-stage timing summary (decode/preprocess/tower/score):
+                  {stage: {"total_s", "count", "mean_ms"}} on the host clock
+                  (preprocess and tower time their enqueue; score ends with
+                  the scores on the host), plus "device_ms", the stage's
+                  mean device time over its last traced requests, where
+                  spans were recorded (VIDEOITG_TRACE=1 or a torch.profiler
+                  session; utils/profiling.py).
 
 It runs on the card; `--cpu` is the only way onto the CPU, and with neither a
 CUDA device nor `--cpu` it stops with an error.

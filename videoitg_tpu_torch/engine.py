@@ -27,6 +27,7 @@ microbatch pipeline (parallel/pipeline.py).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -47,7 +48,22 @@ from videoitg_tpu_torch.models.projector import apply_projector, frame_token_cou
 from videoitg_tpu_torch.ops.attention import resolve_lm_splash
 from videoitg_tpu_torch.ops.preprocess import preprocess_frames, preprocess_frames_yuv
 from videoitg_tpu_torch.ops.quant import Act8Switches, cast_params
+from videoitg_tpu_torch.utils import profiling
 from videoitg_tpu_torch.utils.profiling import StageTimer
+
+
+def _request(method):
+    """Open the tracer's `request` span around a public entry (a no-op
+    inside another entry's request; see utils/profiling.py)."""
+    @functools.wraps(method)
+    def entry(self, *args, **kwargs):
+        with profiling.request(self.device):
+            return method(self, *args, **kwargs)
+    return entry
+
+
+def _nbytes(frames) -> int:
+    return sum(p.nbytes for p in frames) if isinstance(frames, YUVFrames) else frames.nbytes
 
 
 @dataclasses.dataclass
@@ -237,7 +253,9 @@ class SelectionEngine:
         out_size = self.cfg.vision.image_size
         if isinstance(frames_u8, YUVFrames):
             t = frames_u8.shape[0]
-            planes = [torch.as_tensor(p).to(self.device) for p in frames_u8]
+            with (profiling.span("upload", bytes=_nbytes(frames_u8)) if profiling.tracing
+                  else profiling.NULL):
+                planes = [torch.as_tensor(p).to(self.device) for p in frames_u8]
             if t < t_bucket:
                 # Black in YUV is y = 0 (it clips to 0 after the -16 offset)
                 # with NEUTRAL chroma 128: zero chroma would come out green.
@@ -245,7 +263,9 @@ class SelectionEngine:
                           for p, fill in zip(planes, (0, 128, 128))]
             y, u, v = planes
             return preprocess_frames_yuv(y, u, v, out_size=out_size, dtype=self.dtype)
-        x = torch.as_tensor(frames_u8).to(self.device)
+        with (profiling.span("upload", bytes=_nbytes(frames_u8)) if profiling.tracing
+              else profiling.NULL):
+            x = torch.as_tensor(frames_u8).to(self.device)
         t, h, w, _ = x.shape
         if t < t_bucket:
             x = torch.cat([x, x.new_zeros((t_bucket - t, h, w, 3))])
@@ -253,6 +273,8 @@ class SelectionEngine:
 
     # ---- public API ----
 
+    @_request
+    @_request
     def preprocess_ahead(self, frames, t_bucket: Optional[int] = None) -> PreprocessedVideo:
         """Resize/normalise and upload a decoded video now; feed the result
         to select() / score_frames() / encode_video() in place of raw frames.
@@ -265,17 +287,20 @@ class SelectionEngine:
         thread blocks on the copy, not the scoring thread. The result carries
         an event recorded after the last preprocessing kernel; the consumer's
         stream waits for it before it reads `pix`, which also holds when a
-        caller has put either thread on a stream of its own."""
+        caller has put either thread on a stream of its own. Traced, it is a
+        request of its own on the calling thread."""
         t_real = frames.shape[0]
         if t_bucket is None:
             t_bucket = frame_bucket(t_real, self.buckets)
-        pix = self._preprocess(frames, t_bucket)
+        with profiling.span("preprocess") if profiling.tracing else profiling.NULL:
+            pix = self._preprocess(frames, t_bucket)
         ready = None
         if self.device.type == "cuda":
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(self.device))
         return PreprocessedVideo(pix, t_real, ready)
 
+    @_request
     @torch.inference_mode()
     def encode_video(self, frames, t_bucket: Optional[int] = None) -> EncodedVideo:
         """Preprocess + vision tower once; reuse across questions."""
@@ -303,12 +328,15 @@ class SelectionEngine:
                                         vision_chunk=self.vision_chunk, act8=self.act8)
         return EncodedVideo(feats, t_real)
 
+    @_request
     @torch.inference_mode()
     def score_encoded(self, enc: EncodedVideo, instructions: Sequence[str]) -> List[np.ndarray]:
         """Score N instructions against one encoded video (tower skipped):
-        the projector runs once, then one LM pass per question. Under dp the
-        questions run dp at a time, rank r taking question g dp + r of group
-        g, the last group padded by repeating its final question."""
+        the projector runs once, then one LM pass per question, each question
+        a `score` stage (the first holds the projector, the last the read
+        back). Under dp the questions run dp at a time, rank r taking
+        question g dp + r of group g, the last group padded by repeating its
+        final question."""
         if not instructions:
             return []
         cfg = self.cfg
@@ -323,26 +351,34 @@ class SelectionEngine:
 
             mine = range(mesh_coords(self.mesh)[DP_AXIS], len(padded), dp)
         ids, valid = self._tokenize([padded[i] for i in mine])
-        with self.timer.stage("score"), self._mesh_ctx():
-            img = apply_projector(self.model.projector, enc.feats, cfg.projector, hw=hw)
-            img = img.reshape(1, enc.t_bucket * n_pf, -1)
-            probs = []
+        probs = []
+        with self._mesh_ctx():
             for i in range(len(mine)):
-                logits = grounding_logits_from_tokens(
-                    self.model, img, fv, ids[i: i + 1], valid[i: i + 1], cfg,
-                    n_pf=n_pf, use_flash=self.use_flash, act8=self.act8,
-                    lm_splash=self.lm_splash)
-                probs.append(torch.sigmoid(logits.float())[0, : enc.t_real])
-            probs = torch.stack(probs)
-            if dp > 1:
-                from videoitg_tpu_torch.parallel.mesh import gather_dp
+                with self.timer.stage("score"):
+                    if i == 0:
+                        img = apply_projector(self.model.projector, enc.feats, cfg.projector,
+                                              hw=hw)
+                        img = img.reshape(1, enc.t_bucket * n_pf, -1)
+                    logits = grounding_logits_from_tokens(
+                        self.model, img, fv, ids[i: i + 1], valid[i: i + 1], cfg,
+                        n_pf=n_pf, use_flash=self.use_flash, act8=self.act8,
+                        lm_splash=self.lm_splash)
+                    probs.append(torch.sigmoid(logits.float())[0, : enc.t_real])
+                    if i == len(mine) - 1:
+                        scores = self._questions_to_host(torch.stack(probs), dp, enc.t_real)
+        return [scores[i] for i in range(n)]
 
-                # [dp * groups, T] in rank order -> question order g dp + r
-                probs = gather_dp(probs, self.mesh).reshape(dp, -1, enc.t_real)
-                probs = probs.transpose(0, 1).reshape(-1, enc.t_real)
-            probs = probs.cpu().numpy()
-            return [probs[i] for i in range(n)]
+    def _questions_to_host(self, probs: torch.Tensor, dp: int, t_real: int) -> np.ndarray:
+        """This rank's [questions, T] scores -> every question's, on the host."""
+        if dp > 1:
+            from videoitg_tpu_torch.parallel.mesh import gather_dp
 
+            # [dp * groups, T] in rank order -> question order g dp + r
+            probs = gather_dp(probs, self.mesh).reshape(dp, -1, t_real)
+            probs = probs.transpose(0, 1).reshape(-1, t_real)
+        return probs.cpu().numpy()
+
+    @_request
     def select_many(self, frames, sampled_frames: Sequence[int], instructions: Sequence[str],
                     video_path: str = "",
                     doc_ids: Optional[Sequence[object]] = None) -> List[SelectionResult]:
@@ -359,6 +395,7 @@ class SelectionEngine:
                 sampled_frames=list(sampled_frames), raw_scores=sc))
         return out
 
+    @_request
     @torch.inference_mode()
     def score_frames(self, videos: Sequence, instructions: Sequence[str]) -> List[np.ndarray]:
         """Score raw decoded frames: videos are [T_i, H, W, 3] uint8, YUVFrames
@@ -389,19 +426,27 @@ class SelectionEngine:
         with self.timer.stage("preprocess"):
             pix = torch.stack([self._preprocess(v, t_bucket) for v in videos])
             ids, text_valid = self._tokenize(instructions)
-        batch = GroundingBatch(frames=pix, frame_valid=self._frame_valid(t_mine, t_bucket),
-                               text_ids=ids, text_valid=text_valid)
+        fv = self._frame_valid(t_mine, t_bucket)
         chunk = self.vision_chunk if len(videos) * t_bucket > self.vision_chunk else 0
-        with self.timer.stage("score"), self._mesh_ctx():
-            logits = grounding_logits(self.model, batch, self.cfg, hw=hw,
-                                      use_flash=self.use_flash, vision_chunk=chunk,
-                                      act8=self.act8, lm_splash=self.lm_splash)
-            probs = torch.sigmoid(logits.float())  # sigmoid(-inf) = 0
-            if dp > 1:
-                from videoitg_tpu_torch.parallel.mesh import gather_dp
+        with self._mesh_ctx():
+            # The tower runs here and grounding_logits takes its features
+            # (4-d frames), so that `score` never holds the tower.
+            with self.timer.stage("tower"):
+                feats = vision_features(self.model, pix.flatten(0, 1), self.cfg,
+                                        use_flash=self.use_flash, vision_chunk=chunk,
+                                        act8=self.act8)
+            batch = GroundingBatch(frames=feats.unflatten(0, pix.shape[:2]), frame_valid=fv,
+                                   text_ids=ids, text_valid=text_valid)
+            with self.timer.stage("score"):
+                logits = grounding_logits(self.model, batch, self.cfg, hw=hw,
+                                          use_flash=self.use_flash, act8=self.act8,
+                                          lm_splash=self.lm_splash)
+                probs = torch.sigmoid(logits.float())  # sigmoid(-inf) = 0
+                if dp > 1:
+                    from videoitg_tpu_torch.parallel.mesh import gather_dp
 
-                probs = gather_dp(probs, self.mesh)
-            probs = probs.cpu().numpy()
+                    probs = gather_dp(probs, self.mesh)
+                probs = probs.cpu().numpy()
         return [probs[i, :t] for i, t in enumerate(t_reals[:b_real])]
 
     def rank_frames(self, scores: np.ndarray,
@@ -412,6 +457,7 @@ class SelectionEngine:
         logits = [round(float(scores[i]), 2) for i in order]
         return index, logits
 
+    @_request
     def select(self, frames, sampled_frames: Sequence[int], instruction: str,
                video_path: str = "", doc_id: Optional[object] = None) -> SelectionResult:
         """Score one decoded video and build the reference-contract result."""
@@ -423,13 +469,14 @@ class SelectionEngine:
             num_frames=1, contexts=instruction, video_path=video_path, doc_id=doc_id,
             sampled_frames=list(sampled_frames), raw_scores=scores)
 
+    @_request
     def select_from_file(self, video_path: str, instruction: str,
                          doc_id: Optional[object] = None,
                          sampling: str = "eval") -> SelectionResult:
         """Decode (in-tree libav reader) + score a video file."""
         from videoitg_tpu_torch.data.video import read_video_frames
 
-        with self.timer.stage("decode"):
+        with self.timer.stage("decode", device=False):
             frames, sampled = read_video_frames(
                 video_path, num_frames=self.num_frames, target_fps=self.target_fps,
                 sampling=sampling, pix_fmt="yuv420" if self.transfer == "yuv420" else "rgb")

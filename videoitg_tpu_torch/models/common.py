@@ -21,6 +21,9 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from videoitg_tpu_torch.utils import profiling
+
+
 def new_param(shape, device, dtype, generator: Optional[torch.Generator], std: float):
     """A parameter tensor: N(0, std^2) from `generator`, or uninitialised."""
     x = torch.empty(shape, device=device, dtype=torch.float32 if generator is not None else dtype)
@@ -82,13 +85,37 @@ def _lora_delta(p, x: torch.Tensor) -> torch.Tensor:
     return delta * p.lora_scale.to(delta.dtype)
 
 
+def linear_span(m: int, k: int, n: int, kind: str):
+    """The tracer's `linear` span of an [m, k] x [k, n] product: its
+    operations, 2 m k n, and its kind, "int8" for a product of int8
+    activations or "bf16" for one in floating point, whatever kernel runs it."""
+    return profiling.span("linear", ops=2.0 * m * k * n, kind=kind)
+
+
 def linear(p, x: torch.Tensor, act8=None) -> torch.Tensor:
     """x @ w (+ b) for a dense `Linear`; an int8 / int4 `QuantLinear`
     (ops/quant.py) goes to `quantized_linear`, with the act8 kernel switches.
     A LoRA delta is added before the bias of a dense linear and after the
     quantised product (QLoRA). A linear split over a tensor-parallel mesh
     (it carries a `tp` marker, parallel/sharding.py) runs its slice and its
-    collective in parallel/tensor.py."""
+    collective in parallel/tensor.py. Traced, the call is a `linear` span
+    counting this rank's product."""
+    if profiling.tracing:
+        k = x.shape[-1]
+        with linear_span(x.numel() // k, k, _out_features(p), _kind(p)):
+            return _linear(p, x, act8)
+    return _linear(p, x, act8)
+
+
+def _out_features(p) -> int:
+    return p.w.shape[-1] if isinstance(p, Linear) else p.out_features
+
+
+def _kind(p) -> str:
+    return "int8" if getattr(p, "act_q", False) else "bf16"
+
+
+def _linear(p, x: torch.Tensor, act8) -> torch.Tensor:
     if getattr(p, "tp", None) is not None:
         from videoitg_tpu_torch.parallel.tensor import tp_linear
 
@@ -177,16 +204,24 @@ def fused_qkv(p_q, p_k, p_v, x: torch.Tensor, act8=None):
     (exact: concatenation commutes with the matmul). Three separate linears
     when any of them is quantised or carries a LoRA adapter. Column-parallel
     slices (tp) concatenate as they are; their replicated input's gradient
-    is summed over tp (parallel/tensor.copy_to_tp)."""
-    if not all(isinstance(p, Linear) and p.lora_a is None for p in (p_q, p_k, p_v)):
-        return linear(p_q, x, act8), linear(p_k, x, act8), linear(p_v, x, act8)
+    is summed over tp (parallel/tensor.copy_to_tp). Traced, the call is one
+    `linear` span counting the three products (three where their kinds
+    differ): a span's events cost the device a few microseconds each."""
+    ps, k = (p_q, p_k, p_v), x.shape[-1]
+    if not all(isinstance(p, Linear) and p.lora_a is None for p in ps):
+        if profiling.tracing and _kind(p_q) == _kind(p_k) == _kind(p_v):
+            with linear_span(x.numel() // k, k, sum(map(_out_features, ps)), _kind(p_q)):
+                return tuple(_linear(p, x, act8) for p in ps)
+        return tuple(linear(p, x, act8) for p in ps)
     if getattr(p_q, "tp", None) is not None:
         from videoitg_tpu_torch.parallel.tensor import copy_to_tp
 
         x = copy_to_tp(x, p_q.tp.group)
     dq, dk = p_q.w.shape[-1], p_k.w.shape[-1]
-    w = torch.cat([p_q.w, p_k.w, p_v.w], dim=-1)
-    y = x @ w
-    if p_q.b is not None:
-        y = y + torch.cat([p_q.b, p_k.b, p_v.b], dim=-1)
+    with (linear_span(x.numel() // k, k, sum(map(_out_features, ps)), "bf16")
+          if profiling.tracing else profiling.NULL):
+        w = torch.cat([p_q.w, p_k.w, p_v.w], dim=-1)
+        y = x @ w
+        if p_q.b is not None:
+            y = y + torch.cat([p_q.b, p_k.b, p_v.b], dim=-1)
     return y[..., :dq], y[..., dq: dq + dk], y[..., dq + dk:]

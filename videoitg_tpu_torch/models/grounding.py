@@ -24,10 +24,11 @@ from torch.nn import functional as F
 from videoitg_tpu_torch.config import GroundingConfig
 from videoitg_tpu_torch.models import qwen2 as qwen2_mod
 from videoitg_tpu_torch.models import siglip as siglip_mod
-from videoitg_tpu_torch.models.common import Linear
+from videoitg_tpu_torch.models.common import Linear, linear_span
 from videoitg_tpu_torch.models.projector import Projector, apply_projector, frame_token_count
 from videoitg_tpu_torch.ops.quant import Act8Switches
 from videoitg_tpu_torch.parallel import context as par_context
+from videoitg_tpu_torch.utils import profiling
 
 
 class GroundingModel(nn.Module):
@@ -161,7 +162,9 @@ def grounding_logits_from_tokens(model: GroundingModel, img_tokens: torch.Tensor
                                            lm_splash=lm_splash)
     # Per-frame fp32 mean pool of the image slots (reference grounding_qwen2.py:148-156).
     frame_hidden = hidden[:, :n_img].reshape(b, t, n_pf, -1).float().mean(dim=2)
-    logits = (frame_hidden @ model.out_proj.w.float() + model.out_proj.b.float())[..., 0]
+    with (linear_span(b * t, frame_hidden.shape[-1], 1, "bf16") if profiling.tracing
+          else profiling.NULL):
+        logits = (frame_hidden @ model.out_proj.w.float() + model.out_proj.b.float())[..., 0]
     return logits.masked_fill(~frame_valid, float("-inf"))
 
 

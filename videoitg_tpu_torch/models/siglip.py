@@ -28,10 +28,11 @@ from torch.utils.checkpoint import checkpoint
 
 from videoitg_tpu_torch.config import VisionConfig
 from videoitg_tpu_torch.models.common import (Linear, Norm, fused_qkv, gelu_tanh, layer_norm,
-                                              linear, quick_gelu)
+                                              linear, linear_span, quick_gelu)
 from videoitg_tpu_torch.ops.attention import mha
 from videoitg_tpu_torch.ops.fused_encoder import can_fuse_encoder_layer
 from videoitg_tpu_torch.ops.quant import Act8Switches
+from videoitg_tpu_torch.utils import profiling
 
 
 class SiglipLayer(nn.Module):
@@ -150,7 +151,10 @@ def _encoder_layer_fused(p: SiglipLayer, x: torch.Tensor, cfg: VisionConfig) -> 
     each run as one fused int8 kernel, so the LN output, the int8 activation
     copies and the [*, intermediate] MLP tensor never go to device memory.
     Same dynamic-quantisation contract as ops/quant.py, with activations
-    quantised from fp32 instead of a round trip through the model dtype."""
+    quantised from fp32 instead of a round trip through the model dtype.
+    Traced, each kernel call is a `linear` span counting the products asked
+    of it (its LN, activation, quantisation and residual included in its
+    time)."""
     from videoitg_tpu_torch.ops.fused_encoder import (
         fused_ln_mlp_int8,
         fused_ln_qkv_int8,
@@ -160,15 +164,20 @@ def _encoder_layer_fused(p: SiglipLayer, x: torch.Tensor, cfg: VisionConfig) -> 
     t, n, h = x.shape
     heads, d = cfg.num_heads, cfg.head_dim
     xf = x.reshape(t * n, h)
-    q, k, v = fused_ln_qkv_int8(xf, p.ln1, p.q, p.k, p.v, cfg.layer_norm_eps)
+    traced = profiling.tracing
+    qkv = p.q.out_features + p.k.out_features + p.v.out_features
+    with linear_span(t * n, h, qkv, "int8") if traced else profiling.NULL:
+        q, k, v = fused_ln_qkv_int8(xf, p.ln1, p.q, p.k, p.v, cfg.layer_norm_eps)
     q, k, v = (a.reshape(t, n, heads, d).transpose(1, 2).contiguous() for a in (q, k, v))
     # As in the JAX package, the kernel attention serves wherever the fused
     # kernels do (the card); on the CPU both take their plain versions.
     attn = mha(q, k, v, valid=None, causal=False, use_flash=x.device.type == "cuda")
     attn = attn.transpose(1, 2).reshape(t * n, heads * d)
-    x1 = fused_proj_residual_int8(attn, xf, p.o)
+    with linear_span(t * n, p.o.in_features, h, "int8") if traced else profiling.NULL:
+        x1 = fused_proj_residual_int8(attn, xf, p.o)
     act = "quick_gelu" if cfg.arch == "clip" else "gelu_tanh"
-    out = fused_ln_mlp_int8(x1, p.ln2, p.fc1, p.fc2, cfg.layer_norm_eps, act=act)
+    with linear_span(t * n, h, 2 * p.fc1.out_features, "int8") if traced else profiling.NULL:
+        out = fused_ln_mlp_int8(x1, p.ln2, p.fc1, p.fc2, cfg.layer_norm_eps, act=act)
     return out.reshape(t, n, h)
 
 

@@ -47,6 +47,8 @@ import os
 import torch
 from torch.nn import functional as F
 
+from videoitg_tpu_torch.utils import profiling
+
 SHORT_MAX_SEQ = 1024  # longest sequence the dispatch sends to the short kernel
 TRAINABLE_BLOCK = 512  # `mha_trainable` pads the sequence to a multiple of this
 
@@ -155,8 +157,16 @@ def mha(
     VIDEOITG_LM_SPLASH); everything else streams; "train" -> the
     differentiable native-GQA kernels; "train-jax" -> `mha_trainable` (the
     A/B arm). Neither training arm takes an `sm_scale` override (a
-    serving-path knob, as in the JAX package).
+    serving-path knob, as in the JAX package). Traced, the call is an
+    `attention` span.
     """
+    if profiling.tracing:
+        with profiling.span("attention"):
+            return _mha(q, k, v, valid, causal, use_flash, sm_scale, lm_splash)
+    return _mha(q, k, v, valid, causal, use_flash, sm_scale, lm_splash)
+
+
+def _mha(q, k, v, valid, causal, use_flash, sm_scale, lm_splash) -> torch.Tensor:
     if sm_scale is not None and sm_scale == q.shape[-1] ** -0.5:
         sm_scale = None
     if isinstance(use_flash, str):
