@@ -304,6 +304,16 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    first and last logged loss, seconds a step with and without the
    checkpoints, the phase's seconds and Top-1.
 
+14. The add + LayerNorm kernel (`--only layer-norm`, `ops/layer_norm.py`,
+   ptxas' lines for its instances): against its plain version at the towers'
+   chunks [93,312, 1152] and [73,856, 1024], with a delta and a bias, a delta
+   alone and neither: r bit-equal, y within 1 bf16 ulp, timed beside its
+   bound and `F.layer_norm` after the adds; VideoITG-8B's tower on a
+   128-frame chunk, the carried loop against the plain loop in turns, no
+   further from it than twice the plain bf16 loop's distance from fp32 (a
+   dropped bias further); one 512-frame select launches it 208 times in bf16 and never in
+   act8.
+
 `--only attention-kernels` prints ptxas' lines for kernels A and B and stops
 after checking them (a short first run after editing them),
 `--only int8-kernels` stops after building and checking kernels F-I,
@@ -313,7 +323,7 @@ after checking them (a short first run after editing them),
 8, `--only checkpoint` the checkpoint part of phase 5, `--only
 serving-checkpoint` its serving-checkpoint part, `--only eval` phase 9,
 `--only stage-b` phase 10, `--only mesh` phase 11, `--only pad-heads` phase 12,
-`--only overfit` phase 13.
+`--only overfit` phase 13, `--only layer-norm` phase 14.
 None of them prints a result line. `--train-child -- ARGS` is phase 13's child
 process, not a phase.
 
@@ -371,6 +381,7 @@ PTXAS = {
                      ("I", I_INSTANCES)),
     "mesh": (("C ring form", r"stream_kernel.*KeyMaskAllRows"), ("D", r"dq_kernel.*KeyMask"),
              ("E", r"dkv_kernel.*KeyMask")),
+    "layer-norm": (("add_layer_norm", r"add_layer_norm_kernel"),),
     "segment-kernels": (("J fwd", J_FWD_INSTANCE), ("J dq", r"dq_kernel.*SegmentIds"),
                         ("J dkv", r"dkv_kernel.*SegmentIds"), ("E", r"dkv_kernel.*KeyMask")),
 }
@@ -4567,6 +4578,193 @@ def run_pad_heads(dev, card: str) -> dict:
     return {"launches": {"flash_mha_short": launches}, "record": record}
 
 
+def bf16_ulps(out, ref, floor: float = 2.0 ** -8):
+    """|out - ref| in units of ref's bf16 spacing (8 significant bits), with
+    the spacing of `floor` for |ref| below it: the fp32 terms of a
+    normalised value are of order 1, so their rounding order may move a
+    result near 0 by more than its own spacing. (max ulps, share of values
+    that differ)."""
+    import torch
+
+    ref = ref.float()
+    diff = (out.float() - ref).abs()
+    spacing = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(floor))) - 7)
+    return (diff / spacing).max().item(), (diff > 0).float().mean().item()
+
+
+def check_layer_norm(dev, card: str) -> dict:
+    """Phase 14 (`--only layer-norm`): the add + LayerNorm kernel
+    (`ops/layer_norm.add_layer_norm`) against its plain version at the
+    towers' chunks, SigLIP [93,312, 1152] and CLIP [73,856, 1024], with a
+    delta and a bias, a delta alone and neither: r bit-equal, y within 1 bf16
+    ulp (`bf16_ulps`), a dropped bias caught; each timed beside its bound
+    (bytes) and beside `F.layer_norm` after the two adds (`library_ms`, a
+    yardstick the port never calls). Then VideoITG-8B's tower (26 layers,
+    random bf16 weights) on one 128-frame chunk, the carried loop (inference
+    mode, 52 launches) against the plain loop (gradients on, none), timed in
+    turns and held to a limit read from a control in the same run: twice
+    the distance of the plain bf16 loop from the same tower in fp32 (plain,
+    `use_flash=False`), the most two bf16 loops each as close to fp32 as the
+    plain one can differ; a dropped o and fc2 bias must read above it. Then the launches
+    of one 512-frame select, bf16 (208) and act8 with the int8 kernels on
+    (0). Returns the kernel's record: the SigLIP chunk with a delta and a
+    bias at the top, the other forms and shapes under `forms`."""
+    import copy
+
+    import numpy as np
+    import torch
+    from torch.nn import functional as F
+
+    from videoitg_tpu_torch.models import siglip as siglip_mod
+
+    from videoitg_tpu_torch.cli._model_loading import load_grounding_components
+    from videoitg_tpu_torch.config import preset
+    from videoitg_tpu_torch.engine import SelectionEngine
+    from videoitg_tpu_torch.models.common import Norm
+    from videoitg_tpu_torch.models.siglip import init_siglip, siglip_features
+    from videoitg_tpu_torch.ops.layer_norm import add_layer_norm, add_layer_norm_reference
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 140)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, std=1.0, mean=0.0):
+        return (mean + std * torch.randn(*shape, generator=gen, device=dev)).to(bf16)
+
+    forms = []
+    for tag, rows, h, eps in (("siglip", 93312, 1152, 1e-6), ("clip", 73856, 1024, 1e-5)):
+        x, delta, bias = randn(rows, h, std=4.0), randn(rows, h), randn(h, std=0.5)
+        ln = Norm(h, bias=True, device=dev, dtype=bf16)
+        ln.scale.data, ln.bias.data = randn(h, mean=1.0, std=0.1), randn(h, std=0.1)
+        for form, d, b in (("delta and bias", delta, bias), ("delta", delta, None),
+                           ("no delta", None, None)):
+            r, y = add_layer_norm(x, d, b, ln, eps)
+            r_ref, y_ref = add_layer_norm_reference(x, d, b, ln, eps)
+            ulps, share = bf16_ulps(y, y_ref)
+            if not torch.equal(r, r_ref) or not ulps <= 1.0:
+                fail(f"add_layer_norm {tag} {form}: r bit-equal {torch.equal(r, r_ref)}, "
+                     f"y {ulps} bf16 ulps")
+            broken = None
+            if b is not None:  # a dropped bias must read as wrong
+                broken = bf16_ulps(add_layer_norm(x, d, None, ln, eps)[1], y_ref)[0]
+                if not broken > 1.0:
+                    fail(f"add_layer_norm {tag}: a dropped bias reads {broken} ulps")
+            ms = cuda_ms(lambda: add_layer_norm(x, d, b, ln, eps), 50)
+            plain_ms = cuda_ms(lambda: add_layer_norm_reference(x, d, b, ln, eps), 10)
+            ms_again = cuda_ms(lambda: add_layer_norm(x, d, b, ln, eps), 50)
+
+            def library():
+                a = x if d is None else x + (d if b is None else d + b)
+                return F.layer_norm(a, (h,), ln.scale, ln.bias, eps)
+
+            library_ms = cuda_ms(library, 50)
+            n_io = 2 if d is None else 4  # rows read and written, each once
+            bnd = bound(0.0, PEAK_BF16, n_io * rows * h * 2 + 3 * h * 2)
+            print(f"kernel add_layer_norm {tag} [{rows}, {h}] {form}: r bit-equal, y max "
+                  f"{ulps:.3g} bf16 ulps ({100 * share:.4f}% of values differ)"
+                  + (f", dropped bias {broken:.3g} ulps" if broken is not None else "")
+                  + f"; {ms:.4f} / {ms_again:.4f} ms, plain {plain_ms:.4f} ms, library "
+                  f"(F.layer_norm after the adds) {library_ms:.4f} ms, bound "
+                  f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
+                  f"({100 * bnd['bound_ms'] / ms:.1f}% of it) [{card}]", flush=True)
+            forms.append(dict(tower=tag, shape=[rows, h], form=form, ms=ms, ms_again=ms_again,
+                              plain_ms=plain_ms, library_ms=library_ms, max_ulps=ulps,
+                              differ_share=share, **bnd))
+        del x, delta, bias, r, y, r_ref, y_ref
+    torch.cuda.empty_cache()
+    main_form = forms[0]  # SigLIP's chunk with a delta and a bias: the tower's main path
+    record = dict(name="add_layer_norm", route="cuda",
+                  source="videoitg_tpu_torch/csrc/layer_norm.cu", replaces=None,
+                  **{k: main_form[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                               "library_ms", "max_ulps")},
+                  forms=forms[1:])
+
+    cfg = preset("videoitg-8b").vision
+    tower = init_siglip(cfg, torch.Generator(device=dev).manual_seed(SEED + 141), device=dev,
+                        dtype=bf16)
+    with torch.no_grad():  # biases and norms away from their init of zeros and ones
+        for layer in tower.layers:
+            for lin in (layer.o, layer.fc2):
+                lin.b.copy_(randn(cfg.hidden_size, std=0.02))
+            for ln in (layer.ln1, layer.ln2):
+                ln.scale.copy_(randn(cfg.hidden_size, mean=1.0, std=0.1))
+                ln.bias.copy_(randn(cfg.hidden_size, std=0.02))
+    frames = randn(128, cfg.image_size, cfg.image_size, 3)
+
+    def carried():
+        with torch.inference_mode():
+            return siglip_features(tower, frames, cfg, use_flash=True)
+
+    def plain():
+        with torch.enable_grad():  # no leaf requires a gradient: the plain loop, no graph
+            return siglip_features(tower, frames, cfg, use_flash=True)
+
+    add_layer_norm.launches = 0
+    got = carried()
+    tower_launches = add_layer_norm.launches
+    want = plain()
+    if add_layer_norm.launches != tower_launches or tower_launches != 2 * cfg.num_effective_layers:
+        fail(f"tower chunk: add_layer_norm launched {tower_launches} times carried, "
+             f"{add_layer_norm.launches - tower_launches} plain")
+    if not torch.isfinite(got).all():
+        fail("tower chunk: carried features not finite")
+
+    def rel(a, ref):  # max |a - ref| / max |ref|
+        return max_err(a, ref.float()) / ref.float().abs().max().item()
+
+    with torch.no_grad():  # the control: the same tower and frames in fp32, all plain
+        want32 = siglip_features(copy.deepcopy(tower).float(), frames.float(), cfg,
+                                 use_flash=False)
+    real_held = siglip_mod.linear_held_bias
+    siglip_mod.linear_held_bias = lambda p, x, act8=None: (real_held(p, x, act8)[0], None)
+    try:
+        dropped = carried()  # a planted fault: o's and fc2's biases never added
+    finally:
+        siglip_mod.linear_held_bias = real_held
+    control = rel(want, want32)
+    diff, limit = rel(got, want), 2 * control
+    got_vs32, dropped_diff = rel(got, want32), rel(dropped, want)
+    times = [cuda_ms(plain, 3), cuda_ms(carried, 3), cuda_ms(carried, 3), cuda_ms(plain, 3)]
+    print(f"VideoITG-8B tower, one 128-frame chunk: plain loop {times[0]:.2f} / {times[3]:.2f} "
+          f"ms, carried loop {times[1]:.2f} / {times[2]:.2f} ms, add_layer_norm "
+          f"{tower_launches} launches a pass; features max |carried - plain| / max |plain| "
+          f"{diff:.4g} (limit {limit:.4g}: twice plain bf16 against fp32, {control:.4g}; "
+          f"carried against fp32 {got_vs32:.4g}); dropped o and fc2 biases read "
+          f"{dropped_diff:.4g} [{card}]",
+          flush=True)
+    if not diff <= limit:
+        fail(f"tower chunk: carried loop {diff} from the plain loop, above the limit {limit}")
+    if not dropped_diff > limit:
+        fail(f"tower chunk: the limit {limit} does not catch dropped biases ({dropped_diff})")
+    record.update(tower_chunk_plain_ms=[times[0], times[3]],
+                  tower_chunk_carried_ms=[times[1], times[2]], tower_chunk_rel_diff=diff,
+                  tower_chunk_limit=limit, tower_chunk_plain_vs_fp32=control,
+                  tower_chunk_carried_vs_fp32=got_vs32,
+                  tower_chunk_dropped_bias=dropped_diff)
+    del tower, frames, got, want, want32, dropped
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED + 142)
+    video512, sampled512 = frames_u8(rng, 512), [2 * i for i in range(512)]
+    for tier, want_launches in ((None, 8 * cfg.num_effective_layers), ("act8", 0)):
+        model, mcfg, tok = load_grounding_components(None, "videoitg-8b", True, bf16, dev,
+                                                     seed=SEED, quantize=tier)
+        engine = SelectionEngine(model, mcfg, tok, device=dev, dtype=bf16,
+                                 qgemm=tier == "act8", fused=tier == "act8")
+        engine.select(video512, sampled512, QUESTIONS[0])  # the first request builds and warms
+        add_layer_norm.launches = 0
+        check_result(engine.select(video512, sampled512, QUESTIONS[1]), sampled512)
+        n = add_layer_norm.launches
+        print(f"[{tier or 'bf16'}] one 512-frame select: add_layer_norm {n} launches "
+              f"(expected {want_launches}) [{card}]", flush=True)
+        if n != want_launches:
+            fail(f"add_layer_norm launched {n} times in a {tier or 'bf16'} select")
+        record[f"launches_{tier or 'bf16'}_select512"] = n
+        del model, engine
+        torch.cuda.empty_cache()
+    record["launches"] = record["launches_bf16_select512"]
+    return record
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["--train-child"]:
@@ -4576,7 +4774,8 @@ def main(argv=None) -> int:
                                           "splash-kernels",
                                           "segment-kernels", "vlm",
                                           "serve", "train", "checkpoint", "serving-checkpoint",
-                                          "eval", "stage-b", "mesh", "overfit", "pad-heads"],
+                                          "eval", "stage-b", "mesh", "overfit", "pad-heads",
+                                          "layer-norm"],
                         default=None,
                         help="build, then only: check kernels A, B (attention-kernels), F-I "
                              "(int8-kernels), C, D, E (train-kernels), K, L (splash-kernels) "
@@ -4588,7 +4787,9 @@ def main(argv=None) -> int:
                              "phase (serving-checkpoint), eval stage A (eval), "
                              "eval stage B after its stage A (stage-b), the mesh path "
                              "(mesh), the overfit trajectory with a kill and a resume "
-                             "(overfit) or kernel A on lane-padded tower heads (pad-heads)")
+                             "(overfit), kernel A on lane-padded tower heads (pad-heads) or "
+                             "the add + LayerNorm kernel and the tower's carried loop "
+                             "(layer-norm)")
     args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "videoitg_tpu_torch")):
         fail("run from a checkout of the repository (videoitg_tpu_torch/ not found)")
@@ -4685,6 +4886,10 @@ def main(argv=None) -> int:
         run_pad_heads(dev, card)
         print("pad-heads phase passed", flush=True)
         return 0
+    if args.only == "layer-norm":
+        print(json.dumps(check_layer_norm(dev, card)), flush=True)
+        print("layer-norm phase passed", flush=True)
+        return 0
     records = check_kernels(dev)
     records.update(check_train_kernels(dev))
     records.update(check_int8_kernels(dev))
@@ -4728,6 +4933,8 @@ def main(argv=None) -> int:
         launches[name] = launches.get(name, 0) + n
         records[name]["overfit_launches"] = n
     records["flash_train_fwd"]["overfit"] = overfit["record"]
+    records["add_layer_norm"] = check_layer_norm(dev, card)
+    launches["add_layer_norm"] = records["add_layer_norm"]["launches"]
     m1 = stage_b["act8_gemm_m1"]
     records["act8_gemm"].update(
         decode_m1=dict(per="the 7 launches of one LM layer at M = 1 (one decoded token)",

@@ -67,6 +67,7 @@ GROUPS = (
     ("QuantStore", "kernel H fused_ln_mlp_int8"),
     ("ScaleOfAmax", "kernel H fused_ln_mlp_int8"),
     ("ScaleGiven", "kernel I fused_proj_residual_int8"),
+    ("add_layer_norm_kernel", "add_layer_norm"),
     ("Memcpy", "copies"),
     ("Memset", "copies"),
     ("nvjet", "library GEMMs"),

@@ -3,8 +3,10 @@
 // whose products run on the TMA + s8 wgmma GEMM of hopper_int8_gemm.cuh: the
 // exact int8 quantiser of 8 values (`quant8_chunk`), the row scale
 // (`row_scale_of`), the epilogue's `acc * (row_scale * col_scale) + bias`
-// (`scale_bias`), warp reductions, bf16 packing, and the LN + quantisation of
-// whole rows held in registers (`quantize_rows`).
+// (`scale_bias`), warp reductions, bf16 packing, the LayerNorm of whole rows
+// held in registers (`load_row`, `row_stats`, `normalise8`; also the add +
+// LayerNorm kernel's, layer_norm.cu) and the LN + quantisation of such rows
+// (`quantize_rows`).
 //
 // Numerics are the JAX package's: scales are true divisions, values round
 // half to even and clip to +-127, and every product and sum is rounded on its
@@ -94,12 +96,69 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 constexpr int kMaxRowChunks = 8;            // 16-byte chunks of a row a lane may hold
 constexpr int kMaxRowK = kMaxRowChunks * 256;  // so rows of at most 2048 values
 
+// A row of K bf16 values (`xrow`, 16-byte aligned, K = 8 * chunks) into the
+// registers of a warp: lane `lane` holds chunks lane + 32 i, zeros past the
+// row's end, all loads in flight together.
+template <int NC>
+__device__ __forceinline__ void load_row(uint4 (&raw)[NC], const __nv_bfloat16* __restrict__ xrow,
+                                         int lane, int chunks) {
+  const uint4* xr = reinterpret_cast<const uint4*>(xrow);
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    const int c = lane + 32 * i;
+    raw[i] = c < chunks ? xr[c] : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// The LayerNorm statistics of a row a warp holds as `load_row` leaves it:
+// (mean, rsqrt(var + eps)), fp32, the variance in a second pass over the
+// centred values, each product and sum rounded on its own. Every lane gets
+// both.
+template <int NC>
+__device__ __forceinline__ float2 row_stats(const uint4 (&raw)[NC], int lane, int chunks, int K,
+                                            float eps) {
+  float sum = 0.f;  // chunks past the end hold zeros
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    float v[8];
+    unpack_bf16x8(raw[i], v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sum = __fadd_rn(sum, v[e]);
+  }
+  const float mean = __fdiv_rn(warp_sum(sum), static_cast<float>(K));
+  float sq = 0.f;
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    if (lane + 32 * i < chunks) {
+      float v[8];
+      unpack_bf16x8(raw[i], v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float d = __fsub_rn(v[e], mean);
+        sq = __fadd_rn(sq, __fmul_rn(d, d));
+      }
+    }
+  }
+  return make_float2(mean, rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(sq), static_cast<float>(K)), eps)));
+}
+
+// y = (v - mean) * rstd * scale + shift on eight values, each product and
+// sum rounded on its own (no fused multiply-add), the order of `layer_norm`.
+__device__ __forceinline__ void normalise8(float v[8], float2 stats, const float scale[8],
+                                           const float shift[8]) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float n = __fmul_rn(__fsub_rn(v[e], stats.x), stats.y);
+    v[e] = __fadd_rn(__fmul_rn(n, scale[e]), shift[e]);
+  }
+}
+
 // Rows [row0, row0 + nrows) of x [rows][K] (bf16) through a two-pass fp32
 // LayerNorm (y = (x - mean) * rsqrt(var + eps) * lns + lnb), then quantised
 // per row: int8 into yq ([nrows][K]) and the row scales into ys ([nrows]).
-// One warp per row; a lane loads its chunks of the row once, all loads in
-// flight together, and keeps them in registers for the mean, variance, amax
-// and quantise passes. K % 8 == 0 and K <= kMaxRowK.
+// One warp per row; a lane loads its chunks of the row once (`load_row`) and
+// keeps them in registers for the statistics (`row_stats`), amax and
+// quantise passes. K % 8 == 0 and K <= kMaxRowK.
 __device__ __forceinline__ void quantize_rows(int8_t* yq, float* ys,
                                               const __nv_bfloat16* __restrict__ x,
                                               const float* __restrict__ lns,
@@ -110,36 +169,9 @@ __device__ __forceinline__ void quantize_rows(int8_t* yq, float* ys,
   const int chunks = K / 8;
   for (int r = warp; r < nrows; r += kI8Threads / 32) {
     int8_t* yrow = yq + static_cast<size_t>(r) * K;
-    const uint4* xr = reinterpret_cast<const uint4*>(x + static_cast<size_t>(row0 + r) * K);
     uint4 raw[kMaxRowChunks];
-#pragma unroll
-    for (int i = 0; i < kMaxRowChunks; ++i) {
-      const int c = lane + 32 * i;
-      raw[i] = c < chunks ? xr[c] : make_uint4(0u, 0u, 0u, 0u);
-    }
-    float sum = 0.f;  // chunks past the end hold zeros
-#pragma unroll
-    for (int i = 0; i < kMaxRowChunks; ++i) {
-      float v[8];
-      unpack_bf16x8(raw[i], v);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) sum += v[e];
-    }
-    const float mean = __fdiv_rn(warp_sum(sum), static_cast<float>(K));
-    float sq = 0.f;
-#pragma unroll
-    for (int i = 0; i < kMaxRowChunks; ++i) {
-      if (lane + 32 * i < chunks) {
-        float v[8];
-        unpack_bf16x8(raw[i], v);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float d = __fsub_rn(v[e], mean);
-          sq += __fmul_rn(d, d);
-        }
-      }
-    }
-    const float rstd = rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(sq), static_cast<float>(K)), eps));
+    load_row(raw, x + static_cast<size_t>(row0 + r) * K, lane, chunks);
+    const float2 stats = row_stats(raw, lane, chunks, K, eps);
     // y of one chunk, the same expression in the amax pass and the quantise pass.
     auto chunk_y = [&](int i, float y[8]) {
       unpack_bf16x8(raw[i], y);
@@ -150,11 +182,7 @@ __device__ __forceinline__ void quantize_rows(int8_t* yq, float* ys,
       const float4 b1 = *reinterpret_cast<const float4*>(lnb + c * 8 + 4);
       const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
       const float bi[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float n = __fmul_rn(__fsub_rn(y[e], mean), rstd);
-        y[e] = __fadd_rn(__fmul_rn(n, sc[e]), bi[e]);
-      }
+      normalise8(y, stats, sc, bi);
     };
     float amax = 0.f;
 #pragma unroll

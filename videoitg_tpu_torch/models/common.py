@@ -107,6 +107,20 @@ def linear(p, x: torch.Tensor, act8=None) -> torch.Tensor:
     return _linear(p, x, act8)
 
 
+def linear_held_bias(p, x: torch.Tensor, act8=None):
+    """`linear` with the bias held back for a later pass to add: (x @ w, b)
+    for a plain dense `Linear` (no LoRA adapter, no `tp` marker); any other
+    form gives (linear(p, x, act8), None), its bias added. Traced, the
+    product is a `linear` span as in `linear`."""
+    if not isinstance(p, Linear) or p.lora_a is not None or getattr(p, "tp", None) is not None:
+        return linear(p, x, act8), None
+    if profiling.tracing:
+        k = x.shape[-1]
+        with linear_span(x.numel() // k, k, _out_features(p), _kind(p)):
+            return x @ p.w, p.b
+    return x @ p.w, p.b
+
+
 def _out_features(p) -> int:
     return p.w.shape[-1] if isinstance(p, Linear) else p.out_features
 

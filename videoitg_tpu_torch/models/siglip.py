@@ -9,8 +9,12 @@ the (kh, kw, c) patch order of the JAX package. Under the act8 tier
 layer runs as three fused int8 kernels (ops/fused_encoder.py), never under a
 device mesh. On a tensor-parallel mesh each rank runs its 16/tp heads and its
 slice of the MLP (parallel/tensor.py). `remat=True` recomputes each layer in
-the backward pass. `pad_attention_heads` widens the heads to a lane width in
-the weights; the layer reads the per-head width from them.
+the backward pass. With the inference kernels asked for (`use_flash=True`)
+and no gradient (the engine's inference mode) each residual add runs in one
+kernel with the LayerNorm after it (ops/layer_norm.add_layer_norm);
+`use_flash=False` stays the plain tower. `pad_attention_heads` widens the
+heads to a lane width in the weights; the layer reads the per-head width from
+them.
 
 arch="clip" is HF CLIP's tower (e.g. LLaVA-1.5's ViT-L/14-336): a biasless
 patch embedding, a CLS token prepended before the positions (a table of
@@ -28,9 +32,10 @@ from torch.utils.checkpoint import checkpoint
 
 from videoitg_tpu_torch.config import VisionConfig
 from videoitg_tpu_torch.models.common import (Linear, Norm, fused_qkv, gelu_tanh, layer_norm,
-                                              linear, linear_span, quick_gelu)
+                                              linear, linear_held_bias, linear_span, quick_gelu)
 from videoitg_tpu_torch.ops.attention import mha
 from videoitg_tpu_torch.ops.fused_encoder import can_fuse_encoder_layer
+from videoitg_tpu_torch.ops.layer_norm import add_layer_norm, residual_add
 from videoitg_tpu_torch.ops.quant import Act8Switches
 from videoitg_tpu_torch.utils import profiling
 
@@ -181,19 +186,22 @@ def _encoder_layer_fused(p: SiglipLayer, x: torch.Tensor, cfg: VisionConfig) -> 
     return out.reshape(t, n, h)
 
 
-def _encoder_layer(p: SiglipLayer, x: torch.Tensor, cfg: VisionConfig,
-                   use_flash, act8: Act8Switches) -> torch.Tensor:
-    # The gate of the JAX package: the inference kernel attention asked for
-    # (not the training arm), the switch on, every linear int8 + act_q, and a
-    # q projection that is not padded.
-    # Under a device mesh the fused kernels stay off, as in the JAX package.
+def _fuses(p: SiglipLayer, x: torch.Tensor, use_flash, act8: Act8Switches) -> bool:
+    """The gate of the JAX package for the fused act8 layer: the inference
+    kernel attention asked for (not the training arm), the switch on, every
+    linear int8 + act_q, a q projection that is not padded, and no device
+    mesh (under one the fused kernels stay off, as in the JAX package)."""
     from videoitg_tpu_torch.parallel.context import current_attention_mesh
 
-    if (use_flash is True and act8.fused and can_fuse_encoder_layer(p)
-            and p.q.out_features == x.shape[-1] and current_attention_mesh() is None):
-        return _encoder_layer_fused(p, x, cfg)
-    t, n, h = x.shape
-    y = layer_norm(p.ln1, x, cfg.layer_norm_eps)
+    return (use_flash is True and act8.fused and can_fuse_encoder_layer(p)
+            and p.q.out_features == x.shape[-1] and current_attention_mesh() is None)
+
+
+def _attention(p: SiglipLayer, y: torch.Tensor, cfg: VisionConfig, use_flash,
+               act8: Act8Switches) -> torch.Tensor:
+    """The attention half of a layer on its normed input y [T, P, H], up to
+    o's input: [T, P, heads * d]."""
+    t, n, _ = y.shape
     q, k, v = fused_qkv(p.q, p.k, p.v, y, act8)
     tp = getattr(p.q, "tp", None)
     heads = cfg.num_heads // (tp.size if tp is not None else 1)  # a tp rank's own heads
@@ -204,11 +212,50 @@ def _encoder_layer(p: SiglipLayer, x: torch.Tensor, cfg: VisionConfig,
     q, k, v = (a.reshape(t, n, heads, d).transpose(1, 2).contiguous() for a in (q, k, v))
     attn = mha(q, k, v, valid=None, causal=False, use_flash=use_flash,
                sm_scale=cfg.head_dim ** -0.5)
-    attn = attn.transpose(1, 2).reshape(t, n, heads * d)
-    x = x + linear(p.o, attn, act8)
-    y = layer_norm(p.ln2, x, cfg.layer_norm_eps)
+    return attn.transpose(1, 2).reshape(t, n, heads * d)
+
+
+def _mlp_hidden(p: SiglipLayer, y: torch.Tensor, cfg: VisionConfig,
+                act8: Act8Switches) -> torch.Tensor:
+    """act(fc1(y)), fc2's input."""
     act = quick_gelu if cfg.arch == "clip" else gelu_tanh
-    return x + linear(p.fc2, act(linear(p.fc1, y, act8)), act8)
+    return act(linear(p.fc1, y, act8))
+
+
+def _encoder_layer(p: SiglipLayer, x: torch.Tensor, cfg: VisionConfig,
+                   use_flash, act8: Act8Switches) -> torch.Tensor:
+    if _fuses(p, x, use_flash, act8):
+        return _encoder_layer_fused(p, x, cfg)
+    eps = cfg.layer_norm_eps
+    x = x + linear(p.o, _attention(p, layer_norm(p.ln1, x, eps), cfg, use_flash, act8), act8)
+    y = layer_norm(p.ln2, x, eps)
+    return x + linear(p.fc2, _mlp_hidden(p, y, cfg, act8), act8)
+
+
+def _encoder_layers_carried(layers, x: torch.Tensor, cfg: VisionConfig, use_flash,
+                            act8: Act8Switches) -> torch.Tensor:
+    """The layers of `_encoder_layer` with `use_flash=True` and no gradient:
+    each residual add is carried into the norm after it
+    (`ops/layer_norm.add_layer_norm`, one kernel on the card), o's and fc2's
+    products leave without their bias, which the same pass adds where the
+    linear is a plain dense one. Layer i's fc2 product is layer i+1's
+    pending delta; the last one is added plainly, as nothing normalises
+    after it. A fused act8 layer takes its input whole. The numbers are
+    `_encoder_layer`'s: r bit for bit, y but for the order of the fp32 sums
+    on the card."""
+    eps = cfg.layer_norm_eps
+    pending = (None, None)  # the last fc2 product and its held-back bias
+    for p in layers:
+        if _fuses(p, x, use_flash, act8):
+            if pending[0] is not None:
+                x, pending = residual_add(x, *pending), (None, None)
+            x = _encoder_layer_fused(p, x, cfg)
+            continue
+        x, y = add_layer_norm(x, *pending, p.ln1, eps)
+        attn = _attention(p, y, cfg, use_flash, act8)
+        x, y = add_layer_norm(x, *linear_held_bias(p.o, attn, act8), p.ln2, eps)
+        pending = linear_held_bias(p.fc2, _mlp_hidden(p, y, cfg, act8), act8)
+    return residual_add(x, *pending) if pending[0] is not None else x
 
 
 def siglip_features(tower: SiglipTower, images: torch.Tensor, cfg: VisionConfig,
@@ -218,7 +265,10 @@ def siglip_features(tower: SiglipTower, images: torch.Tensor, cfg: VisionConfig,
     """[T, H, W, 3] preprocessed frames -> [T, tokens, hidden] features from
     cfg.num_effective_layers encoder layers, no post-layernorm. `act8` says
     which act8 products run in the hand-written int8 kernels; `remat` (with
-    gradients on) recomputes each layer in the backward pass. For
+    gradients on) recomputes each layer in the backward pass. With
+    `use_flash=True` (the inference kernels, not a training arm) and no
+    gradient the layers carry each residual add into the norm after it
+    (`_encoder_layers_carried`; bf16 on the card, as the kernel takes). For
     arch="clip" the CLS token is prepended, the embeddings pass through the
     pre-layernorm, and the CLS position is dropped again when
     select_feature == "patch"."""
@@ -228,15 +278,21 @@ def siglip_features(tower: SiglipTower, images: torch.Tensor, cfg: VisionConfig,
         cls = tower.cls_embed.to(x.dtype).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1)
     x = x + tower.pos_embed.to(x.dtype)[None]
-    if clip:
-        x = layer_norm(tower.pre_ln, x, cfg.layer_norm_eps)
-    remat = remat and torch.is_grad_enabled()
-    for layer in tower.layers[: cfg.num_effective_layers]:
-        if remat:
-            x = checkpoint(_encoder_layer, layer, x, cfg, use_flash, act8,
-                           use_reentrant=False, preserve_rng_state=False)
-        else:
-            x = _encoder_layer(layer, x, cfg, use_flash, act8)
+    layers = tower.layers[: cfg.num_effective_layers]
+    if use_flash is True and not torch.is_grad_enabled():
+        if clip:
+            x = add_layer_norm(x, None, None, tower.pre_ln, cfg.layer_norm_eps)[1]
+        x = _encoder_layers_carried(layers, x, cfg, use_flash, act8)
+    else:
+        if clip:
+            x = layer_norm(tower.pre_ln, x, cfg.layer_norm_eps)
+        remat = remat and torch.is_grad_enabled()
+        for layer in layers:
+            if remat:
+                x = checkpoint(_encoder_layer, layer, x, cfg, use_flash, act8,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = _encoder_layer(layer, x, cfg, use_flash, act8)
     if clip and cfg.select_feature == "patch":
         x = x[:, 1:]
     return x

@@ -86,6 +86,9 @@ SIGNATURES = {
                                         _I, _I, _I, _I, _I, _F, _P),
     # q (scaled), k, v, q_seg, kv_seg (int32 [B, S]), out, B, Hq, Hkv, S, D, stream
     "videoitg_splash_mqa_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, delta (nullable), bias (nullable), ln scale, ln bias, r (nullable
+    # without delta), y, rows, H, eps, stream
+    "videoitg_add_layer_norm_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
     # x, out, n, stream
     "videoitg_double_literal_f32": (_P, _P, _I, _P),
     "videoitg_double_no_literal_f32": (_P, _P, _I, _P),

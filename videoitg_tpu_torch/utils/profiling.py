@@ -81,6 +81,7 @@ LAUNCH_COUNTERS = (
     ("videoitg_tpu_torch.ops.fused_encoder", "fused_ln_qkv_int8"),
     ("videoitg_tpu_torch.ops.fused_encoder", "fused_ln_mlp_int8"),
     ("videoitg_tpu_torch.ops.fused_encoder", "fused_proj_residual_int8"),
+    ("videoitg_tpu_torch.ops.layer_norm", "add_layer_norm"),
     ("videoitg_tpu_torch.ops.flash_attention_train", "flash_train_fwd"),
     ("videoitg_tpu_torch.ops.flash_attention_train", "flash_train_dq"),
     ("videoitg_tpu_torch.ops.flash_attention_train", "flash_train_dkv"),
