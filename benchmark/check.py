@@ -1,6 +1,7 @@
 """What decides `correct`: the timed path's own scores against the plain
-reference (benchmark/reference/model.py), on a sample of the requests
-completed in the window drawn from the seed.
+reference (the configuration's architecture module,
+benchmark/reference/<name>.py, by default model.py), on a sample of the
+requests completed in the window drawn from the seed.
 
 Once the window has closed and the program's state is freed, the weights are
 drawn again from the seed (the same bits the program was given) and the
@@ -21,14 +22,16 @@ The configuration's "check" names the numbers it compares and their limits.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Sequence, Tuple
+from types import ModuleType
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from benchmark.inputs import derive
+from benchmark.manifest import reference_module
 from benchmark.port import DTYPES
-from benchmark.reference import model as ref
+from benchmark.reference.model import with_highest_precision
 from benchmark.requests import Request
 from benchmark.weights import make_weights
 
@@ -59,11 +62,16 @@ def pick_sample(requests: Sequence[Request], seed: int, groups: int,
 
 
 def reference_scores(cfg: dict, seed: int, videos: Sequence[np.ndarray],
-                     sample: Sequence[Tuple[int, str]], device) -> List[np.ndarray]:
+                     sample: Sequence[Tuple[int, str]], device,
+                     arch: Optional[ModuleType] = None) -> List[np.ndarray]:
     """The reference's scores of (video index, instruction) pairs, with the
-    weights drawn again from the seed; each video is encoded once."""
-    ref.with_highest_precision()
-    state = make_weights(cfg["model"], derive(seed, "weights"), device, DTYPES[cfg["dtype"]])
+    weights drawn again from the seed; each video is encoded once. `arch`,
+    the configuration's architecture module, draws the weights and scores
+    (by default the module its "reference" names in this checkout)."""
+    ref = reference_module(cfg) if arch is None else arch
+    with_highest_precision()
+    state = make_weights(cfg["model"], derive(seed, "weights"), device, DTYPES[cfg["dtype"]],
+                         ref)
     out: List[np.ndarray] = []
     encoded: Dict[int, torch.Tensor] = {}
     with torch.no_grad():
@@ -100,11 +108,11 @@ def gaps(program: Sequence[np.ndarray], reference: Sequence[np.ndarray]) -> Dict
             "logit_shift": float(max(abs(d.mean()) for d in diffs))}
 
 
-def check(cfg: dict, seed: int, videos, sample: Sequence[Request], device,
-          log) -> Dict[str, float]:
+def check(cfg: dict, seed: int, videos, sample: Sequence[Request], device, log,
+          arch: ModuleType) -> Dict[str, float]:
     t0 = time.perf_counter()
     ref_scores = reference_scores(cfg, seed, videos,
-                                  [(r.video, r.instruction) for r in sample], device)
+                                  [(r.video, r.instruction) for r in sample], device, arch)
     numbers = gaps([r.scores for r in sample], ref_scores)
     spread = [float(np.std(logits_of(r))) for r in ref_scores]
     log(f"check: {len(sample)} requests (groups {sorted({r.group for r in sample})}) against "

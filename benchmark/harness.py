@@ -15,6 +15,7 @@ import math
 import sys
 import time
 from dataclasses import dataclass
+from types import ModuleType
 from typing import Dict, List, Optional
 
 import torch
@@ -22,8 +23,8 @@ import torch
 from benchmark import clocks, guard
 from benchmark.check import check, gaps, pick_sample
 from benchmark.inputs import derive, make_traffic
-from benchmark.manifest import Manifest
-from benchmark.port import DTYPES, Calls, build_engine, install_ranges
+from benchmark.manifest import Manifest, reference_module
+from benchmark.port import DTYPES, LM_ATTENTION, Calls, build_engine, install_ranges
 from benchmark.requests import Request
 from benchmark.weights import make_weights
 
@@ -44,6 +45,7 @@ class Run:
     peak_bytes: int
     trace: Optional[object] = None  # trace.TraceSummary
     calls: Optional[Calls] = None
+    arch: Optional[ModuleType] = None  # the configuration's architecture module
 
 
 def _sync(device) -> None:
@@ -78,12 +80,17 @@ def window(client, seconds: float) -> tuple:
 
 
 def run_cell(cfg: dict, mix: dict, client_cls, readers: Dict[str, tuple], seed: int,
-             seconds: float, trace: bool, device, t_start: float) -> dict:
+             seconds: float, trace: bool, device, t_start: float,
+             arch: Optional[ModuleType] = None) -> dict:
+    """`arch` is the configuration's architecture module (by default the one
+    its "reference" names in this checkout): its weights, its work count,
+    its LM attention range and the reference that decides `correct`."""
+    arch = reference_module(cfg) if arch is None else arch
     dtype = DTYPES[cfg["dtype"]]
     marks = [("start", time.perf_counter())]
     traffic = make_traffic(mix, seed, device)
     marks.append(("traffic", time.perf_counter()))
-    state = make_weights(cfg["model"], derive(seed, "weights"), device, dtype)
+    state = make_weights(cfg["model"], derive(seed, "weights"), device, dtype, arch)
     _sync(device)
     marks.append(("weights", time.perf_counter()))
     engine = build_engine(cfg, state, device)
@@ -101,7 +108,7 @@ def run_cell(cfg: dict, mix: dict, client_cls, readers: Dict[str, tuple], seed: 
         from torch.profiler import ProfilerActivity, profile, record_function
 
         calls = Calls()
-        restore = install_ranges(calls)
+        restore = install_ranges(calls, getattr(arch, "LM_ATTENTION", LM_ATTENTION))
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
         prof = profile(activities=acts)
         prof.__enter__()
@@ -134,7 +141,7 @@ def run_cell(cfg: dict, mix: dict, client_cls, readers: Dict[str, tuple], seed: 
         f"latency min {lat[0] if lat else 0:.4f} median {lat[len(lat) // 2] if lat else 0:.4f} "
         f"max {lat[-1] if lat else 0:.4f} s; setup {setup_s:.4f} s; peak {peak} bytes")
 
-    run = Run(cfg, mix, done, window_s, setup_s, peak, summary, calls)
+    run = Run(cfg, mix, done, window_s, setup_s, peak, summary, calls, arch)
     metrics = {}
     for name, (reader, unit) in readers.items():
         value = reader.read(run) if done else None
@@ -153,7 +160,8 @@ def run_cell(cfg: dict, mix: dict, client_cls, readers: Dict[str, tuple], seed: 
     if found:
         raise ImportError(f"forbidden modules loaded: {found}")
     limits = cfg["check"]
-    numbers = check(cfg, seed, traffic.videos, sample, device, log) if sample else gaps([], [])
+    numbers = (check(cfg, seed, traffic.videos, sample, device, log, arch) if sample
+               else gaps([], []))
     correct = bool(sample) and failed == 0 and all(numbers[k] <= v for k, v in limits.items())
     # A missing or non-finite score reads null: JSON has no infinity.
     checks = {k: {"value": numbers[k] if math.isfinite(numbers[k]) else None, "limit": v}
@@ -209,7 +217,7 @@ def main(argv=None, t_start: Optional[float] = None) -> int:
     log(f"{args.workload} seed {args.seed} seconds {args.seconds} trace {args.trace} "
         f"on {torch.cuda.get_device_name(device)}, torch {torch.__version__}")
     result = run_cell(cfg, mix, client_cls, readers, args.seed, args.seconds, bool(args.trace),
-                      device, t_start)
+                      device, t_start, man.reference(cfg))
     found = guard.check_imports()
     if found:
         log(f"forbidden modules loaded in this process: {found}")

@@ -1,8 +1,10 @@
 """BENCHMARK.json and the files it names, found by name: a cell's
-configuration (its `file`), its traffic mix (benchmark/traffic/<mix>.json),
+configuration (its `file`), the configuration's architecture module
+(benchmark/reference/<name>.py, the name under its "reference" key,
+`model` where it has none), its traffic mix (benchmark/traffic/<mix>.json),
 the mix's client (benchmark/traffic/kinds/<kind>.py) and each metric's
-reader (benchmark/metrics/<metric>.py). A later configuration, mix, kind or
-metric is a new file and a new entry; no file here changes."""
+reader (benchmark/metrics/<metric>.py). A later configuration, architecture,
+mix, kind or metric is a new file and a new entry; no file here changes."""
 
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Dict, List, Tuple
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+DEFAULT_REFERENCE = "model"  # today's Qwen2 LM
 
 
 def load_json(path: str) -> dict:
@@ -28,6 +31,15 @@ def load_module(path: str, name: str) -> ModuleType:
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def reference_module(cfg: dict, root: str = ROOT) -> ModuleType:
+    """The configuration's architecture module: its plain reference
+    (`encode`, `scores`) and the hooks that weights.py, roofline.py and
+    port.py take in place of their Qwen2 defaults."""
+    name = cfg.get("reference", DEFAULT_REFERENCE)
+    return load_module(os.path.join(root, "benchmark", "reference", name + ".py"),
+                       "bench_reference_" + name.replace(".", "_"))
 
 
 class Manifest:
@@ -46,6 +58,9 @@ class Manifest:
             if c["name"] == workload["config"]:
                 return load_json(os.path.join(self.root, c["file"]))
         raise KeyError(f"no config {workload['config']!r} in BENCHMARK.json")
+
+    def reference(self, cfg: dict) -> ModuleType:
+        return reference_module(cfg, self.root)
 
     def mix(self, workload: dict) -> dict:
         return load_json(os.path.join(self.root, "benchmark", "traffic",

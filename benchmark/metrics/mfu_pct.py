@@ -1,7 +1,8 @@
 """The whole request's share of the card's peak: the least time of the work
 completed in the traced window (every linear at 2 M K N at the bf16 or int8
-peak, attention at its roofline, counted from each request's shapes) over
-the window, in percent."""
+peak, attention at its roofline, counted from each request's shapes; a
+question's part by the configuration's architecture module where it counts
+its own) over the window, in percent."""
 
 from benchmark.roofline import request_work
 
@@ -13,5 +14,6 @@ def read(run):
     model, tier = run.cfg["model"], run.cfg.get("tier")
     least = sum(request_work(model, tier, r.frames,
                              min(len(r.instruction) + 1, model["max_text_len"]),
-                             r.encoded).least_s * r.questions for r in run.requests)
+                             r.encoded, run.arch).least_s * r.questions
+                for r in run.requests)
     return 100.0 * least / t.window_s

@@ -5,6 +5,8 @@ benchmark's ranges around them. The program's sources are not changed."""
 
 from __future__ import annotations
 
+import importlib
+import json
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -12,14 +14,17 @@ import torch
 
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
 
+# (module under videoitg_tpu_torch.models, attribute) of the LM's attention
+# entry, where the configuration's architecture module names none
+LM_ATTENTION = ("qwen2", "mha")
+
 
 def port_config(model: dict):
-    from videoitg_tpu_torch.config import GroundingConfig, LMConfig, ProjectorConfig, VisionConfig
+    """The port's `GroundingConfig`, read by the port's own reader, so that
+    an LM family's keys are the port's to parse."""
+    from videoitg_tpu_torch.config import GroundingConfig
 
-    rest = {k: v for k, v in model.items() if k not in ("vision", "projector", "lm")}
-    return GroundingConfig(vision=VisionConfig(**model["vision"]),
-                           projector=ProjectorConfig(**model["projector"]),
-                           lm=LMConfig(**model["lm"]), **rest)
+    return GroundingConfig.from_json(json.dumps(model))
 
 
 def build_engine(cfg: dict, state: Dict[str, torch.Tensor], device: torch.device,
@@ -50,10 +55,10 @@ def build_engine(cfg: dict, state: Dict[str, torch.Tensor], device: torch.device
 @dataclass
 class Calls:
     """What the traced run records at the calls it wraps: each attention
-    call's shapes, and its key mask (read after the window, so that the
-    window has no extra synchronisation)."""
+    call's q, k and v shapes, and its key mask (read after the window, so
+    that the window has no extra synchronisation)."""
 
-    attention: Dict[str, List[Tuple[tuple, tuple, Optional[torch.Tensor]]]] = field(
+    attention: Dict[str, List[Tuple[tuple, tuple, tuple, Optional[torch.Tensor]]]] = field(
         default_factory=dict)
 
     def attention_work(self, site: str):
@@ -61,25 +66,29 @@ class Calls:
         from benchmark.roofline import attention_work
 
         out = []
-        for qs, ks, valid in self.attention.get(site, []):
+        for qs, ks, vs, valid in self.attention.get(site, []):
             b, hq, s, d = qs
             pairs = None
             if valid is not None:
                 n = valid.sum(dim=-1).tolist()
                 pairs = [x * x for x in n]
-            out.append(attention_work(b, hq, ks[1], s, d, pairs=pairs))
+            out.append(attention_work(b, hq, ks[1], s, d, pairs=pairs, dv=vs[-1]))
         return out
 
 
-def install_ranges(calls: Calls):
+def install_ranges(calls: Calls, lm_attention: Tuple[str, str] = LM_ATTENTION):
     """Rebind the names the port's modules call through, so that each call
-    opens a `bench:<name>` range; returns a function that puts them back."""
+    opens a `bench:<name>` range; the LM's attention entry is `lm_attention`
+    (module under videoitg_tpu_torch.models, attribute), its range
+    `bench:<module>.<attribute>`. Returns a function that puts them back."""
     from torch.profiler import record_function
 
     from videoitg_tpu_torch import engine as engine_mod
     from videoitg_tpu_torch.models import grounding as grounding_mod
-    from videoitg_tpu_torch.models import qwen2 as qwen2_mod
     from videoitg_tpu_torch.models import siglip as siglip_mod
+
+    lm_module, lm_attr = lm_attention
+    lm_mod = importlib.import_module("videoitg_tpu_torch.models." + lm_module)
 
     undo = []
 
@@ -98,11 +107,14 @@ def install_ranges(calls: Calls):
     def attention_recorder(site):
         seen: Dict[int, torch.Tensor] = {}
 
-        def record(q, k, v, valid=None, *args, **kwargs):
+        def record(q, k=None, v=None, valid=None, *args, **kwargs):
+            # an entry that is not called as attention(q, k, v) records nothing
+            if not all(isinstance(t, torch.Tensor) and t.dim() == 4 for t in (q, k, v)):
+                return
             if valid is not None:
                 valid = seen.setdefault(id(valid), valid)
             calls.attention.setdefault(site, []).append(
-                (tuple(q.shape), tuple(k.shape), valid))
+                (tuple(q.shape), tuple(k.shape), tuple(v.shape), valid))
         return record
 
     rebind(engine_mod.SelectionEngine, "_preprocess", "preprocess")
@@ -111,7 +123,8 @@ def install_ranges(calls: Calls):
     rebind(engine_mod, "grounding_logits", "score")
     rebind(engine_mod.SelectionEngine, "score_encoded", "score")
     rebind(siglip_mod, "mha", "siglip.mha", attention_recorder("siglip.mha"))
-    rebind(qwen2_mod, "mha", "qwen2.mha", attention_recorder("qwen2.mha"))
+    lm_site = f"{lm_module}.{lm_attr}"
+    rebind(lm_mod, lm_attr, lm_site, attention_recorder(lm_site))
 
     def restore():
         for owner, attr, orig in reversed(undo):

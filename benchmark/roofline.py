@@ -6,9 +6,14 @@ A share of a roofline or of the peak is the least time of the work over the
 time the device took; the counts come from the call or the request, never
 from which kernel ran, so they read the same work whatever implements it.
 
-Attention: 4 * pairs * head_dim * query heads operations (Q K^T and P V),
-pairs = valid query rows x valid keys per batch element; bytes: q, k, v read
-once and the output written once. A linear: 2 * M * K * N.
+Attention: 2 * pairs * query heads * (head_dim + value head_dim) operations
+(Q K^T and P V), pairs = valid query rows x valid keys per batch element;
+bytes: q, k, v read once and the output written once, v and the output at
+the value head dimension. A linear: 2 * M * K * N.
+
+The LM's part of a question is Qwen2's (`score_work`) unless the
+configuration's architecture module (benchmark/reference/<name>.py) counts
+its own: `request_work` takes that module's `score_work` where it has one.
 """
 
 from __future__ import annotations
@@ -23,12 +28,15 @@ PEAK_BYTES = 3.35e12
 
 
 def attention_work(b: int, hq: int, hkv: int, s: int, d: int,
-                   pairs: Optional[Sequence[int]] = None, elt_bytes: int = 2):
-    """(operations, bytes) of one attention call q [b, hq, s, d], k / v
-    [b, hkv, s, d]; `pairs` per batch element (default s * s)."""
+                   pairs: Optional[Sequence[int]] = None, elt_bytes: int = 2,
+                   dv: Optional[int] = None):
+    """(operations, bytes) of one attention call q [b, hq, s, d], k [b, hkv,
+    s, d], v [b, hkv, s, dv] (dv default d); `pairs` per batch element
+    (default s * s)."""
+    dv = d if dv is None else dv
     n_pairs = b * s * s if pairs is None else sum(pairs)
-    ops = 4.0 * n_pairs * d * hq
-    nbytes = float(elt_bytes) * b * s * d * (2 * hq + 2 * hkv)
+    ops = 2.0 * n_pairs * hq * (d + dv)
+    nbytes = float(elt_bytes) * b * s * (hq + hkv) * (d + dv)  # q, k at d; v, out at dv
     return ops, nbytes
 
 
@@ -114,6 +122,8 @@ def score_work(model: dict, tier: Optional[str], frames: int, text_tokens: int) 
 
 
 def request_work(model: dict, tier: Optional[str], frames: int, text_tokens: int,
-                 with_tower: bool) -> Work:
-    w = score_work(model, tier, frames, text_tokens)
+                 with_tower: bool, arch=None) -> Work:
+    """One question, and the tower where the request ran it; the question's
+    part by `arch`'s `score_work` where the architecture module has one."""
+    w = getattr(arch, "score_work", score_work)(model, tier, frames, text_tokens)
     return w.add(tower_work(model, tier, frames)) if with_tower else w

@@ -15,6 +15,8 @@ from benchmark.manifest import Manifest
 # widths a row holds 32 to 128 values, and the act8 path's per-row int8
 # rounding reads ~2.5x the 8B model's (logit_crms 0.039 against 0.0154).
 TINY_CHECK = {"videoitg-8b-act8": {"logit_max": 0.2, "logit_crms": 0.08, "logit_shift": 0.05}}
+# a mix's sizes cut to the tiny model
+TINY_MIX = dict(frames=8, height=48, width=64, grid=[3, 4], instructions=12, chars=[10, 30])
 
 
 def tiny_cell(workload: str, **mix_changes):
@@ -25,8 +27,7 @@ def tiny_cell(workload: str, **mix_changes):
     cfg = copy.deepcopy(man.config(wl))
     cfg["model"] = dataclasses.asdict(preset("tiny"))
     cfg["check"] = TINY_CHECK.get(cfg["name"], cfg["check"])
-    mix = dict(man.mix(wl), frames=8, height=48, width=64, grid=[3, 4], instructions=12,
-               chars=[10, 30])
+    mix = dict(man.mix(wl), **TINY_MIX)
     mix.update(mix_changes)
     return man, wl, cfg, mix
 

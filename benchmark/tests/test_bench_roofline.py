@@ -50,3 +50,13 @@ def test_a_question_without_the_tower_is_the_lm_and_projector():
     q = request_work(MODEL, None, 512, 256, with_tower=False)
     assert q.ops / 1e12 == pytest.approx(170.4 + 68.4 + 0.43, rel=0.01)
     assert math.isclose(q.attention_ops, 28 * attention_work(1, 28, 4, 13056, 128)[0])
+
+
+def test_attention_counts_the_value_head_dim_apart():
+    # MLA's prefill: q and k at 128 + 64 = 192, v and the output at 128
+    n = 12800 + 129
+    ops, nbytes = attention_work(1, 16, 16, n, 192, dv=128)
+    assert ops == 2.0 * n * n * 16 * (192 + 128)
+    assert nbytes == 2.0 * n * (32 * 192 + 32 * 128)
+    assert 27 * ops / 1e12 == pytest.approx(46.2, abs=0.1)  # 27 layers a question
+    assert attention_work(1, 16, 16, n, 192, dv=192) == attention_work(1, 16, 16, n, 192)

@@ -36,7 +36,7 @@ import torch  # noqa: E402
 
 from benchmark.check import gaps, logits_of, pick_sample, reference_scores  # noqa: E402
 from benchmark.inputs import derive, make_traffic  # noqa: E402
-from benchmark.manifest import Manifest  # noqa: E402
+from benchmark.manifest import Manifest, reference_module  # noqa: E402
 from benchmark.port import DTYPES, build_engine  # noqa: E402
 from benchmark.weights import make_weights  # noqa: E402
 
@@ -44,7 +44,8 @@ REQUESTS = {"select": 4, "reuse": 12}  # requests driven so that the sample can 
 
 
 def program_scores(cfg, mix, client_cls, traffic, seed, device, tier=None, kernels=None):
-    state = make_weights(cfg["model"], derive(seed, "weights"), device, DTYPES[cfg["dtype"]])
+    state = make_weights(cfg["model"], derive(seed, "weights"), device, DTYPES[cfg["dtype"]],
+                         reference_module(cfg))
     engine = build_engine(cfg, state, device, tier=tier, kernels=kernels)
     del state
     client = client_cls(engine, traffic)
